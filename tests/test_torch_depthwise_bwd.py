@@ -1,0 +1,195 @@
+"""The depthwise conv's backward (kernel K4: dx and dk) against the JAX
+package, and K4 against its plain versions on the card.
+
+On the CPU the wrappers run their plain versions.  They are held against
+``jax.vjp`` of ``x3d_tpu.ops.depthwise.depthwise_conv3d`` (XLA impl) for
+the X3D cases -- stride 1 3×3×3 SAME, the stem's 5×1×1 with pads (2, 2),
+and stride 2 at even and odd H and W, where TF-SAME puts the odd pad on the
+high side -- and, at stride 1, against the TPU kernels' own backward,
+``dw_batchminor.dw_conv_bm`` and ``pallas_dw.dw_conv_rows`` in interpret
+mode.  Tolerances (float32, sums in another order): dx atol 1e-5; dk rtol
+1e-5 with atol 1e-4 (sums of a few thousand products of order 1).
+
+JAX is imported inside the tests, so that the card tests (marker ``cuda``)
+run on a machine without it:
+``python -m pytest --noconftest -m cuda tests/test_torch_depthwise_bwd.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from x3d_tpu_torch.ops import depthwise
+
+# (shape, kernel dims, strides, padding)
+CASES = [
+    ((2, 5, 6, 7, 3), (3, 3, 3), (1, 1, 1), "SAME"),
+    ((2, 6, 5, 4, 3), (5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0))),
+    ((2, 4, 8, 6, 3), (3, 3, 3), (1, 2, 2), "SAME"),      # even H, W
+    ((2, 4, 7, 9, 3), (3, 3, 3), (1, 2, 2), "SAME"),      # odd H, W
+]
+IDS = ["stride1", "stem5x1x1", "stride2_even", "stride2_odd"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(seed, shape, kdims, strides, padding):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    k = (0.3 * rng.normal(size=kdims + (1, shape[-1]))).astype(np.float32)
+    pads = depthwise._resolve_pads(shape, kdims, strides, padding)
+    out = [depthwise._out_size(n, kd, s, p) for n, kd, s, p in
+           zip(shape[1:4], kdims, strides, pads)]
+    g = rng.normal(size=(shape[0], *out, shape[-1])).astype(np.float32)
+    return x, k, g, pads
+
+
+def _port(x, k, g, strides, pads):
+    xt, kt, gt = (torch.from_numpy(a) for a in (x, k, g))
+    dx = depthwise.depthwise_conv3d_dx(gt, kt, xt.shape, strides, pads)
+    dk = depthwise.depthwise_conv3d_dk(xt, gt, k.shape[:3], strides, pads)
+    return dx.numpy(), dk.numpy()
+
+
+def _assert_matches(got, want):
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[1], np.asarray(want[1]), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,kdims,strides,padding", CASES, ids=IDS)
+def test_matches_jax_vjp(shape, kdims, strides, padding):
+    import jax
+    from x3d_tpu.ops.depthwise import depthwise_conv3d as jax_dw
+
+    x, k, g, pads = _inputs(0, shape, kdims, strides, padding)
+    _, vjp = jax.vjp(lambda x_, k_: jax_dw(x_, k_, strides, pads, impl="xla"),
+                     x, k)
+    _assert_matches(_port(x, k, g, strides, pads), vjp(g))
+
+
+def test_stride2_high_side_pad():
+    """At stride 2 and even H, W the SAME pad is (0, 1): output row ho's
+    centre tap reads input row 2·ho + 1, so with the centre tap alone dx is
+    1 on the odd rows and columns; a symmetric (1, 1) pad would put it on
+    the even ones."""
+    shape, kdims, strides = (1, 3, 4, 4, 1), (1, 3, 3), (1, 2, 2)
+    pads = depthwise._resolve_pads(shape, kdims, strides, "SAME")
+    assert pads == ((0, 0), (0, 1), (0, 1))
+    k = np.zeros(kdims + (1, 1), np.float32)
+    k[0, 1, 1, 0, 0] = 1.0                 # the centre tap only
+    g = np.ones((1, 3, 2, 2, 1), np.float32)
+    dx, _ = _port(np.zeros(shape, np.float32), k, g, strides, pads)
+    want = np.zeros(shape, np.float32)
+    want[:, :, 1::2, 1::2] = 1.0
+    np.testing.assert_array_equal(dx, want)
+
+
+@pytest.mark.parametrize("shape,kdims", [((2, 3, 4, 5, 6), (3, 3, 3)),
+                                         ((1, 4, 5, 3, 11), (3, 1, 1))])
+def test_matches_tpu_kernels_interpret(shape, kdims):
+    """Stride 1: the JAX package's batch-minor and dense-row kernels' own
+    backward (``_dw_bm_bwd``, ``_dw_rows_bwd``), run in interpret mode."""
+    import jax
+    from x3d_tpu.ops import dw_batchminor, pallas_dw
+
+    x, k, g, pads = _inputs(1, shape, kdims, (1, 1, 1), "SAME")
+    got = _port(x, k, g, (1, 1, 1), pads)
+    B, T, H, W, C = shape
+    old = dw_batchminor.INTERPRET, pallas_dw.INTERPRET
+    dw_batchminor.INTERPRET = pallas_dw.INTERPRET = True
+    try:
+        _, vjp = jax.vjp(lambda x_, k_: dw_batchminor.dw_conv_bm(
+            x_, k_, kdims), x, k)
+        _assert_matches(got, vjp(g))
+        _, vjp = jax.vjp(lambda x_, k_: pallas_dw.dw_conv_rows(
+            x_, k_, C, kdims), x.reshape(B, T, H, W * C), k)
+        dx, dk = vjp(g.reshape(B, T, H, W * C))
+        _assert_matches(got, (np.asarray(dx).reshape(shape), dk))
+    finally:
+        dw_batchminor.INTERPRET, pallas_dw.INTERPRET = old
+
+
+@pytest.mark.parametrize("shape,kdims,strides,padding", CASES, ids=IDS)
+def test_autograd_op_uses_the_backward(shape, kdims, strides, padding):
+    """``depthwise`` (the model's op) differentiates x and the float32 taps
+    through dx and dk, and equals autograd of the plain forward."""
+    x, k, g, pads = _inputs(2, shape, kdims, strides, padding)
+    xt = torch.from_numpy(x).requires_grad_()
+    kt = torch.from_numpy(k).requires_grad_()
+    y = depthwise.depthwise(xt, kt, strides, padding)
+    gx, gk = torch.autograd.grad(y, (xt, kt), torch.from_numpy(g))
+    want = _port(x, k, g, strides, pads)
+    np.testing.assert_array_equal(gx.numpy(), want[0])
+    np.testing.assert_array_equal(gk.numpy(), want[1])
+    xr = torch.from_numpy(x).requires_grad_()
+    kr = torch.from_numpy(k).requires_grad_()
+    yr = depthwise.depthwise_conv3d_reference(xr, kr, strides, pads)
+    rx, rk = torch.autograd.grad(yr, (xr, kr), torch.from_numpy(g))
+    _assert_matches((gx.numpy(), gk.numpy()), (rx.numpy(), rk.numpy()))
+
+
+def test_gradient_shape_is_checked():
+    x, k, g, pads = _inputs(3, (2, 4, 6, 6, 3), (3, 3, 3), (1, 1, 1), "SAME")
+    with pytest.raises(ValueError, match="does not match"):
+        depthwise.depthwise_conv3d_dx(torch.from_numpy(g[:, :, :-1]),
+                                      torch.from_numpy(k), x.shape,
+                                      (1, 1, 1), pads)
+
+
+def test_non_cpu_tensor_never_falls_back():
+    x, k, g, pads = (a if isinstance(a, tuple) else torch.from_numpy(a)
+                     .to("meta") for a in
+                     _inputs(3, (2, 4, 6, 6, 3), (3, 3, 3), (1, 1, 1),
+                             "SAME"))
+    with pytest.raises(ValueError, match="CUDA"):
+        depthwise.depthwise_conv3d_dx(g, k, x.shape, (1, 1, 1), pads)
+    with pytest.raises(ValueError, match="CUDA"):
+        depthwise.depthwise_conv3d_dk(x, g, (3, 3, 3), (1, 1, 1), pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kdims,strides,padding", CASES + [
+    ((3, 16, 28, 28, 54), (3, 3, 3), (1, 2, 2), "SAME"),
+    ((2, 16, 14, 14, 70), (5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0))),
+    ((2, 16, 7, 7, 432), (3, 3, 3), (1, 1, 1), "SAME")])
+def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims, strides,
+                                      padding):
+    """float32: dx atol 1e-4, dk within 1e-5 of the sum of |x·g| for each
+    (tap, channel); bfloat16 against the plain version in float32 on the
+    same bfloat16 inputs: dx 2e-2 of the largest |dx|, dk 1e-4 of the
+    |x·g| sums (dk sums in float32 either way)."""
+    x, k, g, pads = (a if isinstance(a, tuple) else
+                     torch.from_numpy(a).to(cuda).to(dtype)
+                     for a in _inputs(4, shape, kdims, strides, padding))
+    before = (depthwise.depthwise_conv3d_dx.launches,
+              depthwise.depthwise_conv3d_dk.launches)
+    dx = depthwise.depthwise_conv3d_dx(g, k, x.shape, strides, pads)
+    dk = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
+    torch.cuda.synchronize()
+    assert (depthwise.depthwise_conv3d_dx.launches,
+            depthwise.depthwise_conv3d_dk.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    rdx = depthwise.depthwise_conv3d_dx_reference(g.float(), k.float(),
+                                                  x.shape, strides, pads)
+    rdk = depthwise.depthwise_conv3d_dk_reference(x.float(), g.float(),
+                                                  kdims, strides, pads)
+    scale = depthwise.depthwise_conv3d_dk_reference(
+        x.float().abs(), g.float().abs(), kdims, strides, pads)
+    tol_dx, tol_dk = (1e-4, 1e-5) if dtype == torch.float32 else \
+        (2e-2 * rdx.abs().max().item(), 1e-4)
+    assert dx.dtype == dtype and dk.dtype == torch.float32
+    assert (dx.float() - rdx).abs().max().item() <= tol_dx
+    assert ((dk - rdk).abs() <= tol_dk * scale + 1e-6).all()

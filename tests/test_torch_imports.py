@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``x3d_tpu_torch`` nor
 ``chip_smoke.py`` imports jax, flax or the JAX package, and the port
-imports and serves a tiny model with those imports blocked."""
+imports, serves and trains a tiny model with those imports blocked."""
 
 import ast
 import os
@@ -39,7 +39,7 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-_BLOCKED_RUN = r"""
+_BLOCK = r"""
 import sys
 BLOCKED = ("jax", "jaxlib", "flax", "x3d_tpu")
 for name in list(sys.modules):
@@ -54,7 +54,9 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, sys.argv[1])
+"""
 
+_BLOCKED_RUN = _BLOCK + r"""
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -84,6 +86,34 @@ def _env():
     return env
 
 
+_BLOCKED_TRAIN = _BLOCK + r"""
+import torch
+torch.set_num_threads(1)
+from x3d_tpu_torch import variant_config
+from x3d_tpu_torch.data import synthetic_batches
+from x3d_tpu_torch.models import create_model
+from x3d_tpu_torch.train import (create_train_state, make_eval_step,
+                                 make_train_step)
+
+cfg = variant_config("XS")
+cfg.NETWORK.C1_CHANNELS = 4
+cfg.NETWORK.DEPTH_FACTOR = 0.34
+cfg.DATA.TEMP_DURATION = 4
+cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 32
+cfg.TEST.NUM_TEMPORAL_VIEWS = 1
+model = create_model(cfg, dtype=torch.float32, device="cpu")
+state = create_train_state(cfg, model)
+step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
+batch = next(synthetic_batches(cfg, 2, dtype=torch.float32, device="cpu"))
+state, metrics = step(state, batch, torch.Generator().manual_seed(0))
+assert state.step == 1 and torch.isfinite(metrics["loss"])
+sums = make_eval_step(model)(state, batch)
+assert float(sums["count"]) == 2
+assert not any(n.split(".")[0] in BLOCKED for n in sys.modules)
+print("OK")
+"""
+
+
 def test_imports_and_serves_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, ROOT],
                           capture_output=True, text=True, cwd=ROOT,
@@ -104,3 +134,11 @@ def test_chip_smoke_refuses_without_a_card():
         pytest.fail(f"expected the no-card refusal, got {proc.stderr!r}")
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_trains_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_TRAIN, ROOT],
+                          capture_output=True, text=True, cwd=ROOT,
+                          env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")

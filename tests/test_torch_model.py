@@ -113,13 +113,20 @@ def test_eval_matches_jax(setup, mode):
 
 
 def test_training_mode_raises(setup):
-    port = setup["port"]
+    """Training mode runs (batch statistics, see test_torch_train.py); with
+    dropout it needs an explicit generator for the mask and raises
+    without one."""
+    cfg = _tiny(get_default_config())
+    cfg.NETWORK.DROPOUT_RATE = 0.5
+    port = create_model(cfg, dtype=torch.float32, device="cpu", init=False)
+    port.load_state_dict(setup["port"].state_dict())
     port.train()
-    try:
-        with pytest.raises(NotImplementedError):
-            port(torch.from_numpy(setup["x"]))
-    finally:
-        port.eval()
+    x = torch.from_numpy(setup["x"])
+    with pytest.raises(ValueError, match="Generator"):
+        port(x)
+    logits = port(x, return_logits=True, generator=torch.Generator())
+    assert logits.shape == (VIDEOS * VIEWS, CLASSES)
+    assert torch.isfinite(logits).all()
 
 
 def test_create_model_needs_a_device_or_cpu(monkeypatch):

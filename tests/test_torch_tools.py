@@ -1,0 +1,46 @@
+"""The profile tools' kernel grouping: each of the port's CUDA kernels, by
+the name of its ``__global__`` function as the profiler reports it, and
+the library's kernel families land in their group."""
+
+import pytest
+
+from x3d_tpu_torch.tools import profile_training
+from x3d_tpu_torch.tools.trace import family
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void dw_conv3d_fwd_kernel<float>(float const*, float const*)",
+     "port kernels"),
+    ("void dw_bn_act_conv_fwd_kernel<__nv_bfloat16>(...)", "port kernels"),
+    ("sum_partials_kernel(float const*, float*, int, int)", "port kernels"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),
+    ("void cudnn::ops::convolve_kernel<...>", "cudnn conv"),
+    ("void at::native::reduce_kernel<512, 1>(...)", "reduction"),
+    ("Memcpy DtoD (Device -> Device)", "copy"),
+    ("void at::native::vectorized_elementwise_kernel<4>(...)",
+     "elementwise"),
+    ("some_unknown_kernel", "other"),
+])
+def test_family(name, want):
+    assert family(name) == want
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void dw_conv3d_fwd_kernel<__nv_bfloat16>(...)", "K1 depthwise_conv3d"),
+    ("void dw_bn_act_conv_fwd_kernel<__nv_bfloat16>(...)",
+     "K2 dw_bn_act_conv"),
+    ("void dw_bn_act_conv_bwd_kernel<__nv_bfloat16>(...)",
+     "K3 dw_bn_act_conv_bwd"),
+    ("void dw_conv3d_dx_kernel<__nv_bfloat16>(...)",
+     "K4 depthwise_conv3d_dx"),
+    ("void dw_conv3d_dk_kernel<__nv_bfloat16>(...)",
+     "K4 depthwise_conv3d_dk"),
+    ("sum_dk_partials_kernel(float const*, float*, int, int)",
+     "K4 depthwise_conv3d_dk"),
+    ("void pw_stats_kernel<__nv_bfloat16, true>(...)", "K5/K6 pw_stats"),
+    ("sum_partials_kernel(float const*, float*, int, int)",
+     "K2/K3/K5/K6 second passes"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),
+])
+def test_training_group(name, want):
+    assert profile_training._group(name) == want

@@ -1,6 +1,7 @@
 """x3d_tpu_torch — the X3D video-recognition system in PyTorch for one
 NVIDIA Hopper card (H100), with hand-written CUDA kernels for its
-depthwise-conv hot path.
+depthwise-conv and bottleneck hot path, forward and backward: serving
+(``serving``) and training (``train``).
 
 It does what the JAX package ``x3d_tpu`` does and keeps its layouts,
 parameter names and numerics, so weights convert between the two

@@ -1,4 +1,4 @@
-"""The X3D network family in PyTorch: architecture plan and eval-mode model.
+"""The X3D network family in PyTorch: architecture plan and model.
 
 Ported from the JAX package's ``x3d_tpu/models/x3d.py`` with its module
 names (``conv_1``, ``stageN_blockM``, ``bn_* -> norm``), its parameter
@@ -10,15 +10,23 @@ shapes and its numerics, so that weights convert between the two
 * Bottleneck: 1×1×1 conv → BN → ReLU → T×3×3 depthwise conv → BN → [SE] →
   swish → 1×1×1 conv → BN.  Stride-1 blocks run the fused segment
   (kernel K2: bn_a affine + ReLU + depthwise conv + per-sample sums, the SE
-  pool taken from the sums); the stride-2 stage entries run bn_a, ReLU and
-  the depthwise conv (kernel K1) apart.
+  pool taken from the sums, K3 its backward); in training their 1×1×1
+  convs also emit BN sums (K5 for conv ``a``; K6 for conv ``c``, with bn_b's
+  affine, the SE gate and swish applied as it loads), so every BN of the
+  block takes its batch statistics from kernel sums.  The stride-2 stage
+  entries run bn_a, ReLU and the depthwise conv (K1, K4 its backward) apart.
 * SE on blocks with an even global index; ResBlock adds in float32 before
-  the ReLU; the head pools, runs fc_1 (ReLU) and fc_2 in float32, softmax
-  in float32, and averages the probabilities over a video's views.
+  the ReLU; the head pools, runs fc_1 (ReLU), dropout in training, and fc_2
+  in float32, softmax in float32, and averages the probabilities over a
+  video's views in eval mode.
 
 Activations are NDHWC (B, T, H, W, C).  Parameters are float32; ``dtype``
-sets the compute dtype.  Only eval mode is ported: calling a model in
-training mode raises ``NotImplementedError``.
+sets the compute dtype.  In training mode (``model.train()``) BatchNorm
+normalises with batch statistics, taken in float32 as E[x²] − E[x]², and
+updates its running statistics in place as ``m·running + (1 − m)·batch``
+with the biased variance, as the JAX package does; dropout draws from the
+``generator`` passed to :meth:`X3D.forward`.  Per-replica (grouped) BN is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -31,8 +39,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from x3d_tpu_torch import ops, utils
-from x3d_tpu_torch.ops import depthwise, dw_fused
+from x3d_tpu_torch import utils
+from x3d_tpu_torch.ops import depthwise, dw_fused, pw_stats
 from x3d_tpu_torch.ops.pointwise import pointwise_conv3d
 
 
@@ -171,14 +179,8 @@ class DepthwiseConv3D(nn.Module):
                          generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        k = self.kernel.to(self.dtype)
-        if ops.plain_versions_enabled():
-            pads = depthwise._resolve_pads(x.shape, k.shape[:3], self.strides,
-                                           self.padding)
-            return depthwise.depthwise_conv3d_reference(x, k, self.strides,
-                                                        pads)
-        return depthwise.depthwise_conv3d(x, k, self.strides, self.padding)
+        return depthwise.depthwise(x.to(self.dtype), self.kernel,
+                                   self.strides, self.padding)
 
 
 class Pointwise(nn.Module):
@@ -217,15 +219,35 @@ class _NormVars(nn.Module):
         self.register_buffer("var", torch.ones(c, **kw))
 
 
+def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, var) of x over every axis but the last, in float32
+    and in one pass: var = E[x²] − E[x]², the form the kernels' sums reduce
+    to (``x3d_tpu/models/x3d.py:198-204``)."""
+    x32 = x.to(torch.float32)
+    dims = tuple(range(x.dim() - 1))
+    mean = x32.mean(dim=dims)
+    return mean, (x32 * x32).mean(dim=dims) - mean * mean
+
+
+def stats_from_sums(p: torch.Tensor, s2: torch.Tensor,
+                    n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BN (mean, var) from a kernel's (C, B) per-sample sums of y and y²;
+    ``n`` is the element count per channel (one BN group)."""
+    mean = p.sum(dim=1) / n
+    return mean, s2.sum(dim=1) / n - mean * mean
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm from running statistics, as normalise
-    coefficients: mul = rsqrt(var + eps) * scale, add = bias - mean * mul
-    (float32), applied in the compute dtype.  Its variables live under
+    """BatchNorm as normalise coefficients: mul = rsqrt(var + eps) * scale,
+    add = bias - mean * mul (float32), applied in the compute dtype.  Eval
+    mode uses the running statistics; training mode the batch's, and it
+    updates the running statistics in place.  Its variables live under
     ``<name>.norm``, as Flax's ``nn.BatchNorm`` child is named."""
 
-    def __init__(self, c: int, eps: float, dtype: torch.dtype, device=None):
+    def __init__(self, c: int, eps: float, momentum: float,
+                 dtype: torch.dtype, device=None):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.norm = _NormVars(c, device)
 
     def coefs(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,8 +255,20 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(n.var + self.eps) * n.scale
         return mul, n.bias - n.mean * mul
 
+    def batch_coefs(self, mean: torch.Tensor, var: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training: coefficients from batch statistics, after folding them
+        into the running ones (running = m·running + (1 − m)·batch)."""
+        n, m = self.norm, self.momentum
+        with torch.no_grad():
+            n.mean.copy_(m * n.mean + (1 - m) * mean)
+            n.var.copy_(m * n.var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * n.scale
+        return mul, n.bias - mean * mul
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul, add = self.coefs()
+        mul, add = self.batch_coefs(*batch_stats(x)) if self.training \
+            else self.coefs()
         return x.to(self.dtype) * mul.to(self.dtype) + add.to(self.dtype)
 
 
@@ -242,7 +276,8 @@ class Stem(nn.Module):
     """Channelwise-separable spatiotemporal stem."""
 
     def __init__(self, in_channels: int, out_channels: int, temp_filter: int,
-                 bn_eps: float, dtype: torch.dtype, device=None):
+                 bn_eps: float, bn_momentum: float, dtype: torch.dtype,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         # (1,1) spatial pad + VALID conv: not SAME, which would pad (0,1)
@@ -252,7 +287,7 @@ class Stem(nn.Module):
         self.conv_t = DepthwiseConv3D(
             out_channels, (k, 1, 1), (1, 1, 1),
             ((k // 2, k // 2), (0, 0), (0, 0)), dtype, device)
-        self.bn = BatchNorm(out_channels, bn_eps, dtype, device)
+        self.bn = BatchNorm(out_channels, bn_eps, bn_momentum, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_t(self.conv_s(x.to(self.dtype)))
@@ -272,26 +307,30 @@ class SqueezeExcite(nn.Module):
         self.se_fc2 = Pointwise(width, channels, dtype, bias=True,
                                 device=device)
 
+    def gate(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The (B, C) float32 gate from the (B, C) float32 pool."""
+        s = torch.relu(self.se_fc1(pooled.to(self.dtype)))
+        return torch.sigmoid(self.se_fc2(s).to(torch.float32))
+
     def forward(self, x: torch.Tensor,
                 pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, T, H, W, C); ``pooled``: the (B, C) float32 mean of x over
         (T, H, W) where the caller already has it."""
         if pooled is None:
             pooled = x.to(torch.float32).mean(dim=(1, 2, 3))
-        s = torch.relu(self.se_fc1(pooled.to(self.dtype)))
-        s = torch.sigmoid(self.se_fc2(s).to(torch.float32))
-        return x * s.to(x.dtype)[:, None, None, None, :]
+        return x * self.gate(pooled).to(x.dtype)[:, None, None, None, :]
 
 
 class Bottleneck(nn.Module):
     """1×1×1 → T×3×3 depthwise → [SE] → swish → 1×1×1, BN after each conv."""
 
     def __init__(self, spec: BlockSpec, temp_kernel: int, bn_eps: float,
-                 dtype: torch.dtype, device=None):
+                 bn_momentum: float, dtype: torch.dtype, device=None):
         super().__init__()
         self.spec, self.dtype = spec, dtype
         C = spec.inner_channels
-        bn = lambda c: BatchNorm(c, bn_eps, dtype, device)  # noqa: E731
+        bn = lambda c: BatchNorm(c, bn_eps, bn_momentum, dtype,  # noqa: E731
+                                 device)
         self.a = Pointwise(spec.in_channels, C, dtype, device=device)
         self.bn_a = bn(C)
         self.b = DepthwiseConv3D(C, (temp_kernel, 3, 3),
@@ -304,15 +343,13 @@ class Bottleneck(nn.Module):
         self.bn_c = bn(spec.out_channels)
 
     def _fused_segment(self, out: torch.Tensor) -> torch.Tensor:
-        """Stride 1: bn_a affine + ReLU + depthwise conv + per-sample sums in
-        one kernel (K2); bn_b and the SE pool come from the sums."""
+        """Stride 1, eval: bn_a affine + ReLU + depthwise conv + per-sample
+        sums in one kernel (K2); bn_b and the SE pool come from the sums."""
         B, T, H, W, C = out.shape
         mul_a, add_a = self.bn_a.coefs()
-        a_cb = mul_a[:, None].expand(C, B).contiguous()
-        b_cb = add_a[:, None].expand(C, B).contiguous()
-        fn = dw_fused.reference if ops.plain_versions_enabled() \
-            else dw_fused.dw_bn_act_conv
-        y, p, _ = fn(out, a_cb, b_cb, self.b.kernel)
+        a_cb = mul_a[:, None].expand(C, B)
+        b_cb = add_a[:, None].expand(C, B)
+        y, p, _ = dw_fused.segment(out, a_cb, b_cb, self.b.kernel)
         mul_b, add_b = self.bn_b.coefs()
         out = y.to(self.dtype) * mul_b.to(self.dtype) + add_b.to(self.dtype)
         if self.se is not None:
@@ -328,7 +365,31 @@ class Bottleneck(nn.Module):
             out = self.se(out)
         return out
 
+    def _fused_train(self, x: torch.Tensor) -> torch.Tensor:
+        """Stride 1, training (``x3d_tpu/models/x3d.py:478-668``, segment
+        "pallas" with the pointwise "mxu_seg" convs): K5 gives conv ``a``
+        and bn_a's sums, K2/K3 the segment and bn_b's sums, the SE gate
+        comes from ``p`` and is folded into bn_b's coefficient columns, and
+        K6 runs swish and conv ``c`` and gives bn_c's sums."""
+        out, p_a, s2_a = pw_stats.conv_stats(x.to(self.dtype), self.a.weight)
+        B, T, H, W, C = out.shape
+        n = B * T * H * W
+        mul_a, add_a = self.bn_a.batch_coefs(*stats_from_sums(p_a, s2_a, n))
+        y, p, s2 = dw_fused.segment(out, mul_a[:, None].expand(C, B),
+                                    add_a[:, None].expand(C, B), self.b.kernel)
+        mul_b, add_b = self.bn_b.batch_coefs(*stats_from_sums(p, s2, n))
+        a_cb, o_cb = mul_b[:, None].expand(C, B), add_b[:, None].expand(C, B)
+        if self.se is not None:
+            # (y*m + o)*s == y*(m*s) + o*s: the gate rides the columns
+            gate = self.se.gate((a_cb * (p / (T * H * W)) + o_cb).t()).t()
+            a_cb, o_cb = a_cb * gate, o_cb * gate
+        z, p_c, s2_c = pw_stats.act_conv_stats(y, a_cb, o_cb, self.c.weight)
+        mul_c, add_c = self.bn_c.batch_coefs(*stats_from_sums(p_c, s2_c, n))
+        return z * mul_c.to(self.dtype) + add_c.to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.spec.stride == 1:
+            return self._fused_train(x)
         out = self.a(x.to(self.dtype))
         if self.spec.stride == 1:
             out = self._fused_segment(out)
@@ -343,16 +404,18 @@ class ResBlock(nn.Module):
     when the shape changes; the add runs in float32, before the ReLU."""
 
     def __init__(self, spec: BlockSpec, temp_kernel: int, bn_eps: float,
-                 dtype: torch.dtype, device=None):
+                 bn_momentum: float, dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
-        self.bottleneck = Bottleneck(spec, temp_kernel, bn_eps, dtype, device)
+        self.bottleneck = Bottleneck(spec, temp_kernel, bn_eps, bn_momentum,
+                                     dtype, device)
         self.residual = self.bn_r = None
         if spec.in_channels != spec.out_channels or spec.stride != 1:
             self.residual = Pointwise(
                 spec.in_channels, spec.out_channels, dtype,
                 strides=(1, spec.stride, spec.stride), device=device)
-            self.bn_r = BatchNorm(spec.out_channels, bn_eps, dtype, device)
+            self.bn_r = BatchNorm(spec.out_channels, bn_eps, bn_momentum,
+                                  dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bottleneck(x)
@@ -362,10 +425,10 @@ class ResBlock(nn.Module):
 
 
 class X3D(nn.Module):
-    """The full X3D network, eval mode.
+    """The full X3D network.
 
-    ``forward`` returns float32 softmax probabilities averaged over each
-    video's views (the batch is videos × views clips), or with
+    ``forward`` returns float32 softmax probabilities, in eval mode averaged
+    over each video's views (the batch is videos × views clips), or with
     ``return_logits=True`` the per-clip logits.
     """
 
@@ -373,44 +436,51 @@ class X3D(nn.Module):
                  in_channels: int = 3, device=None):
         super().__init__()
         self.arch, self.dtype = arch, dtype
-        eps = arch.bn_eps
+        eps, m = arch.bn_eps, arch.bn_momentum
         self.conv_1 = Stem(in_channels, arch.conv1_dim, arch.temp_filter, eps,
-                           dtype, device)
+                           m, dtype, device)
         self.block_names = []
         for si, blocks in enumerate(arch.stages):
             for bi, spec in enumerate(blocks):
                 # stage numbering starts at 2, as in the paper
                 name = f"stage{si + 2}_block{bi}"
                 self.add_module(name, ResBlock(spec, arch.temp_kernel, eps,
-                                               dtype, device))
+                                               m, dtype, device))
                 self.block_names.append(name)
         self.conv_5 = Pointwise(arch.stages[-1][-1].out_channels,
                                 arch.conv5_dim, dtype, device=device)
-        self.bn_5 = BatchNorm(arch.conv5_dim, eps, dtype, device)
+        self.bn_5 = BatchNorm(arch.conv5_dim, eps, m, dtype, device)
         # the head's dense layers: the same product as a 1×1×1 conv
         self.fc_1 = Pointwise(arch.conv5_dim, arch.head_dim, dtype,
                               device=device)
         self.fc_2 = Pointwise(arch.head_dim, arch.num_classes, torch.float32,
                               bias=True, device=device)
 
-    def forward(self, x: torch.Tensor,
-                return_logits: bool = False) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "X3D training mode is not ported yet (batch-statistics BN "
-                "and dropout); call .eval()")
+    def forward(self, x: torch.Tensor, return_logits: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` (on x's device) draws the head's dropout mask in
+        training mode; it is required there when the dropout rate is > 0."""
         arch = self.arch
+        drop = self.training and arch.dropout_rate > 0
+        if drop and generator is None:
+            raise ValueError("training with dropout needs a torch.Generator "
+                             "for the dropout mask")
         x = self.conv_1(x)
         for name in self.block_names:
             x = getattr(self, name)(x)
         x = torch.relu(self.bn_5(self.conv_5(x.to(self.dtype))))
         x = x.to(torch.float32).mean(dim=(1, 2, 3)).to(self.dtype)
         x = torch.relu(self.fc_1(x))
+        if drop:
+            keep = 1.0 - arch.dropout_rate
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros_like(x))
         logits = self.fc_2(x.to(torch.float32))
         if return_logits:
             return logits
         probs = torch.softmax(logits, dim=-1)
-        if arch.num_views > 1:
+        if not self.training and arch.num_views > 1:
             probs = probs.reshape(-1, arch.num_views, arch.num_classes)
             probs = probs.mean(dim=1)
         return probs
@@ -427,7 +497,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
                  seed: int = 0, init: bool = True) -> X3D:
-    """Build an eval-mode :class:`X3D` from a config.
+    """Build an eval-mode :class:`X3D` from a config (``.train()`` switches
+    it to training mode).
 
     Weights are drawn on the CPU from a ``torch.Generator`` seeded with
     ``seed`` (``init=False`` leaves them to a later ``load_state_dict``),

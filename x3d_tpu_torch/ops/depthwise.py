@@ -1,11 +1,19 @@
 """Depthwise (channelwise) 3-D convolution on NDHWC activations.
 
 The X3D bottleneck's T×3×3 ``groups=C`` conv, the stem's k×1×1 temporal
-conv, and the stride-2 stage-entry convs.  :func:`depthwise_conv3d` is the
-wrapper of the hand-written CUDA kernel K1
-(``kernels/csrc/depthwise.cu``), which replaces the TPU kernels
-``dw_batchminor._fwd_kernel`` and ``pallas_dw._fwd_kernel``;
-:func:`depthwise_conv3d_reference` is its plain PyTorch version.
+conv, and the stride-2 stage-entry convs.
+
+* :func:`depthwise_conv3d` is the wrapper of the hand-written CUDA kernel K1
+  (``kernels/csrc/depthwise.cu``), which replaces the TPU kernels
+  ``dw_batchminor._fwd_kernel`` and ``pallas_dw._fwd_kernel``;
+  :func:`depthwise_conv3d_reference` is its plain PyTorch version.
+* :func:`depthwise_conv3d_dx` and :func:`depthwise_conv3d_dk` are the two
+  entry points of kernel K4 (``kernels/csrc/depthwise_bwd.cu``), the
+  backward, which replaces the TPU kernels ``dw_batchminor._dk_kernel`` and
+  ``pallas_dw._dk_kernel`` (and their dx, which reran the forward); each has
+  its plain version beside it.
+* :func:`depthwise` is the differentiable op the model calls: K1 forward,
+  K4 backward (or the plain versions, see ``ops.plain_versions``).
 
 Taps keep the Flax layout ``(k_t, k_h, k_w, 1, C)``.  Padding follows
 TF/XLA "SAME", which puts the odd pad element on the high side
@@ -21,13 +29,20 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from x3d_tpu_torch import kernels
+from x3d_tpu_torch import kernels, ops
 from x3d_tpu_torch.kernels import _build
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
 
 _SIGNATURES = {
     "x3d_dw_conv3d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
+    + [ctypes.c_void_p],
+}
+_BWD_SIGNATURES = {
+    "x3d_dw_conv3d_dk_parts": [ctypes.c_int] * 5,
+    "x3d_dw_conv3d_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
+    + [ctypes.c_void_p],
+    "x3d_dw_conv3d_dk": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
     + [ctypes.c_void_p],
 }
 
@@ -108,3 +123,154 @@ def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
 
 
 depthwise_conv3d.launches = 0
+
+
+# ------------------------------------------------------------ K4: backward
+
+
+def _check_pads(pads: Pads) -> Pads:
+    return tuple(tuple(int(v) for v in p) for p in pads)
+
+
+def _padded_nchw(x: torch.Tensor, pads: Pads) -> torch.Tensor:
+    (tlo, thi), (hlo, hhi), (wlo, whi) = pads
+    return F.pad(x.permute(0, 4, 1, 2, 3), (wlo, whi, hlo, hhi, tlo, thi))
+
+
+def depthwise_conv3d_dx_reference(g: torch.Tensor, kernel: torch.Tensor,
+                                  x_shape, strides: Sequence[int], pads: Pads
+                                  ) -> torch.Tensor:
+    """Plain version of K4's dx: the gradient of the conv with respect to
+    its input, summed in float32 and rounded to g's dtype.  g: (B, To, Ho,
+    Wo, C); kernel: (kt, kh, kw, 1, C) in g's dtype; x_shape: (B, T, H, W, C)."""
+    B, T, H, W, C = x_shape
+    (tlo, thi), (hlo, hhi), (wlo, whi) = pads
+    w = kernel.permute(4, 3, 0, 1, 2).to(torch.float32)
+    dxp = torch.nn.grad.conv3d_input(
+        (B, C, T + tlo + thi, H + hlo + hhi, W + wlo + whi), w,
+        g.permute(0, 4, 1, 2, 3).to(torch.float32), stride=tuple(strides),
+        groups=C)
+    dx = dxp[:, :, tlo:tlo + T, hlo:hlo + H, wlo:wlo + W]
+    return dx.permute(0, 2, 3, 4, 1).to(g.dtype).contiguous()
+
+
+def depthwise_conv3d_dk_reference(x: torch.Tensor, g: torch.Tensor, kdims,
+                                  strides: Sequence[int], pads: Pads
+                                  ) -> torch.Tensor:
+    """Plain version of K4's dk: the gradient of the conv with respect to
+    its taps, in float32, shaped (kt, kh, kw, 1, C)."""
+    C = x.shape[-1]
+    dk = torch.nn.grad.conv3d_weight(
+        _padded_nchw(x.to(torch.float32), pads), (C, 1, *kdims),
+        g.permute(0, 4, 1, 2, 3).to(torch.float32), stride=tuple(strides),
+        groups=C)
+    return dk.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def _bwd_geometry(x_shape, g: torch.Tensor, kdims, strides, pads):
+    B, T, H, W, C = x_shape
+    out = [_out_size(n, k, s, p) for n, k, s, p in
+           zip((T, H, W), kdims, strides, pads)]
+    if tuple(g.shape) != (B, *out, C):
+        raise ValueError(f"gradient of shape {tuple(g.shape)} does not match "
+                         f"the conv's output {(B, *out, C)}")
+    return (B, T, H, W, C, *kdims, *strides, pads[0][0], pads[1][0],
+            pads[2][0], *out)
+
+
+def depthwise_conv3d_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape,
+                        strides: Sequence[int], pads: Pads) -> torch.Tensor:
+    """dx of :func:`depthwise_conv3d` (kernel K4): (B, T, H, W, C) in g's
+    dtype, taps summed in float32.  ``kernel`` (kt, kh, kw, 1, C) is
+    rounded to g's dtype; ``pads`` are explicit ((lo, hi),)*3.  A CPU tensor
+    takes the plain version; a CUDA tensor launches K4 or raises."""
+    strides, pads = tuple(int(s) for s in strides), _check_pads(pads)
+    kdims = tuple(kernel.shape[:3])
+    dims = _bwd_geometry(x_shape, g, kdims, strides, pads)
+    k = kernel.to(g.dtype)
+    if g.device.type == "cpu":
+        return depthwise_conv3d_dx_reference(g, k, x_shape, strides, pads)
+    kernels.check_cuda(g)
+    taps = k.to(torch.float32).reshape(-1, x_shape[-1]).contiguous()
+    dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+    kernels.check_cuda(g, taps, dx)
+    lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
+    rc = lib.x3d_dw_conv3d_dx(g.data_ptr(), taps.data_ptr(), dx.data_ptr(),
+                              kernels.dtype_code(g), *dims,
+                              kernels.stream_handle(g))
+    kernels.raise_on_error(rc, "depthwise_conv3d_dx kernel launch")
+    depthwise_conv3d_dx.launches += 1
+    return dx
+
+
+def depthwise_conv3d_dk(x: torch.Tensor, g: torch.Tensor, kdims,
+                        strides: Sequence[int], pads: Pads) -> torch.Tensor:
+    """dk of :func:`depthwise_conv3d` (kernel K4): (kt, kh, kw, 1, C)
+    float32, from per-block partials summed in a fixed order.  x and g share
+    a dtype.  A CPU tensor takes the plain version; a CUDA tensor launches
+    K4 or raises."""
+    strides, pads = tuple(int(s) for s in strides), _check_pads(pads)
+    kdims = tuple(int(k) for k in kdims)
+    dims = _bwd_geometry(x.shape, g, kdims, strides, pads)
+    if g.dtype != x.dtype:
+        raise TypeError(f"x is {x.dtype} but its gradient {g.dtype}")
+    if x.device.type == "cpu":
+        return depthwise_conv3d_dk_reference(x, g, kdims, strides, pads)
+    kernels.check_cuda(x, g)
+    lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
+    B, C = x.shape[0], x.shape[-1]
+    ntaps = kdims[0] * kdims[1] * kdims[2]
+    parts = lib.x3d_dw_conv3d_dk_parts(B, g.shape[2], g.shape[3], *strides[1:])
+    part = torch.empty((parts, ntaps, C), dtype=torch.float32, device=x.device)
+    dk = torch.empty((ntaps, C), dtype=torch.float32, device=x.device)
+    rc = lib.x3d_dw_conv3d_dk(x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                              dk.data_ptr(), kernels.dtype_code(x), *dims,
+                              kernels.stream_handle(x))
+    kernels.raise_on_error(rc, "depthwise_conv3d_dk kernel launch")
+    depthwise_conv3d_dk.launches += 1
+    return dk.reshape(*kdims, 1, C)
+
+
+depthwise_conv3d_dx.launches = 0
+depthwise_conv3d_dk.launches = 0
+
+
+class _Depthwise(torch.autograd.Function):
+    """K1 forward, K4 backward; within ``ops.plain_versions()`` both run
+    their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, strides, pads):
+        k = kernel.to(x.dtype)
+        ctx.save_for_backward(x, k)
+        ctx.conf = (strides, pads, kernel.dtype)
+        if ops.plain_versions_enabled():
+            return depthwise_conv3d_reference(x, k, strides, pads)
+        return depthwise_conv3d(x, k, strides, pads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        strides, pads, kernel_dtype = ctx.conf
+        g = g.contiguous()
+        plain = ops.plain_versions_enabled()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = (depthwise_conv3d_dx_reference if plain
+                  else depthwise_conv3d_dx)(g, k, x.shape, strides, pads)
+        if ctx.needs_input_grad[1]:
+            dk = (depthwise_conv3d_dk_reference if plain
+                  else depthwise_conv3d_dk)(x, g, k.shape[:3], strides, pads)
+            dk = dk.to(kernel_dtype)
+        return dx, dk, None, None
+
+
+def depthwise(x: torch.Tensor, kernel: torch.Tensor,
+              strides: Sequence[int] = (1, 1, 1), padding="SAME"
+              ) -> torch.Tensor:
+    """The differentiable depthwise conv: (B, T, H, W, C) -> (B, To, Ho, Wo,
+    C) in x's dtype, with gradients for x and for the (kt, kh, kw, 1, C)
+    taps (float32 parameters, rounded to x's dtype for the product)."""
+    strides = tuple(int(s) for s in strides)
+    pads = _resolve_pads(x.shape, kernel.shape[:3], strides, padding)
+    return _Depthwise.apply(x.contiguous(), kernel, strides, pads)

@@ -18,79 +18,14 @@ Needs a CUDA card::
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import os
-import subprocess
 
 import numpy as np
-import torch
-from torch.autograd import DeviceType
 
 from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.serving import InferenceEngine
-
-_FAMILIES = (
-    ("port kernels", ("dw_conv3d_fwd", "dw_bn_act_conv_fwd", "sum_partials")),
-    ("cudnn conv", ("convolve", "cudnn")),
-    ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
-    ("reduction", ("reduce", "Reduce")),
-    ("copy", ("copy", "Memcpy", "Memset", "cat")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
-
-
-def _family(name: str) -> str:
-    for family, keys in _FAMILIES:
-        if any(k in name for k in keys):
-            return family
-    return "other"
-
-
-def _card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
-        else torch.cuda.get_device_name(0)
-
-
-def profile(engine: InferenceEngine, clips: np.ndarray, requests: int,
-            trace_path: str | None):
-    for _ in range(2):
-        engine.predict(clips)                    # warm up
-    torch.cuda.synchronize()
-    # device activity only: tracing every CPU op would slow the host enough
-    # to starve the card at small requests
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(requests):
-            engine.predict(clips)
-        torch.cuda.synchronize()
-    if trace_path:
-        prof.export_chrome_trace(trace_path)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device activity")
-    start = min(e.time_range.start for e in kernels)
-    end = max(e.time_range.end for e in kernels)
-    busy = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = collections.Counter()
-    by_family = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us()
-        by_family[_family(e.name)] += e.time_range.elapsed_us()
-    per_request = busy / requests / 1e3
-    return {
-        "device_busy_ms_per_request": per_request,
-        "window_ms_per_request": (end - start) / requests / 1e3,
-        "idle_share": 1.0 - busy / (end - start),
-        "kernels_per_request": len(kernels) / requests,
-        "family_ms_per_request": {k: v / requests / 1e3
-                                  for k, v in by_family.most_common()},
-        "top_kernels_ms_per_request": [[n[:90], v / requests / 1e3]
-                                       for n, v in by_name.most_common(15)],
-    }
+from x3d_tpu_torch.tools.trace import card, trace
 
 
 def main(argv=None) -> None:
@@ -104,7 +39,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = variant_config(args.variant)
-    card = _card()
+    name = card()
     base = InferenceEngine.random_init(cfg, max_videos=1, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     for n in args.videos:
@@ -112,13 +47,14 @@ def main(argv=None) -> None:
                                                      max_videos=n)
         clips = rng.integers(0, 256, (n * engine.views,)
                              + engine.clip_shape[1:], dtype=np.uint8)
-        trace = None
+        path = None
         if args.trace:
             os.makedirs(args.trace, exist_ok=True)
-            trace = os.path.join(args.trace,
-                                 f"serve_{args.variant}_{n}video.json")
-        row = profile(engine, clips, args.requests, trace)
-        print(json.dumps({"card": card, "variant": args.variant,
+            path = os.path.join(args.trace,
+                                f"serve_{args.variant}_{n}video.json")
+        row = trace(lambda: engine.predict(clips), args.requests,
+                    "request", trace_path=path)
+        print(json.dumps({"card": name, "variant": args.variant,
                           "videos": n, "clips": n * engine.views, **row}),
               flush=True)
 

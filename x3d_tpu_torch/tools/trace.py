@@ -1,0 +1,86 @@
+"""Trace a callable on the card and sum its device time by kernel group.
+
+The shared core of ``profile_serving`` and ``profile_training``: warm up,
+trace ``n`` calls with ``torch.profiler`` (device activity only, which keeps
+the profiler's own host cost small), and aggregate the kernels' device time
+per call, by group and by name.
+"""
+
+from __future__ import annotations
+
+import collections
+import subprocess
+from typing import Callable
+
+import torch
+from torch.autograd import DeviceType
+
+_FAMILIES = (
+    ("port kernels", ("dw_conv3d_fwd", "dw_bn_act_conv_fwd", "sum_partials")),
+    ("cudnn conv", ("convolve", "cudnn")),
+    ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
+    ("reduction", ("reduce", "Reduce")),
+    ("copy", ("copy", "Memcpy", "Memset", "cat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def family(name: str) -> str:
+    """The kernel family of a device kernel, by its name."""
+    for fam, keys in _FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else torch.cuda.get_device_name(0)
+
+
+def trace(run: Callable[[], object], n: int, unit: str,
+          group: Callable[[str], str] = family,
+          trace_path: str | None = None, warmup: int = 2) -> dict:
+    """Call ``run`` ``warmup`` times, then trace ``n`` calls.
+
+    Returns the device busy time, the traced window and the number of
+    kernels per call (keys ending in ``_per_<unit>``), the device's idle
+    share between the first and the last kernel, device time per call by
+    ``group(kernel name)``, and the top 15 kernels by name.  ``trace_path``
+    also writes a Chrome trace.
+    """
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name, by_group = collections.Counter(), collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+        by_group[group(e.name)] += e.time_range.elapsed_us()
+    per = f"_per_{unit}"
+    return {
+        "device_busy_ms" + per: busy / n / 1e3,
+        "window_ms" + per: (end - start) / n / 1e3,
+        "idle_share": 1.0 - busy / (end - start),
+        "kernels" + per: len(kernels) / n,
+        ("family" if group is family else "group") + "_ms" + per:
+            {k: v / n / 1e3 for k, v in by_group.most_common()},
+        "top_kernels_ms" + per: [[name[:90], v / n / 1e3]
+                                 for name, v in by_name.most_common(15)],
+    }

@@ -1,0 +1,123 @@
+"""Train and eval steps: loss, metrics and the L2 penalty.
+
+As in the JAX package (``x3d_tpu/train/steps.py``): the loss is the
+cross-entropy of the float32 logits plus ``weight_decay * sum(w^2)`` over
+every conv and dense kernel except the Squeeze-Excite block's first layer
+(``se_fc1``), biases and BN variables excluded; the metrics are top-1 and
+top-5 accuracy.  The dropout mask of step n is drawn from a generator
+seeded from (the caller's generator's seed, n), so a step is a function of
+its arguments, as the JAX step folds the step into its key.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from x3d_tpu_torch.train.state import TrainState
+
+_MASK64 = (1 << 64) - 1
+
+
+def l2_penalty(model: nn.Module) -> torch.Tensor:
+    """``sum(w^2)`` in float32 over the regularised kernels: every conv and
+    dense ``weight`` and every depthwise ``kernel``, except ``se_fc1``'s."""
+    total = None
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[-1] not in ("weight", "kernel") or "se_fc1" in parts:
+            continue
+        sq = p.to(torch.float32).square().sum()
+        total = sq if total is None else total + sq
+    return total
+
+
+def _topk_correct(logits_or_probs: torch.Tensor, labels: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    k = min(k, logits_or_probs.shape[-1])  # fewer classes than k: top-all
+    top = logits_or_probs.topk(k, dim=-1).indices
+    return (top == labels[:, None]).any(dim=-1)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """A 63-bit seed from (seed, step): splitmix64 of their combination."""
+    z = (seed + (step + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def make_train_step(model: nn.Module, weight_decay: float):
+    """Build the training step ``(state, batch, generator) -> (state,
+    metrics)``.
+
+    ``batch`` holds ``video`` (B, T, S, S, C) and ``label`` (B,) on the
+    model's device; ``generator`` is a ``torch.Generator`` on that device,
+    whose seed and the step counter seed the step's dropout mask.  The step
+    updates the model, its BN running statistics and the optimizer in
+    place and advances ``state.step``; the metrics stay on the device.
+    """
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step")
+        model.train()
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        dropout = torch.Generator(device=generator.device)
+        dropout.manual_seed(step_seed(generator.initial_seed(), state.step))
+        label = batch["label"]
+        logits = model(batch["video"], return_logits=True,
+                       generator=dropout)
+        ce = F.cross_entropy(logits.to(torch.float32), label)
+        loss = ce + weight_decay * l2_penalty(model)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            metrics = {
+                "loss": loss.detach(),
+                "acc": (logits.argmax(-1) == label).to(torch.float32).mean(),
+                "top_5_acc": _topk_correct(logits, label, 5)
+                .to(torch.float32).mean(),
+            }
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module):
+    """Build the eval step ``(state, batch) -> metric sums``.
+
+    ``batch['video']`` holds videos × views clips; the eval-mode model
+    averages each video's view probabilities, so the metrics compare
+    per-video predictions with per-video labels.  Sums (not means) let the
+    caller aggregate over a dataset whose size the batch does not divide.
+    """
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step")
+        model.eval()
+        probs = model(batch["video"])
+        label = batch["label"]
+        # CE on the ensembled probabilities, clipped as Keras evaluate does
+        p_true = probs.gather(1, label[:, None])[:, 0]
+        ce = -torch.log(p_true.clamp(1e-7, 1.0))
+        return {
+            "count": torch.tensor(float(label.shape[0]), device=probs.device),
+            "loss_sum": ce.sum(),
+            "acc_sum": (probs.argmax(-1) == label).sum(),
+            "top_5_sum": _topk_correct(probs, label, 5).sum(),
+        }
+
+    return eval_step
