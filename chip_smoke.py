@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's X3D-M serving and training paths on one CUDA card.
+"""Drive the PyTorch port's serving, training and command-line paths on one
+CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA H100 and the
 CUDA toolkit::
@@ -23,13 +24,31 @@ nvcc per source, in parallel) and then:
   GEMMs with BN sums) -- against its plain version at every X3D-M
   training shape and the training batch (32 clips, per-sample
   coefficient columns) in float32 and bfloat16, and times K3-K6 there
-  beside their plain versions and library calls;
+  beside their plain versions and library calls; then the same at X3D-S's
+  training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes);
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
   step, checks that two runs of one step from one state are bit-identical,
   and checks one float32 step through the kernels against the same step
   through the plain versions (loss, every gradient, the updated parameters
-  and the BN running statistics).
+  and the BN running statistics);
+* holds K7 (the plain 1x1x1 conv as a GEMM: float32 on the CUDA cores,
+  bfloat16 on the tensor cores) against its plain version and times it
+  beside ``F.linear`` at every bulk 1x1x1 conv of X3D-M and X3D-S
+  (serving requests of 10 and 80 clips, training at 32 and 64 clips),
+  forward and dx;
+* holds K8 (the depthwise conv's one-pass backward) against its plain
+  version and against K4's dx and dk at the stems of X3D-M and X3D-S and
+  at a 3x3x3 stage-2 shape, with the times of all three and of cuDNN;
+* holds K9 (the multiply-add chain) against its plain version and runs the
+  probe tool: the float32 and packed-bfloat16 rates and their share of the
+  card's peak;
+* drives the command-line tools at X3D-S full width and depth (13×160², 64
+  clips, bfloat16), in this process through their ``main(argv)``: train two
+  epochs of three steps with step-keyed checkpoints, resume for a third
+  epoch (the restored step is 6 and the losses equal an uninterrupted
+  run's, bit for bit), evaluate two batches of 8 videos × 10 views, and
+  serve one video from the checkpoint.
 
 Every result line is a JSON object carrying the card's name and power
 limit; the ``kernels`` line comes second to last, and the last line is
@@ -39,11 +58,15 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
+import logging
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -51,6 +74,8 @@ CLIPS = 10                    # one X3D-M video: 10 temporal views
 TRAIN_CLIPS = 32              # X3D-M's TRAIN.BATCH_SIZE
 PARITY_CLIPS = 4              # the float32 kernel-vs-plain training step
 TRAIN_STEPS = 4               # step 0 warms up (allocator, cuDNN plans)
+S_TRAIN_CLIPS = 64            # X3D-S's TRAIN.BATCH_SIZE
+S_EVAL_CLIPS = 80             # X3D-S's TEST.BATCH_SIZE: 8 videos x 10 views
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (published)
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bfloat16 tensor cores, dense
@@ -63,6 +88,18 @@ ITERS = 20
 # the error is the output's (and, for K2, u's) rounding to bfloat16:
 # 2e-2 of the largest |reference|, and of a column's absolute sum.
 TOL_F32, TOL_F32_SUMS, TOL_BF16 = 1e-4, 1e-5, 2e-2
+# K7 sums K <= 432 products in float32 in another order than the library:
+# float32 within 1e-5 of the largest |y|; bfloat16 (against the float32
+# product of the same bfloat16 inputs) within one bfloat16 ulp of the
+# largest |y|, 2^-7 (half an ulp is up to 2^-8 of a value just above a
+# power of two; measured up to 3.8e-3).  K8's du likewise (TOL_F32, TOL_BF16) and its dk within
+# TOL_TRAIN_SUMS of the sums over absolute values; against K4 on the same
+# inputs du within one rounding and dk within 1e-6 of those sums.  K9's
+# chain against the plain chain (each step rounded once): 1e-6 in float32,
+# one bfloat16 ulp at 0.5 (2^-8) in bfloat16.
+TOL_K7_F32, TOL_K7_BF16 = 1e-5, 2.0 ** -7
+TOL_K8_VS_K4_DK = 1e-6
+TOL_K9_F32, TOL_K9_BF16 = 1e-6, 2.0 ** -8
 TOL_PROBS_F32, TOL_ROW_SUM = 1e-5, 1e-3
 # The training kernels' sums (dk, dzs, duu, p, s2) against the plain
 # versions' float32 sums: 1e-4 of the same sums over absolute values.
@@ -110,9 +147,16 @@ def main() -> int:
         from x3d_tpu_torch.kernels import _build
         from x3d_tpu_torch.models import build_arch, create_model
         from x3d_tpu_torch.ops import (depthwise, dw_fused, plain_versions,
-                                       pw_stats)
+                                       pointwise, pw_stats)
+        from x3d_tpu_torch.ops.timing import time_fn
         from x3d_tpu_torch.serving import InferenceEngine
-        from x3d_tpu_torch.train import create_train_state, make_train_step
+        from x3d_tpu_torch.tools import eval as eval_cli
+        from x3d_tpu_torch.tools import fma_probe
+        from x3d_tpu_torch.tools import predict as predict_cli
+        from x3d_tpu_torch.tools import train as train_cli
+        from x3d_tpu_torch.train import (create_train_state, make_eval_step,
+                                         make_train_step)
+        from x3d_tpu_torch.train.checkpoint import CheckpointManager
     except ImportError as e:
         print(f"chip_smoke: the x3d_tpu_torch package is missing ({e}); "
               "run from the repository root", file=sys.stderr)
@@ -132,17 +176,8 @@ def main() -> int:
             failures.append(what)
             print(f"chip_smoke: FAILED {what}", file=sys.stderr, flush=True)
 
-    def time_ms(fn) -> float:
-        for _ in range(3):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / ITERS
+    def time_ms(fn, iters: int = ITERS) -> float:
+        return time_fn(fn, iters=iters) * 1e3
 
     def bound(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
         t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / rate
@@ -303,7 +338,10 @@ def main() -> int:
                 "K4 dx": depthwise.depthwise_conv3d_dx,
                 "K4 dk": depthwise.depthwise_conv3d_dk,
                 "K5": pw_stats.pw_conv_stats,
-                "K6": pw_stats.pw_act_conv_stats}
+                "K6": pw_stats.pw_act_conv_stats,
+                "K7": pointwise.pw_conv,
+                "K8": depthwise.depthwise_conv3d_pbwd,
+                "K9": fma_probe.fma_chain}
 
     def zero_counts():
         for fn in counters.values():
@@ -314,6 +352,9 @@ def main() -> int:
 
     n_k1 = len(arch.stages) + 1
     n_k2 = sum(len(b) - 1 for b in arch.stages)
+    # K7 per forward: every block's convs a and c, the stage entries'
+    # projections and conv_5
+    n_k7 = 2 * (len(arch.stages) + n_k2) + len(arch.stages) + 1
     torch.cuda.reset_peak_memory_stats()
     outputs = []
     zero_counts()                            # the serving path starts here
@@ -330,10 +371,10 @@ def main() -> int:
         row_err = float(np.abs(probs.sum(-1) - 1.0).max())
         emit(phase="serve", request=name, probs_shape=list(probs.shape),
              finite=finite, max_row_sum_err=row_err, k1_launches=d["K1"],
-             k2_launches=d["K2"])
+             k2_launches=d["K2"], k7_launches=d["K7"])
         check(probs.shape == (n_videos, cfg.NETWORK.NUM_CLASSES) and finite
               and row_err <= TOL_ROW_SUM, f"serve {name} probabilities")
-        want = dict.fromkeys(d, 0) | {"K1": n_k1, "K2": n_k2}
+        want = dict.fromkeys(d, 0) | {"K1": n_k1, "K2": n_k2, "K7": n_k7}
         check(d == want, f"serve {name}: launches {d}, want {want}")
     peak = torch.cuda.max_memory_allocated()
 
@@ -368,28 +409,14 @@ def main() -> int:
     del engine1, engine32
     torch.cuda.empty_cache()
 
-    # ------------- 5. K1-K6 at X3D-M's training shapes, and K3-K6's times
+    # ---- 5. K1-K6 at X3D-M's and X3D-S's training shapes, K3-K6's times
     # Every kernel of the training step against its plain version on the
-    # same inputs, at the shapes and the batch the step gives it (32 clips,
-    # per-sample coefficient columns), in float32 and then bfloat16; the
+    # same inputs, at the shapes and the batch the step gives it (X3D-M: 32
+    # clips; X3D-S: 64 clips of 13 frames, whose 40², 20², 10² and 5²
+    # planes are no multiples of the kernels' 8x8 pixel tiles), with
+    # per-sample coefficient columns, in float32 and then bfloat16; the
     # bfloat16 inputs are then timed beside the plain versions and the
     # library calls.
-    S = cfg.DATA.TRAIN_CROP_SIZE // 2
-    B = TRAIN_CLIPS
-    seg_cases, k4_cases = [], [
-        ("conv_1.conv_t", (T, S, S, arch.conv1_dim), (arch.temp_filter, 1, 1),
-         (1, 1, 1), ((arch.temp_filter // 2,) * 2, (0, 0), (0, 0)), 1)]
-    for si, blocks in enumerate(arch.stages):
-        k4_cases.append((f"stage{si + 2}_block0.b",
-                         (T, S, S, blocks[0].inner_channels),
-                         (arch.temp_kernel, 3, 3), (1, 2, 2), "SAME", 1))
-        S = -(-S // 2)
-        if len(blocks) > 1:
-            spec = blocks[1]
-            seg_cases.append((f"stage{si + 2} stride-1 blocks", (T, S, S),
-                              spec.out_channels, spec.inner_channels,
-                              len(blocks) - 1))
-
     def rel_err(got, ref, scale):
         return ((got.float() - ref.float()).abs()
                 / scale.float().clamp_min(1e-30)).max().item()
@@ -398,206 +425,249 @@ def main() -> int:
         return depthwise.depthwise_conv3d_dk_reference(
             x.float().abs(), g.float().abs(), kdims, strides, pads)
 
-    def columns(C):
-        """Per-sample (C, B) BN coefficient columns: a > 0, about half the
-        offsets b > 0."""
-        return (0.5 + torch.rand((C, B), generator=gen, device="cuda"),
-                0.3 * randn(C, B))
-
     dtypes = (torch.float32, torch.bfloat16)      # bfloat16 last: timed
-    train_err = {"K1": 0.0, "K2": 0.0}
 
-    # K1 forward and K4 (dx, dk): the stem's conv_t and the stage entries
-    k4_rows = {"dx": [], "dk": []}
-    for name, dims, kdims, strides, padding, n in k4_cases:
-        C = dims[-1]
-        pads = depthwise._resolve_pads((1, *dims), kdims, strides, padding)
-        out = [depthwise._out_size(d, kk, s, p) for d, kk, s, p in
-               zip(dims[:3], kdims, strides, pads)]
-        errs = {}
-        for dtype in dtypes:
-            x = randn(B, *dims).to(dtype)
-            g = randn(B, *out, C).to(dtype)
-            k = (randn(*kdims, 1, C) * 0.3).to(dtype)
-            y = depthwise.depthwise_conv3d(x, k, strides, pads)
-            ry = depthwise.depthwise_conv3d_reference(x.float(), k.float(),
-                                                      strides, pads)
-            dx = depthwise.depthwise_conv3d_dx(g, k, x.shape, strides, pads)
-            dk = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
-            rdx = depthwise.depthwise_conv3d_dx_reference(
-                g.float(), k.float(), x.shape, strides, pads)
-            rdk = depthwise.depthwise_conv3d_dk_reference(x, g, kdims,
-                                                          strides, pads)
-            torch.cuda.synchronize()
-            errs[dtype] = ((y.float() - ry).abs().max().item(),
-                           rel_err(y, ry, ry.abs().max()),
-                           (dx.float() - rdx).abs().max().item(),
-                           rel_err(dx, rdx, rdx.abs().max()),
-                           rel_err(dk, rdk, abs_dk(x, g, kdims, strides,
-                                                   pads)))
-            del y, ry, dx, dk, rdx, rdk
-        e32, e16 = errs[torch.float32], errs[torch.bfloat16]
-        train_err["K1"] = max(train_err["K1"], e32[0])
-        emit(phase="K1 depthwise_conv3d, training shape", name=name,
-             shape=[B, *dims], max_abs_err_f32=e32[0], rel_err_bf16=e16[1])
-        check(e32[0] <= TOL_F32 and e16[1] <= TOL_BF16,
-              f"K1 {name} training shape err f32 {e32[0]} bf16 {e16[1]}")
-        check(e32[2] <= TOL_F32 and e32[4] <= TOL_TRAIN_SUMS,
-              f"K4 {name} f32 err dx {e32[2]} dk {e32[4]}")
-        check(e16[3] <= TOL_BF16 and e16[4] <= TOL_TRAIN_SUMS,
-              f"K4 {name} bf16 err dx {e16[3]} dk {e16[4]}")
-        xc = depthwise._padded_nchw(x, pads).contiguous(
-            memory_format=torch.channels_last_3d)
-        gc, w = g.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
+    def training_kernels(variant, vcfg, varch, B):
+        """K1-K6 against their plain versions at every shape the training
+        step of ``vcfg`` gives them at ``B`` clips, float32 and bfloat16,
+        with the bfloat16 times; returns the K1/K2 float32 errors and the
+        rows of K3, K4, K5 and K6."""
+        T = vcfg.DATA.TEMP_DURATION
+        S = vcfg.DATA.TRAIN_CROP_SIZE // 2
+        # n: K4 launches per step; the stem's backward runs as K8, so its
+        # K4 rows stay out of the line's sums
+        seg_cases, k4_cases = [], [
+            ("conv_1.conv_t", (T, S, S, varch.conv1_dim),
+             (varch.temp_filter, 1, 1), (1, 1, 1),
+             ((varch.temp_filter // 2,) * 2, (0, 0), (0, 0)), 0)]
+        for si, blocks in enumerate(varch.stages):
+            k4_cases.append((f"stage{si + 2}_block0.b",
+                             (T, S, S, blocks[0].inner_channels),
+                             (varch.temp_kernel, 3, 3), (1, 2, 2), "SAME", 1))
+            S = -(-S // 2)
+            if len(blocks) > 1:
+                spec = blocks[1]
+                seg_cases.append((f"stage{si + 2} stride-1 blocks", (T, S, S),
+                                  spec.out_channels, spec.inner_channels,
+                                  len(blocks) - 1))
 
-        def cudnn(mask):
-            # library yardstick: cuDNN's grouped-conv backward on the
-            # channels-last views, the input padded beforehand
-            return torch.ops.aten.convolution_backward(
-                gc, xc, w, None, list(strides), [0, 0, 0], [1, 1, 1], False,
-                [0, 0, 0], C, mask)
+        def columns(C):
+            """Per-sample (C, B) BN coefficient columns: a > 0, about half the
+            offsets b > 0."""
+            return (0.5 + torch.rand((C, B), generator=gen, device="cuda"),
+                    0.3 * randn(C, B))
 
-        taps = math.prod(kdims)
-        ops_ = 2 * taps * g.numel()
-        nbytes = (g.numel() + x.numel()) * 2 + taps * C * 4
-        for part, kern, plain, mask, err32, err16 in (
-                ("dx", lambda: depthwise.depthwise_conv3d_dx(
-                    g, k, x.shape, strides, pads),
-                 lambda: depthwise.depthwise_conv3d_dx_reference(
-                     g, k, x.shape, strides, pads),
-                 [True, False, False], e32[2], e16[3]),
-                ("dk", lambda: depthwise.depthwise_conv3d_dk(
-                    x, g, kdims, strides, pads),
-                 lambda: depthwise.depthwise_conv3d_dk_reference(
-                     x, g, kdims, strides, pads),
-                 [False, True, False], e32[4], e16[4])):
-            bms, by = bound(nbytes, ops_)
-            row = dict(name=name, shape=[B, *dims], kernel=list(kdims),
-                       strides=list(strides), pads=[list(p) for p in pads],
-                       n=n, max_abs_err_f32=err32, err_bf16=err16,
-                       ms=time_ms(kern), plain_ms=time_ms(plain),
-                       library_ms=time_ms(lambda: cudnn(mask)),
-                       bound_ms=bms, bound_by=by)
-            emit(phase=f"K4 depthwise_conv3d_{part}", **row)
-            k4_rows[part].append(row)
-        del x, g, k, xc, gc, w
-        torch.cuda.empty_cache()
+        train_err = {"K1": 0.0, "K2": 0.0}
 
-    # K2 forward, K3, K5 and K6 at each stage's stride-1 blocks
-    k3_rows, k5_rows, k6_rows = [], [], []
-    for name, thw, cout_blk, C, n in seg_cases:
-        kdims = (arch.temp_kernel, 3, 3)
-        errs = {}
-        for dtype in dtypes:
-            x = randn(B, *thw, C).to(dtype)
-            a, b = columns(C)
-            k = (randn(*kdims, 1, C) * 0.3).to(dtype)
-            # K2, whose y is K3's and K6's input, as in the step
-            y, p, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
-            yr, pr, s2r = dw_fused.reference(x.float(), a, b, k.float())
-            e2 = ((y.float() - yr).abs().max().item(),
-                  rel_err(y, yr, yr.abs().max()),
-                  max(sums_err(p, pr, yr), sums_err(s2, s2r, None)))
-            del p, s2, yr, pr, s2r
-            gy = randn(B, *thw, C).to(dtype)
-            gp, gs2 = 0.1 * randn(C, B), 0.05 * randn(C, B)
-            got = dw_fused.dw_bn_act_conv_bwd(x, a, b, k, y, gy, gp, gs2)
-            want = dw_fused.bwd_reference(x, a, b, k, y, gy, gp, gs2)
-            scales = dw_fused.bwd_abs_sums(x, a, b, k, y, gy, gp, gs2)
-            e3 = ((got[0].float() - want[0].float()).abs().max().item(),
-                  rel_err(got[0], want[0], want[0].float().abs().max()),
-                  max(rel_err(g_, w_, s_) for g_, w_, s_ in
-                      zip(got[1:], want[1:], scales)))
-            del got, want, scales
-            # K5: the block's conv a; K6: its conv c on the segment's output
-            xa = randn(B, *thw, cout_blk).to(dtype)
-            wa, wc = 0.2 * randn(C, cout_blk), 0.2 * randn(cout_blk, C)
-            e56 = []
-            for fn, ref, args, absargs in (
-                    (pw_stats.pw_conv_stats, pw_stats.pw_conv_stats_reference,
-                     (xa, wa), (xa.float().abs(), wa.abs())),
-                    (pw_stats.pw_act_conv_stats,
-                     pw_stats.pw_act_conv_stats_reference, (y, a, b, wc),
-                     (y.float().abs(), a.abs(), b.abs() + 1.0, wc.abs()))):
-                yk, pk, sk = fn(*args)
-                yr, pr, sr = ref(*args)
-                _, pa, sa = ref(*absargs)
-                e56.append(((yk.float() - yr.float()).abs().max().item(),
-                            rel_err(yk, yr, yr.float().abs().max()),
-                            max(rel_err(pk, pr, pa), rel_err(sk, sr, sa))))
-                del yk, yr
-            torch.cuda.synchronize()
-            errs[dtype] = (e2, e3, *e56)
-        e32, e16 = errs[torch.float32][0], errs[torch.bfloat16][0]
-        train_err["K2"] = max(train_err["K2"], e32[0])
-        emit(phase="K2 dw_bn_act_conv, training shape", name=name,
-             shape=[B, *thw, C], max_abs_err_f32=e32[0], sums_err_f32=e32[2],
-             rel_err_bf16=e16[1], sums_err_bf16=e16[2])
-        check(e32[0] <= TOL_F32 and e32[2] <= TOL_F32_SUMS,
-              f"K2 {name} training shape f32 err {e32}")
-        check(max(e16[1], e16[2]) <= TOL_BF16,
-              f"K2 {name} training shape bf16 err {e16}")
-        for i, kname in enumerate(("K3", "K5", "K6"), start=1):
-            e32, e16 = errs[torch.float32][i], errs[torch.bfloat16][i]
-            check(e32[0] <= TOL_F32 and e32[2] <= TOL_TRAIN_SUMS,
-                  f"{kname} {name} f32 err {e32}")
-            check(e16[1] <= TOL_BF16 and e16[2] <= TOL_TRAIN_SUMS,
-                  f"{kname} {name} bf16 err {e16}")
+        # K1 forward and K4 (dx, dk): the stem's conv_t and the stage entries
+        k4_rows = {"dx": [], "dk": []}
+        for name, dims, kdims, strides, padding, n in k4_cases:
+            C = dims[-1]
+            pads = depthwise._resolve_pads((1, *dims), kdims, strides, padding)
+            out = [depthwise._out_size(d, kk, s, p) for d, kk, s, p in
+                   zip(dims[:3], kdims, strides, pads)]
+            errs = {}
+            for dtype in dtypes:
+                x = randn(B, *dims).to(dtype)
+                g = randn(B, *out, C).to(dtype)
+                k = (randn(*kdims, 1, C) * 0.3).to(dtype)
+                y = depthwise.depthwise_conv3d(x, k, strides, pads)
+                ry = depthwise.depthwise_conv3d_reference(
+                    x.float(), k.float(), strides, pads)
+                dx = depthwise.depthwise_conv3d_dx(g, k, x.shape, strides,
+                                                   pads)
+                dk = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
+                rdx = depthwise.depthwise_conv3d_dx_reference(
+                    g.float(), k.float(), x.shape, strides, pads)
+                rdk = depthwise.depthwise_conv3d_dk_reference(x, g, kdims,
+                                                              strides, pads)
+                torch.cuda.synchronize()
+                errs[dtype] = ((y.float() - ry).abs().max().item(),
+                               rel_err(y, ry, ry.abs().max()),
+                               (dx.float() - rdx).abs().max().item(),
+                               rel_err(dx, rdx, rdx.abs().max()),
+                               rel_err(dk, rdk, abs_dk(x, g, kdims, strides,
+                                                       pads)))
+                del y, ry, dx, dk, rdx, rdk
+            e32, e16 = errs[torch.float32], errs[torch.bfloat16]
+            train_err["K1"] = max(train_err["K1"], e32[0])
+            emit(phase="K1 depthwise_conv3d, training shape",
+                 variant=variant, name=name, shape=[B, *dims],
+                 max_abs_err_f32=e32[0], rel_err_bf16=e16[1])
+            where = f"X3D-{variant} {name}"
+            check(e32[0] <= TOL_F32 and e16[1] <= TOL_BF16,
+                  f"K1 {where} training shape err f32 {e32[0]} "
+                  f"bf16 {e16[1]}")
+            check(e32[2] <= TOL_F32 and e32[4] <= TOL_TRAIN_SUMS,
+                  f"K4 {where} f32 err dx {e32[2]} dk {e32[4]}")
+            check(e16[3] <= TOL_BF16 and e16[4] <= TOL_TRAIN_SUMS,
+                  f"K4 {where} bf16 err dx {e16[3]} dk {e16[4]}")
+            xc = depthwise._padded_nchw(x, pads).contiguous(
+                memory_format=torch.channels_last_3d)
+            gc, w = g.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
 
-        u = torch.relu(x.float() * a.t()[:, None, None, None, :]
-                       + b.t()[:, None, None, None, :]).bfloat16()
-        uc, gc = u.permute(0, 4, 1, 2, 3), gy.permute(0, 4, 1, 2, 3)
-        w = k.permute(4, 3, 0, 1, 2)
-        taps = math.prod(kdims)
-        nbytes = 4 * x.numel() * 2 + taps * C * 8 + 6 * C * B * 4
-        bms, by = bound(nbytes, (4 * taps + 12) * x.numel())
-        e32, e16 = errs[torch.float32][1], errs[torch.bfloat16][1]
-        row = dict(
-            name=name, shape=[B, *thw, C], n=n, max_abs_err_f32=e32[0],
-            sums_err_f32=e32[2], err_bf16=e16[1], sums_err_bf16=e16[2],
-            ms=time_ms(lambda: dw_fused.dw_bn_act_conv_bwd(
-                x, a, b, k, y, gy, gp, gs2)),
-            plain_ms=time_ms(lambda: dw_fused.bwd_reference(
-                x, a, b, k, y, gy, gp, gs2)),
-            # library yardstick: cuDNN's grouped-conv backward (dx and dk)
-            # of the depthwise conv alone, on u and the cotangent
-            library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
-                gc, uc, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
-                [0, 0, 0], C, [True, True, False])),
-            bound_ms=bms, bound_by=by)
-        emit(phase="K3 dw_bn_act_conv_bwd", **row)
-        k3_rows.append(row)
-        del gy, u, uc, gc
-        for kname, fn, ref, args, mm_in, w_, rows, i in (
-                ("K5 pw_conv_stats", pw_stats.pw_conv_stats,
-                 pw_stats.pw_conv_stats_reference, (xa, wa), xa, wa,
-                 k5_rows, 2),
-                ("K6 pw_act_conv_stats", pw_stats.pw_act_conv_stats,
-                 pw_stats.pw_act_conv_stats_reference, (y, a, b, wc), y, wc,
-                 k6_rows, 3)):
-            K, N = w_.shape[1], w_.shape[0]
-            M = mm_in.numel() // K
-            wb = w_.bfloat16()
+            def cudnn(mask):
+                # library yardstick: cuDNN's grouped-conv backward on the
+                # channels-last views, the input padded beforehand
+                return torch.ops.aten.convolution_backward(
+                    gc, xc, w, None, list(strides), [0, 0, 0], [1, 1, 1],
+                    False, [0, 0, 0], C, mask)
 
-            def library():
-                # yardstick: torch.matmul, then the per-sample sum pass
-                z = torch.matmul(mm_in, wb.t()).float()
-                return z.sum(dim=(1, 2, 3)), (z * z).sum(dim=(1, 2, 3))
+            taps = math.prod(kdims)
+            ops_ = 2 * taps * g.numel()
+            nbytes = (g.numel() + x.numel()) * 2 + taps * C * 4
+            for part, kern, plain, mask, err32, err16 in (
+                    ("dx", lambda: depthwise.depthwise_conv3d_dx(
+                        g, k, x.shape, strides, pads),
+                     lambda: depthwise.depthwise_conv3d_dx_reference(
+                         g, k, x.shape, strides, pads),
+                     [True, False, False], e32[2], e16[3]),
+                    ("dk", lambda: depthwise.depthwise_conv3d_dk(
+                        x, g, kdims, strides, pads),
+                     lambda: depthwise.depthwise_conv3d_dk_reference(
+                         x, g, kdims, strides, pads),
+                     [False, True, False], e32[4], e16[4])):
+                bms, by = bound(nbytes, ops_)
+                row = dict(name=name, shape=[B, *dims], kernel=list(kdims),
+                           strides=list(strides), pads=[list(p) for p in pads],
+                           n=n, max_abs_err_f32=err32, err_bf16=err16,
+                           ms=time_ms(kern), plain_ms=time_ms(plain),
+                           library_ms=time_ms(lambda: cudnn(mask)),
+                           bound_ms=bms, bound_by=by)
+                emit(phase=f"K4 depthwise_conv3d_{part}", variant=variant,
+                     **row)
+                k4_rows[part].append(row)
+            del x, g, k, xc, gc, w
+            torch.cuda.empty_cache()
 
-            nbytes = (M * (K + N) + N * K) * 2 + (2 * N + 2 * K) * B * 4
-            bms, by = bound(nbytes, 2 * M * K * N, BF16_TC_FLOP_PER_S)
-            e32, e16 = errs[torch.float32][i], errs[torch.bfloat16][i]
-            row = dict(name=name, shape=[B, *thw, K], cout=N, n=n,
-                       max_abs_err_f32=e32[0], sums_err_f32=e32[2],
-                       err_bf16=e16[1], sums_err_bf16=e16[2],
-                       ms=time_ms(lambda: fn(*args)),
-                       plain_ms=time_ms(lambda: ref(*args)),
-                       library_ms=time_ms(library), bound_ms=bms,
-                       bound_by=by)
-            emit(phase=kname, **row)
-            rows.append(row)
-        del x, y, xa
-        torch.cuda.empty_cache()
+        # K2 forward, K3, K5 and K6 at each stage's stride-1 blocks
+        k3_rows, k5_rows, k6_rows = [], [], []
+        for name, thw, cout_blk, C, n in seg_cases:
+            kdims = (varch.temp_kernel, 3, 3)
+            errs = {}
+            for dtype in dtypes:
+                x = randn(B, *thw, C).to(dtype)
+                a, b = columns(C)
+                k = (randn(*kdims, 1, C) * 0.3).to(dtype)
+                # K2, whose y is K3's and K6's input, as in the step
+                y, p, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
+                yr, pr, s2r = dw_fused.reference(x.float(), a, b, k.float())
+                e2 = ((y.float() - yr).abs().max().item(),
+                      rel_err(y, yr, yr.abs().max()),
+                      max(sums_err(p, pr, yr), sums_err(s2, s2r, None)))
+                del p, s2, yr, pr, s2r
+                gy = randn(B, *thw, C).to(dtype)
+                gp, gs2 = 0.1 * randn(C, B), 0.05 * randn(C, B)
+                got = dw_fused.dw_bn_act_conv_bwd(x, a, b, k, y, gy, gp, gs2)
+                want = dw_fused.bwd_reference(x, a, b, k, y, gy, gp, gs2)
+                scales = dw_fused.bwd_abs_sums(x, a, b, k, y, gy, gp, gs2)
+                e3 = ((got[0].float() - want[0].float()).abs().max().item(),
+                      rel_err(got[0], want[0], want[0].float().abs().max()),
+                      max(rel_err(g_, w_, s_) for g_, w_, s_ in
+                          zip(got[1:], want[1:], scales)))
+                del got, want, scales
+                # K5: the block's conv a; K6: its conv c on the segment's
+                # output
+                xa = randn(B, *thw, cout_blk).to(dtype)
+                wa, wc = 0.2 * randn(C, cout_blk), 0.2 * randn(cout_blk, C)
+                e56 = []
+                for fn, ref, args, absargs in (
+                        (pw_stats.pw_conv_stats,
+                         pw_stats.pw_conv_stats_reference, (xa, wa),
+                         (xa.float().abs(), wa.abs())),
+                        (pw_stats.pw_act_conv_stats,
+                         pw_stats.pw_act_conv_stats_reference, (y, a, b, wc),
+                         (y.float().abs(), a.abs(), b.abs() + 1.0, wc.abs()))):
+                    yk, pk, sk = fn(*args)
+                    yr, pr, sr = ref(*args)
+                    _, pa, sa = ref(*absargs)
+                    e56.append(((yk.float() - yr.float()).abs().max().item(),
+                                rel_err(yk, yr, yr.float().abs().max()),
+                                max(rel_err(pk, pr, pa), rel_err(sk, sr, sa))))
+                    del yk, yr
+                torch.cuda.synchronize()
+                errs[dtype] = (e2, e3, *e56)
+            e32, e16 = errs[torch.float32][0], errs[torch.bfloat16][0]
+            train_err["K2"] = max(train_err["K2"], e32[0])
+            emit(phase="K2 dw_bn_act_conv, training shape", variant=variant,
+                 name=name, shape=[B, *thw, C], max_abs_err_f32=e32[0],
+                 sums_err_f32=e32[2], rel_err_bf16=e16[1],
+                 sums_err_bf16=e16[2])
+            where = f"X3D-{variant} {name}"
+            check(e32[0] <= TOL_F32 and e32[2] <= TOL_F32_SUMS,
+                  f"K2 {where} training shape f32 err {e32}")
+            check(max(e16[1], e16[2]) <= TOL_BF16,
+                  f"K2 {where} training shape bf16 err {e16}")
+            for i, kname in enumerate(("K3", "K5", "K6"), start=1):
+                e32, e16 = errs[torch.float32][i], errs[torch.bfloat16][i]
+                check(e32[0] <= TOL_F32 and e32[2] <= TOL_TRAIN_SUMS,
+                      f"{kname} {where} f32 err {e32}")
+                check(e16[1] <= TOL_BF16 and e16[2] <= TOL_TRAIN_SUMS,
+                      f"{kname} {where} bf16 err {e16}")
+
+            u = torch.relu(x.float() * a.t()[:, None, None, None, :]
+                           + b.t()[:, None, None, None, :]).bfloat16()
+            uc, gc = u.permute(0, 4, 1, 2, 3), gy.permute(0, 4, 1, 2, 3)
+            w = k.permute(4, 3, 0, 1, 2)
+            taps = math.prod(kdims)
+            nbytes = 4 * x.numel() * 2 + taps * C * 8 + 6 * C * B * 4
+            bms, by = bound(nbytes, (4 * taps + 12) * x.numel())
+            e32, e16 = errs[torch.float32][1], errs[torch.bfloat16][1]
+            row = dict(
+                name=name, shape=[B, *thw, C], n=n, max_abs_err_f32=e32[0],
+                sums_err_f32=e32[2], err_bf16=e16[1], sums_err_bf16=e16[2],
+                ms=time_ms(lambda: dw_fused.dw_bn_act_conv_bwd(
+                    x, a, b, k, y, gy, gp, gs2)),
+                plain_ms=time_ms(lambda: dw_fused.bwd_reference(
+                    x, a, b, k, y, gy, gp, gs2)),
+                # library yardstick: cuDNN's grouped-conv backward (dx and
+                # dk) of the depthwise conv alone, on u and the cotangent
+                library_ms=time_ms(
+                    lambda: torch.ops.aten.convolution_backward(
+                        gc, uc, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                        False, [0, 0, 0], C, [True, True, False])),
+                bound_ms=bms, bound_by=by)
+            emit(phase="K3 dw_bn_act_conv_bwd", variant=variant, **row)
+            k3_rows.append(row)
+            del gy, u, uc, gc
+            for kname, fn, ref, args, mm_in, w_, rows, i in (
+                    ("K5 pw_conv_stats", pw_stats.pw_conv_stats,
+                     pw_stats.pw_conv_stats_reference, (xa, wa), xa, wa,
+                     k5_rows, 2),
+                    ("K6 pw_act_conv_stats", pw_stats.pw_act_conv_stats,
+                     pw_stats.pw_act_conv_stats_reference, (y, a, b, wc), y,
+                     wc, k6_rows, 3)):
+                K, N = w_.shape[1], w_.shape[0]
+                M = mm_in.numel() // K
+                wb = w_.bfloat16()
+
+                def library():
+                    # yardstick: torch.matmul, then the per-sample sum pass
+                    z = torch.matmul(mm_in, wb.t()).float()
+                    return z.sum(dim=(1, 2, 3)), (z * z).sum(dim=(1, 2, 3))
+
+                nbytes = (M * (K + N) + N * K) * 2 + (2 * N + 2 * K) * B * 4
+                bms, by = bound(nbytes, 2 * M * K * N, BF16_TC_FLOP_PER_S)
+                e32, e16 = errs[torch.float32][i], errs[torch.bfloat16][i]
+                row = dict(name=name, shape=[B, *thw, K], cout=N, n=n,
+                           max_abs_err_f32=e32[0], sums_err_f32=e32[2],
+                           err_bf16=e16[1], sums_err_bf16=e16[2],
+                           ms=time_ms(lambda: fn(*args)),
+                           plain_ms=time_ms(lambda: ref(*args)),
+                           library_ms=time_ms(library), bound_ms=bms,
+                           bound_by=by)
+                emit(phase=kname, variant=variant, **row)
+                rows.append(row)
+            del x, y, xa
+            torch.cuda.empty_cache()
+        return train_err, k4_rows, k3_rows, k5_rows, k6_rows
+
+    (train_err, k4_rows, k3_rows, k5_rows,
+     k6_rows) = training_kernels("M", cfg, arch, TRAIN_CLIPS)
+    cfg_s = variant_config("S")
+    arch_s = build_arch(cfg_s)
+    (train_err_s, k4_rows_s, k3_rows_s, k5_rows_s,
+     k6_rows_s) = training_kernels("S", cfg_s, arch_s, S_TRAIN_CLIPS)
 
     # ----------------------------------------------- 6. X3D-M training
     def snapshot(state):
@@ -616,8 +686,13 @@ def main() -> int:
     train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
     batch = next(synthetic_batches(cfg, TRAIN_CLIPS, seed=SEED))
     dropout_gen = torch.Generator(device="cuda").manual_seed(SEED)
-    want_step = {"K1": n_k1, "K2": n_k2, "K3": n_k2, "K4 dx": n_k1,
-                 "K4 dk": n_k1, "K5": n_k2, "K6": n_k2}
+    # per step: K4 at the four stage entries and K8 at the stem; K7 at the
+    # stage entries' convs a and c, the projections and conv_5, forward and
+    # dx; K5/K6 take the stride-1 blocks' pointwise convs
+    n_k7_step = 2 * (3 * len(arch.stages) + 1)
+    want_step = {"K1": n_k1, "K2": n_k2, "K3": n_k2, "K4 dx": n_k1 - 1,
+                 "K4 dk": n_k1 - 1, "K5": n_k2, "K6": n_k2,
+                 "K7": n_k7_step, "K8": 1, "K9": 0}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -753,41 +828,467 @@ def main() -> int:
     del model, state, results
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------ 7. the kernel line
+    # ------------------------------ 7. K7 vs its plain version and F.linear
+    def k7_cases(vcfg, varch, B, crop, train):
+        """(name, x shape, Cout, strides, launches per forward) of every
+        bulk 1x1x1 conv that runs K7: all of them in a forward-only pass;
+        in the training step those that K5/K6 do not take."""
+        T, S = vcfg.DATA.TEMP_DURATION, -(-crop // 2)
+        cases = []
+        for si, blocks in enumerate(varch.stages):
+            b0, stage = blocks[0], f"stage{si + 2}"
+            cases += [(f"{stage}_block0.a", (B, T, S, S, b0.in_channels),
+                       b0.inner_channels, (1, 1, 1), 1),
+                      (f"{stage}_block0 projection",
+                       (B, T, S, S, b0.in_channels), b0.out_channels,
+                       (1, 2, 2), 1)]
+            S = -(-S // 2)
+            cases.append((f"{stage}_block0.c", (B, T, S, S, b0.inner_channels),
+                          b0.out_channels, (1, 1, 1), 1))
+            if not train and len(blocks) > 1:
+                n = len(blocks) - 1
+                cases += [(f"{stage} stride-1 blocks' a",
+                           (B, T, S, S, b0.out_channels), b0.inner_channels,
+                           (1, 1, 1), n),
+                          (f"{stage} stride-1 blocks' c",
+                           (B, T, S, S, b0.inner_channels), b0.out_channels,
+                           (1, 1, 1), n)]
+        cases.append(("conv_5",
+                      (B, T, S, S, varch.stages[-1][-1].out_channels),
+                      varch.conv5_dim, (1, 1, 1), 1))
+        return cases
+
+    def k7_rows(variant, path, vcfg, varch, B, crop, train):
+        rows = []
+        for name, shape, N, strides, n in k7_cases(vcfg, varch, B, crop,
+                                                    train):
+            K = shape[-1]
+            errs = {}
+            for dtype in dtypes:
+                x = randn(*shape).to(dtype)
+                w = (randn(N, K) / math.sqrt(K)).to(dtype)
+                y = pointwise.pw_conv(x, w, strides)
+                g = randn(*y.shape).to(dtype)
+                dx = pointwise.pw_conv(g, w.t())
+                ry = pointwise.pointwise_conv3d_reference(
+                    x.float(), w.float(), strides)
+                rdx = torch.matmul(g.float(), w.float())
+                torch.cuda.synchronize()
+                errs[dtype] = (max((y.float() - ry).abs().max().item(),
+                                   (dx.float() - rdx).abs().max().item()),
+                               max(rel_err(y, ry, ry.abs().max()),
+                                   rel_err(dx, rdx, rdx.abs().max())))
+                del ry, rdx
+                if dtype == torch.float32:
+                    del x, w, y, g, dx
+            e32, e16 = errs[torch.float32], errs[torch.bfloat16]
+            where = f"X3D-{variant} {path} {name}"
+            check(e32[1] <= TOL_K7_F32, f"K7 {where} f32 rel err {e32[1]}")
+            check(e16[1] <= TOL_K7_BF16, f"K7 {where} bf16 rel err {e16[1]}")
+            xs = pointwise._subsample(x, strides).contiguous()
+            M = y.numel() // N
+            nbytes = (M * (K + N) + N * K) * 2
+            bms, by = bound(nbytes, 2 * M * K * N, BF16_TC_FLOP_PER_S)
+            fwd = time_ms(lambda: pointwise.pw_conv(x, w, strides))
+            bwd = time_ms(lambda: pointwise.pw_conv(g, w.t()))
+            plain = time_ms(lambda: pointwise.pointwise_conv3d_reference(
+                x, w, strides))
+            # library yardstick: F.linear on the rows the conv reads (the
+            # subsample of a strided projection made beforehand), and
+            # torch.matmul for dx
+            lib_fwd = time_ms(lambda: F.linear(xs, w))
+            lib_bwd = time_ms(lambda: torch.matmul(g, w))
+            both = 2 if train else 1           # forward, and dx in a step
+            row = dict(name=name, shape=list(shape), cout=N,
+                       strides=list(strides), n=n,
+                       max_abs_err_f32=e32[0], rel_err_f32=e32[1],
+                       rel_err_bf16=e16[1], fwd_ms=fwd, dx_ms=bwd,
+                       library_fwd_ms=lib_fwd, library_dx_ms=lib_bwd,
+                       ms=fwd + bwd if train else fwd,
+                       plain_ms=plain + lib_bwd if train else plain,
+                       library_ms=lib_fwd + lib_bwd if train else lib_fwd,
+                       bound_ms=both * bms, bound_by=by)
+            emit(phase="K7 pw_conv", variant=variant, path=path, **row)
+            rows.append(row)
+            del x, w, y, g, dx, xs
+            torch.cuda.empty_cache()
+        return rows
+
+    k7 = {}
+    for variant, vcfg, varch, train_clips in (
+            ("M", cfg, arch, TRAIN_CLIPS), ("S", cfg_s, arch_s, S_TRAIN_CLIPS)):
+        for clips in (CLIPS, S_EVAL_CLIPS):      # requests of 1 and 8 videos
+            k7[variant, f"serving, {clips} clips"] = k7_rows(
+                variant, f"serving, {clips} clips", vcfg, varch, clips,
+                vcfg.DATA.TEST_CROP_SIZE, False)
+        k7[variant, "training"] = k7_rows(
+            variant, "training", vcfg, varch, train_clips,
+            vcfg.DATA.TRAIN_CROP_SIZE, True)
+    for (variant, path), rows in k7.items():
+        total = lambda key: sum(r["n"] * r[key] for r in rows)  # noqa: E731
+        emit(phase="K7 pw_conv, whole path", variant=variant, path=path,
+             launches=sum(r["n"] for r in rows) * (2 if path == "training"
+                                                   else 1),
+             ms=total("ms"), library_ms=total("library_ms"),
+             bound_ms=total("bound_ms"))
+
+    # ------------------------- 8. K8 vs its plain version and vs K4 dx + dk
+    def k8_row(name, shape, kdims):
+        C = shape[-1]
+        pads = depthwise._resolve_pads(shape, kdims, (1, 1, 1), "SAME")
+        one = (1, 1, 1)
+        errs = {}
+        for dtype in dtypes:
+            u, gy = randn(*shape).to(dtype), randn(*shape).to(dtype)
+            k = (randn(*kdims, 1, C) * 0.3).to(dtype)
+            du, dk = depthwise.depthwise_conv3d_pbwd(u, gy, k)
+            rdu, rdk = depthwise.depthwise_conv3d_pbwd_reference(
+                u.float(), gy.float(), k.float())
+            dx4 = depthwise.depthwise_conv3d_dx(gy, k, u.shape, one, pads)
+            dk4 = depthwise.depthwise_conv3d_dk(u, gy, kdims, one, pads)
+            scale = abs_dk(u, gy, kdims, one, pads)
+            torch.cuda.synchronize()
+            errs[dtype] = ((du.float() - rdu).abs().max().item(),
+                           rel_err(du, rdu, rdu.abs().max()),
+                           rel_err(dk, rdk, scale),
+                           rel_err(du, dx4, rdu.abs().max()),
+                           rel_err(dk, dk4, scale))
+            del du, dk, rdu, rdk, dx4, dk4, scale
+        e32, e16 = errs[torch.float32], errs[torch.bfloat16]
+        check(e32[0] <= TOL_F32 and e32[2] <= TOL_TRAIN_SUMS,
+              f"K8 {name} f32 err du {e32[0]} dk {e32[2]}")
+        check(e16[1] <= TOL_BF16 and e16[2] <= TOL_TRAIN_SUMS,
+              f"K8 {name} bf16 err du {e16[1]} dk {e16[2]}")
+        check(e32[3] <= TOL_K7_F32 and e16[3] <= TOL_K7_BF16
+              and max(e32[4], e16[4]) <= TOL_K8_VS_K4_DK,
+              f"K8 {name} vs K4: du f32 {e32[3]} bf16 {e16[3]}, "
+              f"dk f32 {e32[4]} bf16 {e16[4]}")
+        uc = depthwise._padded_nchw(u, pads).contiguous(
+            memory_format=torch.channels_last_3d)
+        gc, w = gy.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
+        taps = math.prod(kdims)
+        bms, by = bound(3 * u.numel() * 2 + taps * C * 8,
+                        4 * taps * u.numel())
+        row = dict(
+            name=name, shape=list(shape), kernel=list(kdims), n=1,
+            max_abs_err_f32=e32[0], dk_err_f32=e32[2], err_bf16=e16[1],
+            dk_err_bf16=e16[2], du_vs_k4_f32=e32[3], du_vs_k4_bf16=e16[3],
+            dk_vs_k4_f32=e32[4], dk_vs_k4_bf16=e16[4],
+            ms=time_ms(lambda: depthwise.depthwise_conv3d_pbwd(u, gy, k)),
+            plain_ms=time_ms(
+                lambda: depthwise.depthwise_conv3d_pbwd_reference(u, gy, k)),
+            k4_dx_ms=time_ms(lambda: depthwise.depthwise_conv3d_dx(
+                gy, k, u.shape, one, pads)),
+            k4_dk_ms=time_ms(lambda: depthwise.depthwise_conv3d_dk(
+                u, gy, kdims, one, pads)),
+            # library yardstick: cuDNN's grouped-conv backward (dx and dk)
+            # on the channels-last views, the input padded beforehand
+            library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
+                gc, uc, w, None, [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
+                [0, 0, 0], C, [True, True, False])),
+            bound_ms=bms, bound_by=by)
+        emit(phase="K8 depthwise_conv3d_pbwd", **row)
+        del u, gy, k, uc, gc, w
+        torch.cuda.empty_cache()
+        return row
+
+    def stem_shape(vcfg, varch, B):
+        S = vcfg.DATA.TRAIN_CROP_SIZE // 2
+        return (B, vcfg.DATA.TEMP_DURATION, S, S, varch.conv1_dim)
+
+    stem_taps = (arch.temp_filter, 1, 1)
+    k8_m = k8_row("X3D-M conv_1.conv_t", stem_shape(cfg, arch, TRAIN_CLIPS),
+                  stem_taps)
+    k8_s = k8_row("X3D-S conv_1.conv_t",
+                  stem_shape(cfg_s, arch_s, S_TRAIN_CLIPS), stem_taps)
+    S2 = cfg_s.DATA.TRAIN_CROP_SIZE // 4
+    k8_row("X3D-S stage 2, 3x3x3",
+           (S_TRAIN_CLIPS, cfg_s.DATA.TEMP_DURATION, S2, S2,
+            arch_s.stages[0][0].inner_channels), (arch_s.temp_kernel, 3, 3))
+
+    # ----------------------- 9. K9 vs its plain version, and the probe tool
+    k9_err = {}
+    for dtype, tol in ((torch.float32, TOL_K9_F32),
+                       (torch.bfloat16, TOL_K9_BF16)):
+        x = torch.rand(1 << 16, generator=gen, device="cuda").to(dtype)
+        got = fma_probe.fma_chain(x, unroll=8, inner=4)
+        want = fma_probe.fma_chain_reference(x, unroll=8, inner=4)
+        k9_err[dtype] = (got.float() - want.float()).abs().max().item()
+        check(k9_err[dtype] <= tol, f"K9 {dtype} chain err {k9_err[dtype]}")
+    zero_counts()                               # the probe's path starts here
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fma_probe.main([])
+    probe_launches = read_counts()              # ... and ends here
+    probe = json.loads(out.getvalue().strip().splitlines()[-1])
+    n_probe = 16 * 1024 * 1024 // 4             # the tool's float32 block
+    x = torch.full((n_probe,), 0.5, device="cuda")
+    k9_ms = time_ms(lambda: fma_probe.fma_chain(x))
+    k9_plain_ms = time_ms(lambda: fma_probe.fma_chain_reference(x), iters=2)
+    k9_bound, k9_by = bound(2 * x.numel() * 4, 2 * 8 * 64 * x.numel())
+    del x
+    emit(phase="K9 fma_chain", chain_err_f32=k9_err[torch.float32],
+         chain_err_bf16=k9_err[torch.bfloat16], ms=k9_ms,
+         plain_ms=k9_plain_ms, bound_ms=k9_bound, bound_by=k9_by,
+         launches=probe_launches["K9"], probe=probe)
+    check(0 < probe["f32_share_of_peak"] <= 1.0
+          and 0 < probe["bf16_share_of_packed_peak"] <= 1.0,
+          f"K9 probe shares of the peak: {probe}")
+    check(probe_launches["K9"] > 0, "the probe tool launched no K9")
+
+    # ---------- 10. X3D-S through the command-line tools: train, resume,
+    # ---------- evaluate, serve from the checkpoint
+    class Keep:
+        """A hook that keeps the live state, every fetched loss and an
+        event at the end of each step."""
+
+        def __init__(self):
+            self.state, self.losses, self.events = None, {}, []
+            self.first_step = None
+
+        def on_epoch_start(self, epoch, lr): ...
+
+        def on_step(self, step, metrics):
+            self.losses[step] = metrics["loss"]
+
+        def on_step_end(self, step, state):
+            if self.first_step is None:
+                self.first_step = step
+            self.state = state
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.events.append(event)
+
+        def on_epoch_end(self, *args): ...
+        def on_train_end(self): ...
+
+    class LogLines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    s_config = "x3d_tpu_torch/configs/kinetics/X3D_S.yaml"
+
+    def run_train(model_dir, epochs, cadence):
+        keep, lines = Keep(), LogLines()
+        logging.getLogger("x3d_tpu_torch").addHandler(lines)
+        try:
+            rc = train_cli.main(
+                [f"--config={s_config}", "--synthetic",
+                 f"--model_dir={model_dir}", "--steps_per_epoch=3",
+                 f"--epochs={epochs}", f"--save_checkpoints_step={cadence}"],
+                extra_hooks=[keep])
+        finally:
+            logging.getLogger("x3d_tpu_torch").removeHandler(lines)
+        check(rc == 0, f"train CLI returned {rc}")
+        torch.cuda.synchronize()
+        return keep, lines.lines
+
+    def run_cli(main, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        check(rc == 0, f"{main.__module__} returned {rc}")
+        return [json.loads(ln) for ln in out.getvalue().splitlines()
+                if ln.startswith("{")]
+
+    n_k1_s = len(arch_s.stages) + 1
+    n_k2_s = sum(len(b) - 1 for b in arch_s.stages)
+    want_s_step = {"K1": n_k1_s, "K2": n_k2_s, "K3": n_k2_s,
+                   "K4 dx": n_k1_s - 1, "K4 dk": n_k1_s - 1, "K5": n_k2_s,
+                   "K6": n_k2_s, "K7": 2 * (3 * len(arch_s.stages) + 1),
+                   "K8": 1, "K9": 0}
+    want_s_forward = dict.fromkeys(want_s_step, 0) | {
+        "K1": n_k1_s, "K2": n_k2_s,
+        "K7": 2 * (len(arch_s.stages) + n_k2_s) + len(arch_s.stages) + 1}
+    torch.backends.cudnn.deterministic = True    # the stem's library conv
+    with tempfile.TemporaryDirectory() as run_dir, \
+            tempfile.TemporaryDirectory() as straight_dir:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                       # the X3D-S path starts here
+        first, _ = run_train(run_dir, epochs=2, cadence=2)
+        s_train_launches = read_counts()    # (its training part ends here)
+        s_peak = torch.cuda.max_memory_allocated()
+        saved = CheckpointManager(f"{run_dir}/checkpoints").keys()
+        emit(phase="X3D-S train CLI", clips=S_TRAIN_CLIPS, epochs=2,
+             steps_per_epoch=3, losses=first.losses, checkpoints=saved,
+             launches=s_train_launches, launches_per_step=want_s_step,
+             # from one step's end to the next, hooks and saves included
+             step_interval_ms=[a.elapsed_time(b) for a, b in
+                               zip(first.events, first.events[1:])],
+             peak_memory_bytes=s_peak)
+        check(saved == [2, 3, 4, 6], f"X3D-S checkpoints {saved}")
+        check(first.state is not None and first.state.step == 6
+              and sorted(first.losses) == [2, 3, 4, 6]
+              and all(math.isfinite(v) for v in first.losses.values()),
+              f"X3D-S train: losses {first.losses}")
+        check(s_train_launches == {k: 6 * v for k, v in want_s_step.items()},
+              f"X3D-S train launches {s_train_launches}, want 6 x "
+              f"{want_s_step}")
+
+        # the same command with one more epoch resumes at step 6 ...
+        resumed, lines = run_train(run_dir, epochs=3, cadence=1)
+        # ... and continues as a run that was never interrupted does
+        straight, _ = run_train(straight_dir, epochs=3, cadence=1)
+        named = [ln for ln in lines if ln.startswith("resumed at")]
+        same = (sorted(resumed.losses) == [7, 8, 9]
+                and all(resumed.losses[s] == straight.losses[s]
+                        for s in (7, 8, 9))
+                and all(first.losses[s] == straight.losses[s]
+                        for s in first.losses)
+                and all(torch.equal(v, straight.state.model.state_dict()[k])
+                        for k, v in resumed.state.model.state_dict().items()))
+        emit(phase="X3D-S resume", log=named, first_step=resumed.first_step,
+             resumed_losses=resumed.losses, straight_losses=straight.losses,
+             bit_identical=same)
+        check(named == ["resumed at global step 6 (epoch 2, step-in-epoch "
+                        "0)"] and resumed.first_step == 7,
+              f"X3D-S resume: {named}, first step {resumed.first_step}")
+        check(same, "the resumed X3D-S run differs from the uninterrupted")
+        # steady steps on the uninterrupted run's state, the hooks apart
+        step_fn = make_train_step(straight.state.model,
+                                  cfg_s.NETWORK.WEIGHT_DECAY)
+        batch = next(synthetic_batches(cfg_s, S_TRAIN_CLIPS, seed=SEED))
+        gen_s = torch.Generator(device="cuda").manual_seed(SEED)
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step_fn(straight.state, batch, gen_s)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        s_step_ms = sorted(times)[1]
+        emit(phase="X3D-S train timing", clips=S_TRAIN_CLIPS,
+             step_ms=times, step_ms_median=s_step_ms,
+             clips_per_s=S_TRAIN_CLIPS / s_step_ms * 1e3,
+             peak_memory_bytes=s_peak)
+        del first, resumed, straight, step_fn, batch
+        torch.cuda.empty_cache()
+
+        # evaluate two batches of 8 videos x 10 views from the checkpoint
+        zero_counts()
+        metrics = run_cli(eval_cli.main, [
+            f"--cfg={s_config}", f"--model_folder={run_dir}", "--synthetic",
+            "--max_batches=2"])
+        eval_launches = read_counts()
+        ok = (len(metrics) == 1 and metrics[0]["count"] == 16.0
+              and math.isfinite(metrics[0]["loss"])
+              and eval_launches == {k: 2 * v for k, v in
+                                    want_s_forward.items()})
+        check(ok, f"X3D-S eval: {metrics}, launches {eval_launches}, want "
+                  f"2 x {want_s_forward}")
+
+        # serve one video from the checkpoint: the engine, then the tool
+        views_s = cfg_s.TEST.NUM_TEMPORAL_VIEWS * cfg_s.TEST.NUM_SPATIAL_CROPS
+        zero_counts()
+        engine = InferenceEngine.from_checkpoint(cfg_s, run_dir, max_videos=1)
+        video = np.random.default_rng(SEED).integers(
+            0, 256, engine.clip_shape, dtype=np.uint8)
+        probs = engine.predict(video)
+        predict_launches = read_counts()
+        # the model as the eval tool restores it
+        eval_model = create_model(cfg_s, dtype=torch.bfloat16, init=False)
+        CheckpointManager(f"{run_dir}/checkpoints", max_to_keep=0) \
+            .restore_weights_only(create_train_state(cfg_s, eval_model))
+        want_probs = InferenceEngine(cfg_s, eval_model,
+                                     max_videos=1).predict(video)
+        row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        rows = run_cli(predict_cli.main, [
+            f"--cfg={s_config}", f"--model_folder={run_dir}", "--synthetic",
+            "--max_batches=1", "--batch_videos=1"])
+        ok = (probs.shape == (1, cfg_s.NETWORK.NUM_CLASSES)
+              and bool(np.isfinite(probs).all()) and row_err <= TOL_ROW_SUM
+              and np.array_equal(probs, want_probs)
+              and predict_launches == want_s_forward
+              and len(rows) == 1 and len(rows[0]["top"]) == 5)
+        check(ok, f"X3D-S predict: row sum err {row_err}, launches "
+                  f"{predict_launches}, tool rows {rows}")
+
+        # eval and 1-video times on the restored model
+        eval_state = create_train_state(cfg_s, engine.model)
+        eval_step = make_eval_step(engine.model)
+        batch = next(synthetic_batches(cfg_s, cfg_s.TEST.BATCH_SIZE,
+                                       is_training=False))
+        eval_ms = time_ms(lambda: eval_step(eval_state, batch), iters=5)
+        emit(phase="X3D-S eval and predict", eval=metrics,
+             eval_launches=eval_launches, launches_per_forward=want_s_forward,
+             eval_batch_clips=int(batch["video"].shape[0]),
+             eval_batch_ms=eval_ms,
+             eval_clips_per_s=batch["video"].shape[0] / eval_ms * 1e3,
+             predict_1_video_ms=engine.device_latency_s(iters=10) * 1e3,
+             predict_row_sum_err=row_err,
+             predict_equals_eval_model=bool(np.array_equal(probs,
+                                                           want_probs)),
+             views=views_s, predict_tool=rows)
+        del engine, eval_model, eval_state, batch
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------- 11. the kernel line
+    def worst(*row_lists):
+        return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
+
     csrc = "x3d_tpu_torch/kernels/csrc/"
     entries = [
         (summary("depthwise_conv3d", "cuda", csrc + "depthwise.cu",
                  "x3d_tpu/ops/dw_batchminor.py:101, "
-                 "x3d_tpu/ops/pallas_dw.py:97", k1_rows, train_err["K1"]),
-         "K1", "serve"),
+                 "x3d_tpu/ops/pallas_dw.py:97", k1_rows,
+                 max(train_err["K1"], train_err_s["K1"])), "K1", "serve"),
         (summary("dw_bn_act_conv", "cuda", csrc + "dw_fused.cu",
-                 "x3d_tpu/ops/dw_fused.py:298", k2_rows, train_err["K2"]),
-         "K2", "serve"),
+                 "x3d_tpu/ops/dw_fused.py:298", k2_rows,
+                 max(train_err["K2"], train_err_s["K2"])), "K2", "serve"),
         (summary("dw_bn_act_conv_bwd", "cuda", csrc + "dw_fused_bwd.cu",
-                 "x3d_tpu/ops/dw_fused.py:346", k3_rows), "K3", "train"),
+                 "x3d_tpu/ops/dw_fused.py:346", k3_rows, worst(k3_rows_s)),
+         "K3", "train"),
         (summary("depthwise_conv3d_dx", "cuda", csrc + "depthwise_bwd.cu",
                  "x3d_tpu/ops/dw_batchminor.py:231 (dx by _fwd_kernel), "
                  "x3d_tpu/ops/pallas_dw.py:221 (dx by _fwd_kernel)",
-                 k4_rows["dx"]), "K4 dx", "train"),
+                 k4_rows["dx"], worst(k4_rows_s["dx"])), "K4 dx", "train"),
         (summary("depthwise_conv3d_dk", "cuda", csrc + "depthwise_bwd.cu",
                  "x3d_tpu/ops/dw_batchminor.py:120, "
-                 "x3d_tpu/ops/pallas_dw.py:123", k4_rows["dk"]), "K4 dk",
-         "train"),
+                 "x3d_tpu/ops/pallas_dw.py:123", k4_rows["dk"],
+                 worst(k4_rows_s["dk"])), "K4 dk", "train"),
         (summary("pw_conv_stats", "cuda", csrc + "pw_stats.cu",
-                 "x3d_tpu/ops/pw_batchminor.py:132", k5_rows), "K5",
-         "train"),
+                 "x3d_tpu/ops/pw_batchminor.py:132", k5_rows,
+                 worst(k5_rows_s)), "K5", "train"),
         (summary("pw_act_conv_stats", "cuda", csrc + "pw_stats.cu",
-                 "x3d_tpu/ops/pw_batchminor.py:260", k6_rows), "K6",
-         "train"),
+                 "x3d_tpu/ops/pw_batchminor.py:260", k6_rows,
+                 worst(k6_rows_s)), "K6", "train"),
+        # K7 and K8 at the shapes of X3D-S's training step (forward and dx;
+        # the stem's backward); their X3D-M rows are on the lines above
+        (summary("pw_conv", "cuda", csrc + "pointwise.cu",
+                 "x3d_tpu/ops/pw_batchminor.py:56", k7[("S", "training")],
+                 worst(*k7.values())), "K7", "s_train"),
+        (summary("depthwise_conv3d_pbwd", "cuda", csrc + "depthwise_pbwd.cu",
+                 "x3d_tpu/ops/dw_fused.py:418", [k8_s],
+                 k8_m["max_abs_err_f32"])
+         | {"k4_dx_ms": k8_s["k4_dx_ms"], "k4_dk_ms": k8_s["k4_dk_ms"]},
+         "K8", "s_train"),
+        ({"name": "fma_chain", "route": "cuda",
+          "source": csrc + "fma_probe.cu",
+          "replaces": "x3d_tpu/tools/vpu_probe.py:40",
+          "max_abs_err": k9_err[torch.float32], "ms": k9_ms,
+          "plain_ms": k9_plain_ms, "bound_ms": k9_bound, "bound_by": k9_by,
+          "library_ms": None}, "K9", "probe"),
     ]
+    paths = {"serve": (serve_launches, "X3D-M serving"),
+             "train": (train_launches,
+                       f"X3D-M training, {TRAIN_STEPS} steps"),
+             "s_train": (s_train_launches,
+                         "X3D-S train tool, 2 epochs of 3 steps"),
+             "probe": (probe_launches, "the multiply-add probe tool")}
     kernels_line = []
     for entry, key, path in entries:
-        entry["launches"] = (serve_launches if path == "serve"
-                             else train_launches)[key]
-        entry["path"] = "X3D-M serving" if path == "serve" \
-            else f"X3D-M training, {TRAIN_STEPS} steps"
+        entry["launches"] = paths[path][0][key]
+        entry["path"] = paths[path][1]
         entry["launches_serving"] = serve_launches[key]
         entry["launches_training"] = train_launches[key]
+        entry["launches_x3d_s_training"] = s_train_launches[key]
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on its main path")
         kernels_line.append(entry)

@@ -1,0 +1,313 @@
+"""The port's command-line tools on the CPU: train (fresh, then resumed),
+eval, predict, ``InferenceEngine.from_checkpoint``, the flags of modules
+that are not ported yet, and the multiply-add probe's plain chain.
+
+The tools run in this process through their ``main(argv)`` with ``--device
+cpu`` on a tiny model (``NETWORK.C1_CHANNELS 4``, ``NETWORK.DEPTH_FACTOR
+0.34``, T=4, 32² crops, 10 classes, 2 clips a batch, 2 views).  What is
+compared is exact: the engine built from a checkpoint gives the trained
+model's probabilities bit for bit.  The probe's float32 chain is held
+against its closed form within 1e-5 (512 roundings of 6e-8 each).
+"""
+
+import json
+import logging
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from x3d_tpu_torch.tools import bench_serving, common, fma_probe
+from x3d_tpu_torch.tools import eval as eval_cli
+from x3d_tpu_torch.tools import predict as predict_cli
+from x3d_tpu_torch.tools import train as train_cli
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(ROOT, "x3d_tpu_torch", "configs", "kinetics",
+                      "X3D_S.yaml")
+OPTS = ["--opts", "NETWORK.C1_CHANNELS", "4", "NETWORK.DEPTH_FACTOR", "0.34",
+        "NETWORK.NUM_CLASSES", "10", "DATA.TEMP_DURATION", "4",
+        "DATA.TRAIN_CROP_SIZE", "32", "DATA.TEST_CROP_SIZE", "32",
+        "TRAIN.BATCH_SIZE", "2", "TEST.BATCH_SIZE", "2",
+        "TEST.NUM_TEMPORAL_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "1",
+        "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+class _Keep:
+    """A hook that keeps the live state and every fetched loss."""
+
+    def __init__(self):
+        self.state, self.losses, self.lrs = None, {}, []
+
+    def on_epoch_start(self, epoch, lr):
+        self.lrs.append(lr)
+
+    def on_step(self, step, metrics):
+        self.losses[step] = metrics["loss"]
+
+    def on_step_end(self, step, state):
+        self.state = state
+
+    def on_epoch_end(self, *args): ...
+    def on_train_end(self): ...
+
+
+def _train(model_dir, *extra):
+    keep = _Keep()
+    rc = train_cli.main(
+        [f"--config={CONFIG}", "--synthetic", f"--model_dir={model_dir}",
+         "--steps_per_epoch=3", "--mixed_precision=false", *extra, *OPTS],
+        extra_hooks=[keep])
+    assert rc == 0
+    return keep
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Two epochs of three steps, checkpoints every second step."""
+    torch.set_num_threads(1)
+    model_dir = str(tmp_path_factory.mktemp("run"))
+    keep = _train(model_dir, "--epochs=2", "--save_checkpoints_step=2")
+    return model_dir, keep
+
+
+def test_train_writes_step_keyed_checkpoints(trained):
+    model_dir, keep = trained
+    names = sorted(os.listdir(os.path.join(model_dir, "checkpoints")))
+    assert names == ["ckpt-2.pt", "ckpt-3.pt", "ckpt-4.pt", "ckpt-6.pt"]
+    assert keep.state.step == 6
+    assert sorted(keep.losses) == [2, 3, 4, 6]
+    assert all(np.isfinite(v) for v in keep.losses.values())
+    assert len(keep.lrs) == 2 and keep.lrs[0] != keep.lrs[1]
+
+
+def test_train_resumes_mid_epoch_like_an_uninterrupted_run(tmp_path, trained,
+                                                           caplog):
+    """A run killed after the step-4 save resumes at (epoch 1, step 1) and
+    ends where the uninterrupted run did, bit for bit; the log names the
+    restored step."""
+    model_dir, keep = trained
+    ckpts = tmp_path / "checkpoints"
+    ckpts.mkdir()
+    for name in ("ckpt-2.pt", "ckpt-4.pt"):
+        (ckpts / name).write_bytes(
+            open(os.path.join(model_dir, "checkpoints", name), "rb").read())
+    with caplog.at_level(logging.INFO):
+        again = _train(str(tmp_path), "--epochs=2",
+                       "--save_checkpoints_step=2")
+    assert "resumed at global step 4 (epoch 1, step-in-epoch 1)" \
+        in caplog.text
+    assert sorted(again.losses) == [6]
+    assert again.losses[6] == keep.losses[6]
+    for k, v in keep.state.model.state_dict().items():
+        assert torch.equal(again.state.model.state_dict()[k], v), k
+
+
+def test_train_resumes_for_a_third_epoch(trained, caplog):
+    model_dir, keep = trained
+    with caplog.at_level(logging.INFO):
+        more = _train(model_dir, "--epochs=3", "--save_checkpoints_step=2")
+    assert "resumed at global step 6 (epoch 2, step-in-epoch 0)" \
+        in caplog.text
+    assert more.state.step == 9 and sorted(more.losses) == [8, 9]
+    assert len(more.lrs) == 1
+    # a finished run resumed again does nothing
+    with caplog.at_level(logging.INFO):
+        done = _train(model_dir, "--epochs=3")
+    assert done.state is None and not done.losses
+
+
+def test_eval_prints_one_json_line(trained, capsys):
+    model_dir, _ = trained
+    rc = eval_cli.main([f"--cfg={CONFIG}", f"--model_folder={model_dir}",
+                        "--synthetic", "--max_batches=2", *OPTS])
+    assert rc == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln]
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert sorted(out) == ["acc", "count", "loss", "top_5_acc"]
+    assert out["count"] == 4.0 and np.isfinite(out["loss"])
+    assert 0.0 <= out["acc"] <= out["top_5_acc"] <= 1.0
+
+
+def test_eval_without_a_checkpoint_is_a_usage_error(tmp_path, capsys):
+    argv = [f"--cfg={CONFIG}", f"--model_folder={tmp_path}", "--synthetic",
+            "--max_batches=1", *OPTS]
+    with pytest.raises(SystemExit) as e:
+        eval_cli.main(argv)
+    assert e.value.code == 2
+    assert "No checkpoint found" in capsys.readouterr().err
+    assert eval_cli.main(argv + ["--allow_random_init"]) == 0
+    assert json.loads(capsys.readouterr().out.strip())["count"] == 2.0
+
+
+def test_predict_and_from_checkpoint(trained, capsys):
+    from x3d_tpu_torch.serving import InferenceEngine
+
+    model_dir, _ = trained
+    rc = predict_cli.main([f"--cfg={CONFIG}", f"--model_folder={model_dir}",
+                           "--synthetic", "--max_batches=1",
+                           "--batch_videos=2", "--k=3", *OPTS])
+    assert rc == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert len(rows) == 2
+    for row in rows:
+        assert len(row["top"]) == len(row["probs"]) == 3
+        assert row["probs"] == sorted(row["probs"], reverse=True)
+
+    cfg = common.load_config(CONFIG, OPTS[1:-2])
+    engine = InferenceEngine.from_checkpoint(cfg, model_dir, max_videos=2,
+                                             device="cpu")
+    clips = np.random.default_rng(0).integers(
+        0, 256, engine.clip_shape, dtype=np.uint8)
+    probs = engine.predict(clips)
+    assert probs.shape == (2, 10)
+    np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-5)
+    with pytest.raises(FileNotFoundError):
+        InferenceEngine.from_checkpoint(cfg, os.path.join(model_dir, "no"),
+                                        device="cpu")
+
+
+def test_from_checkpoint_serves_the_trained_weights(tmp_path):
+    """Probabilities from the engine built on a run's checkpoint equal
+    those of the model the run trained, bit for bit."""
+    from x3d_tpu_torch.serving import InferenceEngine
+
+    keep = _train(str(tmp_path), "--epochs=1")
+    cfg = common.load_config(CONFIG, OPTS[1:-2])
+    engine = InferenceEngine.from_checkpoint(cfg, str(tmp_path),
+                                             max_videos=1, device="cpu")
+    clips = np.random.default_rng(1).integers(
+        0, 256, engine.clip_shape, dtype=np.uint8)
+    want = InferenceEngine(cfg, keep.state.model, max_videos=1,
+                           device="cpu").predict(clips)
+    assert np.array_equal(engine.predict(clips), want)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--synthetic", "--multigrid"], "A9"),
+    (["--synthetic", "--opts", "MULTIGRID.ENABLE", "True"], "A9"),
+    (["--synthetic", "--native_loader"], "A8"),
+    (["--synthetic", "--multihost"], "A10"),
+    (["--synthetic", "--num_gpus=2"], "A10"),
+    (["--train_file_pattern=/data/train-*"], "A8"),
+    (["--synthetic", "--val_file_pattern=/data/val-*"], "A8"),
+])
+def test_train_refuses_unported_flags(tmp_path, flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        train_cli.main([f"--config={CONFIG}", f"--model_dir={tmp_path}",
+                        "--device=cpu", *flags])
+    assert not os.path.exists(tmp_path / "checkpoints")
+
+
+@pytest.mark.parametrize("cli,flags,item", [
+    (eval_cli, ["--synthetic", "--native_loader"], "A8"),
+    (eval_cli, ["--synthetic", "--gpus=2"], "A10"),
+    (eval_cli, ["--test_file_pattern=/data/test-*"], "A8"),
+    (predict_cli, ["--file_pattern=/data/test-*"], "A8"),
+])
+def test_eval_and_predict_refuse_unported_flags(tmp_path, cli, flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        cli.main([f"--cfg={CONFIG}", f"--model_folder={tmp_path}",
+                  "--device=cpu", *flags]
+                 + (["--allow_random_init"] if cli is eval_cli else []))
+
+
+def test_train_needs_data_or_synthetic(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        train_cli.main([f"--config={CONFIG}", f"--model_dir={tmp_path}"])
+    assert "--train_file_pattern is required" in capsys.readouterr().err
+
+
+def test_tools_need_a_card_unless_told_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the refusal shows only without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main([f"--config={CONFIG}", f"--model_dir={tmp_path}",
+                        "--synthetic", *OPTS[:-2]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_serving.main(["--variants=S", "--videos=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fma_probe.main([])
+
+
+def test_bool_flags_take_the_reference_forms():
+    parse = train_cli.build_parser().parse_args
+    base = ["--config=c.yaml", "--model_dir=d"]
+    assert parse(base).mixed_precision is True
+    assert parse(base + ["--nomixed_precision"]).mixed_precision is False
+    assert parse(base + ["--mixed_precision=false"]).mixed_precision is False
+    assert parse(base + ["--synthetic"]).synthetic is True
+    assert parse(base + ["--synthetic=true", "--debug"]).debug is True
+    cfg = common.load_config(CONFIG, ["TRAIN.BATCH_SIZE=4",
+                                      "TEST.BATCH_SIZE 2"])
+    assert (cfg.TRAIN.BATCH_SIZE, cfg.TEST.BATCH_SIZE) == (4, 2)
+    with pytest.raises(ValueError, match="yaml"):
+        common.load_config("config.json")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fma_chain_plain_value(dtype):
+    """512 multiply-adds from 0.5.  float32 follows the closed form
+    a^n v + b (1 - a^n) / (1 - a); in bfloat16 a rounds to 1 and b is
+    below half an ulp of 0.5, so the chain stays at 0.5."""
+    x = torch.full((6,), 0.5, dtype=dtype)
+    y = fma_probe.fma_chain(x, unroll=8, inner=64)       # CPU: plain version
+    assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y, fma_probe.fma_chain_reference(x, unroll=8,
+                                                        inner=64))
+    if dtype == torch.float32:
+        a, b, n = fma_probe.A, fma_probe.B, 512
+        want = a ** n * 0.5 + b * (1 - a ** n) / (1 - a)
+        np.testing.assert_allclose(y.numpy(), want, rtol=1e-5)
+    else:
+        assert torch.equal(y, x)
+    with pytest.raises(ValueError, match="unroll"):
+        fma_probe.fma_chain(x, unroll=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        fma_probe.fma_chain(x.to("meta"))
+    with pytest.raises(ValueError, match="even"):
+        fma_probe.fma_chain(torch.zeros(3, dtype=torch.bfloat16))
+
+
+def test_tensor_health_report(tmp_path, caplog):
+    """One record per module output, by module path; all finite on a fresh
+    model (the fraction is exactly 1.0), and a NaN weight shows up in its
+    module and everything downstream, is logged and written."""
+    from x3d_tpu_torch.models import create_model
+    from x3d_tpu_torch.train import create_train_state
+    from x3d_tpu_torch.train.debug import dump_tensor_health, tensor_health
+
+    cfg = common.load_config(CONFIG, OPTS[1:-2])
+    model = create_model(cfg, dtype=torch.float32, device="cpu").train()
+    video = torch.randn(2, 4, 32, 32, 3,
+                        generator=torch.Generator().manual_seed(0))
+    report = tensor_health(model, video)
+    assert model.training                       # the mode is restored
+    assert {"__call__", "conv_1/conv_t", "stage2_block0/bottleneck/bn_a",
+            "fc_2"} <= set(report)
+    assert all(v["finite_frac"] == 1.0 for v in report.values())
+    assert sorted(report["fc_2"]) == ["absmax", "finite_frac", "max", "mean",
+                                      "min"]
+    assert report["__call__"]["absmax"] == report["fc_2"]["absmax"]
+
+    with torch.no_grad():
+        model.conv_5.weight[0, 0] = float("nan")
+    out = tmp_path / "health.json"
+    with caplog.at_level(logging.ERROR):
+        bad = dump_tensor_health(model, create_train_state(cfg, model),
+                                 video, str(out))
+    assert bad["conv_5"]["finite_frac"] < 1.0
+    assert bad["stage5_block0"]["finite_frac"] == 1.0
+    assert "NON-FINITE values in conv_5" in caplog.text
+    assert json.loads(out.read_text())["conv_5"]["finite_frac"] < 1.0
+    with pytest.raises(ValueError, match="another model"):
+        dump_tensor_health(create_model(cfg, dtype=torch.float32,
+                                        device="cpu"),
+                           create_train_state(cfg, model), video)

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``x3d_tpu_torch`` nor
-``chip_smoke.py`` imports jax, flax or the JAX package, and the port
-imports, serves and trains a tiny model with those imports blocked."""
+``chip_smoke.py`` imports jax, flax, orbax, absl or the JAX package, and the
+port imports, serves and trains a tiny model with those imports blocked;
+every module imports and the train / eval / predict tools run with
+tensorboard blocked as well (its hook then does nothing)."""
 
 import ast
 import os
@@ -11,7 +13,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "x3d_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "x3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "absl", "x3d_tpu")
 
 
 def _sources():
@@ -141,4 +143,60 @@ def test_trains_with_jax_blocked():
                           capture_output=True, text=True, cwd=ROOT,
                           env=_env(), timeout=300)
     assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+_BLOCKED_TOOLS = _BLOCK.replace(
+    'BLOCKED = ("jax", "jaxlib", "flax", "x3d_tpu")',
+    'BLOCKED = ("jax", "jaxlib", "flax", "x3d_tpu", "orbax", "absl", '
+    '"tensorboard")') + r"""
+import importlib
+import os
+import pkgutil
+import tempfile
+import torch
+torch.set_num_threads(1)
+import x3d_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(x3d_tpu_torch.__path__,
+                                               "x3d_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for wanted in ("ops.timing", "ops.pointwise", "train.checkpoint",
+               "train.hooks", "train.loop", "train.debug", "tools.common",
+               "tools.train", "tools.eval", "tools.predict",
+               "tools.bench_serving", "tools.fma_probe"):
+    assert "x3d_tpu_torch." + wanted in names, wanted
+
+from x3d_tpu_torch.tools import eval as eval_cli, predict, train
+config = os.path.join(sys.argv[1], "x3d_tpu_torch", "configs", "kinetics",
+                      "X3D_S.yaml")
+opts = ["--device", "cpu", "--opts", "NETWORK.C1_CHANNELS", "4",
+        "NETWORK.DEPTH_FACTOR", "0.34", "DATA.TEMP_DURATION", "4",
+        "DATA.TRAIN_CROP_SIZE", "32", "DATA.TEST_CROP_SIZE", "32",
+        "TRAIN.BATCH_SIZE", "2", "TEST.BATCH_SIZE", "1",
+        "TEST.NUM_TEMPORAL_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "1"]
+with tempfile.TemporaryDirectory() as d:
+    assert train.main(["--config=" + config, "--synthetic", "--model_dir=" + d,
+                       "--steps_per_epoch=2", "--epochs=1", "--debug",
+                       "--mixed_precision=false", *opts]) == 0
+    assert os.path.exists(os.path.join(d, "checkpoints", "ckpt-2.pt"))
+    assert os.path.exists(os.path.join(d, "debug_health.json"))
+    # the TensorBoard hook was built and stayed inactive: no event file
+    assert not [n for n in os.listdir(d) if "tfevents" in n]
+    assert eval_cli.main(["--cfg=" + config, "--model_folder=" + d,
+                          "--synthetic", "--max_batches=1", *opts]) == 0
+    assert predict.main(["--cfg=" + config, "--model_folder=" + d,
+                         "--synthetic", "--max_batches=1",
+                         "--batch_videos=1", *opts]) == 0
+assert not any(n.split(".")[0] in BLOCKED for n in sys.modules)
+print("OK")
+"""
+
+
+def test_tools_run_with_optional_packages_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_TOOLS, ROOT],
+                          capture_output=True, text=True, cwd=ROOT,
+                          env=_env(), timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("OK")

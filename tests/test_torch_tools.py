@@ -13,6 +13,14 @@ from x3d_tpu_torch.tools.trace import family
      "port kernels"),
     ("void dw_bn_act_conv_fwd_kernel<__nv_bfloat16>(...)", "port kernels"),
     ("sum_partials_kernel(float const*, float*, int, int)", "port kernels"),
+    ("void pw_conv_kernel<float>(...)", "port kernels"),
+    ("(anonymous namespace)::pw_conv_mma_kernel(__nv_bfloat16 const*, ...)",
+     "port kernels"),
+    ("void dw_conv3d_pbwd_kernel<float>(...)", "port kernels"),
+    ("sum_pbwd_partials_kernel(float const*, float*, int, int, int)",
+     "port kernels"),
+    ("void pw_stats_kernel<float, false>(...)", "port kernels"),
+    ("void fma_chain_bf16_kernel<8>(...)", "port kernels"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),
     ("void cudnn::ops::convolve_kernel<...>", "cudnn conv"),
     ("void at::native::reduce_kernel<512, 1>(...)", "reduction"),
@@ -38,6 +46,13 @@ def test_family(name, want):
     ("sum_dk_partials_kernel(float const*, float*, int, int)",
      "K4 depthwise_conv3d_dk"),
     ("void pw_stats_kernel<__nv_bfloat16, true>(...)", "K5/K6 pw_stats"),
+    ("void pw_conv_kernel<float>(...)", "K7 pw_conv"),
+    ("(anonymous namespace)::pw_conv_mma_kernel(__nv_bfloat16 const*, ...)",
+     "K7 pw_conv"),
+    ("void dw_conv3d_pbwd_kernel<__nv_bfloat16>(...)",
+     "K8 depthwise_conv3d_pbwd"),
+    ("sum_pbwd_partials_kernel(float const*, float*, int, int, int)",
+     "K8 depthwise_conv3d_pbwd"),
     ("sum_partials_kernel(float const*, float*, int, int)",
      "K2/K3/K5/K6 second passes"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),

@@ -23,7 +23,7 @@ import torch
 from x3d_tpu_torch import ops, variant_config
 from x3d_tpu_torch.data import synthetic_batches
 from x3d_tpu_torch.models import build_arch, create_model
-from x3d_tpu_torch.ops import depthwise, dw_fused, pw_stats
+from x3d_tpu_torch.ops import depthwise, dw_fused, pointwise, pw_stats
 from x3d_tpu_torch.train import create_train_state, make_train_step
 
 
@@ -34,7 +34,9 @@ def _counters():
             "K4 dx": depthwise.depthwise_conv3d_dx,
             "K4 dk": depthwise.depthwise_conv3d_dk,
             "K5": pw_stats.pw_conv_stats,
-            "K6": pw_stats.pw_act_conv_stats}
+            "K6": pw_stats.pw_act_conv_stats,
+            "K7": pointwise.pw_conv,
+            "K8": depthwise.depthwise_conv3d_pbwd}
 
 
 @pytest.fixture
@@ -90,9 +92,12 @@ def test_kernel_step_matches_plain_step(cuda):
     arch = build_arch(cfg)
     n_s2 = len(arch.stages)
     n_s1 = sum(len(b) - 1 for b in arch.stages)
+    # 4 frames are fewer than the stem's 5 temporal taps, so its backward
+    # keeps K4 (K8 = 0); K7 runs the stage entries' convs a and c, the
+    # projections and conv_5, forward and dx
     assert launches == {"K1": 1 + n_s2, "K2": n_s1, "K3": n_s1,
                         "K4 dx": 1 + n_s2, "K4 dk": 1 + n_s2, "K5": n_s1,
-                        "K6": n_s1}
+                        "K6": n_s1, "K7": 2 * (3 * n_s2 + 1), "K8": 0}
     assert set(p_launches.values()) == {0}
     assert abs(loss - p_loss) <= 1e-5 * abs(p_loss)
     for n, g in p_grads.items():

@@ -24,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 SOURCES = ("depthwise.cu", "dw_fused.cu", "depthwise_bwd.cu", "dw_fused_bwd.cu",
-           "pw_stats.cu")
+           "pw_stats.cu", "pointwise.cu", "depthwise_pbwd.cu", "fma_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,8 +23,8 @@
 // convs are bound by operations.  The design:
 //   * a block computes a 64 x 64 tile of y (256 threads, 4 x 4 outputs each)
 //     from 64 x 16 and 16 x 64 tiles of x and W staged in shared memory as
-//     f32; K6 applies its affine and swish while it stages x, so u never
-//     goes to device memory;
+//     f32 (the body in pw_gemm.cuh, shared with K7); K6 applies its affine
+//     and swish while it stages x, so u never goes to device memory;
 //   * row tiles never straddle two samples (each sample's S rows are tiled
 //     on their own, the last tile masked), so a block's column sums belong
 //     to one (n, b) and the per-sample coefficients are one column;
@@ -34,14 +34,11 @@
 // Not yet done (later work): mma.sync / wgmma on the tensor cores, TMA
 // staging, wider loads.
 
-#include "common.cuh"
+#include "pw_gemm.cuh"
 
 namespace {
 
 using namespace x3d;
-
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kGemmThreads = 256;  // 16 x 16, each 4 rows x 4 columns
 
 struct PwGeom {
   int B, S, K, N;
@@ -58,8 +55,7 @@ __global__ void __launch_bounds__(kGemmThreads)
                     const float* __restrict__ b_cb, const T* __restrict__ w,
                     T* __restrict__ y, float* __restrict__ part_p,
                     float* __restrict__ part_s2, PwGeom q) {
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Bs[kBK][kBN + 4];
+  __shared__ GemmSmem sm;
   __shared__ float red_p[16][kBN], red_s2[16][kBN];
 
   const int n0 = blockIdx.y * kBN;
@@ -70,40 +66,21 @@ __global__ void __launch_bounds__(kGemmThreads)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < q.K; k0 += kBK) {
-    for (int e = threadIdx.x; e < kBM * kBK; e += kGemmThreads) {
-      const int r = e / kBK, kk = e % kBK;
-      const int row = r0 + r, k = k0 + kk;
-      float v = 0.f;
-      if (row < q.S && k < q.K) {
-        v = to_f32(x[(row_base + row) * q.K + k]);
+  // the tile's product, with the K6 affine and swish applied while x is
+  // staged (the shared body: pw_gemm.cuh)
+  gemm_tile<T>(
+      w, n0, q.K, q.N,
+      [&](int pass, int k) -> float {
+        const int row = r0 + threadIdx.x / kBK + kRowsPerPass * pass;
+        if (row >= q.S) return 0.f;
+        float v = to_f32(x[(row_base + row) * q.K + k]);
         if (kAct) {
           const size_t kb = (size_t)k * q.B + b;
           v = round_to<T>(swish(__fadd_rn(__fmul_rn(v, a_cb[kb]), b_cb[kb])));
         }
-      }
-      As[kk][r] = v;
-    }
-    for (int e = threadIdx.x; e < kBN * kBK; e += kGemmThreads) {
-      const int nn = e / kBK, kk = e % kBK;
-      const int n = n0 + nn, k = k0 + kk;
-      Bs[kk][nn] = (n < q.N && k < q.K) ? to_f32(w[(size_t)n * q.K + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+        return v;
+      },
+      sm, acc);
 
 #pragma unroll
   for (int j = 0; j < 4; ++j) {

@@ -12,8 +12,14 @@ conv, and the stride-2 stage-entry convs.
   backward, which replaces the TPU kernels ``dw_batchminor._dk_kernel`` and
   ``pallas_dw._dk_kernel`` (and their dx, which reran the forward); each has
   its plain version beside it.
-* :func:`depthwise` is the differentiable op the model calls: K1 forward,
-  K4 backward (or the plain versions, see ``ops.plain_versions``).
+* :func:`depthwise_conv3d_pbwd` is the wrapper of kernel K8
+  (``kernels/csrc/depthwise_pbwd.cu``), the one-pass backward of a stride-1
+  SAME odd-tap conv (both gradients from one stream over the input and the
+  cotangent), which replaces the TPU kernel ``dw_fused._pbwd_kernel``;
+  :func:`depthwise_conv3d_pbwd_reference` is its plain version.
+* :func:`depthwise` is the differentiable op the model calls: K1 forward;
+  backward K8 where :func:`pbwd_eligible` holds and both gradients are
+  wanted, else K4 (or the plain versions, see ``ops.plain_versions``).
 
 Taps keep the Flax layout ``(k_t, k_h, k_w, 1, C)``.  Padding follows
 TF/XLA "SAME", which puts the odd pad element on the high side
@@ -43,6 +49,11 @@ _BWD_SIGNATURES = {
     "x3d_dw_conv3d_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
     + [ctypes.c_void_p],
     "x3d_dw_conv3d_dk": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
+    + [ctypes.c_void_p],
+}
+_PBWD_SIGNATURES = {
+    "x3d_dw_conv3d_pbwd_tiles": [ctypes.c_int] * 2,
+    "x3d_dw_conv3d_pbwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
 }
 
@@ -235,9 +246,96 @@ depthwise_conv3d_dx.launches = 0
 depthwise_conv3d_dk.launches = 0
 
 
+# ------------------------------------------------ K8: one-pass backward
+
+
+def pbwd_eligible(x_shape, kdims, strides, pads) -> bool:
+    """Whether a conv's backward can run as K8: stride (1, 1, 1), SAME pads,
+    odd taps, and at least as many frames as temporal taps (the conditions
+    of the JAX package's ``impl="pbwd"``, without its lane clause)."""
+    same = tuple(same_pads(x_shape[1 + i], kdims[i], 1) for i in range(3))
+    return (tuple(strides) == (1, 1, 1)
+            and tuple(tuple(p) for p in pads) == same
+            and all(k % 2 == 1 for k in kdims)
+            and x_shape[1] >= kdims[0])
+
+
+def _pbwd_check(u, gy, kernel):
+    if u.dim() != 5 or kernel.dim() != 5 or kernel.shape[3] != 1 \
+            or kernel.shape[4] != u.shape[4]:
+        raise ValueError(
+            f"expected u (B,T,H,W,C) and taps (kt,kh,kw,1,C), got "
+            f"{tuple(u.shape)} and {tuple(kernel.shape)}")
+    if tuple(gy.shape) != tuple(u.shape):
+        raise ValueError(f"the cotangent {tuple(gy.shape)} must have u's "
+                         f"shape {tuple(u.shape)}")
+    if gy.dtype != u.dtype:
+        raise TypeError(f"u is {u.dtype} but its cotangent {gy.dtype}")
+    kdims = tuple(int(k) for k in kernel.shape[:3])
+    pads = tuple(same_pads(u.shape[1 + i], kdims[i], 1) for i in range(3))
+    if not pbwd_eligible(u.shape, kdims, (1, 1, 1), pads):
+        raise ValueError(f"the one-pass backward takes odd taps and at "
+                         f"least kt frames, got taps {kdims} on "
+                         f"{tuple(u.shape)}")
+    return kdims, pads
+
+
+def depthwise_conv3d_pbwd_reference(u: torch.Tensor, gy: torch.Tensor,
+                                    kernel: torch.Tensor):
+    """Plain version of K8: K4's two plain versions, one after the other."""
+    kdims, pads = _pbwd_check(u, gy, kernel)
+    k = kernel.to(u.dtype)
+    return (depthwise_conv3d_dx_reference(gy, k, u.shape, (1, 1, 1), pads),
+            depthwise_conv3d_dk_reference(u, gy, kdims, (1, 1, 1), pads))
+
+
+def depthwise_conv3d_pbwd(u: torch.Tensor, gy: torch.Tensor,
+                          kernel: torch.Tensor):
+    """Both gradients of a stride-1 SAME odd-tap depthwise conv in one pass
+    over (u, gy) (kernel K8).
+
+    Args:
+      u: (B, T, H, W, C) the conv's input, float32 or bfloat16.
+      gy: the cotangent of its output, u's shape and dtype.
+      kernel: (kt, kh, kw, 1, C) taps, rounded to u's dtype.
+
+    Returns:
+      du (B, T, H, W, C) in u's dtype, taps summed in float32; dk (kt, kh,
+      kw, 1, C) float32, from per-block partials summed in a fixed order.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K8 or
+    raises.
+    """
+    kdims, _ = _pbwd_check(u, gy, kernel)
+    if u.device.type == "cpu":
+        return depthwise_conv3d_pbwd_reference(u, gy, kernel)
+    kernels.check_cuda(u, gy)
+    B, T, H, W, C = u.shape
+    ntaps = kdims[0] * kdims[1] * kdims[2]
+    taps = kernel.to(u.dtype).to(torch.float32).reshape(ntaps, C).contiguous()
+    lib = _build.load("depthwise_pbwd.cu", _PBWD_SIGNATURES)
+    tiles = lib.x3d_dw_conv3d_pbwd_tiles(H, W)
+    du = torch.empty_like(u)
+    part = torch.empty((B, tiles, ntaps, C), dtype=torch.float32,
+                       device=u.device)
+    dk = torch.empty((ntaps, C), dtype=torch.float32, device=u.device)
+    kernels.check_cuda(u, gy, taps, du, part, dk)
+    rc = lib.x3d_dw_conv3d_pbwd(
+        u.data_ptr(), gy.data_ptr(), taps.data_ptr(), du.data_ptr(),
+        part.data_ptr(), dk.data_ptr(), kernels.dtype_code(u), B, T, H, W, C,
+        *kdims, kernels.stream_handle(u))
+    kernels.raise_on_error(rc, "depthwise_conv3d_pbwd kernel launch")
+    depthwise_conv3d_pbwd.launches += 1
+    return du, dk.reshape(*kdims, 1, C)
+
+
+depthwise_conv3d_pbwd.launches = 0
+
+
 class _Depthwise(torch.autograd.Function):
-    """K1 forward, K4 backward; within ``ops.plain_versions()`` both run
-    their plain versions."""
+    """K1 forward; backward K8 (both gradients wanted, stride 1, SAME, odd
+    taps) or K4; within ``ops.plain_versions()`` all run their plain
+    versions."""
 
     @staticmethod
     def forward(ctx, x, kernel, strides, pads):
@@ -254,6 +352,11 @@ class _Depthwise(torch.autograd.Function):
         strides, pads, kernel_dtype = ctx.conf
         g = g.contiguous()
         plain = ops.plain_versions_enabled()
+        if all(ctx.needs_input_grad[:2]) \
+                and pbwd_eligible(x.shape, k.shape[:3], strides, pads):
+            dx, dk = (depthwise_conv3d_pbwd_reference if plain
+                      else depthwise_conv3d_pbwd)(x, g, k)
+            return dx, dk.to(kernel_dtype), None, None
         dx = dk = None
         if ctx.needs_input_grad[0]:
             dx = (depthwise_conv3d_dx_reference if plain

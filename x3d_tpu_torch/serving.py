@@ -9,12 +9,14 @@ and returns per-video class probabilities averaged over views, or top-k.
 Typical use::
 
     engine = InferenceEngine.random_init(cfg, max_videos=8)   # on CUDA
+    engine = InferenceEngine.from_checkpoint(cfg, model_dir)  # trained
     probs = engine.predict(clips_uint8)          # (videos*views, T, S, S, 3)
     idx, p = engine.top_k(clips_uint8, k=5)
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -80,6 +82,29 @@ class InferenceEngine:
         return cls(cfg, model, max_videos=max_videos, dtype=dtype,
                    device=device)
 
+    @classmethod
+    def from_checkpoint(cls, cfg, model_dir: str, max_videos: int = 8,
+                        dtype: Optional[torch.dtype] = None, device=None
+                        ) -> "InferenceEngine":
+        """Engine on the latest checkpoint written by the train CLI under
+        ``model_dir/checkpoints`` (weights only; optimizer slots ignored).
+        Raises ``FileNotFoundError`` when there is none."""
+        import os
+
+        from x3d_tpu_torch.train import create_train_state
+        from x3d_tpu_torch.train.checkpoint import CheckpointManager
+
+        device = resolve_device(device)
+        dtype = dtype or _default_dtype(device)
+        model = create_model(cfg, dtype=dtype, device=device, init=False)
+        state = create_train_state(cfg, model, steps_per_epoch=1)
+        mgr = CheckpointManager(os.path.join(model_dir, "checkpoints"),
+                                max_to_keep=0)
+        mgr.restore_weights_only(state)
+        mgr.close()
+        return cls(cfg, model, max_videos=max_videos, dtype=dtype,
+                   device=device)
+
     @property
     def views(self) -> int:
         return self._views
@@ -127,13 +152,19 @@ class InferenceEngine:
         if self.device.type != "cuda":
             raise RuntimeError("device_latency_s times the card with CUDA "
                                "events; this engine runs on the CPU")
-        for _ in range(warmup):
-            self._forward(self._clips)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            self._forward(self._clips)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / iters
+        from x3d_tpu_torch.ops.timing import time_fn
+
+        return time_fn(self._forward, self._clips, iters=iters,
+                       warmup=warmup)
+
+    def wall_latency_s(self, samples: int = 20) -> float:
+        """Median host wall-clock seconds per request at full capacity,
+        upload, forward and result fetch included."""
+        clips = np.zeros(self.clip_shape, np.uint8)
+        self.predict(clips)                                  # warm path
+        times = []
+        for _ in range(samples):
+            t0 = time.perf_counter()
+            self.predict(clips)
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))

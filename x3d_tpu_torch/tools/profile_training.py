@@ -4,7 +4,7 @@ Builds the model (random weights from a seed), its SGD-Nesterov state and
 a synthetic batch, runs two warm-up steps, then traces a few steps with
 ``torch.profiler`` (device activity only) and prints one JSON line: the
 step's device busy time, the device's idle share between the first and
-last kernel, device time per step for each of the port's kernels (K1-K6,
+last kernel, device time per step for each of the port's kernels (K1-K8,
 with their second passes) and for the library's kernel families (GEMMs,
 cuDNN convs, elementwise, reductions, copies), and the top kernels by
 name.  Needs a CUDA card::
@@ -36,6 +36,9 @@ _PORT = (
     ("K4 depthwise_conv3d_dk", ("dw_conv3d_dk_kernel",
                                 "sum_dk_partials_kernel")),
     ("K5/K6 pw_stats", ("pw_stats_kernel",)),
+    ("K7 pw_conv", ("pw_conv_kernel", "pw_conv_mma_kernel")),
+    ("K8 depthwise_conv3d_pbwd", ("dw_conv3d_pbwd_kernel",
+                                  "sum_pbwd_partials_kernel")),
     ("K2/K3/K5/K6 second passes", ("sum_partials_kernel",)),
 )
 

@@ -16,7 +16,9 @@ import torch
 from torch.autograd import DeviceType
 
 _FAMILIES = (
-    ("port kernels", ("dw_conv3d_fwd", "dw_bn_act_conv_fwd", "sum_partials")),
+    ("port kernels", ("dw_conv3d", "dw_bn_act_conv", "sum_partials",
+                      "sum_dk_partials", "sum_pbwd_partials",
+                      "pw_stats_kernel", "pw_conv_", "fma_chain")),
     ("cudnn conv", ("convolve", "cudnn")),
     ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
     ("reduction", ("reduce", "Reduce")),
@@ -42,27 +44,20 @@ def card() -> str:
         else torch.cuda.get_device_name(0)
 
 
-def trace(run: Callable[[], object], n: int, unit: str,
-          group: Callable[[str], str] = family,
-          trace_path: str | None = None, warmup: int = 2) -> dict:
-    """Call ``run`` ``warmup`` times, then trace ``n`` calls.
+def device_profiler() -> torch.profiler.profile:
+    """A profiler that records device activity only (which keeps its own
+    host cost small); use as a context manager or start()/stop()."""
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA], acc_events=True)
 
-    Returns the device busy time, the traced window and the number of
-    kernels per call (keys ending in ``_per_<unit>``), the device's idle
-    share between the first and the last kernel, device time per call by
-    ``group(kernel name)``, and the top 15 kernels by name.  ``trace_path``
-    also writes a Chrome trace.
-    """
-    for _ in range(warmup):
-        run()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(n):
-            run()
-        torch.cuda.synchronize()
-    if trace_path:
-        prof.export_chrome_trace(trace_path)
+
+def summarize(prof: torch.profiler.profile, n: int, unit: str,
+              group: Callable[[str], str] = family) -> dict:
+    """Aggregate a finished device trace of ``n`` calls: the device busy
+    time, the traced window and the number of kernels per call (keys ending
+    in ``_per_<unit>``), the device's idle share between the first and the
+    last kernel, device time per call by ``group(kernel name)``, and the
+    top 15 kernels by name."""
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
@@ -84,3 +79,20 @@ def trace(run: Callable[[], object], n: int, unit: str,
         "top_kernels_ms" + per: [[name[:90], v / n / 1e3]
                                  for name, v in by_name.most_common(15)],
     }
+
+
+def trace(run: Callable[[], object], n: int, unit: str,
+          group: Callable[[str], str] = family,
+          trace_path: str | None = None, warmup: int = 2) -> dict:
+    """Call ``run`` ``warmup`` times, then trace ``n`` calls and return
+    their :func:`summarize`.  ``trace_path`` also writes a Chrome trace."""
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    with device_profiler() as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    return summarize(prof, n, unit, group)

@@ -1,0 +1,200 @@
+"""Training CLI, flag-compatible with the JAX package's ``tools/train.py``.
+
+    python -m x3d_tpu_torch.tools.train \
+        --config=x3d_tpu_torch/configs/kinetics/X3D_S.yaml \
+        --synthetic --model_dir=/tmp/x3d_s
+
+Flags kept verbatim: config, train_file_pattern, val_file_pattern,
+model_dir, pretrained_ckpt, num_gpus, save_checkpoints_step,
+mixed_precision (bfloat16 compute; no loss scaling needed), use_tfrecord,
+debug, multihost, synthetic, native_loader, multigrid, steps_per_epoch,
+epochs, profile_batch, opts.  Added: ``--device`` (cuda by default; the run
+raises when there is no card unless ``--device cpu`` is passed).
+
+Checkpoints go to ``<model_dir>/checkpoints``, keyed by the global step; a
+second run with the same ``--model_dir`` resumes from the latest one, in
+the middle of an epoch where the last save was there.
+
+Not ported yet, accepted and refused with the ROADMAP item that will bring
+them: ``--multigrid`` (A9), ``--native_loader`` and real input files (A8),
+``--multihost`` and ``--num_gpus`` above 1 (A10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+log = logging.getLogger(__name__)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from x3d_tpu_torch.tools.common import add_bool_flag, add_common_flags
+
+    p = argparse.ArgumentParser(
+        prog="x3d_tpu_torch.tools.train",
+        description="Train X3D on one CUDA card.")
+    p.add_argument("--config", required=True,
+                   help="(Relative) path to config (.yaml) file.")
+    p.add_argument("--train_file_pattern", default=None,
+                   help="TFRecord pattern or label-file path for training "
+                        "data.")
+    p.add_argument("--val_file_pattern", default=None,
+                   help="TFRecord pattern or label-file path for validation "
+                        "data.")
+    p.add_argument("--model_dir", required=True,
+                   help="Directory for checkpoints and TensorBoard events.")
+    p.add_argument("--pretrained_ckpt", default=None,
+                   help="Checkpoint directory for warm-starting weights.")
+    p.add_argument("--num_gpus", type=int, default=0,
+                   help="Number of GPUs to use (0 or 1: one card).")
+    p.add_argument("--save_checkpoints_step", type=int, default=None,
+                   help="Checkpoint, logging and TensorBoard cadence in "
+                        "steps.")
+    add_bool_flag(p, "mixed_precision", True, "bfloat16 compute.")
+    add_bool_flag(p, "use_tfrecord", False,
+                  "Data is TFRecord shards (vs a label text file).")
+    add_bool_flag(p, "debug", False,
+                  "Anomaly checks, fixed seed, tensor health dump, debug "
+                  "logging.")
+    add_bool_flag(p, "multihost", False, "Multi-host training.")
+    add_bool_flag(p, "synthetic", False,
+                  "Train on synthetic data (no dataset needed).")
+    add_bool_flag(p, "native_loader", False, "Use the C++ clip loader.")
+    add_bool_flag(p, "multigrid", False, "Long-cycle multigrid training.")
+    p.add_argument("--steps_per_epoch", type=int, default=None,
+                   help="Override DATASET_SIZE // BATCH_SIZE.")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="Override TRAIN.EPOCHS.")
+    p.add_argument("--profile_batch", type=int, default=0,
+                   help="Capture a device trace around this global step.")
+    add_common_flags(p)
+    return p
+
+
+def refuse_unported(args, cfg) -> None:
+    """Raise for every flag whose module the port does not have yet."""
+    if args.multigrid or cfg.MULTIGRID.ENABLE:
+        raise NotImplementedError(
+            "--multigrid / MULTIGRID.ENABLE: multigrid training is not "
+            "ported yet (ROADMAP A9)")
+    if args.native_loader:
+        raise NotImplementedError(
+            "--native_loader: the C++ clip loader is not ported yet "
+            "(ROADMAP A8)")
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost: multi-host training is not ported yet "
+            "(ROADMAP A10)")
+    if args.num_gpus > 1:
+        raise NotImplementedError(
+            f"--num_gpus={args.num_gpus}: multi-GPU training is not ported "
+            "yet (ROADMAP A10)")
+    if not args.synthetic:
+        raise NotImplementedError(
+            "--train_file_pattern: real input data is not ported yet "
+            "(ROADMAP A8); pass --synthetic")
+    if args.val_file_pattern:
+        raise NotImplementedError(
+            "--val_file_pattern: real input data is not ported yet "
+            "(ROADMAP A8)")
+
+
+def main(argv=None, extra_hooks=()) -> int:
+    """Run the CLI; ``extra_hooks`` (for callers in the same process) are
+    appended to the loop's hooks."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.tools.common import (flat_opts, load_config,
+                                            setup_runtime)
+    from x3d_tpu_torch.train import create_train_state, make_train_step
+    from x3d_tpu_torch.train.checkpoint import CheckpointManager
+    from x3d_tpu_torch.train.hooks import (
+        CheckpointHook, LoggingHook, ProfileHook, TensorBoardHook, WandbHook)
+    from x3d_tpu_torch.train.loop import fit
+
+    if not args.synthetic and not args.train_file_pattern:
+        parser.error(
+            "--train_file_pattern is required unless --synthetic is set")
+    cfg = load_config(args.config, flat_opts(args.opts))
+    refuse_unported(args, cfg)
+
+    os.makedirs(args.model_dir, exist_ok=True)
+    seed = 1111 if args.debug else 0       # the reference's debug seed
+    device, model, dtype = setup_runtime(
+        cfg, args.num_gpus, args.mixed_precision, args.debug,
+        device=args.device, seed=seed)
+
+    batch = cfg.TRAIN.BATCH_SIZE
+    steps_per_epoch = args.steps_per_epoch or max(
+        1, cfg.TRAIN.DATASET_SIZE // batch)
+    epochs = args.epochs or cfg.TRAIN.EPOCHS
+
+    train_iter = synthetic_batches(cfg, batch, is_training=True, dtype=dtype,
+                                   seed=seed, device=device)
+
+    # model state (+ resume / warm start)
+    state = create_train_state(cfg, model, steps_per_epoch=steps_per_epoch)
+    ckpt_dir = os.path.join(args.model_dir, "checkpoints")
+    ckpt = CheckpointManager(ckpt_dir)
+    state, restored_key = ckpt.restore(state)
+    initial_epoch = initial_step_in_epoch = 0
+    if restored_key:
+        # the restored optimizer step is authoritative; the LR schedule
+        # resumes with it because it is a function of the step
+        resume_step = int(state.step)
+        initial_epoch = resume_step // steps_per_epoch
+        initial_step_in_epoch = resume_step % steps_per_epoch
+        log.info("resumed at global step %d (epoch %d, step-in-epoch %d)",
+                 resume_step, initial_epoch, initial_step_in_epoch)
+    elif args.pretrained_ckpt:
+        state = ckpt.restore_weights_only(state, args.pretrained_ckpt)
+        log.info("warm-started from %s", args.pretrained_ckpt)
+
+    if args.debug:
+        # per-module output health of the first batch, next to the
+        # checkpoints
+        from x3d_tpu_torch.train.debug import dump_tensor_health
+
+        sample = next(synthetic_batches(cfg, batch, is_training=True,
+                                        dtype=dtype, seed=seed, device=device))
+        dump_tensor_health(model, state, sample["video"],
+                           os.path.join(args.model_dir, "debug_health.json"))
+
+    train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
+    cadence = args.save_checkpoints_step or 50
+    # WandbHook first: WANDB.TENSORBOARD patches the TensorBoard sync before
+    # the TensorBoardHook creates its writer
+    hooks = [
+        WandbHook(cfg, job_type="train", log_dir=args.model_dir,
+                  checkpoint_dir=ckpt_dir),
+        LoggingHook(log_every=cadence),
+        TensorBoardHook(args.model_dir, update_freq=cadence),
+        CheckpointHook(ckpt, every_n_steps=args.save_checkpoints_step),
+    ]
+    if args.profile_batch:
+        hooks.append(ProfileHook(args.model_dir, args.profile_batch))
+    hooks.extend(extra_hooks)
+
+    fit(
+        cfg,
+        state,
+        train_step,
+        train_iter,
+        steps_per_epoch=steps_per_epoch,
+        epochs=epochs,
+        seed=seed,
+        initial_epoch=initial_epoch,
+        hooks=hooks,
+        metrics_every=cadence,
+        initial_step_in_epoch=initial_step_in_epoch,
+    )
+    ckpt.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,137 @@
+"""The training / evaluation loops.
+
+The counterpart of the JAX package's ``x3d_tpu/train/loop.py``: epochs of
+``steps_per_epoch`` steps, per-epoch validation, hook dispatch, and honest
+metric aggregation (exact sums, not batch-mean-of-means).  Metrics stay on
+the device: ``evaluate`` adds the per-batch sums there and fetches once,
+``fit`` fetches the train metrics only at ``metrics_every`` (a fetch
+synchronises the host with the card).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
+
+import torch
+
+from x3d_tpu_torch.train.hooks import Hook
+from x3d_tpu_torch.train.schedule import lr_for_epoch
+
+log = logging.getLogger(__name__)
+
+
+def _to_host(metrics) -> Dict[str, float]:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def evaluate(eval_step: Callable, state, batches: Iterable[dict],
+             profile_batch: int = 0,
+             profile_dir: Optional[str] = None) -> Dict[str, float]:
+    """Aggregate eval sums over a dataset -> {'loss','acc','top_5_acc',
+    'count'}.
+
+    The per-batch metric sums stay on the device and are added there; the
+    host fetches exactly once, after the last batch.
+
+    ``profile_batch``/``profile_dir``: capture a ``torch.profiler`` device
+    trace around batch N (1-based) into ``profile_dir``; the profiled batch
+    is synchronised so its device work lands inside the trace.
+    """
+    totals = None
+    for i, batch in enumerate(batches, start=1):
+        profiling = bool(profile_dir and profile_batch and i == profile_batch)
+        if profiling:
+            import os
+
+            from x3d_tpu_torch.tools.trace import device_profiler
+
+            prof = device_profiler()
+            prof.start()
+        out = eval_step(state, batch)
+        if profiling:
+            torch.cuda.synchronize()
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(profile_dir, f"eval_batch{i}.json"))
+            log.info("eval profile trace of batch %d written to %s",
+                     i, profile_dir)
+        totals = out if totals is None else {
+            k: totals[k] + v for k, v in out.items()}
+    host = _to_host(totals) if totals is not None else {}
+    n = max(host.get("count", 0.0), 1.0)
+    return {
+        "loss": host.get("loss_sum", 0.0) / n,
+        "acc": host.get("acc_sum", 0.0) / n,
+        "top_5_acc": host.get("top_5_sum", 0.0) / n,
+        "count": n,
+    }
+
+
+def fit(
+    cfg,
+    state,
+    train_step: Callable,
+    train_batches: Iterator[dict],
+    steps_per_epoch: int,
+    epochs: int,
+    seed: int,
+    initial_epoch: int = 0,
+    eval_step: Optional[Callable] = None,
+    val_batches_fn: Optional[Callable[[], Iterable[dict]]] = None,
+    hooks: Sequence[Hook] = (),
+    metrics_every: int = 1,
+    initial_step_in_epoch: int = 0,
+):
+    """Run the training loop; returns the final state.
+
+    ``seed`` seeds the dropout masks: step n draws from a generator seeded
+    from (seed, n), so a resumed run continues the uninterrupted one's
+    masks.
+
+    ``val_batches_fn`` is called at each epoch end to produce a fresh
+    validation iterator.
+
+    ``initial_step_in_epoch``: resume offset within ``initial_epoch`` (used
+    by step-cadence checkpoint resume; the remaining epochs start at 0).
+
+    ``metrics_every``: device->host metric fetch cadence.  A fetch
+    synchronises the host with the card, so production runs fetch only at
+    the logging cadence; steps in between leave their metrics on the
+    device.
+    """
+    device = next(state.model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for epoch in range(initial_epoch, epochs):
+        lr = lr_for_epoch(cfg, epoch)
+        for h in hooks:
+            h.on_epoch_start(epoch, lr)
+
+        last_metrics: Dict[str, float] = {}
+        start_i = initial_step_in_epoch if epoch == initial_epoch else 0
+        for i in range(start_i, steps_per_epoch):
+            batch = next(train_batches)
+            state, metrics = train_step(state, batch, generator)
+            step = epoch * steps_per_epoch + i + 1
+            if step % metrics_every == 0 or i == steps_per_epoch - 1:
+                host_metrics = _to_host(metrics)
+                last_metrics = host_metrics
+                for h in hooks:
+                    h.on_step(step, host_metrics)
+            for h in hooks:
+                # every step, with the live state (checkpoint cadence is
+                # independent of the metric-fetch cadence)
+                h.on_step_end(step, state)
+
+        val_metrics = None
+        if eval_step is not None and val_batches_fn is not None:
+            val_metrics = evaluate(eval_step, state, val_batches_fn())
+
+        for h in hooks:
+            # epochs are reported 1-based, matching the reference's ckpt-N
+            h.on_epoch_end(epoch + 1, state, last_metrics, val_metrics)
+
+    for h in hooks:
+        h.on_train_end()
+    return state

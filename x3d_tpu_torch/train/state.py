@@ -13,7 +13,7 @@ Weight decay is not the optimizer's: it enters the loss as an L2 penalty
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -44,11 +44,15 @@ def make_optimizer(cfg, params: Iterable[torch.Tensor]
         f"optimizer {cfg.TRAIN.OPTIMIZER!r} not supported")
 
 
-def create_train_state(cfg, model: nn.Module) -> TrainState:
+def create_train_state(cfg, model: nn.Module,
+                       steps_per_epoch: Optional[int] = None) -> TrainState:
     """Wrap an initialised model (``models.create_model``) in a TrainState
-    at step 0, with the config's optimizer and LR schedule (an epoch being
-    TRAIN.DATASET_SIZE // TRAIN.BATCH_SIZE steps)."""
-    steps_per_epoch = max(1, cfg.TRAIN.DATASET_SIZE // cfg.TRAIN.BATCH_SIZE)
+    at step 0, with the config's optimizer and LR schedule.  An epoch of the
+    schedule is ``steps_per_epoch`` steps, by default TRAIN.DATASET_SIZE //
+    TRAIN.BATCH_SIZE."""
+    if steps_per_epoch is None:
+        steps_per_epoch = max(
+            1, cfg.TRAIN.DATASET_SIZE // cfg.TRAIN.BATCH_SIZE)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(cfg, model.parameters()),
                       schedule=make_lr_schedule(cfg, steps_per_epoch))
