@@ -8,7 +8,9 @@ CUDA toolkit::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
-nvcc per source, in parallel) and then:
+nvcc per source, in parallel; ptxas's registers, spills and static shared
+memory of each instantiation of K5-K7's tensor-core body on a line of its
+own, which fails on a spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
@@ -26,6 +28,10 @@ nvcc per source, in parallel) and then:
   coefficient columns) in float32 and bfloat16, and times K3-K6 there
   beside their plain versions and library calls; then the same at X3D-S's
   training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes);
+  K5-K7's rows carry how the call runs (copy granule, block columns, ring
+  stages, shared memory, blocks per SM), ``bound_share`` (bound / time)
+  and ``vs_library`` (time / library time), and K5 and K6 are summed over
+  each variant's training step;
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
   step, checks that two runs of one step from one state are bit-identical,
@@ -33,7 +39,8 @@ nvcc per source, in parallel) and then:
   through the plain versions (loss, every gradient, the updated parameters
   and the BN running statistics);
 * holds K7 (the plain 1x1x1 conv as a GEMM: float32 on the CUDA cores,
-  bfloat16 on the tensor cores) against its plain version and times it
+  bfloat16 on the pipelined tensor-core body it shares with K5 and K6)
+  against its plain version and times it
   beside ``F.linear`` at every bulk 1x1x1 conv of X3D-M and X3D-S
   (serving requests of 10 and 80 clips, training at 32 and 64 clips),
   forward and dx;
@@ -64,6 +71,7 @@ import io
 import json
 import logging
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -193,6 +201,32 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=build_s, sources=list(_build.SOURCES),
          ptxas=ptxas)
+    # the tensor-core kernels of K5-K7, one row per instantiation <copy
+    # granule, mma column tiles a warp>: registers, spills, static shared
+    # memory (their ring and W slice are dynamic: the rows' "plan")
+    entries, name = [], None
+    for log in (_build.build_logs.get("pw_stats.cu", ""),
+                _build.build_logs.get("pointwise.cu", "")):
+        for ln in log.splitlines():
+            m = re.search(r"entry function '.*?(pw_\w+_mma_kernel)"
+                          r"ILi(\d+)ELi(\d+)E", ln)
+            if m:
+                name = f"{m[1]}<{m[2]}, {m[3]}>"
+            elif name and "spill" in ln:
+                entries.append({"kernel": name, "spill_bytes": sum(
+                    int(v) for v in re.findall(r"(\d+) bytes spill", ln))})
+            elif name and "Used" in ln:
+                regs = re.search(r"Used (\d+) registers", ln)
+                smem = re.search(r"(\d+) bytes smem", ln)
+                entries[-1].update(registers=int(regs[1]),
+                                   static_smem_bytes=int(smem[1]) if smem
+                                   else 0)
+                name = None
+    emit(phase="build, tensor-core GEMM kernels", kernels=entries)
+    # 27 instantiations: K5 and K6 x 3 granules x 3 column widths, K7 x 9
+    check(len(entries) == 27 and all(
+        e["spill_bytes"] == 0 and "registers" in e for e in entries),
+        f"K5-K7 tensor-core kernels' ptxas report: {entries}")
 
     # X3D-M's depthwise shapes at one video, from its architecture plan
     cfg = variant_config("M")
@@ -214,6 +248,12 @@ def main() -> int:
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
+
+    def shares(row):
+        """bound_share: the bound over the kernel's time; vs_library: the
+        kernel's time over the library call's."""
+        return {"bound_share": row["bound_ms"] / row["ms"],
+                "vs_library": row["ms"] / row["library_ms"]}
 
     def summary(name, route, source, replaces, rows, err=0.0):
         return {"name": name, "route": route, "source": source,
@@ -655,7 +695,10 @@ def main() -> int:
                            ms=time_ms(lambda: fn(*args)),
                            plain_ms=time_ms(lambda: ref(*args)),
                            library_ms=time_ms(library), bound_ms=bms,
-                           bound_by=by)
+                           bound_by=by,
+                           plan=pw_stats.plan(K, N, fn is
+                                              pw_stats.pw_act_conv_stats))
+                row.update(shares(row))
                 emit(phase=kname, variant=variant, **row)
                 rows.append(row)
             del x, y, xa
@@ -907,7 +950,11 @@ def main() -> int:
                        ms=fwd + bwd if train else fwd,
                        plain_ms=plain + lib_bwd if train else plain,
                        library_ms=lib_fwd + lib_bwd if train else lib_fwd,
-                       bound_ms=both * bms, bound_by=by)
+                       bound_ms=both * bms, bound_by=by,
+                       plan=pointwise.plan(K, N))
+            if train:
+                row["plan_dx"] = pointwise.plan(N, K)
+            row.update(shares(row))
             emit(phase="K7 pw_conv", variant=variant, path=path, **row)
             rows.append(row)
             del x, w, y, g, dx, xs
@@ -925,12 +972,22 @@ def main() -> int:
             variant, "training", vcfg, varch, train_clips,
             vcfg.DATA.TRAIN_CROP_SIZE, True)
     for (variant, path), rows in k7.items():
-        total = lambda key: sum(r["n"] * r[key] for r in rows)  # noqa: E731
+        total = {key: sum(r["n"] * r[key] for r in rows)
+                 for key in ("ms", "library_ms", "bound_ms")}
         emit(phase="K7 pw_conv, whole path", variant=variant, path=path,
              launches=sum(r["n"] for r in rows) * (2 if path == "training"
                                                    else 1),
-             ms=total("ms"), library_ms=total("library_ms"),
-             bound_ms=total("bound_ms"))
+             **total, **shares(total))
+    # K5 and K6 over one training step of each variant, against the
+    # library's matmul + sums
+    for variant, rows5, rows6 in (("M", k5_rows, k6_rows),
+                                  ("S", k5_rows_s, k6_rows_s)):
+        for kname, rows in (("K5", rows5), ("K6", rows6)):
+            total = {key: sum(r["n"] * r[key] for r in rows)
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            emit(phase=f"{kname}, whole training step", variant=variant,
+                 launches=sum(r["n"] for r in rows), **total,
+                 **shares(total))
 
     # ------------------------- 8. K8 vs its plain version and vs K4 dx + dk
     def k8_row(name, shape, kdims):

@@ -2,10 +2,15 @@
 ``chip_smoke.py`` imports jax, flax, orbax, absl or the JAX package, and the
 port imports, serves and trains a tiny model with those imports blocked;
 every module imports and the train / eval / predict tools run with
-tensorboard blocked as well (its hook then does nothing)."""
+tensorboard blocked as well (its hook then does nothing).  Every C function
+a wrapper binds with ``ctypes`` is defined ``extern "C"`` in the CUDA
+source it loads (a missing one shows only when the library loads on a
+card)."""
 
 import ast
+import importlib
 import os
+import re
 import subprocess
 import sys
 
@@ -200,3 +205,20 @@ def test_tools_run_with_optional_packages_blocked():
                           env=_env(), timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("module", [
+    "x3d_tpu_torch.ops.depthwise", "x3d_tpu_torch.ops.dw_fused",
+    "x3d_tpu_torch.ops.pointwise", "x3d_tpu_torch.ops.pw_stats",
+    "x3d_tpu_torch.tools.fma_probe"])
+def test_every_bound_c_function_is_defined(module):
+    mod = importlib.import_module(module)
+    with open(mod.__file__) as f:
+        loads = set(re.findall(r'_build\.load\(\s*"(\w+\.cu)",\s*(_\w+)\)',
+                               f.read()))
+    assert loads
+    for source, table in loads:
+        with open(os.path.join(PACKAGE, "kernels", "csrc", source)) as f:
+            defined = set(re.findall(r'extern "C" int (\w+)\(', f.read()))
+        missing = set(getattr(mod, table)) - defined
+        assert not missing, f"{source} does not define {sorted(missing)}"

@@ -205,7 +205,12 @@ def test_non_cpu_tensor_never_falls_back():
     ((2, 13, 5, 5, 432), 192, (1, 1, 1)), ((2, 13, 10, 10, 96), 216,
                                            (1, 1, 1)),
     ((2, 13, 21, 19, 24), 48, (1, 2, 2)), ((1, 1, 3, 1, 5), 70, (1, 1, 1)),
-    ((2, 3, 4, 5, 8), 15, (1, 1, 1)), ((3, 5, 9, 7, 54), 24, (1, 2, 2))])
+    ((2, 3, 4, 5, 8), 15, (1, 1, 1)), ((3, 5, 9, 7, 54), 24, (1, 2, 2)),
+    # K = 54 and 108: rows of 108 and 216 bytes (4- and 8-byte granules)
+    ((2, 4, 7, 7, 54), 24, (1, 1, 1)), ((2, 4, 7, 7, 54), 48, (1, 1, 1)),
+    ((2, 4, 7, 7, 108), 24, (1, 1, 1)), ((2, 4, 7, 7, 108), 48, (1, 1, 1)),
+    # a strided projection at K = 108
+    ((2, 13, 10, 10, 108), 216, (1, 2, 2))])
 def test_kernel_matches_plain_on_card(cuda, dtype, shape, cout, strides):
     """K7's forward, dx and dW against the plain version on the same
     inputs (float32 matmul, TF32 off): float32 within 1e-5 of the largest
@@ -231,3 +236,36 @@ def test_kernel_matches_plain_on_card(cuda, dtype, shape, cout, strides):
     for a, b in zip(got, want):
         scale = max(1.0, b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_unaligned_base_on_card(cuda, offset):
+    """x starting 2, 4, 8 or 16 bytes into an allocation: the copy granule
+    is picked from the base pointers at launch (an odd element offset
+    takes the CUDA-core route); y within one bfloat16 ulp of the largest
+    value of the plain version's."""
+    shape, cout = (2, 4, 7, 7, 432), 48
+    x, w, _ = (torch.from_numpy(v).to(cuda) for v in _inputs(9, shape, cout))
+    flat = torch.empty(x.numel() + offset, dtype=torch.bfloat16, device=cuda)
+    xs = flat[offset:].view(shape)
+    xs.copy_(x)
+    y = pointwise.pw_conv(xs, w)
+    torch.cuda.synchronize()
+    want = pointwise.pointwise_conv3d_reference(xs.float(), w.bfloat16()
+                                                .float())
+    scale = want.abs().max().item()
+    assert (y.float() - want).abs().max().item() <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,strides", [
+    ((3, 4, 7, 7, 24), 54, (1, 1, 1)), ((2, 13, 10, 10, 108), 216, (1, 2, 2))])
+def test_bf16_repeats_bit_for_bit_on_card(cuda, shape, cout, strides):
+    x, w, _ = (torch.from_numpy(v).to(cuda)
+               for v in _inputs(10, shape, cout, strides))
+    x = x.bfloat16()
+    first, second = pointwise.pw_conv(x, w, strides), \
+        pointwise.pw_conv(x, w, strides)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

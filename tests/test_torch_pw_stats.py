@@ -182,6 +182,25 @@ def test_shapes_are_checked():
                                    torch.from_numpy(b), torch.from_numpy(w))
 
 
+def test_read_plan_reports_by_key():
+    """The plan functions' int array comes back by key, and an error code
+    raises."""
+    import ctypes
+
+    from x3d_tpu_torch import kernels
+
+    def fake(K, N, act, out):
+        values = (ctypes.c_int * len(kernels.PLAN_KEYS)).from_address(out)
+        values[:] = [16, N, 1, 4096 + K, 2, 3 + act]
+        return 0
+
+    assert kernels.read_plan(fake, 24, 56, 1) == dict(
+        granule_bytes=16, block_columns=56, column_tiles=1, smem_bytes=4120,
+        blocks_per_sm=2, stages=4)
+    with pytest.raises(RuntimeError, match="plan"):
+        kernels.read_plan(lambda out: 1)
+
+
 def test_non_cpu_tensor_never_falls_back():
     x, w, a, b, _ = (v if isinstance(v, tuple) else
                      torch.from_numpy(v).to("meta")
@@ -197,7 +216,12 @@ def test_non_cpu_tensor_never_falls_back():
 @pytest.mark.parametrize("act", [False, True], ids=["K5", "K6"])
 @pytest.mark.parametrize("shape,cout", [
     ((2, 3, 4, 5, 8), 16), ((3, 4, 7, 7, 24), 54), ((2, 16, 7, 7, 432), 192),
-    ((2, 16, 14, 14, 96), 216), ((1, 1, 3, 1, 5), 70)])
+    ((2, 16, 14, 14, 96), 216), ((1, 1, 3, 1, 5), 70),
+    # K = 54 and 108: rows of 108 and 216 bytes (4- and 8-byte granules)
+    ((2, 4, 7, 7, 54), 24), ((2, 4, 7, 7, 54), 48), ((2, 4, 7, 7, 108), 24),
+    ((2, 4, 7, 7, 108), 48),
+    # X3D-S's stage 5: S = 325, odd and no multiple of a row tile
+    ((2, 13, 5, 5, 432), 192)])
 def test_kernel_matches_plain_on_card(cuda, dtype, act, shape, cout):
     """The plain version on the same inputs (float32 matmul, TF32 off)
     rounds u to x's dtype as the kernel does: y within 1e-5 (float32) or
@@ -226,3 +250,80 @@ def test_kernel_matches_plain_on_card(cuda, dtype, act, shape, cout):
     assert (y.float() - yr.float()).abs().max().item() <= tol_y
     assert ((p - pr).abs() <= 1e-4 * pa + 1e-5).all()
     assert ((s2 - s2r).abs() <= 1e-4 * s2a + 1e-5).all()
+
+
+def _check_against_plain(act, args, y, p, s2):
+    """y within one bfloat16 rounding (2e-2 of the largest |y|) of the plain
+    version's, p and s2 within 1e-4 of the sums over absolute values."""
+    ref = pw_stats.pw_act_conv_stats_reference if act \
+        else pw_stats.pw_conv_stats_reference
+    yr, pr, s2r = ref(*args)
+    x, w = args[0], args[-1]
+    absargs = (x.float().abs(), args[1].abs(), args[2].abs() + 1.0,
+               w.abs()) if act else (x.float().abs(), w.abs())
+    _, pa, s2a = ref(*absargs)
+    assert (y.float() - yr.float()).abs().max().item() \
+        <= 2e-2 * yr.float().abs().max().item()
+    assert ((p - pr).abs() <= 1e-4 * pa + 1e-5).all()
+    assert ((s2 - s2r).abs() <= 1e-4 * s2a + 1e-5).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 13, 5, 5, 54), 24), ((3, 4, 7, 7, 108), 48),
+    ((2, 13, 5, 5, 432), 192)])
+def test_act_masks_padding_on_card(cuda, shape, cout):
+    """K6 with offsets b of 4 to 6: swish(b) is far from 0, so a u left
+    unmasked on the rows past a sample's last row tile or at k >= K would
+    show in y, p and s2 (each shape's S is no multiple of the row tile, and
+    54, 108 no multiple of the k-tile)."""
+    x, w, a, _, _ = (v if isinstance(v, tuple) else
+                     torch.from_numpy(v).to(cuda)
+                     for v in _inputs(6, shape, cout))
+    b = 4.0 + 2.0 * torch.rand(a.shape, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    args = (x.bfloat16(), a, b, w)
+    y, p, s2 = pw_stats.pw_act_conv_stats(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(True, args, y, p, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [False, True], ids=["K5", "K6"])
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_unaligned_base_on_card(cuda, act, offset):
+    """x starting 2, 4, 8 or 16 bytes into an allocation: the copy granule
+    is picked from the base pointers at launch (an odd element offset
+    takes the CUDA-core route), and every route agrees with the plain
+    version."""
+    shape, cout = (2, 4, 7, 7, 432), 48
+    x, w, a, b, _ = (v if isinstance(v, tuple) else
+                     torch.from_numpy(v).to(cuda)
+                     for v in _inputs(7, shape, cout))
+    flat = torch.empty(x.numel() + offset, dtype=torch.bfloat16, device=cuda)
+    xs = flat[offset:].view(shape)
+    xs.copy_(x)
+    args = (xs, a, b, w) if act else (xs, w)
+    fn = pw_stats.pw_act_conv_stats if act else pw_stats.pw_conv_stats
+    y, p, s2 = fn(*args)
+    torch.cuda.synchronize()
+    _check_against_plain(act, args, y, p, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [False, True], ids=["K5", "K6"])
+@pytest.mark.parametrize("shape,cout", [
+    ((3, 4, 7, 7, 24), 54), ((2, 13, 5, 5, 432), 192)])
+def test_bf16_repeats_bit_for_bit_on_card(cuda, act, shape, cout):
+    """Two calls on the same bfloat16 inputs give the same y, p and s2 bit
+    for bit: no atomics, partial sums added in a fixed order."""
+    x, w, a, b, _ = (v if isinstance(v, tuple) else
+                     torch.from_numpy(v).to(cuda)
+                     for v in _inputs(8, shape, cout))
+    args = (x.bfloat16(), a, b, w) if act else (x.bfloat16(), w)
+    fn = pw_stats.pw_act_conv_stats if act else pw_stats.pw_conv_stats
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)

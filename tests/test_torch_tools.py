@@ -20,6 +20,12 @@ from x3d_tpu_torch.tools.trace import family
     ("sum_pbwd_partials_kernel(float const*, float*, int, int, int)",
      "port kernels"),
     ("void pw_stats_kernel<float, false>(...)", "port kernels"),
+    ("void (anonymous namespace)::pw_conv_stats_mma_kernel<16, 24>(...)",
+     "port kernels"),
+    ("void (anonymous namespace)::pw_act_conv_stats_mma_kernel<4, 8>(...)",
+     "port kernels"),
+    ("void (anonymous namespace)::pw_conv_mma_kernel<8, 16>(...)",
+     "port kernels"),
     ("void fma_chain_bf16_kernel<8>(...)", "port kernels"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),
     ("void cudnn::ops::convolve_kernel<...>", "cudnn conv"),
@@ -46,6 +52,12 @@ def test_family(name, want):
     ("sum_dk_partials_kernel(float const*, float*, int, int)",
      "K4 depthwise_conv3d_dk"),
     ("void pw_stats_kernel<__nv_bfloat16, true>(...)", "K5/K6 pw_stats"),
+    ("void (anonymous namespace)::pw_conv_stats_mma_kernel<16, 24>(...)",
+     "K5 pw_conv_stats"),
+    ("void (anonymous namespace)::pw_act_conv_stats_mma_kernel<4, 8>(...)",
+     "K6 pw_act_conv_stats"),
+    ("void (anonymous namespace)::pw_conv_mma_kernel<8, 16>(...)",
+     "K7 pw_conv"),
     ("void pw_conv_kernel<float>(...)", "K7 pw_conv"),
     ("(anonymous namespace)::pw_conv_mma_kernel(__nv_bfloat16 const*, ...)",
      "K7 pw_conv"),

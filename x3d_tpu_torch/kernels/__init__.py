@@ -7,6 +7,8 @@ use.  The wrappers themselves live beside their plain PyTorch versions in
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,3 +43,19 @@ def stream_handle(t: torch.Tensor) -> int:
 def raise_on_error(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+# What a library's plan function reports of a bfloat16 call of K5-K7: the
+# copy granule in bytes (0: the CUDA-core route), the columns a block owns,
+# the column tiles, the dynamic shared memory in bytes, the blocks an SM
+# holds and the ring's stages.
+PLAN_KEYS = ("granule_bytes", "block_columns", "column_tiles", "smem_bytes",
+             "blocks_per_sm", "stages")
+
+
+def read_plan(fn, *args: int) -> dict:
+    """Call a plan function of a kernel library (``fn(*args, out)`` fills
+    ``out``, an int array of len(PLAN_KEYS)) and return it by key."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    raise_on_error(fn(*args, ctypes.addressof(out)), "plan")
+    return dict(zip(PLAN_KEYS, out))

@@ -60,9 +60,15 @@ def _library_path(source: str) -> str:
 
 
 def compile_source(source: str) -> str:
-    """Compile ``csrc/<source>`` unless its library exists; returns its path."""
+    """Compile ``csrc/<source>`` unless its library exists; returns its path.
+    nvcc's report is kept beside the library (``.log``) and in
+    :data:`build_logs`, also when an earlier process built it."""
     out = _library_path(source)
+    log = f"{out}.log"
     if os.path.exists(out):
+        if source not in build_logs and os.path.exists(log):
+            with open(log) as f:
+                build_logs[source] = f.read()
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -72,6 +78,9 @@ def compile_source(source: str) -> str:
     build_logs[source] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(build_logs[source])
+    os.replace(f"{tmp}.log", log)
     os.replace(tmp, out)
     return out
 

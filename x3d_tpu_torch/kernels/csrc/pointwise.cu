@@ -12,21 +12,28 @@
 // Replaces the TPU kernel pw_batchminor._pw_kernel
 // (x3d_tpu/ops/pw_batchminor.py:56, launched by _run at :69).
 //
-// What bounds it on an H100: at X3D widths (K, N between 24 and 432) a bf16
-// product does 17 to 155 operations per byte, below the tensor cores' 295:
-// bytes, as long as the product runs on the tensor cores; on the CUDA cores
-// in f32 (67 TFLOP/s) the wider convs are bound by operations.  So there are
-// two kernels on the tile products of pw_gemm.cuh, tiles laid over all rows
-// at once (nothing here needs a tile to stay inside one sample), ragged K, N
-// and M masked in the kernel, nothing padded in device memory, the column
-// tiles of one row tile next to each other in launch order (they share x's
-// rows through the L2 cache):
-//   * bfloat16 with an even K (every width of the model): a 128 x 64 tile on
-//     the tensor cores (mma.sync m16n8k16, f32 accumulators), A and W staged
-//     as bfloat16 pairs, the next k-tile fetched while this one multiplies;
+// What bounds it on an H100: bytes.  At X3D widths (K, N between 24 and
+// 432) a bf16 product does 17 to 155 operations per byte, below the 295 at
+// which the tensor cores (989 TFLOP/s) and device memory (3.35 TB/s)
+// balance; the least time is x's rows read once and y written once at
+// 3.35 TB/s.  Two routes, ragged K, N and M masked in the kernel, nothing
+// padded in device memory, tiles laid over all rows at once (nothing here
+// needs a tile to stay inside one sample):
+//   * bfloat16 with an even K (every width of the model): pw_gemm.cuh's
+//     pipelined tensor-core body (pipe_gemm: the block's W slice resident in
+//     shared memory, x streamed through a cp.async ring over (row tile,
+//     k-tile) pairs so that where K is small the next row tile's loads
+//     overlap this one's product and stores, mma.sync m16n8k16 with f32
+//     accumulators, the copy granule picked from K's alignment, y written
+//     in 16-byte vectors where N % 8 == 0); a strided projection's rows are
+//     gathered by source_row in the cp.async addresses, so it is read in
+//     place; the column tiles of one row-tile slot are neighbours in launch
+//     order (they read the same rows of x at about the same time);
 //   * float32 (no TF32: the parity checks compare against full float32) and
-//     an odd K: K5's 64 x 64 CUDA-core product with the sum epilogue off.
-// Not yet done (later work): wgmma, TMA / cp.async staging, 16-byte loads.
+//     bfloat16 with an odd K or unaligned pointers: K5's 64 x 64 CUDA-core
+//     product gemm_tile with the sum epilogue off.
+// Not yet done (later work): wgmma and TMA, sharing B fragments between
+// warps.
 
 #include "pw_gemm.cuh"
 
@@ -90,78 +97,41 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-// A row of a warp's output tile in shared memory: kMmaBN bfloat16 = 32
-// words, padded to 36 so that the 8 rows x 4 words a lane group writes fall
-// into 32 banks.
-constexpr int kOutStride = kMmaBN / 2 + 4;
-
-// bfloat16, K even, on the tensor cores.
-__global__ void __launch_bounds__(kMmaThreads)
+// bfloat16, K even, on the tensor cores: pipe_gemm over row tiles of
+// kPipeBM output rows.
+template <int G, int NT>
+__global__ void __launch_bounds__(kPipeThreads)
     pw_conv_mma_kernel(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ w,
-                       __nv_bfloat16* __restrict__ y, PwGeom q) {
-  __shared__ MmaSmem sm;
-  __shared__ uint32_t out[kMmaThreads / 32][16][kOutStride];
-  const int n0 = (blockIdx.x % q.ntn) * kMmaBN;
-  const long long m0 = (long long)(blockIdx.x / q.ntn) * kMmaBM;
-  constexpr int kRows = kMmaThreads / (kMmaBK / 2);
+                       __nv_bfloat16* __restrict__ y, PwGeom g, int width,
+                       PipeShape q) {
+  using bf16 = __nv_bfloat16;
+  auto src = [&](int tile, int r) -> const bf16* {
+    const long long row = source_row((long long)tile * kPipeBM + r, g);
+    return row < 0 ? nullptr : x + row * q.K;
+  };
+  auto no_side = [](int, int, float*) {};
+  auto no_xform = [](int, int, int, const float*, uint32_t (&)[4]) {};
+  uint32_t* out = pipe_out(q) + threadIdx.x / 32 * 16 * kOutWords;
+  auto epi = [&](int tile, int n0, const float (&acc)[NT][4]) {
+    const long long m0 = (long long)tile * kPipeBM + threadIdx.x / 32 * 16;
+    store_tile(acc, out, n0, q.nt, q.N, width, [&](int r) -> bf16* {
+      return m0 + r < g.M ? y + (m0 + r) * q.N : nullptr;
+    });
+  };
+  pipe_gemm<G, NT>(w, q, src, no_side, no_xform, epi);
+}
 
-  // the rows of x this thread stages, one per pass
-  long long src[kMmaAWords];
-#pragma unroll
-  for (int p = 0; p < kMmaAWords; ++p)
-    src[p] = source_row(m0 + threadIdx.x / (kMmaBK / 2) + kRows * p, q);
+using MmaKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                           __nv_bfloat16*, PwGeom, int, PipeShape);
 
-  float acc[kMmaNTiles][4] = {};
-  mma_tile(
-      w, n0, q.K, q.N,
-      [&](int pass, int k) -> uint32_t {
-        return src[pass] < 0 ? 0u
-                             : *reinterpret_cast<const uint32_t*>(
-                                   x + src[pass] * q.K + k);
-      },
-      sm, acc);
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  if (q.N % 2 == 0) {
-    // Every pair of y is word-aligned.  A lane's accumulators sit 8 rows
-    // by 4 pairs apart, which would store 16 bytes a row; each warp turns
-    // its 16 x 64 tile through shared memory instead, so that one store
-    // writes 128 contiguous bytes of a row.
-    uint32_t (*tile)[kOutStride] = out[warp];
-#pragma unroll
-    for (int j = 0; j < kMmaNTiles; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const __nv_bfloat162 v =
-            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-        tile[g + 8 * h][4 * j + t] = *reinterpret_cast<const uint32_t*>(&v);
-      }
-    __syncwarp();
-    const int n = n0 + 2 * lane;
-    if (n < q.N) {
-#pragma unroll
-      for (int row = 0; row < 16; ++row) {
-        const long long m = m0 + 16 * warp + row;
-        if (m < q.M)
-          *reinterpret_cast<uint32_t*>(y + m * q.N + n) = tile[row][lane];
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < kMmaNTiles; ++j) {
-    const int n = n0 + 8 * j + 2 * t;
-    if (n >= q.N) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long m = m0 + 16 * warp + g + 8 * h;
-      if (m >= q.M) continue;
-      y[m * q.N + n] = __float2bfloat16(acc[j][2 * h]);
-      if (n + 1 < q.N) y[m * q.N + n + 1] = __float2bfloat16(acc[j][2 * h + 1]);
-    }
-  }
+// q.K, q.N set: the rest of the tiling, and the kernel; nullptr where the
+// tensor-core body does not take the call.
+MmaKernel plan_mma(uintptr_t bases, PipeShape& q) {
+  if (!pipe_plan(q, bases)) return nullptr;
+  return pipe_kernel(q, [](auto g, auto nt) -> MmaKernel {
+    return pw_conv_mma_kernel<decltype(g)::value, decltype(nt)::value>;
+  });
 }
 
 // Blocks in launch order: the column tiles of one row tile are neighbours, so
@@ -171,17 +141,6 @@ unsigned grid_size(PwGeom& q, int bm, int bn) {
   q.ntn = ceil_div(q.N, bn);
   const long long blocks = (q.M + bm - 1) / bm * q.ntn;
   return blocks > 2147483647LL ? 0u : (unsigned)blocks;
-}
-
-int launch_mma(const void* x, const void* w, void* y, PwGeom q,
-               cudaStream_t stream) {
-  const unsigned grid = grid_size(q, kMmaBM, kMmaBN);
-  if (grid == 0) return cudaErrorInvalidValue;
-  pw_conv_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y),
-      q);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -212,14 +171,31 @@ extern "C" int x3d_pw_conv(const void* x, const void* w, void* y, int dtype,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return launch<float>(x, w, y, q, s);
   if (dtype == kBF16) {
-    // the tensor-core kernel moves bfloat16 pairs as 4-byte words
-    auto word_aligned = [](const void* ptr) {
-      return reinterpret_cast<uintptr_t>(ptr) % 4 == 0;
-    };
-    const bool mma = K % 2 == 0 && word_aligned(x) && word_aligned(w) &&
-                     word_aligned(y);
-    return mma ? launch_mma(x, w, y, q, s)
-               : launch<__nv_bfloat16>(x, w, y, q, s);
+    PipeShape p{};
+    p.K = K, p.N = N;
+    const MmaKernel kernel = plan_mma(
+        reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w), p);
+    if (kernel == nullptr) return launch<__nv_bfloat16>(x, w, y, q, s);
+    const long long tiles = (q.M + kPipeBM - 1) / kPipeBM;
+    if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+    p.tiles = (int)tiles;
+    return pipe_launch(kernel, p, s, static_cast<const __nv_bfloat16*>(x),
+                       static_cast<const __nv_bfloat16*>(w),
+                       static_cast<__nv_bfloat16*>(y), q,
+                       store_width(N, reinterpret_cast<uintptr_t>(y)));
   }
   return cudaErrorInvalidValue;
+}
+
+// How a bfloat16 call at widths K, N runs, with 16-byte aligned pointers:
+// out[0..5] as pipe_report gives them, all 0 where the call takes the
+// CUDA-core route.  Returns a cudaError_t code.
+extern "C" int x3d_pw_conv_plan(int K, int N, int* out) {
+  PipeShape q{};
+  q.K = K, q.N = N;
+  for (int i = 0; i < 6; ++i) out[i] = 0;
+  if (K <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const MmaKernel kernel = plan_mma(0, q);
+  return kernel == nullptr ? cudaSuccess
+                           : pipe_report((const void*)kernel, q, out);
 }

@@ -16,23 +16,38 @@
 // statistics) and K6 the contracting conv `c`, whose (a, bb) columns carry
 // bn_b's affine times the Squeeze-Excite gate (its sums give bn_c's).
 //
-// What bounds it on an H100: at X3D-M widths (K, N between 24 and 432) a
-// bf16 product does 2*K*N/(2*(K+N)) = 17 to 155 operations per byte: below
-// the tensor cores' 295, so bytes on the tensor cores -- but this first
-// version multiplies on the CUDA cores in f32 (67 TFLOP/s), where the wider
-// convs are bound by operations.  The design:
-//   * a block computes a 64 x 64 tile of y (256 threads, 4 x 4 outputs each)
-//     from 64 x 16 and 16 x 64 tiles of x and W staged in shared memory as
-//     f32 (the body in pw_gemm.cuh, shared with K7); K6 applies its affine
-//     and swish while it stages x, so u never goes to device memory;
-//   * row tiles never straddle two samples (each sample's S rows are tiled
-//     on their own, the last tile masked), so a block's column sums belong
-//     to one (n, b) and the per-sample coefficients are one column;
-//   * each block writes one f32 partial of p and s2 per column; a second
-//     kernel sums a sample's partials in a fixed order, in double:
-//     deterministic, no atomics.
-// Not yet done (later work): mma.sync / wgmma on the tensor cores, TMA
-// staging, wider loads.
+// What bounds it on an H100: bytes.  At X3D widths (K, N between 24 and
+// 432) a bf16 product does 2*K*N/(2*(K+N)) = 17 to 155 operations per byte,
+// below the 295 at which the tensor cores (989 TFLOP/s) and device memory
+// (3.35 TB/s) balance; the least time is x read once, y written once, at
+// 3.35 TB/s.  The design:
+//   * bfloat16 with an even K (every width of the model) runs on
+//     pw_gemm.cuh's pipelined tensor-core body (pipe_gemm: W resident in
+//     shared memory, x streamed through a cp.async ring over (row tile,
+//     k-tile) pairs, mma.sync m16n8k16 with f32 accumulators, the copy
+//     granule picked from K's alignment); a block owns all of N up to 192
+//     columns, so K6's column tile covers all of its N (<= 192 in the
+//     model), and K5's wider N (216, 432) is cut into tiles of up to 128;
+//   * K6 applies its affine and swish to each A fragment in registers after
+//     ldmatrix, so each element of u is computed once per block and never
+//     goes to device memory; u is forced to 0 on rows past the sample and
+//     at k >= K, since swish(b) != 0 where x was zero-filled; the sample's
+//     coefficients for a k-tile travel in the ring beside it (64 floats a
+//     stage), and the exponential runs in the special-function unit;
+//   * row tiles (128 rows) never straddle two samples (each sample's S rows
+//     are tiled on their own, the last tile masked), so a tile's column sums
+//     belong to one (n, b) and its coefficients are one column;
+//   * the sums come from the accumulator layout: a lane's two rows, shuffles
+//     over the lanes of a column, the 8 warps in order through shared
+//     memory; each tile writes one f32 partial of p and s2 per column, and a
+//     second kernel sums a sample's partials in a fixed order, in double:
+//     deterministic, no atomics;
+//   * float32 (no TF32: the parity checks compare against full float32) and
+//     bfloat16 with an odd K or unaligned pointers take the CUDA-core tile
+//     product gemm_tile, 64 x 64 tiles, with the same sums.
+// Not yet done (later work): wgmma and TMA, sharing B fragments between
+// warps (the K = 432, N = 192 shape keeps one block an SM with a 3-stage
+// ring: its W slice fills 175 KB of shared memory).
 
 #include "pw_gemm.cuh"
 
@@ -47,6 +62,13 @@ struct PwGeom {
 
 __device__ __forceinline__ float swish(float v) {
   return __fmul_rn(v, 1.f / (1.f + expf(-v)));
+}
+
+// The bfloat16 route's swish: the exponential in the special-function unit
+// (a few float32 ulps, far below the bfloat16 rounding that follows) and a
+// correctly rounded reciprocal.
+__device__ __forceinline__ float fast_swish(float v) {
+  return __fmul_rn(v, __frcp_rn(1.f + __expf(-v)));
 }
 
 template <typename T, bool kAct>
@@ -131,6 +153,14 @@ __global__ void sum_partials_kernel(const float* __restrict__ part_p,
   s2[(size_t)n * B + b] = (float)ss;
 }
 
+int launch_sums(float* part_p, float* part_s2, float* p, float* s2,
+                const PwGeom& q, cudaStream_t stream) {
+  const int n = q.B * q.N;
+  sum_partials_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(
+      part_p, part_s2, p, s2, q.B, q.N, q.tps);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kAct>
 int launch(const void* x, const float* a_cb, const float* b_cb, const void* w,
            void* y, float* part_p, float* part_s2, float* p, float* s2,
@@ -141,10 +171,116 @@ int launch(const void* x, const float* a_cb, const float* b_cb, const void* w,
       static_cast<T*>(y), part_p, part_s2, q);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = q.B * q.N;
-  sum_partials_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(
-      part_p, part_s2, p, s2, q.B, q.N, q.tps);
-  return cudaGetLastError();
+  return launch_sums(part_p, part_s2, p, s2, q, stream);
+}
+
+// ------------------------------------------ bfloat16 on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+struct MmaGeom {
+  int B, S;
+  int tps;     // row tiles per sample, of kPipeBM rows
+  int width;   // how y is stored (store_width)
+};
+
+// K5 (kAct false) and K6 on pipe_gemm; tile = b * tps + (row tile in b).
+template <int G, int NT, bool kAct>
+__device__ __forceinline__ void stats_tiles(
+    const bf16* __restrict__ x, const float* __restrict__ a_cb,
+    const float* __restrict__ b_cb, const bf16* __restrict__ w,
+    bf16* __restrict__ y, float* __restrict__ part_p,
+    float* __restrict__ part_s2, const MmaGeom& m, const PipeShape& q) {
+  const int K = q.K, N = q.N;
+  auto src = [&](int tile, int r) -> const bf16* {
+    const int row = tile % m.tps * kPipeBM + r;
+    return row < m.S ? x + ((size_t)(tile / m.tps) * m.S + row) * K : nullptr;
+  };
+  // K6's coefficient columns a[:, b] and b[:, b] for a k-tile travel in the
+  // ring beside it: threads 0 .. kSideFloats - 1 copy one value each
+  auto side = [&](int tile, int kt, float* dst) {
+    if constexpr (kAct) {
+      const int j = threadIdx.x;
+      if (j < kSideFloats) {
+        const int k = kt * kPipeBK + j % kPipeBK;
+        const float* cb = j < kPipeBK ? a_cb : b_cb;
+        const bool ok = k < K;
+        cp_async<4>(dst + j, ok ? cb + (size_t)k * m.B + tile / m.tps : cb,
+                    ok);
+      }
+    }
+  };
+  auto xform = [&](int tile, int r, int k, const float* coef,
+                   uint32_t (&a)[4]) {
+    if constexpr (kAct) {
+      // u = swish(x a + b) rounded to bfloat16, 0 where the row or k does
+      // not exist
+      const int row = tile % m.tps * kPipeBM + r;
+      const bool rows_ok[2] = {row < m.S, row + 8 < m.S};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {      // a[i]: row r + 8 (i & 1)
+        float u[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = (i >> 1) * 8 + h;   // columns k, k + 1, k + 8, k + 9
+          const float xv = __uint_as_float(h ? a[i] & 0xffff0000u : a[i] << 16);
+          u[h] = rows_ok[i & 1] && k + kk < K
+                     ? fast_swish(__fadd_rn(__fmul_rn(xv, coef[kk]),
+                                            coef[kPipeBK + kk]))
+                     : 0.f;
+        }
+        const __nv_bfloat162 v = __floats2bfloat162_rn(u[0], u[1]);
+        a[i] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+    }
+  };
+  uint32_t* out = pipe_out(q);
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4;
+  auto epi = [&](int tile, int n0, const float (&acc)[NT][4]) {
+    const int r0 = tile % m.tps * kPipeBM + 16 * warp;
+    bf16* yb = y + (size_t)(tile / m.tps) * m.S * N;
+    store_tile(acc, out + warp * 16 * kOutWords, n0, q.nt, N, m.width,
+               [&](int r) -> bf16* {
+                 return r0 + r < m.S ? yb + (size_t)(r0 + r) * N : nullptr;
+               });
+    const size_t slot = (size_t)tile * N + n0;
+    tile_sums(acc, out, r0 + g < m.S, r0 + g + 8 < m.S, q.nt,
+              min(N - n0, 8 * q.nt), part_p + slot, part_s2 + slot);
+  };
+  pipe_gemm<G, NT>(w, q, src, side, xform, epi);
+}
+
+template <int G, int NT>
+__global__ void __launch_bounds__(kPipeThreads) pw_conv_stats_mma_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ a_cb,
+    const float* __restrict__ b_cb, const bf16* __restrict__ w,
+    bf16* __restrict__ y, float* __restrict__ part_p,
+    float* __restrict__ part_s2, MmaGeom m, PipeShape q) {
+  stats_tiles<G, NT, false>(x, a_cb, b_cb, w, y, part_p, part_s2, m, q);
+}
+
+template <int G, int NT>
+__global__ void __launch_bounds__(kPipeThreads) pw_act_conv_stats_mma_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ a_cb,
+    const float* __restrict__ b_cb, const bf16* __restrict__ w,
+    bf16* __restrict__ y, float* __restrict__ part_p,
+    float* __restrict__ part_s2, MmaGeom m, PipeShape q) {
+  stats_tiles<G, NT, true>(x, a_cb, b_cb, w, y, part_p, part_s2, m, q);
+}
+
+using MmaKernel = void (*)(const bf16*, const float*, const float*,
+                           const bf16*, bf16*, float*, float*, MmaGeom,
+                           PipeShape);
+
+// q.K, q.N set: the rest of the tiling, and the kernel; nullptr where the
+// tensor-core body does not take the call.
+MmaKernel plan_mma(bool act, uintptr_t bases, PipeShape& q) {
+  if (!pipe_plan(q, bases)) return nullptr;
+  return pipe_kernel(q, [&](auto g, auto nt) -> MmaKernel {
+    constexpr int G = decltype(g)::value, NT = decltype(nt)::value;
+    return act ? pw_act_conv_stats_mma_kernel<G, NT>
+               : pw_conv_stats_mma_kernel<G, NT>;
+  });
 }
 
 template <bool kAct>
@@ -153,10 +289,30 @@ int dispatch(const void* x, const void* a_cb, const void* b_cb, const void* w,
              int dtype, int B, int S, int K, int N, void* stream) {
   if (B <= 0 || S <= 0 || N <= 0) return cudaSuccess;
   if (K <= 0 || ceil_div(N, kBN) > 65535) return cudaErrorInvalidValue;
-  const PwGeom q{B, S, K, N, ceil_div(S, kBM)};
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
   auto m = [](void* ptr) { return static_cast<float*>(ptr); };
+  if (dtype == kBF16) {
+    PipeShape q{};
+    q.K = K, q.N = N;
+    const MmaKernel kernel = plan_mma(
+        kAct, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w),
+        q);
+    if (kernel != nullptr) {
+      const MmaGeom g{B, S, ceil_div(S, kPipeBM),
+                      store_width(N, reinterpret_cast<uintptr_t>(y))};
+      if ((long long)B * g.tps > 2147483647LL) return cudaErrorInvalidValue;
+      q.tiles = B * g.tps;
+      const int rc = pipe_launch(
+          kernel, q, s, static_cast<const bf16*>(x), f(a_cb), f(b_cb),
+          static_cast<const bf16*>(w), static_cast<bf16*>(y), m(part_p),
+          m(part_s2), g);
+      if (rc != cudaSuccess) return rc;
+      const PwGeom sums{B, S, K, N, g.tps};
+      return launch_sums(m(part_p), m(part_s2), m(p), m(s2), sums, s);
+    }
+  }
+  const PwGeom q{B, S, K, N, ceil_div(S, kBM)};
   if (dtype == kF32)
     return launch<float, kAct>(x, f(a_cb), f(b_cb), w, y, m(part_p),
                                m(part_s2), m(p), m(s2), q, s);
@@ -168,9 +324,12 @@ int dispatch(const void* x, const void* a_cb, const void* b_cb, const void* w,
 
 }  // namespace
 
-// Row tiles per sample: the wrapper allocates two (B, tiles, N) float32
+// Row tiles per sample, the most either route uses (the tensor-core route's
+// tiles are twice as tall): the wrapper allocates two (B, tiles, N) float32
 // buffers for the partial sums.
-extern "C" int x3d_pw_stats_tiles(int S) { return ceil_div(S, kBM); }
+extern "C" int x3d_pw_stats_tiles(int S) {
+  return ceil_div(S, std::min(kBM, kPipeBM));
+}
 
 // K5.  x: (B*S, K) and y: (B*S, N) in `dtype` (0 float32, 1 bfloat16); w:
 // (N, K) in `dtype`; p, s2: (N, B) float32; part_p, part_s2: scratch as
@@ -191,4 +350,17 @@ extern "C" int x3d_pw_act_conv_stats(const void* x, const void* a_cb,
                                      int N, void* stream) {
   return dispatch<true>(x, a_cb, b_cb, w, y, part_p, part_s2, p, s2, dtype, B,
                         S, K, N, stream);
+}
+
+// How a bfloat16 call of K5 (act 0) or K6 (act 1) at widths K, N runs, with
+// 16-byte aligned pointers: out[0..5] as pipe_report gives them, all 0 where
+// the call takes the CUDA-core route.  Returns a cudaError_t code.
+extern "C" int x3d_pw_stats_plan(int K, int N, int act, int* out) {
+  PipeShape q{};
+  q.K = K, q.N = N;
+  for (int i = 0; i < 6; ++i) out[i] = 0;
+  if (K <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const MmaKernel kernel = plan_mma(act != 0, 0, q);
+  return kernel == nullptr ? cudaSuccess
+                           : pipe_report((const void*)kernel, q, out);
 }

@@ -6,11 +6,12 @@ product.  Weights are ``(Cout, Cin)``.
 * :func:`pointwise_conv3d` is the differentiable op the model calls.  A
   bulk conv -- a 5-D input with more than one position and no bias
   (:func:`routes_to_kernel`) -- goes to the hand-written CUDA kernel K7
-  (``kernels/csrc/pointwise.cu``: bfloat16 on the tensor cores, float32 on
-  the CUDA cores without TF32), which replaces the TPU kernel
-  ``pw_batchminor._pw_kernel``; its backward's dx is K7 again on the
-  cotangent and the transposed weight, its dk the float32 contraction
-  ``x^T g`` left to ``torch.matmul`` (as the JAX package leaves it to XLA).
+  (``kernels/csrc/pointwise.cu``: bfloat16 on the pipelined tensor-core
+  body of ``pw_gemm.cuh``, float32 on the CUDA cores without TF32), which
+  replaces the TPU kernel ``pw_batchminor._pw_kernel``; its backward's dx
+  is K7 again on the cotangent and the transposed weight, its dk the
+  float32 contraction ``x^T g`` left to ``torch.matmul`` (as the JAX
+  package leaves it to XLA).
   The Squeeze-Excite and head layers (one position, or a bias) stay
   ``F.linear``, as the JAX package leaves them to XLA.
 * :func:`pw_conv` is K7's wrapper; :func:`pointwise_conv3d_reference` is
@@ -34,6 +35,7 @@ from x3d_tpu_torch.kernels import _build
 _SIGNATURES = {
     "x3d_pw_conv": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "x3d_pw_conv_plan": [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
 
 
@@ -109,6 +111,14 @@ def pw_conv(x: torch.Tensor, weight: torch.Tensor,
 
 
 pw_conv.launches = 0
+
+
+def plan(cin: int, cout: int) -> dict:
+    """How a bfloat16 call of K7 at these widths runs on the card, with
+    aligned tensors (keys ``kernels.PLAN_KEYS``).  Builds the kernel; needs
+    a CUDA card."""
+    lib = _build.load("pointwise.cu", _SIGNATURES)
+    return kernels.read_plan(lib.x3d_pw_conv_plan, cin, cout)
 
 
 class _Pointwise(torch.autograd.Function):

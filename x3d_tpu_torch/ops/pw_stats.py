@@ -13,7 +13,8 @@ affine times the Squeeze-Excite gate; u = swish(x*a + b) is rounded to x's
 dtype before the product.
 
 :func:`pw_conv_stats` and :func:`pw_act_conv_stats` are the wrappers of the
-hand-written CUDA kernels K5 and K6 (``kernels/csrc/pw_stats.cu``), which
+hand-written CUDA kernels K5 and K6 (``kernels/csrc/pw_stats.cu``; bfloat16
+on the pipelined tensor-core body of ``pw_gemm.cuh``), which
 replace the TPU kernels ``pw_batchminor._pw_stats_kernel`` and
 ``_pw_act_stats_kernel``; the ``*_reference`` functions are their plain
 PyTorch versions.  :func:`conv_stats` and :func:`act_conv_stats` are the
@@ -37,6 +38,7 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "x3d_pw_act_conv_stats": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "x3d_pw_stats_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -159,6 +161,14 @@ def pw_act_conv_stats(x, a_cb, b_cb, weight):
 
 pw_conv_stats.launches = 0
 pw_act_conv_stats.launches = 0
+
+
+def plan(cin: int, cout: int, act: bool) -> dict:
+    """How a bfloat16 call of K5 (``act`` False) or K6 at these widths runs
+    on the card, with aligned tensors (keys ``kernels.PLAN_KEYS``).  Builds
+    the kernel; needs a CUDA card."""
+    lib = _build.load("pw_stats.cu", _SIGNATURES)
+    return kernels.read_plan(lib.x3d_pw_stats_plan, cin, cout, int(act))
 
 
 def _dy(gy, gp, gs2, y, B, S, N):

@@ -18,7 +18,8 @@ from torch.autograd import DeviceType
 _FAMILIES = (
     ("port kernels", ("dw_conv3d", "dw_bn_act_conv", "sum_partials",
                       "sum_dk_partials", "sum_pbwd_partials",
-                      "pw_stats_kernel", "pw_conv_", "fma_chain")),
+                      "pw_stats_kernel", "pw_conv_", "pw_act_conv_stats",
+                      "fma_chain")),
     ("cudnn conv", ("convolve", "cudnn")),
     ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
     ("reduction", ("reduce", "Reduce")),
