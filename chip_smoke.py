@@ -27,14 +27,18 @@ own, which fails on a spill) and then:
   training shape and the training batch (32 clips, per-sample
   coefficient columns) in float32 and bfloat16, and times K3-K6 there
   beside their plain versions and library calls; then the same at X3D-S's
-  training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes);
+  training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes); K4's
+  dx rows name the body that ran (the parity-phase body at the stride-2
+  stage entries, the gather body elsewhere) and time the gather body on the
+  same inputs beside the phase body;
   K5-K7's rows carry how the call runs (copy granule, block columns, ring
   stages, shared memory, blocks per SM), ``bound_share`` (bound / time)
   and ``vs_library`` (time / library time), and K5 and K6 are summed over
   each variant's training step;
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
-  step, checks that two runs of one step from one state are bit-identical,
+  step (K4 dx by its phase body only), checks that two runs of one step
+  from one state are bit-identical,
   and checks one float32 step through the kernels against the same step
   through the plain versions (loss, every gradient, the updated parameters
   and the BN running statistics);
@@ -54,8 +58,9 @@ own, which fails on a spill) and then:
   clips, bfloat16), in this process through their ``main(argv)``: train two
   epochs of three steps with step-keyed checkpoints, resume for a third
   epoch (the restored step is 6 and the losses equal an uninterrupted
-  run's, bit for bit), evaluate two batches of 8 videos × 10 views, and
-  serve one video from the checkpoint.
+  run's, bit for bit, with cuDNN's flags as the tools set them), evaluate
+  two batches of 8 videos × 10 views, and serve one video from the
+  checkpoint.
 
 Every result line is a JSON object carrying the card's name and power
 limit; the ``kernels`` line comes second to last, and the last line is
@@ -201,32 +206,50 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=build_s, sources=list(_build.SOURCES),
          ptxas=ptxas)
+    def ptxas_entries(sources, pattern, label):
+        """One row per instantiation whose mangled name matches
+        ``pattern``: registers, spills, static shared memory."""
+        entries, name = [], None
+        for source in sources:
+            for ln in _build.build_logs.get(source, "").splitlines():
+                m = re.search(r"entry function '.*?" + pattern, ln)
+                if m:
+                    name = label(m)
+                elif name and "spill" in ln:
+                    entries.append({"kernel": name, "spill_bytes": sum(
+                        int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                   ln))})
+                elif name and "Used" in ln:
+                    regs = re.search(r"Used (\d+) registers", ln)
+                    smem = re.search(r"(\d+) bytes smem", ln)
+                    entries[-1].update(registers=int(regs[1]),
+                                       static_smem_bytes=int(smem[1]) if smem
+                                       else 0)
+                    name = None
+        return entries
+
     # the tensor-core kernels of K5-K7, one row per instantiation <copy
-    # granule, mma column tiles a warp>: registers, spills, static shared
-    # memory (their ring and W slice are dynamic: the rows' "plan")
-    entries, name = [], None
-    for log in (_build.build_logs.get("pw_stats.cu", ""),
-                _build.build_logs.get("pointwise.cu", "")):
-        for ln in log.splitlines():
-            m = re.search(r"entry function '.*?(pw_\w+_mma_kernel)"
-                          r"ILi(\d+)ELi(\d+)E", ln)
-            if m:
-                name = f"{m[1]}<{m[2]}, {m[3]}>"
-            elif name and "spill" in ln:
-                entries.append({"kernel": name, "spill_bytes": sum(
-                    int(v) for v in re.findall(r"(\d+) bytes spill", ln))})
-            elif name and "Used" in ln:
-                regs = re.search(r"Used (\d+) registers", ln)
-                smem = re.search(r"(\d+) bytes smem", ln)
-                entries[-1].update(registers=int(regs[1]),
-                                   static_smem_bytes=int(smem[1]) if smem
-                                   else 0)
-                name = None
+    # granule, mma column tiles a warp> (their ring and W slice are dynamic
+    # shared memory: the rows' "plan")
+    entries = ptxas_entries(("pw_stats.cu", "pointwise.cu"),
+                            r"(pw_\w+_mma_kernel)ILi(\d+)ELi(\d+)E",
+                            lambda m: f"{m[1]}<{m[2]}, {m[3]}>")
     emit(phase="build, tensor-core GEMM kernels", kernels=entries)
     # 27 instantiations: K5 and K6 x 3 granules x 3 column widths, K7 x 9
     check(len(entries) == 27 and all(
         e["spill_bytes"] == 0 and "registers" in e for e in entries),
         f"K5-K7 tensor-core kernels' ptxas report: {entries}")
+    # K4 dx's phase body, <element, channels a thread, temporal taps>
+    entries = ptxas_entries(
+        ("depthwise_bwd.cu",),
+        r"dw_conv3d_dx_phase_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E",
+        lambda m: "dw_conv3d_dx_phase_kernel<"
+                  f"{'float' if m[1] == 'f' else 'bfloat16'}, {m[2]}, {m[3]}>")
+    emit(phase="build, K4 dx phase body", kernels=entries)
+    # 20 instantiations: 2 elements x 2 vector widths x kt 1 .. 5
+    check(len(entries) == 20 and all(
+        e["spill_bytes"] == 0 and "registers" in e for e in entries),
+        f"K4 dx phase body's ptxas report: {entries}")
 
     # X3D-M's depthwise shapes at one video, from its architecture plan
     cfg = variant_config("M")
@@ -383,9 +406,12 @@ def main() -> int:
                 "K8": depthwise.depthwise_conv3d_pbwd,
                 "K9": fma_probe.fma_chain}
 
+    dx_bodies = depthwise.depthwise_conv3d_dx.body_launches
+
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+        dx_bodies.update(dict.fromkeys(dx_bodies, 0))
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -556,6 +582,27 @@ def main() -> int:
             taps = math.prod(kdims)
             ops_ = 2 * taps * g.numel()
             nbytes = (g.numel() + x.numel()) * 2 + taps * C * 4
+            body = depthwise.dx_body(kdims, strides, pads)
+            extra = {"dx": {"body": body}, "dk": {}}
+            if body == "phase":
+                # the gather body on the same inputs (its C entry point
+                # takes every geometry): what the phase body replaced
+                lib = _build.load("depthwise_bwd.cu",
+                                  depthwise._BWD_SIGNATURES)
+                geom = depthwise._bwd_geometry(x.shape, g, kdims, strides,
+                                               pads)
+                taps_f32 = k.float().reshape(-1, C).contiguous()
+                gathered = torch.empty_like(x)
+
+                def gather():
+                    rc = lib.x3d_dw_conv3d_dx(
+                        g.data_ptr(), taps_f32.data_ptr(),
+                        gathered.data_ptr(), 1, *geom,   # bfloat16
+                        torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, f"K4 dx gather body at {name}: rc {rc}")
+
+                extra["dx"]["gather_ms"] = time_ms(gather)
+                del taps_f32, gathered
             for part, kern, plain, mask, err32, err16 in (
                     ("dx", lambda: depthwise.depthwise_conv3d_dx(
                         g, k, x.shape, strides, pads),
@@ -573,7 +620,7 @@ def main() -> int:
                            n=n, max_abs_err_f32=err32, err_bf16=err16,
                            ms=time_ms(kern), plain_ms=time_ms(plain),
                            library_ms=time_ms(lambda: cudnn(mask)),
-                           bound_ms=bms, bound_by=by)
+                           bound_ms=bms, bound_by=by, **extra[part])
                 emit(phase=f"K4 depthwise_conv3d_{part}", variant=variant,
                      **row)
                 k4_rows[part].append(row)
@@ -755,6 +802,7 @@ def main() -> int:
                           device_ms=start.elapsed_time(end), wall_ms=wall * 1e3,
                           launches={k: after[k] - before[k] for k in after}))
     train_launches = read_counts()            # ... and ends here
+    train_dx_bodies = dict(dx_bodies)
     train_peak = torch.cuda.max_memory_allocated()
     for s in steps:
         emit(phase="train step", clips=TRAIN_CLIPS, **s)
@@ -768,7 +816,11 @@ def main() -> int:
          step_ms_median_after_first=step_ms,
          clips_per_s=TRAIN_CLIPS / step_ms * 1e3,
          first_step_ms=steps[0]["device_ms"], peak_memory_bytes=train_peak,
-         launches_per_step=want_step)
+         launches_per_step=want_step, k4_dx_bodies=train_dx_bodies)
+    # every K4 dx of the step is a stride-2 stage entry: the phase body
+    want_bodies = {"phase": TRAIN_STEPS * want_step["K4 dx"], "gather": 0}
+    check(train_dx_bodies == want_bodies,
+          f"K4 dx bodies {train_dx_bodies}, want {want_bodies}")
 
     # two runs of one step from one state: bit-identical (no atomics in
     # the kernels; cuDNN asked for its deterministic algorithms)
@@ -1161,7 +1213,8 @@ def main() -> int:
     want_s_forward = dict.fromkeys(want_s_step, 0) | {
         "K1": n_k1_s, "K2": n_k2_s,
         "K7": 2 * (len(arch_s.stages) + n_k2_s) + len(arch_s.stages) + 1}
-    torch.backends.cudnn.deterministic = True    # the stem's library conv
+    # cuDNN's flags stay as phase 6 left them (PyTorch's defaults): the
+    # tools make their runs deterministic themselves (setup_runtime)
     with tempfile.TemporaryDirectory() as run_dir, \
             tempfile.TemporaryDirectory() as straight_dir:
         torch.cuda.reset_peak_memory_stats()
@@ -1283,7 +1336,6 @@ def main() -> int:
                                                            want_probs)),
              views=views_s, predict_tool=rows)
         del engine, eval_model, eval_state, batch
-    torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
 
     # ----------------------------------------------- 11. the kernel line
@@ -1305,7 +1357,10 @@ def main() -> int:
         (summary("depthwise_conv3d_dx", "cuda", csrc + "depthwise_bwd.cu",
                  "x3d_tpu/ops/dw_batchminor.py:231 (dx by _fwd_kernel), "
                  "x3d_tpu/ops/pallas_dw.py:221 (dx by _fwd_kernel)",
-                 k4_rows["dx"], worst(k4_rows_s["dx"])), "K4 dx", "train"),
+                 k4_rows["dx"], worst(k4_rows_s["dx"]))
+         | {"bodies_training": train_dx_bodies,
+            "gather_ms": sum(r["n"] * r.get("gather_ms", r["ms"])
+                             for r in k4_rows["dx"])}, "K4 dx", "train"),
         (summary("depthwise_conv3d_dk", "cuda", csrc + "depthwise_bwd.cu",
                  "x3d_tpu/ops/dw_batchminor.py:120, "
                  "x3d_tpu/ops/pallas_dw.py:123", k4_rows["dk"],

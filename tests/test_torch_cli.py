@@ -8,6 +8,13 @@ cpu`` on a tiny model (``NETWORK.C1_CHANNELS 4``, ``NETWORK.DEPTH_FACTOR
 compared is exact: the engine built from a checkpoint gives the trained
 model's probabilities bit for bit.  The probe's float32 chain is held
 against its closed form within 1e-5 (512 roundings of 6e-8 each).
+
+``setup_runtime`` sets cuDNN's flags itself: deterministic algorithms, no
+autotuning, and for a float32 run no TF32.  Two tests (marker ``cuda``)
+show it on the card, where the flags matter:
+``python -m pytest --noconftest -m cuda tests/test_torch_cli.py``.  The
+float32 one holds the card's forward to the CPU's plain float32 forward at
+``chip_smoke.py``'s float32 tolerances: logits 1e-4, probabilities 1e-5.
 """
 
 import json
@@ -34,9 +41,40 @@ OPTS = ["--opts", "NETWORK.C1_CHANNELS", "4", "NETWORK.DEPTH_FACTOR", "0.34",
         "--device", "cpu"]
 
 
+CUDNN_FLAGS = (("cudnn", "deterministic"), ("cudnn", "benchmark"),
+               ("cudnn", "allow_tf32"), ("cuda.matmul", "allow_tf32"))
+
+
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cudnn_flags():
+    """Set the backend flags of CUDNN_FLAGS, in order; restores them after
+    the test."""
+    def backend(name):
+        obj = torch.backends
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    old = [getattr(backend(m), f) for m, f in CUDNN_FLAGS]
+
+    def set_flags(*values):
+        for (m, f), v in zip(CUDNN_FLAGS, values):
+            setattr(backend(m), f, v)
+
+    yield set_flags
+    set_flags(*old)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
 
 
 class _Keep:
@@ -235,6 +273,75 @@ def test_tools_need_a_card_unless_told_cpu(tmp_path):
         bench_serving.main(["--variants=S", "--videos=1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fma_probe.main([])
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_setup_runtime_sets_cudnn_flags(cudnn_flags, mixed_precision):
+    """From PyTorch's defaults with autotuning on: deterministic cuDNN, no
+    autotuning, and TF32 off for a float32 run (left as it was in bf16)."""
+    cudnn_flags(False, True, True, True)
+    cfg = common.load_config(CONFIG, OPTS[1:-2])
+    _, model, dtype = common.setup_runtime(cfg, 1, mixed_precision, False,
+                                           device="cpu")
+    assert dtype == (torch.bfloat16 if mixed_precision else torch.float32)
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.benchmark
+    assert torch.backends.cudnn.allow_tf32 == mixed_precision
+    assert torch.backends.cuda.matmul.allow_tf32 == mixed_precision
+
+
+def _train_on_card(model_dir, *extra):
+    keep = _Keep()
+    rc = train_cli.main(
+        [f"--config={CONFIG}", "--synthetic", f"--model_dir={model_dir}",
+         "--steps_per_epoch=3", "--save_checkpoints_step=1", *extra,
+         *OPTS[:-2]], extra_hooks=[keep])
+    assert rc == 0
+    return keep
+
+
+@pytest.mark.cuda
+def test_train_on_card_resumes_bit_for_bit(cuda, cudnn_flags, tmp_path):
+    """bfloat16 on the card, from PyTorch's cuDNN defaults (which allow
+    nondeterministic algorithms): two epochs and a resumed third equal
+    three uninterrupted epochs, losses and weights bit for bit; the tool
+    makes its runs deterministic itself."""
+    cudnn_flags(False, False, True, True)
+    first = _train_on_card(tmp_path / "run", "--epochs=2")
+    resumed = _train_on_card(tmp_path / "run", "--epochs=3")
+    straight = _train_on_card(tmp_path / "straight", "--epochs=3")
+    assert sorted(first.losses) == [1, 2, 3, 4, 5, 6]
+    assert sorted(resumed.losses) == [7, 8, 9]
+    assert straight.losses == first.losses | resumed.losses
+    assert all(np.isfinite(v) for v in straight.losses.values())
+    want = straight.state.model.state_dict()
+    for k, v in resumed.state.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+
+
+@pytest.mark.cuda
+def test_float32_run_on_card_keeps_tf32_off(cuda, cudnn_flags):
+    """With TF32 allowed again (PyTorch's cuDNN default), a float32 model
+    built through ``setup_runtime`` computes in float32: its forward on the
+    card equals the same weights' plain forward on the CPU."""
+    from x3d_tpu_torch.models import create_model
+
+    cudnn_flags(False, False, True, True)
+    cfg = common.load_config(CONFIG, OPTS[1:-2])
+    _, model, dtype = common.setup_runtime(cfg, 1, False, False, seed=3)
+    assert dtype == torch.float32
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    plain = create_model(cfg, dtype=torch.float32, device="cpu", init=False)
+    plain.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    clips = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 4, 32, 32, 3)).astype(np.float32))
+    with torch.inference_mode():
+        got = [t.cpu() for t in (model.eval()(clips.to(cuda)),
+                                 model(clips.to(cuda), return_logits=True))]
+        want = (plain.eval()(clips), plain(clips, return_logits=True))
+    assert (got[1] - want[1]).abs().max().item() <= 1e-4
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5
 
 
 def test_bool_flags_take_the_reference_forms():

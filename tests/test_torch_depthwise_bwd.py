@@ -10,6 +10,11 @@ high side -- and, at stride 1, against the TPU kernels' own backward,
 mode.  Tolerances (float32, sums in another order): dx atol 1e-5; dk rtol
 1e-5 with atol 1e-4 (sums of a few thousand products of order 1).
 
+dx has two bodies on the card: :func:`depthwise.dx_body` sends the stride-2
+stage entries to the parity-phase body and every other geometry to the
+gather body.  The phase body's tap rule is written out here in numpy and
+held against the plain dx, so an index error shows before the card.
+
 JAX is imported inside the tests, so that the card tests (marker ``cuda``)
 run on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_depthwise_bwd.py``.
@@ -96,6 +101,80 @@ def test_stride2_high_side_pad():
     np.testing.assert_array_equal(dx, want)
 
 
+# X3D's stride-2 stage entries, (T, H, W, C) of x at one clip: X3D-M (16
+# frames of 112², 56², 28², 14²) and X3D-S (13 frames of 80², 40², 20², 10²),
+# and a 39² plane (X3D-L's stage-4 entry), whose TF-SAME pads are (1, 1)
+STAGE_ENTRIES = [(16, 112, 112, 54), (16, 56, 56, 108), (16, 28, 28, 216),
+                 (16, 14, 14, 432), (13, 80, 80, 54), (13, 40, 40, 108),
+                 (13, 20, 20, 216), (13, 10, 10, 432), (16, 39, 39, 216)]
+STAGE_IDS = ["M2", "M3", "M4", "M5", "S2", "S3", "S4", "S5", "odd39"]
+
+
+@pytest.mark.parametrize("thwc", STAGE_ENTRIES, ids=STAGE_IDS)
+def test_dx_body_takes_phase_at_stage_entries(thwc):
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    pads = depthwise._resolve_pads((1, *thwc), kdims, strides, "SAME")
+    assert pads[1] == pads[2] == ((1, 1) if thwc[1] % 2 else (0, 1))
+    assert depthwise.dx_body(kdims, strides, pads) == "phase"
+
+
+@pytest.mark.parametrize("kdims,strides,pads", [
+    ((3, 3, 3), (1, 1, 1), ((1, 1), (1, 1), (1, 1))),      # stride 1
+    ((5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0))),      # the stem's conv_t
+    ((3, 1, 1), (1, 2, 2), ((1, 1), (0, 0), (0, 0))),      # taps 1x1
+    ((3, 5, 5), (1, 2, 2), ((1, 1), (1, 2), (1, 2))),      # taps 5x5
+    ((3, 3, 3), (2, 2, 2), ((0, 1), (0, 1), (0, 1))),      # temporal stride 2
+    ((3, 3, 3), (1, 2, 1), ((1, 1), (0, 1), (1, 1))),      # stride 1 along W
+    ((3, 3, 3), (1, 2, 2), ((1, 1), (2, 0), (0, 1))),      # low pad 2
+    ((6, 3, 3), (1, 2, 2), ((2, 3), (0, 1), (0, 1))),      # kt above 5
+], ids=["stride1", "stem5x1x1", "taps1x1", "taps5x5", "tstride2", "wstride1",
+        "lowpad2", "kt6"])
+def test_dx_body_takes_gather_elsewhere(kdims, strides, pads):
+    assert depthwise.dx_body(kdims, strides, pads) == "gather"
+
+
+def _dx_by_phases(g, k, x_shape, pads):
+    """dx of a stride-(1, 2, 2) conv with 3x3 spatial taps, built from its
+    four parity phases with the tap rule the phase body hard-codes: in
+    virtual rows v = hi + hlo an even v takes dh = 0 from g row v/2 and
+    dh = 2 from row v/2 - 1, an odd v takes dh = 1 from row (v - 1)/2;
+    columns likewise; frame ti takes dt from g frame ti + tlo - dt."""
+    B, T, H, W, C = x_shape
+    _, To, Ho, Wo, _ = g.shape
+    tlo, hlo, wlo = (p[0] for p in pads)
+    nqh, nqw = (H + hlo + 1) // 2, (W + wlo + 1) // 2      # quads
+    # gp[:, :, I + 1, J + 1] = g[:, :, I, J], zero outside g
+    gp = np.zeros((B, To, nqh + 1, nqw + 1, C), np.float64)
+    nh, nw = min(Ho, nqh), min(Wo, nqw)
+    gp[:, :, 1:nh + 1, 1:nw + 1] = g[:, :, :nh, :nw]
+    rows = {"a": slice(0, nqh), "b": slice(1, nqh + 1)}    # g rows I-1, I
+    cols = {"l": slice(0, nqw), "r": slice(1, nqw + 1)}    # g columns J-1, J
+    by_parity = {0: [(0, "b", "r"), (2, "a", "l")], 1: [(1, "b", "r")]}
+    dxv = np.zeros((B, T, 2 * nqh, 2 * nqw, C), np.float64)
+    for ti in range(T):
+        for dt in range(k.shape[0]):
+            to = ti + tlo - dt
+            if not 0 <= to < To:
+                continue
+            for py, px in np.ndindex(2, 2):
+                for dh, row, _ in by_parity[py]:
+                    for dw, _, col in by_parity[px]:
+                        dxv[:, ti, py::2, px::2] += (
+                            k[dt, dh, dw, 0] * gp[:, to, rows[row], cols[col]])
+    return dxv[:, :, hlo:hlo + H, wlo:wlo + W]
+
+
+@pytest.mark.parametrize("shape", [CASES[2][0], CASES[3][0], (2, 5, 39, 39, 4)],
+                         ids=["stride2_even", "stride2_odd", "odd39"])
+def test_parity_phases_match_plain_dx(shape):
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    x, k, g, pads = _inputs(5, shape, kdims, strides, "SAME")
+    want = depthwise.depthwise_conv3d_dx_reference(
+        torch.from_numpy(g), torch.from_numpy(k), shape, strides, pads)
+    np.testing.assert_allclose(_dx_by_phases(g, k, shape, pads),
+                               want.numpy(), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape,kdims", [((2, 3, 4, 5, 6), (3, 3, 3)),
                                          ((1, 4, 5, 3, 11), (3, 1, 1))])
 def test_matches_tpu_kernels_interpret(shape, kdims):
@@ -164,24 +243,32 @@ def test_non_cpu_tensor_never_falls_back():
 @pytest.mark.parametrize("shape,kdims,strides,padding", CASES + [
     ((3, 16, 28, 28, 54), (3, 3, 3), (1, 2, 2), "SAME"),
     ((2, 16, 14, 14, 70), (5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0))),
-    ((2, 16, 7, 7, 432), (3, 3, 3), (1, 1, 1), "SAME")])
+    ((2, 16, 7, 7, 432), (3, 3, 3), (1, 1, 1), "SAME")] + [
+    ((2, *thwc), (3, 3, 3), (1, 2, 2), "SAME") for thwc in STAGE_ENTRIES])
 def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims, strides,
                                       padding):
     """float32: dx atol 1e-4, dk within 1e-5 of the sum of |x·g| for each
     (tap, channel); bfloat16 against the plain version in float32 on the
     same bfloat16 inputs: dx 2e-2 of the largest |dx|, dk 1e-4 of the
-    |x·g| sums (dk sums in float32 either way)."""
+    |x·g| sums (dk sums in float32 either way).  dx runs the phase body at
+    stride (1, 2, 2) with 3x3 spatial taps, the gather body elsewhere."""
     x, k, g, pads = (a if isinstance(a, tuple) else
                      torch.from_numpy(a).to(cuda).to(dtype)
                      for a in _inputs(4, shape, kdims, strides, padding))
+    body = "phase" if (strides, kdims[1:]) == ((1, 2, 2), (3, 3)) \
+        else "gather"
+    assert depthwise.dx_body(kdims, strides, pads) == body
     before = (depthwise.depthwise_conv3d_dx.launches,
-              depthwise.depthwise_conv3d_dk.launches)
+              depthwise.depthwise_conv3d_dk.launches,
+              dict(depthwise.depthwise_conv3d_dx.body_launches))
     dx = depthwise.depthwise_conv3d_dx(g, k, x.shape, strides, pads)
     dk = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
     torch.cuda.synchronize()
     assert (depthwise.depthwise_conv3d_dx.launches,
             depthwise.depthwise_conv3d_dk.launches) == (before[0] + 1,
                                                         before[1] + 1)
+    assert depthwise.depthwise_conv3d_dx.body_launches == \
+        before[2] | {body: before[2][body] + 1}
     rdx = depthwise.depthwise_conv3d_dx_reference(g.float(), k.float(),
                                                   x.shape, strides, pads)
     rdk = depthwise.depthwise_conv3d_dk_reference(x.float(), g.float(),
@@ -193,3 +280,50 @@ def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims, strides,
     assert dx.dtype == dtype and dk.dtype == torch.float32
     assert (dx.float() - rdx).abs().max().item() <= tol_dx
     assert ((dk - rdk).abs() <= tol_dk * scale + 1e-6).all()
+
+
+def _on_card_at(a, cuda, dtype, offset_bytes):
+    """``a`` as a CUDA tensor of ``dtype`` that starts ``offset_bytes`` into
+    its allocation."""
+    n = offset_bytes * 8 // torch.finfo(dtype).bits
+    buf = torch.empty(n + a.size, dtype=dtype, device=cuda)
+    t = buf[n:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.bfloat16, 2), (torch.bfloat16, 4), (torch.bfloat16, 8),
+    (torch.bfloat16, 16), (torch.float32, 4), (torch.float32, 8),
+    (torch.float32, 16)])
+@pytest.mark.parametrize("shape", [(2, 5, 28, 28, 54), (2, 5, 14, 14, 108),
+                                   (2, 5, 14, 14, 216)],
+                         ids=["C54", "C108", "C216"])
+def test_phase_body_takes_unaligned_g(cuda, dtype, offset, shape):
+    """g starting 2 to 16 bytes into its allocation: the copy granule
+    shrinks to what the address allows; dx as in the test above."""
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    _, k, g, pads = _inputs(6, shape, kdims, strides, "SAME")
+    gt = _on_card_at(g, cuda, dtype, offset)
+    assert gt.data_ptr() % 32 == offset % 32
+    kt = torch.from_numpy(k).to(cuda).to(dtype)
+    dx = depthwise.depthwise_conv3d_dx(gt, kt, shape, strides, pads)
+    rdx = depthwise.depthwise_conv3d_dx_reference(gt.float(), kt.float(),
+                                                  shape, strides, pads)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2 * rdx.abs().max().item()
+    assert (dx.float() - rdx).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thwc", STAGE_ENTRIES[:4], ids=STAGE_IDS[:4])
+def test_phase_body_repeats_bit_for_bit(cuda, thwc):
+    """No atomics: each dx element is written once, so bfloat16 calls on
+    one input give equal bits."""
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    _, k, g, pads = (a if isinstance(a, tuple) else
+                     torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+                     for a in _inputs(7, (2, *thwc), kdims, strides, "SAME"))
+    first = depthwise.depthwise_conv3d_dx(g, k, (2, *thwc), strides, pads)
+    second = depthwise.depthwise_conv3d_dx(g, k, (2, *thwc), strides, pads)
+    assert torch.equal(first, second)

@@ -17,6 +17,8 @@ from x3d_tpu_torch.tools.trace import family
     ("(anonymous namespace)::pw_conv_mma_kernel(__nv_bfloat16 const*, ...)",
      "port kernels"),
     ("void dw_conv3d_pbwd_kernel<float>(...)", "port kernels"),
+    ("void (anonymous namespace)::dw_conv3d_dx_phase_kernel<__nv_bfloat16, "
+     "2, 3>(...)", "port kernels"),
     ("sum_pbwd_partials_kernel(float const*, float*, int, int, int)",
      "port kernels"),
     ("void pw_stats_kernel<float, false>(...)", "port kernels"),
@@ -47,6 +49,8 @@ def test_family(name, want):
      "K3 dw_bn_act_conv_bwd"),
     ("void dw_conv3d_dx_kernel<__nv_bfloat16>(...)",
      "K4 depthwise_conv3d_dx"),
+    ("void (anonymous namespace)::dw_conv3d_dx_phase_kernel<__nv_bfloat16, "
+     "2, 3>(...)", "K4 depthwise_conv3d_dx"),
     ("void dw_conv3d_dk_kernel<__nv_bfloat16>(...)",
      "K4 depthwise_conv3d_dk"),
     ("sum_dk_partials_kernel(float const*, float*, int, int)",

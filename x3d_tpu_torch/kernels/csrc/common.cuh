@@ -1,7 +1,10 @@
-// Shared pieces of the port's depthwise kernels: element conversion and the
-// block shape.  Every kernel here takes NDHWC activations (C contiguous) in
-// float32 or bfloat16 and accumulates in float32.
+// Shared pieces of the port's kernels: element conversion, the depthwise
+// kernels' block shape and the cp.async copies.  Every kernel here takes
+// NDHWC activations (C contiguous) in float32 or bfloat16 and accumulates in
+// float32.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +45,19 @@ __device__ __forceinline__ float round_to(float v) {
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// The card's SMs (0 if the runtime cannot say).
+inline int sm_count() {
+  static int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    return n;
+  }();
+  return sms;
+}
+
 // Let a kernel take `bytes` of dynamic shared memory (beyond the default
 // 48 KB, which its static shared memory also counts against).
 template <typename Kernel>
@@ -50,6 +66,32 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 32 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// G bytes from global `src` to shared `dst`; zeros (and no read) if !valid.
+template <int G>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const int n = valid ? G : 0;
+  if constexpr (G == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_u32(dst)), "l"(src), "n"(G), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace x3d

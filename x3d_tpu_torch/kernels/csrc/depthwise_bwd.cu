@@ -1,6 +1,6 @@
 // K4: the depthwise 3-D convolution's backward on NDHWC activations, for any
 // taps, strides and explicit (lo, hi) pads -- the gradient of K1
-// (depthwise.cu).  Two entry points:
+// (depthwise.cu).  Three entry points, two of them for dx:
 //
 //   dx[b, ti, hi, wi, c] = sum over the taps (dt, dh, dw) and the outputs
 //                          (to, ho, wo) with to*st + dt - tlo = ti (and so on
@@ -13,25 +13,44 @@
 // pallas_dw._dk_kernel (x3d_tpu/ops/pallas_dw.py:123, run by _dw_rows_bwd at
 // :221), whose dx reran the forward kernel with flipped taps.  Those covered
 // stride 1 SAME only; the stem's 5x1x1 conv and the stride-2 stage entries
-// were left to XLA.  dx here is written in gather form, so one kernel covers
-// every stride and TF-SAME's odd high-side pad at stride 2 (at stride 1 it
-// equals K1 with flipped taps and mirrored pads).
+// were left to XLA.
 //
 // What bounds it on an H100: bytes, as for K1 -- 27 FMAs per element against
 // 4 bytes (dx: g read, dx written) or 4 bytes (dk: x and g read) per element
 // in bf16.  The design:
-//   * dx: a block owns one input frame of one clip, an 8x8 pixel tile and 32
-//     channels (threads along the contiguous C); it stages the g planes,
-//     rows and columns that reach the tile in shared memory (out-of-range
-//     ones as zero) and each thread sums its taps in f32;
+//   * dx, phase body (x3d_dw_conv3d_dx_phase): the stride-2 stage entries --
+//     spatial taps 3x3 at spatial stride 2, temporal stride 1, kt up to
+//     kPhaseMaxKt, low-side pads of 0 or 1 in H and W.  In virtual rows
+//     v = hi + hlo an output row ho reaches v = 2 ho + dh, so an even v
+//     takes dh = 0 from g row v/2 and dh = 2 from row v/2 - 1, an odd v
+//     takes dh = 1 from row (v-1)/2, and columns likewise.  A thread owns a
+//     quad (virtual rows 2I, 2I+1, columns 2J, 2J+1) times a vector of VE
+//     channels, which needs g rows I-1, I and columns J-1, J of each frame:
+//     9 multiply-adds a frame and channel for 4 outputs, fixed taps (held in
+//     registers, loaded once a block) and no division.  A block owns a tile
+//     of quads, a channel group and a clip, and walks a run of frames; the
+//     g planes the frame needs sit in a shared-memory ring of
+//     kt + kPhaseAhead planes, filled with cp.async kPhaseAhead planes ahead
+//     (granule 16, 8 or 4 bytes, picked at launch from C and g's address),
+//     so each g plane is read once per block, not kt times;
+//   * dx, gather body (x3d_dw_conv3d_dx): every other geometry.  A block owns
+//     one input frame of one clip, an 8x8 pixel tile and 32 channels
+//     (threads along the contiguous C); it stages the g planes, rows and
+//     columns that reach the tile in shared memory (out-of-range ones as
+//     zero) and each thread sums its taps in f32;
 //   * dk: a block owns one output tile of one clip and 32 channels and walks
 //     over all output frames, staging the x halo and the g tile of each in
 //     shared memory; each warp owns every 8th tap and keeps its sums in
 //     shared memory, so a block writes one f32 partial per (tap, channel);
 //     a second kernel sums the partials of each (tap, channel) in a fixed
 //     order, in double: deterministic, no atomics.
-// Not yet done (later work): a rolling temporal window, cp.async/TMA staging,
-// one pass for dx and dk together (ROADMAP B5's kernel).
+// Not yet done (later work): the gather body and dk stage with scalar loads
+// and without a rolling temporal window; one pass for dx and dk together
+// (ROADMAP B5's kernel).
+
+#include <algorithm>
+#include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -281,6 +300,273 @@ int launch_dk(const void* x, const void* g, float* part, float* dk,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- dx, phase body
+
+constexpr int kPhaseMaxKt = 5;    // temporal taps the phase body takes
+constexpr int kPhaseAhead = 2;    // g planes in flight beyond the frame
+constexpr int kPhaseMaxQ = 8;     // tile side, in quads
+constexpr int kPhaseMaxVecs = 32; // channel vectors a block owns
+
+struct PhaseGeom {
+  int B, T, H, W, C;
+  int tlo, hlo, wlo;  // low-side pads
+  int To, Ho, Wo;     // g
+  int nqh, nqw;       // quads along H and W: ceil((H + hlo) / 2), ...
+  int QH, QW;         // a block's tile, in quads
+  int nth, ntw;       // tiles along H and W
+  int CG;             // channels a block owns
+  int TC;             // frames a block walks
+  int granule;        // bytes a copy moves: 16, 8, 4, or 2 (plain loads)
+  int plane;          // elements of one ring slot
+};
+
+__device__ __forceinline__ void load_f32(const float* p, float (&v)[1]) {
+  v[0] = *p;
+}
+__device__ __forceinline__ void load_f32(const float* p, float (&v)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  v[0] = t.x, v[1] = t.y;
+}
+__device__ __forceinline__ void load_f32(const __nv_bfloat16* p,
+                                         float (&v)[1]) {
+  v[0] = __bfloat162float(*p);
+}
+__device__ __forceinline__ void load_f32(const __nv_bfloat16* p,
+                                         float (&v)[2]) {
+  const float2 t =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = t.x, v[1] = t.y;
+}
+
+__device__ __forceinline__ void store_f32(float* p, const float (&v)[1]) {
+  *p = v[0];
+}
+__device__ __forceinline__ void store_f32(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p,
+                                          const float (&v)[1]) {
+  *p = __float2bfloat16(v[0]);
+}
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p,
+                                          const float (&v)[2]) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+}
+
+// Registers: KT * 9 * VE taps, so a block of up to 256 threads keeps two
+// blocks an SM where they fit in 128 registers.
+template <typename T, int VE, int KT>
+__global__ void __launch_bounds__(kPhaseMaxVecs* kPhaseMaxQ,
+                                  KT * 9 * VE <= 64 ? 2 : 1)
+    dw_conv3d_dx_phase_kernel(const T* __restrict__ g,
+                              const float* __restrict__ taps,
+                              T* __restrict__ dx, PhaseGeom q) {
+  constexpr int R = KT + kPhaseAhead;  // ring slots
+  extern __shared__ __align__(16) unsigned char phase_smem[];
+  T* ring = reinterpret_cast<T*>(phase_smem);  // [R][QH+1][QW+1][CG]
+
+  int bx = blockIdx.x;
+  const int tw = bx % q.ntw;
+  bx /= q.ntw;
+  const int th = bx % q.nth;
+  const int c0 = bx / q.nth * q.CG;
+  const int t0 = blockIdx.y * q.TC, t1 = min(t0 + q.TC, q.T);
+  const int b = blockIdx.z;
+  const int I0 = th * q.QH, J0 = tw * q.QW;  // the tile's first quad
+  const int cols = q.QW + 1;                 // staged g columns J0-1 .. J0+QW-1
+  const int nv = q.CG / VE;
+  const int cv = threadIdx.x % nv, qi = threadIdx.x / nv;
+  const int c = c0 + cv * VE;
+
+  float k[KT][9][VE];
+#pragma unroll
+  for (int dt = 0; dt < KT; ++dt)
+#pragma unroll
+    for (int j = 0; j < 9; ++j)
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+        k[dt][j][e] = c + e < q.C ? taps[(size_t)(dt * 9 + j) * q.C + c + e] : 0.f;
+
+  // One g plane into its ring slot: rows I0-1 .. I0+QH-1, columns J0-1 ..
+  // J0+QW-1 and the group's channels, zeros outside g.  Each thread copies
+  // granule gi of pixels p0, p0 + pstep, ...
+  const int gpp = q.CG * (int)sizeof(T) / q.granule;  // granules a pixel
+  const int gi = threadIdx.x % gpp, p0 = threadIdx.x / gpp;
+  const int pstep = blockDim.x / gpp, npix = (q.QH + 1) * cols;
+  const int ch = c0 + gi * (q.granule / (int)sizeof(T));
+  const int pr0 = p0 / cols, pc0 = p0 % cols;
+  const int srow = pstep / cols, scol = pstep % cols;
+  auto fetch = [&](int to) {
+    if (p0 >= pstep) return;  // threads past the last whole step
+    unsigned char* dst = reinterpret_cast<unsigned char*>(
+        ring + (size_t)(to % R) * q.plane) + gi * q.granule;
+    const T* src = g + (size_t)(b * q.To + to) * q.Ho * q.Wo * q.C + ch;
+    int pr = pr0, pc = pc0;
+    for (int p = p0; p < npix; p += pstep) {
+      const int ho = I0 - 1 + pr, wo = J0 - 1 + pc;
+      const bool ok = ch < q.C && ho >= 0 && ho < q.Ho && wo >= 0 && wo < q.Wo;
+      const T* from = ok ? src + ((size_t)ho * q.Wo + wo) * q.C : g;
+      void* to_smem = dst + (size_t)p * q.CG * sizeof(T);
+      switch (q.granule) {
+        case 16: cp_async<16>(to_smem, from, ok); break;
+        case 8: cp_async<8>(to_smem, from, ok); break;
+        case 4: cp_async<4>(to_smem, from, ok); break;
+        default: *static_cast<T*>(to_smem) = ok ? *from : from_f32<T>(0.f);
+      }
+      pr += srow, pc += scol;
+      if (pc >= cols) pc -= cols, ++pr;
+    }
+  };
+
+  // the planes this run of frames reads: to = ti + tlo - dt.  Group 0
+  // holds the planes frame t0 reads, group j the plane t0 + tlo + j (which
+  // frame t0 + j adds), so that kPhaseAhead - 1 groups follow frame ti's
+  // last plane when the loop waits for it
+  const int p_lo = max(0, t0 + q.tlo - (KT - 1));
+  const int p_hi = min(q.To - 1, t1 - 1 + q.tlo);
+  for (int to = p_lo; to <= min(p_hi, t0 + q.tlo); ++to) fetch(to);
+  cp_async_commit();
+  for (int j = 1; j < kPhaseAhead; ++j) {
+    if (t0 + q.tlo + j <= p_hi) fetch(t0 + q.tlo + j);
+    cp_async_commit();
+  }
+
+  const int I = I0 + qi;
+  const bool owner = I < q.nqh && c < q.C;
+  for (int ti = t0; ti < t1; ++ti) {
+    // frame ti's planes have landed, and every thread is done with frame
+    // ti-1, whose oldest plane's slot the next copy fills
+    cp_async_wait<kPhaseAhead - 1>();
+    __syncthreads();
+    if (ti + q.tlo + kPhaseAhead <= p_hi) fetch(ti + q.tlo + kPhaseAhead);
+    cp_async_commit();  // an empty group past the end keeps the count
+    if (!owner) continue;
+    T* out = dx + (size_t)(b * q.T + ti) * q.H * q.W * q.C + c;
+    for (int qj = 0; qj < q.QW && J0 + qj < q.nqw; ++qj) {
+      // acc[2 * (v odd) + (u odd)]: the quad's outputs
+      float acc[4][VE] = {};
+#pragma unroll
+      for (int dt = 0; dt < KT; ++dt) {
+        const int to = ti + q.tlo - dt;
+        if (to < 0 || to >= q.To) continue;
+        // the 2x2 patch: rows a = I-1, b = I; columns 0 = J-1, 1 = J
+        const T* p = ring + (size_t)(to % R) * q.plane +
+                     ((size_t)qi * cols + qj) * q.CG + cv * VE;
+        float a0[VE], a1[VE], b0[VE], b1[VE];
+        load_f32(p, a0);
+        load_f32(p + q.CG, a1);
+        load_f32(p + (size_t)cols * q.CG, b0);
+        load_f32(p + (size_t)(cols + 1) * q.CG, b1);
+        const float(&w)[9][VE] = k[dt];  // w[3 * dh + dw]
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          acc[0][e] = fmaf(w[0][e], b1[e], acc[0][e]);
+          acc[0][e] = fmaf(w[2][e], b0[e], acc[0][e]);
+          acc[0][e] = fmaf(w[6][e], a1[e], acc[0][e]);
+          acc[0][e] = fmaf(w[8][e], a0[e], acc[0][e]);
+          acc[1][e] = fmaf(w[1][e], b1[e], acc[1][e]);
+          acc[1][e] = fmaf(w[7][e], a1[e], acc[1][e]);
+          acc[2][e] = fmaf(w[3][e], b1[e], acc[2][e]);
+          acc[2][e] = fmaf(w[5][e], b0[e], acc[2][e]);
+          acc[3][e] = fmaf(w[4][e], b1[e], acc[3][e]);
+        }
+      }
+      const int J = J0 + qj;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const int hi = 2 * I + (o >> 1) - q.hlo, wi = 2 * J + (o & 1) - q.wlo;
+        if (hi >= 0 && hi < q.H && wi >= 0 && wi < q.W)
+          store_f32(out + ((size_t)hi * q.W + wi) * q.C, acc[o]);
+      }
+    }
+  }
+}
+
+// The tile side (in quads) for n quads: n itself up to kPhaseMaxQ, else the
+// side in 4 .. kPhaseMaxQ that leaves the fewest idle quads (the larger on a
+// tie).
+int phase_tile(int n) {
+  if (n <= kPhaseMaxQ) return n;
+  int best = kPhaseMaxQ;
+  for (int s = kPhaseMaxQ - 1; s >= 4; --s)
+    if (ceil_div(n, s) * s < ceil_div(n, best) * best) best = s;
+  return best;
+}
+
+template <typename T, int VE, int KT>
+int launch_phase(const void* g, const float* taps, void* dx, PhaseGeom q,
+                 cudaStream_t stream) {
+  auto kernel = dw_conv3d_dx_phase_kernel<T, VE, KT>;
+  // a thread row per tile row of quads, at least two, so that a plane's
+  // copies (up to 2 * CG / VE granules a pixel) have a thread each
+  const int threads = q.CG / VE * std::max(q.QH, 2);
+  const size_t smem = (size_t)(KT + kPhaseAhead) * q.plane * sizeof(T);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // Split T into runs of frames (each reloads its first kt-1 planes) while
+  // the blocks would not fill the card twice over, keeping runs of >= 4.
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  const long blocks = (long)ceil_div(q.C, q.CG) * q.nth * q.ntw * q.B;
+  const long fill = 2L * per_sm * sm_count();
+  int runs = 1;
+  while (blocks * runs < fill && ceil_div(q.T, runs + 1) >= 4) ++runs;
+  q.TC = ceil_div(q.T, runs);
+  const dim3 grid(ceil_div(q.C, q.CG) * q.nth * q.ntw, ceil_div(q.T, q.TC),
+                  q.B);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(g), taps,
+                                          static_cast<T*>(dx), q);
+  return cudaGetLastError();
+}
+
+template <typename T, int VE>
+int launch_phase_kt(int kt, const void* g, const float* taps, void* dx,
+                    const PhaseGeom& q, cudaStream_t s) {
+  switch (kt) {
+    case 1: return launch_phase<T, VE, 1>(g, taps, dx, q, s);
+    case 2: return launch_phase<T, VE, 2>(g, taps, dx, q, s);
+    case 3: return launch_phase<T, VE, 3>(g, taps, dx, q, s);
+    case 4: return launch_phase<T, VE, 4>(g, taps, dx, q, s);
+    case 5: return launch_phase<T, VE, 5>(g, taps, dx, q, s);
+  }
+  return cudaErrorInvalidValue;
+}
+static_assert(kPhaseMaxKt == 5, "launch_phase_kt covers kt 1 .. 5");
+
+// The launch plan of a phase-body call, for elements of `elem` bytes and g
+// at address `g`: the copy granule from C's row bytes and g's alignment, the
+// channel groups (a multiple of the granule and of the vector, at most
+// kPhaseMaxVecs vectors, as even as they come), the tile.
+PhaseGeom phase_geometry(int B, int T, int H, int W, int C, int tlo, int hlo,
+                         int wlo, int To, int Ho, int Wo, int elem,
+                         const void* g, int ve) {
+  PhaseGeom q{B, T, H, W, C, tlo, hlo, wlo, To, Ho, Wo};
+  q.nqh = (H + hlo + 1) / 2;
+  q.nqw = (W + wlo + 1) / 2;
+  q.QH = phase_tile(q.nqh);
+  q.QW = phase_tile(q.nqw);
+  q.nth = ceil_div(q.nqh, q.QH);
+  q.ntw = ceil_div(q.nqw, q.QW);
+  q.granule = elem;
+  for (int G : {16, 8, 4})
+    if (G >= elem && (size_t)C * elem % G == 0 &&
+        reinterpret_cast<uintptr_t>(g) % G == 0) {
+      q.granule = G;
+      break;
+    }
+  const int unit = std::max(q.granule / elem, ve);
+  const int most = kPhaseMaxVecs * ve;
+  for (int groups = ceil_div(C, most);; ++groups) {
+    q.CG = ceil_div(ceil_div(C, groups), unit) * unit;
+    if (q.CG <= most) break;
+  }
+  const int bytes = (q.QH + 1) * (q.QW + 1) * q.CG * elem;
+  q.plane = ceil_div(bytes, 16) * 16 / elem;
+  return q;
+}
+
 }  // namespace
 
 // dk's partial sums: the wrapper allocates a (parts, taps, C) float32 buffer.
@@ -328,4 +614,32 @@ extern "C" int x3d_dw_conv3d_dk(const void* x, const void* g, void* part,
   if (dtype == kF32) return launch_dk<float>(x, g, f(part), f(dk), q, s);
   if (dtype == kBF16) return launch_dk<__nv_bfloat16>(x, g, f(part), f(dk), q, s);
   return cudaErrorInvalidValue;
+}
+
+// dx by the phase body: the arguments of x3d_dw_conv3d_dx, for spatial taps
+// 3x3 at spatial stride 2, temporal stride 1, kt in 1 .. 5 and low-side pads
+// of 0 or 1 in H and W (cudaErrorInvalidValue otherwise).
+extern "C" int x3d_dw_conv3d_dx_phase(const void* g, const void* taps,
+                                      void* dx, int dtype, int B, int T, int H,
+                                      int W, int C, int kt, int kh, int kw,
+                                      int st, int sh, int sw, int tlo, int hlo,
+                                      int wlo, int To, int Ho, int Wo,
+                                      void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaSuccess;
+  if (kh != 3 || kw != 3 || st != 1 || sh != 2 || sw != 2 || kt < 1 ||
+      kt > kPhaseMaxKt || hlo < 0 || hlo > 1 || wlo < 0 || wlo > 1 ||
+      tlo < 0 || To <= 0 || Ho <= 0 || Wo <= 0 || T > 65535 || B > 65535)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* w = static_cast<const float*>(taps);
+  const int ve = C % 2 == 0 ? 2 : 1;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  const int elem = dtype == kF32 ? 4 : 2;
+  const PhaseGeom q = phase_geometry(B, T, H, W, C, tlo, hlo, wlo, To, Ho, Wo,
+                                     elem, g, ve);
+  if (dtype == kF32)
+    return ve == 2 ? launch_phase_kt<float, 2>(kt, g, w, dx, q, s)
+                   : launch_phase_kt<float, 1>(kt, g, w, dx, q, s);
+  return ve == 2 ? launch_phase_kt<__nv_bfloat16, 2>(kt, g, w, dx, q, s)
+                 : launch_phase_kt<__nv_bfloat16, 1>(kt, g, w, dx, q, s);
 }

@@ -257,18 +257,6 @@ inline int pipe_stages(const void* kernel, PipeShape& q) {
   return per_sm;
 }
 
-inline int pipe_sm_count() {
-  static int sms = [] {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      return 0;
-    return n;
-  }();
-  return sms;
-}
-
 // How a call at q's planned widths runs, for the C interface's plan
 // functions: out[0] the copy granule in bytes, out[1] the columns a block
 // owns, out[2] column tiles, out[3] dynamic shared memory in bytes, out[4]
@@ -289,7 +277,7 @@ template <typename... Params, typename... Args>
 int pipe_launch(void (*kernel)(Params...), PipeShape q, cudaStream_t stream,
                 Args... args) {
   const int per_sm = pipe_stages((const void*)kernel, q);
-  const int sms = pipe_sm_count();
+  const int sms = sm_count();
   if (per_sm <= 0 || sms <= 0) return cudaErrorInvalidConfiguration;
   q.slots = std::max(1, std::min(q.tiles, sms * per_sm / q.nct));
   kernel<<<q.slots * q.nct, kPipeThreads, pipe_smem(q), stream>>>(args..., q);
@@ -297,32 +285,6 @@ int pipe_launch(void (*kernel)(Params...), PipeShape q, cudaStream_t stream,
 }
 
 extern __shared__ __align__(16) unsigned char pipe_smem_bytes[];
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// G bytes from global `src` to shared `dst`; zeros (and no read) if !valid.
-template <int G>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid) {
-  const int n = valid ? G : 0;
-  if constexpr (G == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)), "l"(src), "r"(n) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_u32(dst)), "l"(src), "n"(G), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // cp.async.wait_group takes its count as an immediate
 __device__ __forceinline__ void cp_async_wait(int n) {

@@ -7,11 +7,13 @@ conv, and the stride-2 stage-entry convs.
   (``kernels/csrc/depthwise.cu``), which replaces the TPU kernels
   ``dw_batchminor._fwd_kernel`` and ``pallas_dw._fwd_kernel``;
   :func:`depthwise_conv3d_reference` is its plain PyTorch version.
-* :func:`depthwise_conv3d_dx` and :func:`depthwise_conv3d_dk` are the two
-  entry points of kernel K4 (``kernels/csrc/depthwise_bwd.cu``), the
-  backward, which replaces the TPU kernels ``dw_batchminor._dk_kernel`` and
+* :func:`depthwise_conv3d_dx` and :func:`depthwise_conv3d_dk` are the
+  wrappers of kernel K4 (``kernels/csrc/depthwise_bwd.cu``), the backward,
+  which replaces the TPU kernels ``dw_batchminor._dk_kernel`` and
   ``pallas_dw._dk_kernel`` (and their dx, which reran the forward); each has
-  its plain version beside it.
+  its plain version beside it.  dx has two bodies, picked by
+  :func:`dx_body`: the parity-phase body at the stride-2 stage entries and
+  the gather body for every other geometry.
 * :func:`depthwise_conv3d_pbwd` is the wrapper of kernel K8
   (``kernels/csrc/depthwise_pbwd.cu``), the one-pass backward of a stride-1
   SAME odd-tap conv (both gradients from one stream over the input and the
@@ -47,6 +49,8 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "x3d_dw_conv3d_dk_parts": [ctypes.c_int] * 5,
     "x3d_dw_conv3d_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
+    + [ctypes.c_void_p],
+    "x3d_dw_conv3d_dx_phase": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
     + [ctypes.c_void_p],
     "x3d_dw_conv3d_dk": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
     + [ctypes.c_void_p],
@@ -189,12 +193,29 @@ def _bwd_geometry(x_shape, g: torch.Tensor, kdims, strides, pads):
             pads[2][0], *out)
 
 
+PHASE_MAX_KT = 5      # kPhaseMaxKt in depthwise_bwd.cu
+
+
+def dx_body(kdims, strides, pads) -> str:
+    """Which of K4's two dx bodies computes a call: "phase" for spatial taps
+    3x3 at spatial stride 2, temporal stride 1, 1 <= kt <= PHASE_MAX_KT and
+    low-side pads of 0 or 1 in H and W (the stride-2 stage entries, at even
+    planes (0, 1) and odd ones (1, 1)); "gather" for every other geometry."""
+    kt, kh, kw = (int(k) for k in kdims)
+    if ((kh, kw) == (3, 3) and tuple(int(s) for s in strides) == (1, 2, 2)
+            and 1 <= kt <= PHASE_MAX_KT
+            and pads[1][0] in (0, 1) and pads[2][0] in (0, 1)):
+        return "phase"
+    return "gather"
+
+
 def depthwise_conv3d_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape,
                         strides: Sequence[int], pads: Pads) -> torch.Tensor:
     """dx of :func:`depthwise_conv3d` (kernel K4): (B, T, H, W, C) in g's
     dtype, taps summed in float32.  ``kernel`` (kt, kh, kw, 1, C) is
     rounded to g's dtype; ``pads`` are explicit ((lo, hi),)*3.  A CPU tensor
-    takes the plain version; a CUDA tensor launches K4 or raises."""
+    takes the plain version; a CUDA tensor launches K4's body that
+    :func:`dx_body` names, or raises."""
     strides, pads = tuple(int(s) for s in strides), _check_pads(pads)
     kdims = tuple(kernel.shape[:3])
     dims = _bwd_geometry(x_shape, g, kdims, strides, pads)
@@ -206,11 +227,15 @@ def depthwise_conv3d_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape,
     dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
     kernels.check_cuda(g, taps, dx)
     lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
-    rc = lib.x3d_dw_conv3d_dx(g.data_ptr(), taps.data_ptr(), dx.data_ptr(),
-                              kernels.dtype_code(g), *dims,
-                              kernels.stream_handle(g))
-    kernels.raise_on_error(rc, "depthwise_conv3d_dx kernel launch")
+    body = dx_body(kdims, strides, pads)
+    launch = lib.x3d_dw_conv3d_dx_phase if body == "phase" \
+        else lib.x3d_dw_conv3d_dx
+    rc = launch(g.data_ptr(), taps.data_ptr(), dx.data_ptr(),
+                kernels.dtype_code(g), *dims, kernels.stream_handle(g))
+    kernels.raise_on_error(rc, f"depthwise_conv3d_dx ({body} body) kernel "
+                           "launch")
     depthwise_conv3d_dx.launches += 1
+    depthwise_conv3d_dx.body_launches[body] += 1
     return dx
 
 
@@ -243,6 +268,7 @@ def depthwise_conv3d_dk(x: torch.Tensor, g: torch.Tensor, kdims,
 
 
 depthwise_conv3d_dx.launches = 0
+depthwise_conv3d_dx.body_launches = {"phase": 0, "gather": 0}
 depthwise_conv3d_dk.launches = 0
 
 

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from x3d_tpu_torch.models import create_model
-from x3d_tpu_torch.utils import normalize, resolve_device
+from x3d_tpu_torch.utils import normalize, resolve_device, use_full_float32
 
 
 def _default_dtype(device: torch.device) -> torch.dtype:
@@ -41,12 +41,16 @@ class InferenceEngine:
           module_or_state_dict: an X3D model (used as is, moved to
             ``device``) or a state_dict for one (see ``convert``).
           max_videos: batch capacity in videos (videos × views clips).
-          dtype: compute dtype; bfloat16 on CUDA, float32 on the CPU.
+          dtype: compute dtype; bfloat16 on CUDA, float32 on the CPU.  A
+            float32 engine on the card turns TF32 off (process-wide), as
+            the tools' ``setup_runtime`` does.
           device: CUDA unless the caller asks for another (the CPU serves
             the tests); raises when no card is present.
         """
         self.device = resolve_device(device)
         dtype = dtype or _default_dtype(self.device)
+        if dtype == torch.float32 and self.device.type == "cuda":
+            use_full_float32()
         if isinstance(module_or_state_dict, nn.Module):
             model = module_or_state_dict
             if model.dtype != dtype:

@@ -10,7 +10,8 @@ import torch
 
 from x3d_tpu_torch import get_default_config
 from x3d_tpu_torch.models import create_model
-from x3d_tpu_torch.utils import resolve_device
+from x3d_tpu_torch.utils import (resolve_device, use_deterministic_cudnn,
+                                 use_full_float32)
 
 log = logging.getLogger(__name__)
 
@@ -41,7 +42,9 @@ def setup_runtime(cfg, num_gpus: int, mixed_precision: bool, debug: bool,
     no card.  ``num_gpus`` above 1 is not ported yet.  Debug
     mode turns on autograd's anomaly detection (a NaN in the backward
     raises where it was made) and debug logging.  The model's weights are
-    drawn from ``seed``.
+    drawn from ``seed``.  cuDNN runs its deterministic algorithms, and
+    without ``mixed_precision`` no float32 conv or product runs in TF32
+    (process-wide flags).
     """
     if num_gpus and num_gpus > 1:
         raise NotImplementedError(
@@ -52,6 +55,9 @@ def setup_runtime(cfg, num_gpus: int, mixed_precision: bool, debug: bool,
         logging.getLogger().setLevel(logging.DEBUG)
     device = resolve_device(device)
     dtype = torch.bfloat16 if mixed_precision else torch.float32
+    use_deterministic_cudnn()
+    if dtype == torch.float32:
+        use_full_float32()
     model = create_model(cfg, dtype=dtype, device=device, seed=seed)
     log.info("device=%s dtype=%s%s", device, dtype,
              f" ({torch.cuda.get_device_name(device)})"

@@ -1,13 +1,14 @@
 """Where an X3D training step's time goes on the card.
 
 Builds the model (random weights from a seed), its SGD-Nesterov state and
-a synthetic batch, runs two warm-up steps, then traces a few steps with
-``torch.profiler`` (device activity only) and prints one JSON line: the
-step's device busy time, the device's idle share between the first and
-last kernel, device time per step for each of the port's kernels (K1-K8,
-with their second passes) and for the library's kernel families (GEMMs,
-cuDNN convs, elementwise, reductions, copies), and the top kernels by
-name.  Needs a CUDA card::
+a synthetic batch with cuDNN's flags as the train tool sets them
+(deterministic algorithms), runs two warm-up steps, then traces a few
+steps with ``torch.profiler`` (device activity only) and prints one JSON
+line: the step's device busy time, the device's idle share between the
+first and last kernel, device time per step for each of the port's
+kernels (K1-K8, with their second passes) and for the library's kernel
+families (GEMMs, cuDNN convs, elementwise, reductions, copies), and the top
+kernels by name.  Needs a CUDA card::
 
     python -m x3d_tpu_torch.tools.profile_training --variant M --clips 32
 
@@ -26,13 +27,15 @@ from x3d_tpu_torch.data import synthetic_batches
 from x3d_tpu_torch.models import create_model
 from x3d_tpu_torch.tools.trace import card, family, trace
 from x3d_tpu_torch.train import create_train_state, make_train_step
+from x3d_tpu_torch.utils import use_deterministic_cudnn
 
 # the port's kernels by the names of their __global__ functions
 _PORT = (
     ("K1 depthwise_conv3d", ("dw_conv3d_fwd_kernel",)),
     ("K2 dw_bn_act_conv", ("dw_bn_act_conv_fwd_kernel",)),
     ("K3 dw_bn_act_conv_bwd", ("dw_bn_act_conv_bwd_kernel",)),
-    ("K4 depthwise_conv3d_dx", ("dw_conv3d_dx_kernel",)),
+    ("K4 depthwise_conv3d_dx", ("dw_conv3d_dx_kernel",
+                                "dw_conv3d_dx_phase_kernel")),
     ("K4 depthwise_conv3d_dk", ("dw_conv3d_dk_kernel",
                                 "sum_dk_partials_kernel")),
     ("K5 pw_conv_stats", ("pw_conv_stats_mma_kernel",)),
@@ -54,6 +57,7 @@ def _group(name: str) -> str:
 
 def profile(cfg, clips: int, steps: int, seed: int,
             trace_path: str | None = None) -> dict:
+    use_deterministic_cudnn()           # as the train tool runs its steps
     model = create_model(cfg, seed=seed)
     state = create_train_state(cfg, model)
     train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)

@@ -52,3 +52,20 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def use_deterministic_cudnn() -> None:
+    """Ask cuDNN (the stem's full conv) for deterministic algorithms and no
+    autotuning, so that a step on the card repeats bit for bit and a resumed
+    run equals an uninterrupted one, as the reference's pure step does.  The
+    flags are process-wide."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def use_full_float32() -> None:
+    """Keep float32 convolutions (cuDNN) and products (cuBLAS) out of TF32,
+    which PyTorch allows cuDNN by default: a float32 run computes in float32,
+    as the reference does.  The flags are process-wide."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
