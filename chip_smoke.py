@@ -9,8 +9,9 @@ CUDA toolkit::
 
 It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
 nvcc per source, in parallel; ptxas's registers, spills and static shared
-memory of each instantiation of K5-K7's tensor-core body on a line of its
-own, which fails on a spill) and then:
+memory of each instantiation of K5-K7's tensor-core body, K4 dx's phase
+body and K3's ring body on a line of its own, which fails on a spill where
+the body must not spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
@@ -30,14 +31,17 @@ own, which fails on a spill) and then:
   training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes); K4's
   dx rows name the body that ran (the parity-phase body at the stride-2
   stage entries, the gather body elsewhere) and time the gather body on the
-  same inputs beside the phase body;
+  same inputs beside the phase body; K3's rows likewise name its body (the
+  ring body at every fused segment), carry the ring body's launch plan and
+  time the generic body on the same inputs;
   K5-K7's rows carry how the call runs (copy granule, block columns, ring
   stages, shared memory, blocks per SM), ``bound_share`` (bound / time)
   and ``vs_library`` (time / library time), and K5 and K6 are summed over
   each variant's training step;
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
-  step (K4 dx by its phase body only), checks that two runs of one step
+  step (K4 dx by its phase body only, K3 by its ring body only), checks
+  that two runs of one step
   from one state are bit-identical,
   and checks one float32 step through the kernels against the same step
   through the plain versions (loss, every gradient, the updated parameters
@@ -250,6 +254,20 @@ def main() -> int:
     check(len(entries) == 20 and all(
         e["spill_bytes"] == 0 and "registers" in e for e in entries),
         f"K4 dx phase body's ptxas report: {entries}")
+    # K3's ring body, <element, channels a thread, temporal taps>: 20
+    # instantiations; the one every X3D segment runs in training (bfloat16,
+    # 2 channels, kt 3) must not spill
+    entries = ptxas_entries(
+        ("dw_fused_bwd.cu",),
+        r"dw_bn_act_conv_bwd_ring_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E",
+        lambda m: "dw_bn_act_conv_bwd_ring_kernel<"
+                  f"{'float' if m[1] == 'f' else 'bfloat16'}, {m[2]}, {m[3]}>")
+    emit(phase="build, K3 ring body", kernels=entries)
+    main = [e for e in entries
+            if e["kernel"].endswith("<bfloat16, 2, 3>")]
+    check(len(entries) == 20 and all("registers" in e for e in entries)
+          and len(main) == 1 and main[0]["spill_bytes"] == 0,
+          f"K3 ring body's ptxas report: {entries}")
 
     # X3D-M's depthwise shapes at one video, from its architecture plan
     cfg = variant_config("M")
@@ -407,11 +425,13 @@ def main() -> int:
                 "K9": fma_probe.fma_chain}
 
     dx_bodies = depthwise.depthwise_conv3d_dx.body_launches
+    k3_bodies = dw_fused.dw_bn_act_conv_bwd.body_launches
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
         dx_bodies.update(dict.fromkeys(dx_bodies, 0))
+        k3_bodies.update(dict.fromkeys(k3_bodies, 0))
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -713,7 +733,20 @@ def main() -> int:
                     lambda: torch.ops.aten.convolution_backward(
                         gc, uc, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
                         False, [0, 0, 0], C, [True, True, False])),
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, body=dw_fused.bwd_body(kdims))
+            if row["body"] == "ring":
+                # the generic body on the same inputs (its C entry point
+                # takes every geometry): what the ring body replaced
+                lib = _build.load("dw_fused_bwd.cu",
+                                  dw_fused._BWD_SIGNATURES)
+                row["plan"] = dw_fused._ring_plan(lib, x, y, gy, kdims[0])
+                cols = [t.float().contiguous() for t in (a, b, gp, gs2)]
+                taps_f32 = k.float().reshape(-1, C).contiguous()
+                stream = torch.cuda.current_stream().cuda_stream
+                row["generic_ms"] = time_ms(lambda: dw_fused._launch_bwd(
+                    lib, "generic", x, cols, taps_f32, y, gy, kdims, stream))
+                del cols, taps_f32
+            row.update(shares(row))
             emit(phase="K3 dw_bn_act_conv_bwd", variant=variant, **row)
             k3_rows.append(row)
             del gy, u, uc, gc
@@ -803,6 +836,7 @@ def main() -> int:
                           launches={k: after[k] - before[k] for k in after}))
     train_launches = read_counts()            # ... and ends here
     train_dx_bodies = dict(dx_bodies)
+    train_k3_bodies = dict(k3_bodies)
     train_peak = torch.cuda.max_memory_allocated()
     for s in steps:
         emit(phase="train step", clips=TRAIN_CLIPS, **s)
@@ -816,11 +850,16 @@ def main() -> int:
          step_ms_median_after_first=step_ms,
          clips_per_s=TRAIN_CLIPS / step_ms * 1e3,
          first_step_ms=steps[0]["device_ms"], peak_memory_bytes=train_peak,
-         launches_per_step=want_step, k4_dx_bodies=train_dx_bodies)
+         launches_per_step=want_step, k4_dx_bodies=train_dx_bodies,
+         k3_bodies=train_k3_bodies)
     # every K4 dx of the step is a stride-2 stage entry: the phase body
     want_bodies = {"phase": TRAIN_STEPS * want_step["K4 dx"], "gather": 0}
     check(train_dx_bodies == want_bodies,
           f"K4 dx bodies {train_dx_bodies}, want {want_bodies}")
+    # every K3 of the step is a fused segment with 3x3 taps: the ring body
+    want_k3 = {"ring": TRAIN_STEPS * want_step["K3"], "generic": 0}
+    check(train_k3_bodies == want_k3,
+          f"K3 bodies {train_k3_bodies}, want {want_k3}")
 
     # two runs of one step from one state: bit-identical (no atomics in
     # the kernels; cuDNN asked for its deterministic algorithms)
@@ -1221,11 +1260,13 @@ def main() -> int:
         zero_counts()                       # the X3D-S path starts here
         first, _ = run_train(run_dir, epochs=2, cadence=2)
         s_train_launches = read_counts()    # (its training part ends here)
+        s_k3_bodies = dict(k3_bodies)
         s_peak = torch.cuda.max_memory_allocated()
         saved = CheckpointManager(f"{run_dir}/checkpoints").keys()
         emit(phase="X3D-S train CLI", clips=S_TRAIN_CLIPS, epochs=2,
              steps_per_epoch=3, losses=first.losses, checkpoints=saved,
              launches=s_train_launches, launches_per_step=want_s_step,
+             k3_bodies=s_k3_bodies,
              # from one step's end to the next, hooks and saves included
              step_interval_ms=[a.elapsed_time(b) for a, b in
                                zip(first.events, first.events[1:])],
@@ -1238,6 +1279,9 @@ def main() -> int:
         check(s_train_launches == {k: 6 * v for k, v in want_s_step.items()},
               f"X3D-S train launches {s_train_launches}, want 6 x "
               f"{want_s_step}")
+        want_k3_s = {"ring": 6 * want_s_step["K3"], "generic": 0}
+        check(s_k3_bodies == want_k3_s,
+              f"X3D-S K3 bodies {s_k3_bodies}, want {want_k3_s}")
 
         # the same command with one more epoch resumes at step 6 ...
         resumed, lines = run_train(run_dir, epochs=3, cadence=1)
@@ -1352,8 +1396,11 @@ def main() -> int:
                  "x3d_tpu/ops/dw_fused.py:298", k2_rows,
                  max(train_err["K2"], train_err_s["K2"])), "K2", "serve"),
         (summary("dw_bn_act_conv_bwd", "cuda", csrc + "dw_fused_bwd.cu",
-                 "x3d_tpu/ops/dw_fused.py:346", k3_rows, worst(k3_rows_s)),
-         "K3", "train"),
+                 "x3d_tpu/ops/dw_fused.py:346", k3_rows, worst(k3_rows_s))
+         | {"bodies_training": train_k3_bodies,
+            "bodies_x3d_s_training": s_k3_bodies,
+            "generic_ms": sum(r["n"] * r.get("generic_ms", r["ms"])
+                              for r in k3_rows)}, "K3", "train"),
         (summary("depthwise_conv3d_dx", "cuda", csrc + "depthwise_bwd.cu",
                  "x3d_tpu/ops/dw_batchminor.py:231 (dx by _fwd_kernel), "
                  "x3d_tpu/ops/pallas_dw.py:221 (dx by _fwd_kernel)",

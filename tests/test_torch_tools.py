@@ -47,6 +47,10 @@ def test_family(name, want):
      "K2 dw_bn_act_conv"),
     ("void dw_bn_act_conv_bwd_kernel<__nv_bfloat16>(...)",
      "K3 dw_bn_act_conv_bwd"),
+    ("void (anonymous namespace)::dw_bn_act_conv_bwd_ring_kernel<"
+     "__nv_bfloat16, 2, 3>(...)", "K3 dw_bn_act_conv_bwd"),
+    ("(anonymous namespace)::dw_bn_act_conv_bwd_sum_kernel(float const*, "
+     "float*, float const*, float*, int, int)", "K3 dw_bn_act_conv_bwd"),
     ("void dw_conv3d_dx_kernel<__nv_bfloat16>(...)",
      "K4 depthwise_conv3d_dx"),
     ("void (anonymous namespace)::dw_conv3d_dx_phase_kernel<__nv_bfloat16, "

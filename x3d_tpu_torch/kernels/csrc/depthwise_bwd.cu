@@ -320,39 +320,6 @@ struct PhaseGeom {
   int plane;          // elements of one ring slot
 };
 
-__device__ __forceinline__ void load_f32(const float* p, float (&v)[1]) {
-  v[0] = *p;
-}
-__device__ __forceinline__ void load_f32(const float* p, float (&v)[2]) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  v[0] = t.x, v[1] = t.y;
-}
-__device__ __forceinline__ void load_f32(const __nv_bfloat16* p,
-                                         float (&v)[1]) {
-  v[0] = __bfloat162float(*p);
-}
-__device__ __forceinline__ void load_f32(const __nv_bfloat16* p,
-                                         float (&v)[2]) {
-  const float2 t =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  v[0] = t.x, v[1] = t.y;
-}
-
-__device__ __forceinline__ void store_f32(float* p, const float (&v)[1]) {
-  *p = v[0];
-}
-__device__ __forceinline__ void store_f32(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p,
-                                          const float (&v)[1]) {
-  *p = __float2bfloat16(v[0]);
-}
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p,
-                                          const float (&v)[2]) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-}
-
 // Registers: KT * 9 * VE taps, so a block of up to 256 threads keeps two
 // blocks an SM where they fit in 128 registers.
 template <typename T, int VE, int KT>

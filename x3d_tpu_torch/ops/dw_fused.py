@@ -7,7 +7,10 @@
 ``dw_fused._fwd_kernel`` of the JAX package; :func:`reference` is its plain
 PyTorch version.  :func:`dw_bn_act_conv_bwd` is the wrapper of K3
 (``kernels/csrc/dw_fused_bwd.cu``), the one-pass backward, which replaces
-``dw_fused._bwd_kernel``; :func:`bwd_reference` is its plain version.
+``dw_fused._bwd_kernel``; :func:`bwd_reference` is its plain version.  K3
+has two bodies, picked by :func:`bwd_body`: the ring body for 3x3 spatial
+taps and up to 5 temporal ones (every fused segment of X3D), launched by the
+plan :func:`bwd_plan` gives, and the generic body for other taps.
 :func:`segment` is the differentiable op the model calls (K2 forward, K3
 backward, or the plain versions within ``ops.plain_versions()``).
 
@@ -24,6 +27,7 @@ backward, or the plain versions within ``ops.plain_versions()``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,6 +46,10 @@ _BWD_SIGNATURES = {
     "x3d_dw_bn_act_conv_bwd_tiles": [ctypes.c_int] * 2,
     "x3d_dw_bn_act_conv_bwd": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
+    "x3d_dw_bn_act_conv_bwd_ring_occupancy": [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "x3d_dw_bn_act_conv_bwd_ring": [ctypes.c_void_p] * 15
+    + [ctypes.c_int] * 16 + [ctypes.c_void_p],
 }
 
 
@@ -188,6 +196,217 @@ def bwd_abs_sums(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     return (dk, du.sum(dim=(1, 2, 3)).t(), (du * u).sum(dim=(1, 2, 3)).t())
 
 
+# The ring body's limits (dw_fused_bwd.cu: kRingMaxKt, kRingMaxVecs,
+# kRingMaxThreads, kRingAhead) and its plan's rules.
+RING_MAX_KT = 5
+RING_MAX_VECS = 32
+RING_MAX_THREADS = 128    # a role's (a block has a du and a dk role)
+RING_AHEAD = 1            # planes in flight beyond the newest
+RING_SMEM = 113 * 1024    # a block's shared memory: two blocks an SM
+RING_MAX_SIDE = 14        # a plane up to this side is one tile
+RING_MIN_RUN = 4          # frames a run keeps (each reloads kt - 1 planes)
+
+
+def bwd_body(kdims) -> str:
+    """Which of K3's two bodies computes a call: "ring" for spatial taps 3x3
+    and 1 <= kt <= RING_MAX_KT (every fused segment of X3D), "generic" for
+    every other geometry."""
+    kt, kh, kw = (int(k) for k in kdims)
+    return "ring" if (kh, kw) == (3, 3) and 1 <= kt <= RING_MAX_KT \
+        else "generic"
+
+
+def _ring_side(n: int) -> int:
+    """A tile's side along a plane of n pixels: n itself up to
+    RING_MAX_SIDE, else the side in 7 .. RING_MAX_SIDE that leaves the fewest
+    idle pixels (the larger on a tie)."""
+    if n <= RING_MAX_SIDE:
+        return n
+    best = RING_MAX_SIDE
+    for side in range(RING_MAX_SIDE - 1, 6, -1):
+        if -(-n // side) * side < -(-n // best) * best:
+            best = side
+    return best
+
+
+def _ring_slot(nv, vec, elem, tile_h, row_cells, vec_pad) -> int:
+    """Bytes of one ring slot: nv vector planes of (tile_h + 2) rows of
+    ``row_cells`` cells and a pad, rounded up to 16 bytes."""
+    plane = (tile_h + 2) * row_cells + vec_pad
+    return -(-nv * plane * vec * elem // 16) * 16
+
+
+def _ring_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
+               rows) -> int:
+    """Dynamic shared memory of a ring-body block, as ``ring_smem`` in
+    dw_fused_bwd.cu lays it out."""
+    slot = _ring_slot(group // vec, vec, elem, tile_h, row_cells, vec_pad)
+    ring = (2 * (kt + RING_AHEAD) + RING_AHEAD + 1) * slot
+    red = rows * (9 * kt + 2) * group * 4
+    taps = 9 * kt * group * 4 if 9 * kt * vec > 64 else 0
+    return -(-max(ring, red) // 16) * 16 + taps
+
+
+def _bank_ways(nv: int, threads: int, cell: int, plane: int,
+               row: int) -> int:
+    """Shared-memory wavefronts of one tap load over a block's warps, where
+    thread i = (cv, r) = (i % nv, i // nv) reads a cell of ``cell`` bytes at
+    cv * plane + r * row cells: per warp (per half-warp for 8 bytes), the
+    most distinct 4-byte words that one of the 32 banks serves."""
+    total = 0
+    per = 16 if cell == 8 else 32
+    for first in range(0, threads, per):
+        banks = {}
+        for i in range(first, min(first + per, threads)):
+            at = (i % nv * plane + i // nv * row) * cell
+            for word in range(at // 4, (at + cell - 1) // 4 + 1):
+                banks.setdefault(word % 32, set()).add(word)
+        total += max(len(words) for words in banks.values())
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_pitch(nv, threads, cell, tile_h, tile_w):
+    """(cells a staged row, cells padding a vector plane): a row holds the
+    tile's columns and the halo's, made even (pixel pairs), and up to 7
+    more; the pair that spreads a warp's tap loads over the banks best,
+    then the smaller plane."""
+    least = tile_w + 2 + tile_w % 2
+    return min(((cols, pad) for cols in range(least, least + 8)
+                for pad in range(32)),
+               key=lambda cp: (_bank_ways(nv, threads, cell,
+                                          (tile_h + 2) * cp[0] + cp[1],
+                                          cp[0]),
+                               (tile_h + 2) * cp[0] + cp[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B: int, T: int, H: int, W: int, C: int, kt: int, elem: int = 2,
+             align: int = 16, slots: int = 0) -> dict:
+    """How the ring body runs a call: elements of ``elem`` bytes, inputs
+    whose addresses are multiples of ``align`` bytes, a card that holds
+    ``slots`` blocks at once (0: no runs are cut).
+
+    * the copy granule: a cell (``vec`` channels of one pixel, 4 or 8 bytes)
+      where every address allows it, else one element (plain loads);
+    * the tile: :func:`_ring_side` along H and along W;
+    * channel groups of ``vec`` channels a vector (2 at even C), at most
+      RING_MAX_VECS vectors, as even as they come, and small enough for
+      RING_SMEM bytes of shared memory: every group starts on a cell;
+    * thread rows: each takes tile rows r, r + rows, ... in each of the
+      block's two roles (du and dk), a role at most RING_MAX_THREADS
+      threads and whole warps;
+    * the ring's row and vector-plane pitches, so that a warp's loads fall
+      on distinct shared-memory banks (:func:`_ring_pitch`);
+    * runs of ``run`` frames: T is cut while the blocks would not fill the
+      card twice over, keeping runs of RING_MIN_RUN frames or more.
+    """
+    vec = 2 if C % 2 == 0 else 1
+    cell = vec * elem
+    granule = cell if cell >= 4 and align % cell == 0 else elem
+    tile_h, tile_w = _ring_side(H), _ring_side(W)
+    most = RING_MAX_VECS * vec
+    for groups in range(-(-C // most), C + 1):
+        group = -(-(-(-C // groups)) // vec) * vec
+        nv = group // vec
+        passes = -(-tile_h // max(1, RING_MAX_THREADS // nv))
+        rows = -(-tile_h // passes)
+        row_cells, vec_pad = _ring_pitch(nv, nv * rows, cell, tile_h,
+                                         tile_w)
+        smem = _ring_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
+                          rows)
+        if group <= most and smem <= RING_SMEM:
+            break
+    else:
+        raise ValueError(f"no ring-body plan fits C={C}, kt={kt}")
+    groups = -(-C // group)
+    tiles_h, tiles_w = -(-H // tile_h), -(-W // tile_w)
+    blocks = groups * tiles_h * tiles_w * B
+    runs = 1
+    while blocks * runs < 2 * slots and -(-T // (runs + 1)) >= RING_MIN_RUN:
+        runs += 1
+    run = -(-T // runs)
+    runs = -(-T // run)
+    return dict(granule=granule, vec=vec, tile_h=tile_h, tile_w=tile_w,
+                tiles_h=tiles_h, tiles_w=tiles_w, group=group, groups=groups,
+                rows=rows, threads=2 * -(-group // vec * rows // 32) * 32,
+                row_cells=row_cells, vec_pad=vec_pad, smem_bytes=smem,
+                run=run, runs=runs, parts=B * tiles_h * tiles_w * runs)
+
+
+_slots = {}
+
+
+def _ring_slots(lib, code: int, vec: int, kt: int, threads: int,
+                smem: int) -> int:
+    """Blocks of this shape the card holds at once (blocks an SM x SMs)."""
+    key = (code, vec, kt, threads, smem)
+    if key not in _slots:
+        out = (ctypes.c_int * 2)()
+        kernels.raise_on_error(lib.x3d_dw_bn_act_conv_bwd_ring_occupancy(
+            code, vec, kt, threads, smem, ctypes.addressof(out)),
+            "dw_bn_act_conv_bwd ring occupancy")
+        _slots[key] = out[0] * out[1]
+    return _slots[key]
+
+
+def _align(*tensors) -> int:
+    """The largest power of two up to 16 dividing every tensor's address."""
+    return min(16, *(t.data_ptr() & -t.data_ptr() for t in tensors))
+
+
+def _ring_plan(lib, x, y, gy, kt: int) -> dict:
+    """:func:`bwd_plan` for a ring-body call on these tensors and this card
+    (its blocks at once from the library's occupancy query)."""
+    B, T, H, W, C = x.shape
+    args = (B, T, H, W, C, kt, x.element_size(), _align(x, y, gy))
+    p = bwd_plan(*args)
+    return bwd_plan(*args, slots=_ring_slots(
+        lib, kernels.dtype_code(x), p["vec"], kt, p["threads"],
+        p["smem_bytes"]))
+
+
+def _launch_bwd(lib, body, x, cols, taps, y, gy, kdims, stream):
+    """K3's ``body`` on contiguous tensors of one device (float32 columns
+    and taps, y and gy in x's dtype); returns (dx, dk (taps, C), dzs, duu)
+    or raises."""
+    B, T, H, W, C = x.shape
+    kt, kh, kw = kdims
+    ntaps = kt * kh * kw
+    code = kernels.dtype_code(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dk = torch.empty((ntaps, C), **f32)
+    dzs = torch.empty((C, B), **f32)
+    duu = torch.empty_like(dzs)
+    ptrs = [x.data_ptr(), y.data_ptr(), gy.data_ptr(),
+            *(t.data_ptr() for t in cols), taps.data_ptr(), dx.data_ptr()]
+    if body == "ring":
+        p = _ring_plan(lib, x, y, gy, kt)
+        subs = p["parts"] // B
+        part_dk = torch.empty((p["parts"], ntaps, C), **f32)
+        part_dzs = torch.empty((subs, C, B), **f32)
+        part_duu = torch.empty_like(part_dzs)
+        rc = lib.x3d_dw_bn_act_conv_bwd_ring(
+            *ptrs, part_dk.data_ptr(), part_dzs.data_ptr(),
+            part_duu.data_ptr(), dk.data_ptr(), dzs.data_ptr(),
+            duu.data_ptr(), code, B, T, H, W, C, kt, p["tile_h"],
+            p["tile_w"], p["group"], p["vec"], p["rows"], p["run"],
+            p["granule"], p["row_cells"], p["vec_pad"], stream)
+    else:
+        tiles = lib.x3d_dw_bn_act_conv_bwd_tiles(H, W)
+        part_dk = torch.empty((B, tiles, ntaps, C), **f32)
+        part_dzs = torch.empty((B, tiles, C), **f32)
+        part_duu = torch.empty_like(part_dzs)
+        rc = lib.x3d_dw_bn_act_conv_bwd(
+            *ptrs, part_dk.data_ptr(), part_dzs.data_ptr(),
+            part_duu.data_ptr(), dk.data_ptr(), dzs.data_ptr(),
+            duu.data_ptr(), code, B, T, H, W, C, kt, kh, kw, stream)
+    kernels.raise_on_error(rc, f"dw_bn_act_conv_bwd ({body} body) kernel "
+                           "launch")
+    return dx, dk, dzs, duu
+
+
 def dw_bn_act_conv_bwd(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     """The backward of :func:`dw_bn_act_conv` in one pass (kernel K3).
 
@@ -200,8 +419,8 @@ def dw_bn_act_conv_bwd(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
       dx (B, T, H, W, C) in x's dtype; dk (kt, kh, kw, 1, C) float32; dzs,
       duu (C, B) float32 (see :func:`bwd_reference`).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K3 or
-    raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches K3's body
+    that :func:`bwd_body` names, or raises.
     """
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
     if tuple(y.shape) != tuple(x.shape) or tuple(gy.shape) != tuple(x.shape):
@@ -213,30 +432,18 @@ def dw_bn_act_conv_bwd(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
     taps = taps.contiguous()
     y, gy = y.to(x.dtype).contiguous(), gy.to(x.dtype).contiguous()
+    kernels.check_cuda(x, y, gy, *cols, taps)
+    body = bwd_body((kt, kh, kw))
     lib = _build.load("dw_fused_bwd.cu", _BWD_SIGNATURES)
-    tiles = lib.x3d_dw_bn_act_conv_bwd_tiles(H, W)
-    dx = torch.empty_like(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    part_dk = torch.empty((B, tiles, kt * kh * kw, C), **f32)
-    part_dzs = torch.empty((B, tiles, C), **f32)
-    part_duu = torch.empty_like(part_dzs)
-    dk = torch.empty((kt * kh * kw, C), **f32)
-    dzs = torch.empty((C, B), **f32)
-    duu = torch.empty_like(dzs)
-    kernels.check_cuda(x, y, gy, *cols, taps, dx, part_dk, part_dzs,
-                       part_duu, dk, dzs, duu)
-    rc = lib.x3d_dw_bn_act_conv_bwd(
-        x.data_ptr(), y.data_ptr(), gy.data_ptr(),
-        *(t.data_ptr() for t in cols), taps.data_ptr(), dx.data_ptr(),
-        part_dk.data_ptr(), part_dzs.data_ptr(), part_duu.data_ptr(),
-        dk.data_ptr(), dzs.data_ptr(), duu.data_ptr(), kernels.dtype_code(x),
-        B, T, H, W, C, kt, kh, kw, kernels.stream_handle(x))
-    kernels.raise_on_error(rc, "dw_bn_act_conv_bwd kernel launch")
+    dx, dk, dzs, duu = _launch_bwd(lib, body, x, cols, taps, y, gy,
+                                   (kt, kh, kw), kernels.stream_handle(x))
     dw_bn_act_conv_bwd.launches += 1
+    dw_bn_act_conv_bwd.body_launches[body] += 1
     return dx, dk.reshape(kt, kh, kw, 1, C), dzs, duu
 
 
 dw_bn_act_conv_bwd.launches = 0
+dw_bn_act_conv_bwd.body_launches = {"ring": 0, "generic": 0}
 
 
 class _Segment(torch.autograd.Function):

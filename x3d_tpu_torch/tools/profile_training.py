@@ -33,7 +33,9 @@ from x3d_tpu_torch.utils import use_deterministic_cudnn
 _PORT = (
     ("K1 depthwise_conv3d", ("dw_conv3d_fwd_kernel",)),
     ("K2 dw_bn_act_conv", ("dw_bn_act_conv_fwd_kernel",)),
-    ("K3 dw_bn_act_conv_bwd", ("dw_bn_act_conv_bwd_kernel",)),
+    ("K3 dw_bn_act_conv_bwd", ("dw_bn_act_conv_bwd_kernel",
+                                "dw_bn_act_conv_bwd_ring_kernel",
+                                "dw_bn_act_conv_bwd_sum_kernel")),
     ("K4 depthwise_conv3d_dx", ("dw_conv3d_dx_kernel",
                                 "dw_conv3d_dx_phase_kernel")),
     ("K4 depthwise_conv3d_dk", ("dw_conv3d_dk_kernel",
