@@ -10,40 +10,42 @@ CUDA toolkit::
 It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
 nvcc per source, in parallel; ptxas's registers, spills and static shared
 memory of each instantiation of K5-K7's tensor-core body, K4 dx's phase
-body and K3's ring body on a line of its own, which fails on a spill where
-the body must not spill) and then:
+body and K3's and K2's ring bodies on a line of its own, which fails on a
+spill where the body must not spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
   serving shape (B = 10 clips, float32 and bfloat16) and times kernel,
-  plain version and the library's ``F.conv3d(groups=C)``;
+  plain version and the library's ``F.conv3d(groups=C)``; K2 likewise at
+  X3D-M's and X3D-S's requests of 1 and 8 videos (X3D-S's eval batch),
+  its rows naming the body that ran (the ring body at every fused
+  segment), its plan, and the generic body's time on the same inputs;
 * serves X3D-M at full width (16×224², 10 views, bfloat16, random weights
   from a seed) through ``InferenceEngine``, checks the probabilities and
-  that each forward launched K1 5 times and K2 22 times, and checks one
-  float32 forward through the kernels against the same forward through the
-  plain versions;
+  that each forward launched K1 5 times and K2 22 times (all by its ring
+  body), and checks one float32 forward through the kernels against the
+  same forward through the plain versions;
 * holds every kernel of the training step -- K1, K2, K3 (fused-segment
   backward), K4 (depthwise backward: dx and dk), K5 and K6 (pointwise
   GEMMs with BN sums) -- against its plain version at every X3D-M
   training shape and the training batch (32 clips, per-sample
-  coefficient columns) in float32 and bfloat16, and times K3-K6 there
+  coefficient columns) in float32 and bfloat16, and times K2-K6 there
   beside their plain versions and library calls; then the same at X3D-S's
   training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes); K4's
   dx rows name the body that ran (the parity-phase body at the stride-2
   stage entries, the gather body elsewhere) and time the gather body on the
-  same inputs beside the phase body; K3's rows likewise name its body (the
-  ring body at every fused segment), carry the ring body's launch plan and
-  time the generic body on the same inputs;
+  same inputs beside the phase body; K2's and K3's rows likewise name
+  their body (the ring body at every fused segment), carry the ring body's
+  launch plan and time the generic body on the same inputs;
   K5-K7's rows carry how the call runs (copy granule, block columns, ring
   stages, shared memory, blocks per SM), ``bound_share`` (bound / time)
-  and ``vs_library`` (time / library time), and K5 and K6 are summed over
-  each variant's training step;
+  and ``vs_library`` (time / library time), and K2, K5 and K6 are summed
+  over each variant's training step;
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
-  step (K4 dx by its phase body only, K3 by its ring body only), checks
-  that two runs of one step
-  from one state are bit-identical,
-  and checks one float32 step through the kernels against the same step
+  step (K4 dx by its phase body only, K2 and K3 by their ring bodies only),
+  checks that two runs of one step from one state are bit-identical, and
+  checks one float32 step through the kernels against the same step
   through the plain versions (loss, every gradient, the updated parameters
   and the BN running statistics);
 * holds K7 (the plain 1x1x1 conv as a GEMM: float32 on the CUDA cores,
@@ -60,11 +62,11 @@ the body must not spill) and then:
   card's peak;
 * drives the command-line tools at X3D-S full width and depth (13×160², 64
   clips, bfloat16), in this process through their ``main(argv)``: train two
-  epochs of three steps with step-keyed checkpoints, resume for a third
-  epoch (the restored step is 6 and the losses equal an uninterrupted
-  run's, bit for bit, with cuDNN's flags as the tools set them), evaluate
-  two batches of 8 videos × 10 views, and serve one video from the
-  checkpoint.
+  epochs of three steps with step-keyed checkpoints (K2 and K3 by their
+  ring bodies only), resume for a third epoch (the restored step is 6 and
+  the losses equal an uninterrupted run's, bit for bit, with cuDNN's flags
+  as the tools set them), evaluate two batches of 8 videos × 10 views, and
+  serve one video from the checkpoint.
 
 Every result line is a JSON object carrying the card's name and power
 limit; the ``kernels`` line comes second to last, and the last line is
@@ -268,23 +270,55 @@ def main() -> int:
     check(len(entries) == 20 and all("registers" in e for e in entries)
           and len(main) == 1 and main[0]["spill_bytes"] == 0,
           f"K3 ring body's ptxas report: {entries}")
+    # K2's ring body, the same 20 instantiations; the one every X3D segment
+    # runs (bfloat16, 2 channels, kt 3) must not spill
+    entries = ptxas_entries(
+        ("dw_fused.cu",),
+        r"dw_bn_act_conv_fwd_ring_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E",
+        lambda m: "dw_bn_act_conv_fwd_ring_kernel<"
+                  f"{'float' if m[1] == 'f' else 'bfloat16'}, {m[2]}, {m[3]}>")
+    emit(phase="build, K2 ring body", kernels=entries)
+    main = [e for e in entries
+            if e["kernel"].endswith("<bfloat16, 2, 3>")]
+    check(len(entries) == 20 and all("registers" in e for e in entries)
+          and len(main) == 1 and main[0]["spill_bytes"] == 0,
+          f"K2 ring body's ptxas report: {entries}")
 
     # X3D-M's depthwise shapes at one video, from its architecture plan
     cfg = variant_config("M")
     arch = build_arch(cfg)
+    cfg_s = variant_config("S")
+    arch_s = build_arch(cfg_s)
     T, S = cfg.DATA.TEMP_DURATION, -(-cfg.DATA.TEST_CROP_SIZE // 2)
     k1_cases = [("conv_1.conv_t", (CLIPS, T, S, S, arch.conv1_dim),
                  (arch.temp_filter, 1, 1), (1, 1, 1),
                  ((arch.temp_filter // 2,) * 2, (0, 0), (0, 0)), 1)]
-    k2_cases = []
     for si, blocks in enumerate(arch.stages):
         C = blocks[0].inner_channels
         k1_cases.append((f"stage{si + 2}_block0.b", (CLIPS, T, S, S, C),
                          (arch.temp_kernel, 3, 3), (1, 2, 2), "SAME", 1))
         S = -(-S // 2)
-        if len(blocks) > 1:
-            k2_cases.append((f"stage{si + 2} stride-1 blocks",
-                             (CLIPS, T, S, S, C), len(blocks) - 1))
+
+    def segment_cases(vcfg, varch, B, crop):
+        """(name, (B, T, H, W, C), launches per forward) of each stage's
+        stride-1 blocks: the fused segments."""
+        T, S = vcfg.DATA.TEMP_DURATION, crop // 2
+        cases = []
+        for si, blocks in enumerate(varch.stages):
+            S = -(-S // 2)
+            if len(blocks) > 1:
+                cases.append((f"stage{si + 2} stride-1 blocks",
+                              (B, T, S, S, blocks[0].inner_channels),
+                              len(blocks) - 1))
+        return cases
+
+    # K2 at the serving shapes: X3D-M and X3D-S, requests of 1 and 8 videos
+    # (X3D-S's eval batch is 8 videos too); the 1-video X3D-M rows feed the
+    # kernel line
+    k2_paths = [(v, B, a_.temp_kernel,
+                 segment_cases(c, a_, B, c.DATA.TEST_CROP_SIZE))
+                for v, c, a_ in (("M", cfg, arch), ("S", cfg_s, arch_s))
+                for B in (CLIPS, S_EVAL_CLIPS)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape):
@@ -360,48 +394,89 @@ def main() -> int:
             else ref.abs()
         return ((got - ref).abs() / scale.clamp_min(1e-30)).max().item()
 
-    k2_rows = []
-    for name, shape, n in k2_cases:
-        B, C = shape[0], shape[-1]
-        x = randn(*shape)
-        a = 0.5 + torch.rand((C, B), generator=gen, device="cuda")
-        b = 0.3 * randn(C, B)            # about half the offsets are > 0
-        k = randn(arch.temp_kernel, 3, 3, 1, C) * 0.3
-        y, p, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
-        yr, pr, s2r = dw_fused.reference(x, a, b, k)
-        torch.cuda.synchronize()
-        err32 = (y - yr).abs().max().item()
-        errp32, errs32 = sums_err(p, pr, yr), sums_err(s2, s2r, None)
-        xb, kb = x.bfloat16(), k.bfloat16()
-        yb, pb, s2b = dw_fused.dw_bn_act_conv(xb, a, b, kb)
-        yr, pr, s2r = dw_fused.reference(xb.float(), a, b, kb.float())
-        rel16 = ((yb.float() - yr).abs().max() / yr.abs().max()).item()
-        errp16, errs16 = sums_err(pb, pr, yr), sums_err(s2b, s2r, None)
-        del x, k, y, yr
-        ms = time_ms(lambda: dw_fused.dw_bn_act_conv(xb, a, b, kb))
-        plain_ms = time_ms(lambda: dw_fused.reference(xb, a, b, kb))
-        # library yardstick: the depthwise conv alone, F.conv3d(groups=C)
+    k2_lib = _build.load("dw_fused.cu", dw_fused._SIGNATURES)
+
+    def k2_times(xb, a, b, kb, n, plain=True):
+        """A bfloat16 K2 row's times and bound on these inputs: the kernel
+        (the body the wrapper picks), its generic body (what the ring body
+        replaced; its C entry point takes every geometry), both launched
+        as the wrapper launches them on the same prepared taps, so that
+        the two carry the same host work, the plain version and the
+        library's depthwise conv alone, ``F.conv3d(groups=C)``; with the
+        body, the ring body's launch plan and the shares."""
+        B, C = xb.shape[0], xb.shape[-1]
+        kdims = tuple(kb.shape[:3])
+        taps_f32 = kb.float().reshape(-1, C).contiguous()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def body_ms(body):
+            return time_ms(lambda: dw_fused._launch_fwd(
+                k2_lib, body, xb, a, b, taps_f32, kdims, stream))
+
+        row = dict(n=n, body=dw_fused.segment_body(kdims))
+        row.update(ms=body_ms(row["body"]), generic_ms=body_ms("generic"))
+        if row["body"] == "ring":
+            row["plan"] = dw_fused._fwd_ring_plan(k2_lib, xb, kdims[0])
+        if plain:
+            row["plain_ms"] = time_ms(lambda: dw_fused.reference(xb, a, b,
+                                                                 kb))
         u = torch.relu(xb.float() * a.t()[:, None, None, None, :]
                        + b.t()[:, None, None, None, :]).bfloat16()
         uc, w = u.permute(0, 4, 1, 2, 3), kb.permute(4, 3, 0, 1, 2)
-        library_ms = time_ms(lambda: F.conv3d(uc, w, padding=1, groups=C))
-        taps = arch.temp_kernel * 9
+        pad = tuple(d // 2 for d in kdims)
+        row["library_ms"] = time_ms(lambda: F.conv3d(uc, w, padding=pad,
+                                                     groups=C))
+        taps = math.prod(kdims)
         nbytes = xb.numel() * 4 + 4 * C * B * 4 + taps * C * 4
-        bms, by = bound(nbytes, (2 * taps + 5) * xb.numel())
-        row = dict(name=name, shape=list(shape), n=n,
-                   max_abs_err_f32=err32, p_err_f32=errp32,
-                   s2_err_f32=errs32, rel_err_bf16=rel16, p_err_bf16=errp16,
-                   s2_err_bf16=errs16, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bms, bound_by=by)
-        emit(phase="K2 dw_bn_act_conv", **row)
-        check(err32 <= TOL_F32, f"K2 {name} f32 y err {err32}")
-        check(max(errp32, errs32) <= TOL_F32_SUMS,
-              f"K2 {name} f32 sums err {errp32} {errs32}")
-        check(max(rel16, errp16, errs16) <= TOL_BF16,
-              f"K2 {name} bf16 err {rel16} {errp16} {errs16}")
-        k2_rows.append(row)
-        del xb, kb, yb, pb, s2b, u, uc, w
-    torch.cuda.empty_cache()
+        row["bound_ms"], row["bound_by"] = bound(nbytes,
+                                                 (2 * taps + 5) * xb.numel())
+        row.update(shares(row))
+        return row
+
+    k2_serving = {}
+    for variant, B, kt, cases in k2_paths:
+        rows = k2_serving[variant, B] = []
+        for name, shape, n in cases:
+            C = shape[-1]
+            x = randn(*shape)
+            a = 0.5 + torch.rand((C, B), generator=gen, device="cuda")
+            b = 0.3 * randn(C, B)            # about half the offsets are > 0
+            k = randn(kt, 3, 3, 1, C) * 0.3
+            y, p, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
+            yr, pr, s2r = dw_fused.reference(x, a, b, k)
+            torch.cuda.synchronize()
+            err32 = (y - yr).abs().max().item()
+            errp32, errs32 = sums_err(p, pr, yr), sums_err(s2, s2r, None)
+            xb, kb = x.bfloat16(), k.bfloat16()
+            del x, k, y, yr
+            yb, pb, s2b = dw_fused.dw_bn_act_conv(xb, a, b, kb)
+            yr, pr, s2r = dw_fused.reference(xb.float(), a, b, kb.float())
+            rel16 = ((yb.float() - yr).abs().max() / yr.abs().max()).item()
+            errp16, errs16 = sums_err(pb, pr, yr), sums_err(s2b, s2r, None)
+            del yb, pb, s2b, yr, pr, s2r
+            row = dict(variant=variant, name=name, shape=list(shape),
+                       max_abs_err_f32=err32, p_err_f32=errp32,
+                       s2_err_f32=errs32, rel_err_bf16=rel16,
+                       p_err_bf16=errp16, s2_err_bf16=errs16,
+                       **k2_times(xb, a, b, kb, n,
+                                  plain=(variant, B) == ("M", CLIPS)))
+            emit(phase="K2 dw_bn_act_conv", **row)
+            where = f"X3D-{variant} {B} clips {name}"
+            check(err32 <= TOL_F32, f"K2 {where} f32 y err {err32}")
+            check(max(errp32, errs32) <= TOL_F32_SUMS,
+                  f"K2 {where} f32 sums err {errp32} {errs32}")
+            check(max(rel16, errp16, errs16) <= TOL_BF16,
+                  f"K2 {where} bf16 err {rel16} {errp16} {errs16}")
+            rows.append(row)
+            del xb, kb
+            torch.cuda.empty_cache()
+    k2_rows = k2_serving["M", CLIPS]
+    for (variant, B), rows in k2_serving.items():
+        total = {key: sum(r["n"] * r[key] for r in rows)
+                 for key in ("ms", "generic_ms", "library_ms", "bound_ms")}
+        emit(phase="K2 dw_bn_act_conv, whole forward", variant=variant,
+             clips=B, launches=sum(r["n"] for r in rows), **total,
+             **shares(total))
 
     # ------------------------------------------------ 4. X3D-M serving
     views = cfg.TEST.NUM_TEMPORAL_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
@@ -425,13 +500,14 @@ def main() -> int:
                 "K9": fma_probe.fma_chain}
 
     dx_bodies = depthwise.depthwise_conv3d_dx.body_launches
+    k2_bodies = dw_fused.dw_bn_act_conv.body_launches
     k3_bodies = dw_fused.dw_bn_act_conv_bwd.body_launches
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
-        dx_bodies.update(dict.fromkeys(dx_bodies, 0))
-        k3_bodies.update(dict.fromkeys(k3_bodies, 0))
+        for bodies in (dx_bodies, k2_bodies, k3_bodies):
+            bodies.update(dict.fromkeys(bodies, 0))
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -451,6 +527,11 @@ def main() -> int:
         outputs.append((name, probs, {k: after[k] - before[k]
                                       for k in after}))
     serve_launches = read_counts()           # ... and ends here
+    serve_k2_bodies = dict(k2_bodies)
+    # every K2 of a forward is a fused segment with 3x3 taps: the ring body
+    want_k2 = {"ring": len(requests) * n_k2, "generic": 0}
+    check(serve_k2_bodies == want_k2,
+          f"serving K2 bodies {serve_k2_bodies}, want {want_k2}")
     for name, probs, d in outputs:
         n_videos = probs.shape[0]
         finite = bool(np.isfinite(probs).all())
@@ -517,7 +598,7 @@ def main() -> int:
         """K1-K6 against their plain versions at every shape the training
         step of ``vcfg`` gives them at ``B`` clips, float32 and bfloat16,
         with the bfloat16 times; returns the K1/K2 float32 errors and the
-        rows of K3, K4, K5 and K6."""
+        rows of K4, K2, K3, K5 and K6."""
         T = vcfg.DATA.TEMP_DURATION
         S = vcfg.DATA.TRAIN_CROP_SIZE // 2
         # n: K4 launches per step; the stem's backward runs as K8, so its
@@ -648,7 +729,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         # K2 forward, K3, K5 and K6 at each stage's stride-1 blocks
-        k3_rows, k5_rows, k6_rows = [], [], []
+        k2_rows, k3_rows, k5_rows, k6_rows = [], [], [], []
         for name, thw, cout_blk, C, n in seg_cases:
             kdims = (varch.temp_kernel, 3, 3)
             errs = {}
@@ -696,10 +777,12 @@ def main() -> int:
                 errs[dtype] = (e2, e3, *e56)
             e32, e16 = errs[torch.float32][0], errs[torch.bfloat16][0]
             train_err["K2"] = max(train_err["K2"], e32[0])
+            row = dict(name=name, shape=[B, *thw, C], max_abs_err_f32=e32[0],
+                       sums_err_f32=e32[2], rel_err_bf16=e16[1],
+                       sums_err_bf16=e16[2], **k2_times(x, a, b, k, n))
             emit(phase="K2 dw_bn_act_conv, training shape", variant=variant,
-                 name=name, shape=[B, *thw, C], max_abs_err_f32=e32[0],
-                 sums_err_f32=e32[2], rel_err_bf16=e16[1],
-                 sums_err_bf16=e16[2])
+                 **row)
+            k2_rows.append(row)
             where = f"X3D-{variant} {name}"
             check(e32[0] <= TOL_F32 and e32[2] <= TOL_F32_SUMS,
                   f"K2 {where} training shape f32 err {e32}")
@@ -733,7 +816,8 @@ def main() -> int:
                     lambda: torch.ops.aten.convolution_backward(
                         gc, uc, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
                         False, [0, 0, 0], C, [True, True, False])),
-                bound_ms=bms, bound_by=by, body=dw_fused.bwd_body(kdims))
+                bound_ms=bms, bound_by=by,
+                body=dw_fused.segment_body(kdims))
             if row["body"] == "ring":
                 # the generic body on the same inputs (its C entry point
                 # takes every geometry): what the ring body replaced
@@ -783,13 +867,11 @@ def main() -> int:
                 rows.append(row)
             del x, y, xa
             torch.cuda.empty_cache()
-        return train_err, k4_rows, k3_rows, k5_rows, k6_rows
+        return train_err, k4_rows, k2_rows, k3_rows, k5_rows, k6_rows
 
-    (train_err, k4_rows, k3_rows, k5_rows,
+    (train_err, k4_rows, k2_train, k3_rows, k5_rows,
      k6_rows) = training_kernels("M", cfg, arch, TRAIN_CLIPS)
-    cfg_s = variant_config("S")
-    arch_s = build_arch(cfg_s)
-    (train_err_s, k4_rows_s, k3_rows_s, k5_rows_s,
+    (train_err_s, k4_rows_s, k2_train_s, k3_rows_s, k5_rows_s,
      k6_rows_s) = training_kernels("S", cfg_s, arch_s, S_TRAIN_CLIPS)
 
     # ----------------------------------------------- 6. X3D-M training
@@ -836,6 +918,7 @@ def main() -> int:
                           launches={k: after[k] - before[k] for k in after}))
     train_launches = read_counts()            # ... and ends here
     train_dx_bodies = dict(dx_bodies)
+    train_k2_bodies = dict(k2_bodies)
     train_k3_bodies = dict(k3_bodies)
     train_peak = torch.cuda.max_memory_allocated()
     for s in steps:
@@ -851,15 +934,16 @@ def main() -> int:
          clips_per_s=TRAIN_CLIPS / step_ms * 1e3,
          first_step_ms=steps[0]["device_ms"], peak_memory_bytes=train_peak,
          launches_per_step=want_step, k4_dx_bodies=train_dx_bodies,
-         k3_bodies=train_k3_bodies)
+         k2_bodies=train_k2_bodies, k3_bodies=train_k3_bodies)
     # every K4 dx of the step is a stride-2 stage entry: the phase body
     want_bodies = {"phase": TRAIN_STEPS * want_step["K4 dx"], "gather": 0}
     check(train_dx_bodies == want_bodies,
           f"K4 dx bodies {train_dx_bodies}, want {want_bodies}")
-    # every K3 of the step is a fused segment with 3x3 taps: the ring body
-    want_k3 = {"ring": TRAIN_STEPS * want_step["K3"], "generic": 0}
-    check(train_k3_bodies == want_k3,
-          f"K3 bodies {train_k3_bodies}, want {want_k3}")
+    # every K2 and K3 of the step is a fused segment with 3x3 taps: the
+    # ring bodies
+    for kname, got in (("K2", train_k2_bodies), ("K3", train_k3_bodies)):
+        want = {"ring": TRAIN_STEPS * want_step[kname], "generic": 0}
+        check(got == want, f"{kname} bodies {got}, want {want}")
 
     # two runs of one step from one state: bit-identical (no atomics in
     # the kernels; cuDNN asked for its deterministic algorithms)
@@ -1069,13 +1153,15 @@ def main() -> int:
              launches=sum(r["n"] for r in rows) * (2 if path == "training"
                                                    else 1),
              **total, **shares(total))
-    # K5 and K6 over one training step of each variant, against the
-    # library's matmul + sums
-    for variant, rows5, rows6 in (("M", k5_rows, k6_rows),
-                                  ("S", k5_rows_s, k6_rows_s)):
-        for kname, rows in (("K5", rows5), ("K6", rows6)):
+    # K2, K5 and K6 over one training step of each variant, against the
+    # library's depthwise conv (K2) or matmul + sums (K5, K6)
+    for variant, rows2, rows5, rows6 in (
+            ("M", k2_train, k5_rows, k6_rows),
+            ("S", k2_train_s, k5_rows_s, k6_rows_s)):
+        for kname, rows in (("K2", rows2), ("K5", rows5), ("K6", rows6)):
             total = {key: sum(r["n"] * r[key] for r in rows)
-                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+                     + (("generic_ms",) if kname == "K2" else ())}
             emit(phase=f"{kname}, whole training step", variant=variant,
                  launches=sum(r["n"] for r in rows), **total,
                  **shares(total))
@@ -1260,13 +1346,14 @@ def main() -> int:
         zero_counts()                       # the X3D-S path starts here
         first, _ = run_train(run_dir, epochs=2, cadence=2)
         s_train_launches = read_counts()    # (its training part ends here)
+        s_k2_bodies = dict(k2_bodies)
         s_k3_bodies = dict(k3_bodies)
         s_peak = torch.cuda.max_memory_allocated()
         saved = CheckpointManager(f"{run_dir}/checkpoints").keys()
         emit(phase="X3D-S train CLI", clips=S_TRAIN_CLIPS, epochs=2,
              steps_per_epoch=3, losses=first.losses, checkpoints=saved,
              launches=s_train_launches, launches_per_step=want_s_step,
-             k3_bodies=s_k3_bodies,
+             k2_bodies=s_k2_bodies, k3_bodies=s_k3_bodies,
              # from one step's end to the next, hooks and saves included
              step_interval_ms=[a.elapsed_time(b) for a, b in
                                zip(first.events, first.events[1:])],
@@ -1279,9 +1366,9 @@ def main() -> int:
         check(s_train_launches == {k: 6 * v for k, v in want_s_step.items()},
               f"X3D-S train launches {s_train_launches}, want 6 x "
               f"{want_s_step}")
-        want_k3_s = {"ring": 6 * want_s_step["K3"], "generic": 0}
-        check(s_k3_bodies == want_k3_s,
-              f"X3D-S K3 bodies {s_k3_bodies}, want {want_k3_s}")
+        for kname, got in (("K2", s_k2_bodies), ("K3", s_k3_bodies)):
+            want = {"ring": 6 * want_s_step[kname], "generic": 0}
+            check(got == want, f"X3D-S {kname} bodies {got}, want {want}")
 
         # the same command with one more epoch resumes at step 6 ...
         resumed, lines = run_train(run_dir, epochs=3, cadence=1)
@@ -1394,7 +1481,14 @@ def main() -> int:
                  max(train_err["K1"], train_err_s["K1"])), "K1", "serve"),
         (summary("dw_bn_act_conv", "cuda", csrc + "dw_fused.cu",
                  "x3d_tpu/ops/dw_fused.py:298", k2_rows,
-                 max(train_err["K2"], train_err_s["K2"])), "K2", "serve"),
+                 max(train_err["K2"], train_err_s["K2"],
+                     worst(*k2_serving.values())))
+         | {"bodies_serving": serve_k2_bodies,
+            "bodies_training": train_k2_bodies,
+            "bodies_x3d_s_training": s_k2_bodies,
+            "generic_ms": sum(r["n"] * r["generic_ms"] for r in k2_rows),
+            "training_step_ms": sum(r["n"] * r["ms"] for r in k2_train)},
+         "K2", "serve"),
         (summary("dw_bn_act_conv_bwd", "cuda", csrc + "dw_fused_bwd.cu",
                  "x3d_tpu/ops/dw_fused.py:346", k3_rows, worst(k3_rows_s))
          | {"bodies_training": train_k3_bodies,

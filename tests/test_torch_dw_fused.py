@@ -10,10 +10,22 @@ instead of u would show at the borders.  Tolerances (float32): y atol
 1e-5; p and s2 rtol 1e-5 with atol 1e-5 (sums of a few hundred terms in
 another order).
 
+K2 has two bodies on the card: :func:`dw_fused.segment_body` sends 3x3
+spatial taps with 1 to 5 temporal ones to the ring body and every other
+geometry to the generic body (its cases are in test_torch_dw_fused_bwd.py,
+as K3 shares it).  The ring body's launch plan (:func:`dw_fused.fwd_plan`)
+is checked here at every fused-segment shape of X3D-M and X3D-S, at the
+serving, eval and training batches, and its per-(clip, tile, run) partial
+sums are rebuilt in numpy in the second pass's fixed order against the
+plain version's sums (float32, another order: within 1e-5 of the sums over
+absolute values).
+
 JAX is imported inside the tests, so that the card tests (marker ``cuda``)
 run on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_dw_fused.py``.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -122,26 +134,234 @@ def test_non_cpu_tensor_never_falls_back():
         dw_fused.dw_bn_act_conv(*args)
 
 
+# The fused segments' (T, H, W, C): X3D-M (16 frames; stages 2-5 at 56²,
+# 28², 14², 7²) and X3D-S (13 frames; 40², 20², 10², 5²), at the batches
+# that run them: serving (a video, 10 clips; 8 videos, 80), X3D-S's eval (80
+# clips) and training (X3D-M 32 clips, X3D-S 64)
+PLANES = {"M": [(16, 56, 56, 54), (16, 28, 28, 108), (16, 14, 14, 216),
+                (16, 7, 7, 432)],
+          "S": [(13, 40, 40, 54), (13, 20, 20, 108), (13, 10, 10, 216),
+                (13, 5, 5, 432)]}
+BATCHES = {"M": (10, 80, 32), "S": (10, 80, 64)}
+SEGMENTS = [(B, *thw) for v in "MS" for B in BATCHES[v] for thw in PLANES[v]]
+SEGMENT_IDS = [f"{v}{i + 2}-B{B}" for v in "MS" for B in BATCHES[v]
+               for i in range(4)]
+
+
+@pytest.mark.parametrize("shape", SEGMENTS, ids=SEGMENT_IDS)
+@pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16), (4, 4),
+                                        (2, 8)])
+@pytest.mark.parametrize("slots", [0, 396, 528])
+def test_fwd_plan_covers_the_clip(shape, elem, align, slots):
+    """Tiles cover each plane, each frame lies in exactly one run, every
+    channel group starts on a copy granule (a cell of two channels where x's
+    address allows), and the block fits its shared memory."""
+    B, T, H, W, C = shape
+    p = dw_fused.fwd_plan(B, T, H, W, C, 3, elem, align, slots)
+    for n, side, tiles in ((H, p["tile_h"], p["tiles_h"]),
+                           (W, p["tile_w"], p["tiles_w"])):
+        assert side == n if n <= dw_fused.RING_MAX_SIDE else 7 <= side <= 14
+        assert (tiles - 1) * side < n <= tiles * side
+    frames = [t for i in range(p["runs"])
+              for t in range(i * p["run"], min((i + 1) * p["run"], T))]
+    assert frames == list(range(T))
+    assert p["runs"] == 1 or p["run"] >= dw_fused.RING_MIN_RUN
+    g, vec = p["granule"], p["vec"]
+    assert vec == 2 and p["group"] % vec == 0
+    assert g == (vec * elem if align % (vec * elem) == 0 else elem)
+    starts = [i * p["group"] for i in range(p["groups"])]
+    assert all(c * elem % g == 0 for c in starts)
+    assert starts[-1] < C <= starts[-1] + p["group"]
+    assert p["group"] <= dw_fused.RING_MAX_VECS * vec
+    assert p["rows"] == p["tile_h"]                   # a tile row a thread
+    block = p["group"] // vec * p["rows"]             # one role
+    assert block <= dw_fused.RING_MAX_THREADS
+    assert p["threads"] == -(-block // 32) * 32
+    assert p["smem_bytes"] <= dw_fused.FWD_SMEM
+    ring = 3 + dw_fused.RING_AHEAD                     # slots, kt 3
+    assert p["smem_bytes"] >= ring * p["group"] // vec * (
+        (p["tile_h"] + 2) * p["row_cells"] + p["vec_pad"]) * vec * elem
+    assert 0 <= p["vec_pad"] < 32
+    assert 0 <= p["row_cells"] - (p["tile_w"] + 2 + p["tile_w"] % 2) < 8
+    assert p["parts"] == B * p["tiles_h"] * p["tiles_w"] * p["runs"]
+    blocks = p["groups"] * p["tiles_h"] * p["tiles_w"] * B
+    if p["runs"] > 1:
+        assert blocks * (p["runs"] - 1) < 2 * slots
+
+
+def test_fwd_ring_partials_rebuild_the_sums():
+    """p and s2 from per-(clip, tile, run) partials over the plan's tiles
+    and runs (each a sum over the block's thread rows), summed as the
+    second pass sums them (lane y of 16 takes partials y, y + 16, ... in
+    double, then the lanes in order), equal the plain version's sums within
+    1e-5 of the sums over absolute values."""
+    shape, kt = (2, 9, 30, 17, 6), 3
+    B, T, H, W, C = shape
+    p = dw_fused.fwd_plan(B, T, H, W, C, kt, 4, 16, 1000)
+    assert p["runs"] > 1 and p["tiles_w"] > 1 and p["tiles_h"] > 1
+    args = [torch.from_numpy(v) for v in _inputs(8, shape, (kt, 3, 3))]
+    y, want_p, want_s2 = (t.numpy() for t in dw_fused.reference(*args))
+    parts = []                              # (clip, tile, run), as laid out
+    for b in range(B):
+        for th in range(p["tiles_h"]):
+            for tw in range(p["tiles_w"]):
+                for r in range(p["runs"]):
+                    ts = slice(r * p["run"], min((r + 1) * p["run"], T))
+                    yt = y[b, ts, th * p["tile_h"]:(th + 1) * p["tile_h"],
+                           tw * p["tile_w"]:(tw + 1) * p["tile_w"]]
+                    rows = [yt[:, i::p["rows"]] for i in range(p["rows"])]
+                    s = [sum(t.sum((0, 1, 2)) for t in rows),
+                         sum((t * t).sum((0, 1, 2)) for t in rows)]
+                    parts.append((b, [v.astype(np.float32) for v in s]))
+
+    def second_pass(cols):
+        lanes = [np.sum([cols[k].astype(np.float64)
+                         for k in range(y_, len(cols), 16)], axis=0)
+                 if y_ < len(cols) else 0.0 for y_ in range(16)]
+        total = np.zeros_like(cols[0], dtype=np.float64)
+        for lane in lanes:
+            total = total + lane
+        return total.astype(np.float32)
+
+    for i, (want, scale) in enumerate(((want_p, np.abs(y).sum((1, 2, 3)).T),
+                                       (want_s2, want_s2))):
+        got = np.stack([second_pass([v[i] for bb, v in parts if bb == b])
+                        for b in range(B)], axis=1)
+        assert np.all(np.abs(got - want) <= 1e-5 * scale + 1e-6)
+
+
+class _FailingLibrary:
+    """A K2 library whose ring body fails at launch; it records the calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def x3d_dw_bn_act_conv_fwd_ring_occupancy(self, *args):
+        self.calls.append("occupancy")
+        ctypes.cast(args[-1], ctypes.POINTER(ctypes.c_int * 2)).contents[:] \
+            = [3, 132]
+        return 0
+
+    def x3d_dw_bn_act_conv_fwd_ring(self, *args):
+        self.calls.append("ring")
+        return 1                                   # cudaErrorInvalidValue
+
+    def __getattr__(self, name):                   # the generic body's
+        raise AssertionError(f"fell back to {name}")
+
+
+def test_failed_ring_launch_raises_without_fallback():
+    """A ring-body launch that returns an error raises; the generic body
+    is never asked to take over."""
+    x, a, b, k = (torch.from_numpy(v)
+                  for v in _inputs(9, (2, 5, 6, 6, 8), (3, 3, 3)))
+    lib = _FailingLibrary()
+    dw_fused._slots.clear()
+    with pytest.raises(RuntimeError, match=r"ring body.*CUDA error 1"):
+        dw_fused._launch_fwd(lib, "ring", x, a, b,
+                             k.reshape(27, 8).contiguous(), (3, 3, 3), 0)
+    dw_fused._slots.clear()
+    assert lib.calls == ["occupancy", "ring"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,kdims", [
     ((3, 5, 6, 5, 7), (3, 3, 3)), ((2, 5, 4, 9, 3), (5, 3, 3)),
-    ((3, 6, 9, 17, 70), (3, 3, 3)), ((2, 16, 7, 7, 432), (3, 3, 3))])
+    ((3, 6, 9, 17, 70), (3, 3, 3)), ((2, 16, 7, 7, 432), (3, 3, 3)),
+    ((2, 8, 10, 10, 7), (5, 3, 3)), ((2, 7, 9, 11, 70), (5, 3, 3)),
+    ((2, 5, 8, 8, 6), (1, 3, 3)), ((2, 5, 8, 9, 7), (1, 3, 3)),
+    ((2, 5, 6, 7, 6), (3, 5, 5))] + [
+    ((2, *s[1:]), (3, 3, 3)) for s in SEGMENTS if s[0] == 10])
 def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims):
     """float32: y atol 1e-4, p and s2 within 1e-5 of each column's absolute
     sum; bfloat16 against the plain version in float32 on the same
-    bfloat16 inputs: 2e-2 of the largest |y| and of the column sums."""
+    bfloat16 inputs: 2e-2 of the largest |y| and of the column sums.  3x3
+    spatial taps run the ring body (every X3D-M and X3D-S segment shape at 2
+    clips), 5x5 the generic body, and the counters say which."""
     x, a, b, k = (torch.from_numpy(v).to(cuda)
                   for v in _inputs(4, shape, kdims))
     x, k = x.to(dtype), k.to(dtype)
-    before = dw_fused.dw_bn_act_conv.launches
-    y, p, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
+    body = "ring" if kdims[1:] == (3, 3) else "generic"
+    assert dw_fused.segment_body(kdims) == body
+    fn = dw_fused.dw_bn_act_conv
+    before = (fn.launches, dict(fn.body_launches))
+    y, p, s2 = fn(x, a, b, k)
     torch.cuda.synchronize()
-    assert dw_fused.dw_bn_act_conv.launches == before + 1
+    assert fn.launches == before[0] + 1
+    assert fn.body_launches == before[1] | {body: before[1][body] + 1}
+    _assert_matches_plain((y, p, s2), (x, a, b, k), dtype)
+
+
+def _assert_matches_plain(got, inputs, dtype):
+    x, a, b, k = inputs
+    y, p, s2 = got
     yr, pr, s2r = dw_fused.reference(x.float(), a, b, k.float())
     scale = yr.abs().sum(dim=(1, 2, 3)).t()
     tol_y, tol_s = (1e-4, 1e-5) if dtype == torch.float32 else \
         (2e-2 * yr.abs().max().item(), 2e-2)
+    assert y.dtype == dtype
     assert (y.float() - yr).abs().max().item() <= tol_y
     assert ((p - pr).abs() <= tol_s * scale).all()
     assert ((s2 - s2r).abs() <= tol_s * s2r).all()
+
+
+def _on_card_at(t, offset_bytes):
+    """``t`` copied into a CUDA tensor that starts ``offset_bytes`` into its
+    allocation."""
+    n = offset_bytes * 8 // torch.finfo(t.dtype).bits
+    buf = torch.empty(n + t.numel(), dtype=t.dtype, device=t.device)
+    out = buf[n:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.bfloat16, 2), (torch.bfloat16, 4), (torch.bfloat16, 8),
+    (torch.bfloat16, 16), (torch.float32, 4), (torch.float32, 8),
+    (torch.float32, 16)])
+@pytest.mark.parametrize("shape", [(2, 5, 28, 28, 54), (2, 5, 14, 14, 108),
+                                   (2, 5, 14, 14, 216)],
+                         ids=["C54", "C108", "C216"])
+def test_ring_body_takes_unaligned_inputs(cuda, dtype, offset, shape):
+    """x starting 2 to 16 bytes into its allocation (y is the wrapper's own
+    allocation, written a cell at a time): the copy granule shrinks to what
+    x's address allows; results as above."""
+    x, a, b, k = (torch.from_numpy(v).to(cuda)
+                  for v in _inputs(6, shape, (3, 3, 3)))
+    x, k = _on_card_at(x.to(dtype), offset), k.to(dtype)
+    assert x.data_ptr() % 32 == offset % 32
+    got = dw_fused.dw_bn_act_conv(x, a, b, k)
+    assert got[0].data_ptr() % 16 == 0
+    _assert_matches_plain(got, (x, a, b, k), dtype)
+
+
+@pytest.mark.cuda
+def test_failed_ring_launch_raises_on_card(cuda, monkeypatch):
+    """A plan the ring body cannot run (no thread rows) makes its launch
+    fail: the call raises and counts no launch; nothing else runs it."""
+    x, a, b, k = (torch.from_numpy(v).to(cuda)
+                  for v in _inputs(9, (2, 5, 6, 6, 8), (3, 3, 3)))
+    plan = dw_fused._fwd_ring_plan
+    monkeypatch.setattr(dw_fused, "_fwd_ring_plan",
+                        lambda *args: plan(*args) | {"rows": 0})
+    fn = dw_fused.dw_bn_act_conv
+    before = (fn.launches, dict(fn.body_launches))
+    with pytest.raises(RuntimeError, match="ring body"):
+        fn(x.bfloat16(), a, b, k.bfloat16())
+    assert (fn.launches, fn.body_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SEGMENTS, ids=SEGMENT_IDS)
+def test_ring_body_repeats_bit_for_bit(cuda, shape):
+    """No atomics: y is written once and the sums are taken in a fixed
+    order, so bfloat16 calls on one input give equal bits, at the full
+    serving, eval and training batches."""
+    x, a, b, k = (torch.from_numpy(v).to(cuda)
+                  for v in _inputs(7, shape, (3, 3, 3)))
+    x, k = x.bfloat16(), k.bfloat16()
+    first = dw_fused.dw_bn_act_conv(x, a, b, k)
+    second = dw_fused.dw_bn_act_conv(x, a, b, k)
+    assert all(torch.equal(f, s) for f, s in zip(first, second))

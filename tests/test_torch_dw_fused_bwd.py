@@ -12,9 +12,9 @@ autograd of the plain forward composition.  Tolerances (float32, sums in
 another order): dx atol 1e-5; da, db rtol 1e-5 with atol 1e-4; dk rtol
 1e-5 with atol 1e-4.
 
-K3 has two bodies on the card: :func:`dw_fused.bwd_body` sends 3x3 spatial
-taps with 1 to 5 temporal ones to the ring body and every other geometry to
-the generic body.  The ring body's launch plan (:func:`dw_fused.bwd_plan`)
+K3 has two bodies on the card (so has K2): :func:`dw_fused.segment_body`
+sends 3x3 spatial taps with 1 to 5 temporal ones to the ring body and every
+other geometry to the generic body.  The ring body's launch plan (:func:`dw_fused.bwd_plan`)
 is checked here at every fused-segment shape of X3D-M and X3D-S, and its
 per-(clip, tile, run) partial sums are rebuilt in numpy in the second
 pass's fixed order against the plain version's sums (float32, another
@@ -141,13 +141,13 @@ def test_bwd_wrapper_equals_plain_version():
 
 @pytest.mark.parametrize("kt", [1, 2, 3, 4, 5])
 def test_bwd_body_takes_ring_at_3x3_taps(kt):
-    assert dw_fused.bwd_body((kt, 3, 3)) == "ring"
+    assert dw_fused.segment_body((kt, 3, 3)) == "ring"
 
 
 @pytest.mark.parametrize("kdims", [(3, 5, 5), (3, 1, 1), (5, 1, 1),
                                    (7, 3, 3), (3, 3, 5), (1, 1, 1)])
 def test_bwd_body_takes_generic_elsewhere(kdims):
-    assert dw_fused.bwd_body(kdims) == "generic"
+    assert dw_fused.segment_body(kdims) == "generic"
 
 
 # The fused segments' (B, T, H, W, C) in training: X3D-M (32 clips of 16
@@ -338,7 +338,7 @@ def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims):
     generic body, and the counters say which."""
     inputs = _card_inputs(5, shape, kdims, cuda, dtype)
     body = "ring" if kdims[1:] == (3, 3) else "generic"
-    assert dw_fused.bwd_body(kdims) == body
+    assert dw_fused.segment_body(kdims) == body
     fn = dw_fused.dw_bn_act_conv_bwd
     before = (fn.launches, dict(fn.body_launches))
     got = fn(*inputs)

@@ -13,6 +13,10 @@ from x3d_tpu_torch.tools.trace import family
      "port kernels"),
     ("void dw_bn_act_conv_fwd_kernel<__nv_bfloat16>(...)", "port kernels"),
     ("sum_partials_kernel(float const*, float*, int, int)", "port kernels"),
+    ("void (anonymous namespace)::dw_bn_act_conv_fwd_ring_kernel<"
+     "__nv_bfloat16, 2, 3>(...)", "port kernels"),
+    ("(anonymous namespace)::dw_bn_act_conv_fwd_sum_kernel(float const*, "
+     "float*, float const*, float*, int, int)", "port kernels"),
     ("void pw_conv_kernel<float>(...)", "port kernels"),
     ("(anonymous namespace)::pw_conv_mma_kernel(__nv_bfloat16 const*, ...)",
      "port kernels"),
@@ -45,6 +49,10 @@ def test_family(name, want):
     ("void dw_conv3d_fwd_kernel<__nv_bfloat16>(...)", "K1 depthwise_conv3d"),
     ("void dw_bn_act_conv_fwd_kernel<__nv_bfloat16>(...)",
      "K2 dw_bn_act_conv"),
+    ("void (anonymous namespace)::dw_bn_act_conv_fwd_ring_kernel<"
+     "__nv_bfloat16, 2, 3>(...)", "K2 dw_bn_act_conv"),
+    ("(anonymous namespace)::dw_bn_act_conv_fwd_sum_kernel(float const*, "
+     "float*, float const*, float*, int, int)", "K2 dw_bn_act_conv"),
     ("void dw_bn_act_conv_bwd_kernel<__nv_bfloat16>(...)",
      "K3 dw_bn_act_conv_bwd"),
     ("void (anonymous namespace)::dw_bn_act_conv_bwd_ring_kernel<"

@@ -1,9 +1,12 @@
 // Shared pieces of the port's kernels: element conversion, the depthwise
-// kernels' block shape and the cp.async copies.  Every kernel here takes
-// NDHWC activations (C contiguous) in float32 or bfloat16 and accumulates in
-// float32.
+// kernels' block shape, the cp.async copies, and what the fused segment's
+// two ring bodies (K2, K3) share: their limits, geometry, instantiations
+// and second pass.
+// Every kernel here takes NDHWC activations (C contiguous) in float32 or
+// bfloat16 and accumulates in float32.
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -127,6 +130,127 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p,
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p,
                                           const float (&v)[2]) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+}
+
+// ------------------------------ the fused segment's ring bodies (K2, K3)
+
+constexpr int kRingMaxKt = 5;         // temporal taps a ring body takes
+constexpr int kRingMaxVecs = 32;      // channel vectors a block owns
+constexpr int kRingMaxThreads = 128;  // threads a role has (K3 two a block)
+constexpr int kRingAhead = 1;         // planes in flight beyond the newest
+constexpr int kSumLanes = 16;         // fixed chunks of a second-pass column
+
+// Taps in shared memory rather than registers (ops/dw_fused.py mirrors this
+// rule in its launch plans).
+__host__ __device__ constexpr bool ring_taps_shared(int kt, int ve) {
+  return kt * 9 * ve > 64;
+}
+
+// A ring-body call's geometry, from its plan (ops/dw_fused.fwd_plan,
+// bwd_plan).
+struct RingGeom {
+  int B, T, H, W, C;
+  int TH, TW;      // a block's pixel tile
+  int nth, ntw;    // tiles along H and W
+  int CG;          // channels a block owns
+  int rows;        // thread rows: a role has CG / VE * rows threads
+  int TC, nruns;   // frames a run, runs along T
+  int granule;     // bytes a copy moves: a cell, or an element (plain)
+  int WP;          // cells a staged row: the tile's and its halo's, made
+                   // even, and a pad
+  int VP;          // cells between vector planes: (TH + 2) * WP and a pad
+  int slot;        // cells of one ring slot: CG / VE vector planes
+  int taps_at;     // byte offset of the taps in shared memory (if there)
+};
+
+// Fills q from a plan, or returns false where a ring body cannot run it.
+inline bool ring_geometry(RingGeom& q, int elem, int kt, int ve, int tile_h,
+                          int tile_w, int group, int rows, int run,
+                          int granule, int row_cells, int vec_pad) {
+  q.TH = tile_h, q.TW = tile_w, q.CG = group, q.rows = rows, q.TC = run;
+  q.granule = granule;
+  if (kt < 1 || kt > kRingMaxKt || (ve != 1 && ve != 2) || q.C % ve ||
+      tile_h < 1 || tile_w < 1 || rows < 1 || run < 1 || group < ve ||
+      group % ve || group / ve > kRingMaxVecs ||
+      group / ve * rows > kRingMaxThreads || q.B > 65535 ||
+      !(granule == elem || (granule == ve * elem && granule >= 4)) ||
+      row_cells < tile_w + 2 + tile_w % 2 || vec_pad < 0)
+    return false;
+  q.nth = ceil_div(q.H, q.TH);
+  q.ntw = ceil_div(q.W, q.TW);
+  q.nruns = ceil_div(q.T, q.TC);
+  q.WP = row_cells;
+  q.VP = (q.TH + 2) * q.WP + vec_pad;
+  const int cell = ve * elem;
+  q.slot = ceil_div(group / ve * q.VP * cell, 16) * 16 / cell;
+  return q.nruns <= 65535;
+}
+
+// Dynamic shared memory of a ring-body block: the body's `ring` bytes of
+// slots, whose bytes its `red` bytes of row partials reuse after the
+// frames, then the taps where they live there (their offset into q).
+inline size_t ring_layout(RingGeom& q, size_t ring, size_t red, int kt,
+                          int ve) {
+  q.taps_at = (int)((std::max(ring, red) + 15) / 16 * 16);
+  return q.taps_at +
+         (ring_taps_shared(kt, ve) ? (size_t)9 * kt * q.CG * sizeof(float) : 0);
+}
+
+// A cell: one pixel's VE channels in shared memory, moved as one access.
+template <typename T, int VE> struct CellOf { using type = T; };
+template <> struct CellOf<float, 2> { using type = float2; };
+template <> struct CellOf<__nv_bfloat16, 2> { using type = __nv_bfloat162; };
+
+template <typename T, int VE, int KT>
+struct Ring {
+  using Elem = T;
+  static constexpr int ve = VE, kt = KT;
+};
+
+template <typename T, int VE, typename Fn>
+int with_kt(int kt, Fn&& fn) {
+  switch (kt) {
+    case 1: return fn(Ring<T, VE, 1>{});
+    case 2: return fn(Ring<T, VE, 2>{});
+    case 3: return fn(Ring<T, VE, 3>{});
+    case 4: return fn(Ring<T, VE, 4>{});
+    case 5: return fn(Ring<T, VE, 5>{});
+  }
+  return cudaErrorInvalidValue;
+}
+static_assert(kRingMaxKt == 5, "with_kt covers kt 1 .. 5");
+
+// fn(Ring<T, VE, KT>{}) for the instantiation a call takes.
+template <typename Fn>
+int with_ring(int dtype, int ve, int kt, Fn&& fn) {
+  if (dtype == kF32)
+    return ve == 2 ? with_kt<float, 2>(kt, fn) : with_kt<float, 1>(kt, fn);
+  if (dtype == kBF16)
+    return ve == 2 ? with_kt<__nv_bfloat16, 2>(kt, fn)
+                   : with_kt<__nv_bfloat16, 1>(kt, fn);
+  return cudaErrorInvalidValue;
+}
+
+// A ring body's second pass, run by a block of (32, kSumLanes) threads:
+// out[i] = sum over k < nparts of part[k * ncols + i], in double, in a fixed
+// order: lane y of the block sums k = y, y + kSumLanes, ..., and the lanes
+// are added in order.  Block x takes columns 32x .. 32x + 31.
+__device__ __forceinline__ void sum_columns(const float* __restrict__ part,
+                                            float* __restrict__ out,
+                                            int ncols, int nparts) {
+  __shared__ double lanes[kSumLanes][32];
+  const int i = blockIdx.x * 32 + threadIdx.x;
+  double s = 0.0;
+  if (i < ncols)
+    for (int k = threadIdx.y; k < nparts; k += kSumLanes)
+      s += part[(size_t)k * ncols + i];
+  lanes[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < ncols) {
+    double t = 0.0;
+    for (int l = 0; l < kSumLanes; ++l) t += lanes[l][threadIdx.x];
+    out[i] = (float)t;
+  }
 }
 
 }  // namespace x3d

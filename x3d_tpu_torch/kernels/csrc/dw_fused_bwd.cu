@@ -283,49 +283,18 @@ int launch(const void* x, const void* y, const void* gy, const float* a_cb,
 
 // -------------------------------------------------------------- ring body
 
-constexpr int kRingMaxKt = 5;         // temporal taps the ring body takes
-constexpr int kRingMaxVecs = 32;      // channel vectors a block owns
-constexpr int kRingMaxThreads = 128;  // threads a role has (two a block)
-constexpr int kRingAhead = 1;         // planes in flight beyond the newest
-constexpr int kSumLanes = 16;         // fixed chunks of a second-pass column
-
-// Flipped taps in shared memory rather than registers (ops/dw_fused.py
-// mirrors this rule in its launch plan).
-__host__ __device__ constexpr bool ring_taps_shared(int kt, int ve) {
-  return kt * 9 * ve > 64;
-}
-
-// A cell: one pixel's VE channels in shared memory, moved as one access.
-template <typename T, int VE> struct CellOf { using type = T; };
-template <> struct CellOf<float, 2> { using type = float2; };
-template <> struct CellOf<__nv_bfloat16, 2> { using type = __nv_bfloat162; };
-
-struct RingGeom {
-  int B, T, H, W, C;
-  int TH, TW;      // a block's pixel tile
-  int nth, ntw;    // tiles along H and W
-  int CG;          // channels a block owns
-  int rows;        // thread rows: a role has CG / VE * rows threads
-  int TC, nruns;   // frames a run, runs along T
-  int granule;     // bytes a copy moves: a cell, or an element (plain)
-  int WP;          // cells a staged row: the tile's and its halo's, made
-                   // even, and a pad
-  int VP;          // cells between vector planes: (TH + 2) * WP and a pad
-  int slot;        // cells of one ring slot: CG / VE vector planes
-  int taps_at;     // byte offset of the taps in shared memory (if there)
-};
+// The ring's limits and geometry (RingGeom, ring_geometry), where the
+// flipped taps live (ring_taps_shared) and a cell (CellOf) are common.cuh's,
+// shared with K2's ring body.
 
 // Dynamic shared memory of a ring-body block: KT + kRingAhead slots of x
 // (then u) and of gy (then g), kRingAhead + 1 of y; after the frames the
 // same bytes hold the rows' dk and sum partials; the flipped taps beyond
 // both where they live there.
 size_t ring_smem(RingGeom& q, int elem, int kt, int ve) {
-  const size_t ring = (size_t)(2 * (kt + kRingAhead) + kRingAhead + 1) *
-                      q.slot * ve * elem;
-  const size_t red = (size_t)q.rows * (9 * kt + 2) * q.CG * sizeof(float);
-  q.taps_at = (int)((std::max(ring, red) + 15) / 16 * 16);
-  return q.taps_at +
-         (ring_taps_shared(kt, ve) ? (size_t)9 * kt * q.CG * sizeof(float) : 0);
+  return ring_layout(
+      q, (size_t)(2 * (kt + kRingAhead) + kRingAhead + 1) * q.slot * ve * elem,
+      (size_t)q.rows * (9 * kt + 2) * q.CG * sizeof(float), kt, ve);
 }
 
 // Registers: at most 128 a thread, so that two blocks share an SM.
@@ -629,84 +598,15 @@ __global__ void __launch_bounds__(2 * kRingMaxThreads, 2)
   }
 }
 
-// out[i] = sum over k < nparts of part[k * ncols + i], in double, in a fixed
-// order: lane y of a block sums k = y, y + kSumLanes, ..., and the lanes are
-// added in order.  blockIdx.y picks the pair (p0, o0) or (p1, o1).
+// The second pass (common.cuh's sum_columns): blockIdx.y picks the pair
+// (p0, o0) or (p1, o1).
 __global__ void __launch_bounds__(32 * kSumLanes)
     dw_bn_act_conv_bwd_sum_kernel(const float* __restrict__ p0,
                                   float* __restrict__ o0,
                                   const float* __restrict__ p1,
                                   float* __restrict__ o1, int ncols,
                                   int nparts) {
-  __shared__ double lanes[kSumLanes][32];
-  const float* part = blockIdx.y ? p1 : p0;
-  float* out = blockIdx.y ? o1 : o0;
-  const int i = blockIdx.x * 32 + threadIdx.x;
-  double s = 0.0;
-  if (i < ncols)
-    for (int k = threadIdx.y; k < nparts; k += kSumLanes)
-      s += part[(size_t)k * ncols + i];
-  lanes[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && i < ncols) {
-    double t = 0.0;
-    for (int l = 0; l < kSumLanes; ++l) t += lanes[l][threadIdx.x];
-    out[i] = (float)t;
-  }
-}
-
-template <typename T, int VE, int KT>
-struct Ring {
-  using Elem = T;
-  static constexpr int ve = VE, kt = KT;
-};
-
-template <typename T, int VE, typename Fn>
-int with_kt(int kt, Fn&& fn) {
-  switch (kt) {
-    case 1: return fn(Ring<T, VE, 1>{});
-    case 2: return fn(Ring<T, VE, 2>{});
-    case 3: return fn(Ring<T, VE, 3>{});
-    case 4: return fn(Ring<T, VE, 4>{});
-    case 5: return fn(Ring<T, VE, 5>{});
-  }
-  return cudaErrorInvalidValue;
-}
-static_assert(kRingMaxKt == 5, "with_kt covers kt 1 .. 5");
-
-// fn(Ring<T, VE, KT>{}) for the instantiation a call takes.
-template <typename Fn>
-int with_ring(int dtype, int ve, int kt, Fn&& fn) {
-  if (dtype == kF32)
-    return ve == 2 ? with_kt<float, 2>(kt, fn) : with_kt<float, 1>(kt, fn);
-  if (dtype == kBF16)
-    return ve == 2 ? with_kt<__nv_bfloat16, 2>(kt, fn)
-                   : with_kt<__nv_bfloat16, 1>(kt, fn);
-  return cudaErrorInvalidValue;
-}
-
-// The geometry of a ring-body plan (ops/dw_fused.bwd_plan), or false where
-// the kernel cannot run it.
-bool ring_geometry(RingGeom& q, int elem, int kt, int ve, int tile_h,
-                   int tile_w, int group, int rows, int run, int granule,
-                   int row_cells, int vec_pad) {
-  q.TH = tile_h, q.TW = tile_w, q.CG = group, q.rows = rows, q.TC = run;
-  q.granule = granule;
-  if (kt < 1 || kt > kRingMaxKt || (ve != 1 && ve != 2) || q.C % ve ||
-      tile_h < 1 || tile_w < 1 || rows < 1 || run < 1 || group < ve ||
-      group % ve || group / ve > kRingMaxVecs ||
-      group / ve * rows > kRingMaxThreads || q.B > 65535 ||
-      !(granule == elem || (granule == ve * elem && granule >= 4)) ||
-      row_cells < tile_w + 2 + tile_w % 2 || vec_pad < 0)
-    return false;
-  q.nth = ceil_div(q.H, q.TH);
-  q.ntw = ceil_div(q.W, q.TW);
-  q.nruns = ceil_div(q.T, q.TC);
-  q.WP = row_cells;
-  q.VP = (q.TH + 2) * q.WP + vec_pad;
-  const int cell = ve * elem;
-  q.slot = ceil_div(group / ve * q.VP * cell, 16) * 16 / cell;
-  return q.nruns <= 65535;
+  sum_columns(blockIdx.y ? p1 : p0, blockIdx.y ? o1 : o0, ncols, nparts);
 }
 
 template <typename T, int VE, int KT>

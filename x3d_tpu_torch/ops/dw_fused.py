@@ -7,10 +7,11 @@
 ``dw_fused._fwd_kernel`` of the JAX package; :func:`reference` is its plain
 PyTorch version.  :func:`dw_bn_act_conv_bwd` is the wrapper of K3
 (``kernels/csrc/dw_fused_bwd.cu``), the one-pass backward, which replaces
-``dw_fused._bwd_kernel``; :func:`bwd_reference` is its plain version.  K3
-has two bodies, picked by :func:`bwd_body`: the ring body for 3x3 spatial
-taps and up to 5 temporal ones (every fused segment of X3D), launched by the
-plan :func:`bwd_plan` gives, and the generic body for other taps.
+``dw_fused._bwd_kernel``; :func:`bwd_reference` is its plain version.  K2
+and K3 have two bodies each, picked by :func:`segment_body`: a ring body for
+3x3 spatial taps and up to 5 temporal ones (every fused segment of X3D),
+launched by the plan :func:`fwd_plan` or :func:`bwd_plan` gives, and a
+generic body for other taps.
 :func:`segment` is the differentiable op the model calls (K2 forward, K3
 backward, or the plain versions within ``ops.plain_versions()``).
 
@@ -41,6 +42,10 @@ _SIGNATURES = {
     "x3d_dw_bn_act_conv_tiles": [ctypes.c_int] * 3,
     "x3d_dw_bn_act_conv_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
+    "x3d_dw_bn_act_conv_fwd_ring_occupancy": [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "x3d_dw_bn_act_conv_fwd_ring": [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 16 + [ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
     "x3d_dw_bn_act_conv_bwd_tiles": [ctypes.c_int] * 2,
@@ -89,6 +94,36 @@ def reference(x, a_cb, b_cb, kernel):
     return y, p, s2
 
 
+def _launch_fwd(lib, body, x, a, b, taps, kdims, stream):
+    """K2's ``body`` on contiguous tensors of one device (float32 columns
+    and taps); returns (y, p, s2) or raises."""
+    B, T, H, W, C = x.shape
+    kt, kh, kw = kdims
+    code = kernels.dtype_code(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    p = torch.empty((C, B), **f32)
+    s2 = torch.empty_like(p)
+    ptrs = [x.data_ptr(), a.data_ptr(), b.data_ptr(), taps.data_ptr(),
+            y.data_ptr()]
+    if body == "ring":
+        q = _fwd_ring_plan(lib, x, kt)
+        part = torch.empty((2, q["parts"] // B, C, B), **f32)
+        rc = lib.x3d_dw_bn_act_conv_fwd_ring(
+            *ptrs, part[0].data_ptr(), part[1].data_ptr(), p.data_ptr(),
+            s2.data_ptr(), code, B, T, H, W, C, kt, q["tile_h"], q["tile_w"],
+            q["group"], q["vec"], q["rows"], q["run"], q["granule"],
+            q["row_cells"], q["vec_pad"], stream)
+    else:
+        tiles = lib.x3d_dw_bn_act_conv_tiles(T, H, W)
+        part = torch.empty((2, B, tiles, C), **f32)
+        rc = lib.x3d_dw_bn_act_conv_fwd(
+            *ptrs, part[0].data_ptr(), part[1].data_ptr(), p.data_ptr(),
+            s2.data_ptr(), code, B, T, H, W, C, kt, kh, kw, stream)
+    kernels.raise_on_error(rc, f"dw_bn_act_conv ({body} body) kernel launch")
+    return y, p, s2
+
+
 def dw_bn_act_conv(x, a_cb, b_cb, kernel):
     """y = dwconv(relu(a*x + b), kernel); p = sum_thw y; s2 = sum_thw y^2.
 
@@ -101,8 +136,8 @@ def dw_bn_act_conv(x, a_cb, b_cb, kernel):
     Returns:
       y: (B, T, H, W, C) in x.dtype;  p, s2: (C, B) float32.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K2 or
-    raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches K2's body
+    that :func:`segment_body` names, or raises.
     """
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
     if x.device.type == "cpu":
@@ -112,25 +147,18 @@ def dw_bn_act_conv(x, a_cb, b_cb, kernel):
     b = b_cb.to(torch.float32).contiguous()
     taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
     taps = taps.contiguous()
-    code = kernels.dtype_code(x)
+    kernels.check_cuda(x, a, b, taps)
+    body = segment_body((kt, kh, kw))
     lib = _build.load("dw_fused.cu", _SIGNATURES)
-    tiles = lib.x3d_dw_bn_act_conv_tiles(T, H, W)
-    y = torch.empty_like(x)
-    part = torch.empty((2, B, tiles, C), dtype=torch.float32, device=x.device)
-    p = torch.empty((C, B), dtype=torch.float32, device=x.device)
-    s2 = torch.empty_like(p)
-    kernels.check_cuda(x, a, b, taps, y, part, p, s2)
-    rc = lib.x3d_dw_bn_act_conv_fwd(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), taps.data_ptr(),
-        y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), p.data_ptr(),
-        s2.data_ptr(), code, B, T, H, W, C, kt, kh, kw,
-        kernels.stream_handle(x))
-    kernels.raise_on_error(rc, "dw_bn_act_conv kernel launch")
+    y, p, s2 = _launch_fwd(lib, body, x, a, b, taps, (kt, kh, kw),
+                           kernels.stream_handle(x))
     dw_bn_act_conv.launches += 1
+    dw_bn_act_conv.body_launches[body] += 1
     return y, p, s2
 
 
 dw_bn_act_conv.launches = 0
+dw_bn_act_conv.body_launches = {"ring": 0, "generic": 0}
 
 
 # ---------------------------------------------------------- K3: backward
@@ -196,21 +224,24 @@ def bwd_abs_sums(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     return (dk, du.sum(dim=(1, 2, 3)).t(), (du * u).sum(dim=(1, 2, 3)).t())
 
 
-# The ring body's limits (dw_fused_bwd.cu: kRingMaxKt, kRingMaxVecs,
-# kRingMaxThreads, kRingAhead) and its plan's rules.
+# ------------------------------------------- the ring bodies' plans (K2, K3)
+
+# The ring bodies' limits (common.cuh: kRingMaxKt, kRingMaxVecs,
+# kRingMaxThreads, kRingAhead) and their plans' rules.
 RING_MAX_KT = 5
 RING_MAX_VECS = 32
-RING_MAX_THREADS = 128    # a role's (a block has a du and a dk role)
+RING_MAX_THREADS = 128    # a role's (K3's block has a du and a dk role)
 RING_AHEAD = 1            # planes in flight beyond the newest
-RING_SMEM = 113 * 1024    # a block's shared memory: two blocks an SM
+RING_SMEM = 113 * 1024    # K3: a block's shared memory: two blocks an SM
+FWD_SMEM = 72 * 1024      # K2: the most shared memory a block takes
 RING_MAX_SIDE = 14        # a plane up to this side is one tile
 RING_MIN_RUN = 4          # frames a run keeps (each reloads kt - 1 planes)
 
 
-def bwd_body(kdims) -> str:
-    """Which of K3's two bodies computes a call: "ring" for spatial taps 3x3
-    and 1 <= kt <= RING_MAX_KT (every fused segment of X3D), "generic" for
-    every other geometry."""
+def segment_body(kdims) -> str:
+    """Which of their two bodies K2 and K3 run for a call: "ring" for
+    spatial taps 3x3 and 1 <= kt <= RING_MAX_KT (every fused segment of
+    X3D), "generic" for every other geometry."""
     kt, kh, kw = (int(k) for k in kdims)
     return "ring" if (kh, kw) == (3, 3) and 1 <= kt <= RING_MAX_KT \
         else "generic"
@@ -236,15 +267,31 @@ def _ring_slot(nv, vec, elem, tile_h, row_cells, vec_pad) -> int:
     return -(-nv * plane * vec * elem // 16) * 16
 
 
+def _taps_smem(kt, vec, group) -> int:
+    """Bytes of taps a ring-body block keeps in shared memory (common.cuh's
+    ring_taps_shared): none where they fit in registers."""
+    return 9 * kt * group * 4 if 9 * kt * vec > 64 else 0
+
+
 def _ring_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
                rows) -> int:
-    """Dynamic shared memory of a ring-body block, as ``ring_smem`` in
+    """Dynamic shared memory of a K3 ring-body block, as ``ring_smem`` in
     dw_fused_bwd.cu lays it out."""
     slot = _ring_slot(group // vec, vec, elem, tile_h, row_cells, vec_pad)
     ring = (2 * (kt + RING_AHEAD) + RING_AHEAD + 1) * slot
     red = rows * (9 * kt + 2) * group * 4
-    taps = 9 * kt * group * 4 if 9 * kt * vec > 64 else 0
-    return -(-max(ring, red) // 16) * 16 + taps
+    return -(-max(ring, red) // 16) * 16 + _taps_smem(kt, vec, group)
+
+
+def _fwd_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
+              rows) -> int:
+    """Dynamic shared memory of a K2 ring-body block, as ``ring_smem`` in
+    dw_fused.cu lays it out: kt + RING_AHEAD slots of x (then u), after the
+    frames the rows' two sums."""
+    slot = _ring_slot(group // vec, vec, elem, tile_h, row_cells, vec_pad)
+    ring = (kt + RING_AHEAD) * slot
+    red = rows * 2 * group * 4
+    return -(-max(ring, red) // 16) * 16 + _taps_smem(kt, vec, group)
 
 
 def _bank_ways(nv: int, threads: int, cell: int, plane: int,
@@ -280,10 +327,52 @@ def _ring_pitch(nv, threads, cell, tile_h, tile_w):
                                (tile_h + 2) * cp[0] + cp[1]))
 
 
+def _plan(B, T, H, W, C, elem, align, slots, role_threads, budget, smem_of,
+          row_a_thread=False):
+    """What the two ring bodies' plans share (see :func:`bwd_plan`): the
+    granule, the tile, channel groups whose block fits ``budget`` bytes of
+    shared memory by ``smem_of(vec, tile_h, row_cells, vec_pad, group,
+    rows)``, thread rows of a role of at most ``role_threads`` threads (with
+    ``row_a_thread``, groups small enough that each thread takes one tile
+    row), the pitches and the runs."""
+    vec = 2 if C % 2 == 0 else 1
+    cell = vec * elem
+    granule = cell if cell >= 4 and align % cell == 0 else elem
+    tile_h, tile_w = _ring_side(H), _ring_side(W)
+    most = RING_MAX_VECS * vec
+    if row_a_thread:
+        most = min(most, max(1, role_threads // tile_h) * vec)
+    for groups in range(-(-C // most), C + 1):
+        group = -(-(-(-C // groups)) // vec) * vec
+        nv = group // vec
+        passes = -(-tile_h // max(1, role_threads // nv))
+        rows = -(-tile_h // passes)
+        row_cells, vec_pad = _ring_pitch(nv, nv * rows, cell, tile_h,
+                                         tile_w)
+        smem = smem_of(vec, tile_h, row_cells, vec_pad, group, rows)
+        if group <= most and smem <= budget:
+            break
+    else:
+        raise ValueError(f"no ring-body plan fits C={C}")
+    groups = -(-C // group)
+    tiles_h, tiles_w = -(-H // tile_h), -(-W // tile_w)
+    blocks = groups * tiles_h * tiles_w * B
+    runs = 1
+    while blocks * runs < 2 * slots and -(-T // (runs + 1)) >= RING_MIN_RUN:
+        runs += 1
+    run = -(-T // runs)
+    runs = -(-T // run)
+    return dict(granule=granule, vec=vec, tile_h=tile_h, tile_w=tile_w,
+                tiles_h=tiles_h, tiles_w=tiles_w, group=group, groups=groups,
+                rows=rows, warps=-(-nv * rows // 32), row_cells=row_cells,
+                vec_pad=vec_pad, smem_bytes=smem, run=run, runs=runs,
+                parts=B * tiles_h * tiles_w * runs)
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_plan(B: int, T: int, H: int, W: int, C: int, kt: int, elem: int = 2,
              align: int = 16, slots: int = 0) -> dict:
-    """How the ring body runs a call: elements of ``elem`` bytes, inputs
+    """How K3's ring body runs a call: elements of ``elem`` bytes, inputs
     whose addresses are multiples of ``align`` bytes, a card that holds
     ``slots`` blocks at once (0: no runs are cut).
 
@@ -301,51 +390,43 @@ def bwd_plan(B: int, T: int, H: int, W: int, C: int, kt: int, elem: int = 2,
     * runs of ``run`` frames: T is cut while the blocks would not fill the
       card twice over, keeping runs of RING_MIN_RUN frames or more.
     """
-    vec = 2 if C % 2 == 0 else 1
-    cell = vec * elem
-    granule = cell if cell >= 4 and align % cell == 0 else elem
-    tile_h, tile_w = _ring_side(H), _ring_side(W)
-    most = RING_MAX_VECS * vec
-    for groups in range(-(-C // most), C + 1):
-        group = -(-(-(-C // groups)) // vec) * vec
-        nv = group // vec
-        passes = -(-tile_h // max(1, RING_MAX_THREADS // nv))
-        rows = -(-tile_h // passes)
-        row_cells, vec_pad = _ring_pitch(nv, nv * rows, cell, tile_h,
-                                         tile_w)
-        smem = _ring_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
-                          rows)
-        if group <= most and smem <= RING_SMEM:
-            break
-    else:
-        raise ValueError(f"no ring-body plan fits C={C}, kt={kt}")
-    groups = -(-C // group)
-    tiles_h, tiles_w = -(-H // tile_h), -(-W // tile_w)
-    blocks = groups * tiles_h * tiles_w * B
-    runs = 1
-    while blocks * runs < 2 * slots and -(-T // (runs + 1)) >= RING_MIN_RUN:
-        runs += 1
-    run = -(-T // runs)
-    runs = -(-T // run)
-    return dict(granule=granule, vec=vec, tile_h=tile_h, tile_w=tile_w,
-                tiles_h=tiles_h, tiles_w=tiles_w, group=group, groups=groups,
-                rows=rows, threads=2 * -(-group // vec * rows // 32) * 32,
-                row_cells=row_cells, vec_pad=vec_pad, smem_bytes=smem,
-                run=run, runs=runs, parts=B * tiles_h * tiles_w * runs)
+    p = _plan(B, T, H, W, C, elem, align, slots, RING_MAX_THREADS, RING_SMEM,
+              lambda vec, *rest: _ring_smem(kt, vec, elem, *rest))
+    p["threads"] = 2 * 32 * p.pop("warps")
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(B: int, T: int, H: int, W: int, C: int, kt: int, elem: int = 2,
+             align: int = 16, slots: int = 0) -> dict:
+    """How K2's ring body runs a call, by :func:`bwd_plan`'s rules (x's
+    address is the one ``align`` counts), with one role and at most
+    FWD_SMEM bytes of shared memory a block: the ring's kt + RING_AHEAD
+    slots of one array, or after the frames the rows' two sums, and the
+    taps where they do not fit in registers.  A group has at most
+    RING_MAX_THREADS // tile_h vectors, so that each thread takes one tile
+    row: more, smaller blocks, four an SM."""
+    p = _plan(B, T, H, W, C, elem, align, slots, RING_MAX_THREADS, FWD_SMEM,
+              lambda vec, *rest: _fwd_smem(kt, vec, elem, *rest),
+              row_a_thread=True)
+    p["threads"] = 32 * p.pop("warps")
+    return p
 
 
 _slots = {}
 
 
-def _ring_slots(lib, code: int, vec: int, kt: int, threads: int,
+def _ring_slots(lib, body: str, code: int, vec: int, kt: int, threads: int,
                 smem: int) -> int:
-    """Blocks of this shape the card holds at once (blocks an SM x SMs)."""
-    key = (code, vec, kt, threads, smem)
+    """Blocks of this shape of K2's (``body`` "fwd") or K3's ("bwd") ring
+    body that the card holds at once (blocks an SM x SMs)."""
+    key = (body, code, vec, kt, threads, smem)
     if key not in _slots:
         out = (ctypes.c_int * 2)()
-        kernels.raise_on_error(lib.x3d_dw_bn_act_conv_bwd_ring_occupancy(
+        query = getattr(lib, f"x3d_dw_bn_act_conv_{body}_ring_occupancy")
+        kernels.raise_on_error(query(
             code, vec, kt, threads, smem, ctypes.addressof(out)),
-            "dw_bn_act_conv_bwd ring occupancy")
+            f"dw_bn_act_conv_{body} ring occupancy")
         _slots[key] = out[0] * out[1]
     return _slots[key]
 
@@ -355,6 +436,17 @@ def _align(*tensors) -> int:
     return min(16, *(t.data_ptr() & -t.data_ptr() for t in tensors))
 
 
+def _fwd_ring_plan(lib, x, kt: int) -> dict:
+    """:func:`fwd_plan` for a ring-body call on x and this card (its blocks
+    at once from the library's occupancy query)."""
+    B, T, H, W, C = x.shape
+    args = (B, T, H, W, C, kt, x.element_size(), _align(x))
+    p = fwd_plan(*args)
+    return fwd_plan(*args, slots=_ring_slots(
+        lib, "fwd", kernels.dtype_code(x), p["vec"], kt, p["threads"],
+        p["smem_bytes"]))
+
+
 def _ring_plan(lib, x, y, gy, kt: int) -> dict:
     """:func:`bwd_plan` for a ring-body call on these tensors and this card
     (its blocks at once from the library's occupancy query)."""
@@ -362,7 +454,7 @@ def _ring_plan(lib, x, y, gy, kt: int) -> dict:
     args = (B, T, H, W, C, kt, x.element_size(), _align(x, y, gy))
     p = bwd_plan(*args)
     return bwd_plan(*args, slots=_ring_slots(
-        lib, kernels.dtype_code(x), p["vec"], kt, p["threads"],
+        lib, "bwd", kernels.dtype_code(x), p["vec"], kt, p["threads"],
         p["smem_bytes"]))
 
 
@@ -420,7 +512,7 @@ def dw_bn_act_conv_bwd(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
       duu (C, B) float32 (see :func:`bwd_reference`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches K3's body
-    that :func:`bwd_body` names, or raises.
+    that :func:`segment_body` names, or raises.
     """
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
     if tuple(y.shape) != tuple(x.shape) or tuple(gy.shape) != tuple(x.shape):
@@ -433,7 +525,7 @@ def dw_bn_act_conv_bwd(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     taps = taps.contiguous()
     y, gy = y.to(x.dtype).contiguous(), gy.to(x.dtype).contiguous()
     kernels.check_cuda(x, y, gy, *cols, taps)
-    body = bwd_body((kt, kh, kw))
+    body = segment_body((kt, kh, kw))
     lib = _build.load("dw_fused_bwd.cu", _BWD_SIGNATURES)
     dx, dk, dzs, duu = _launch_bwd(lib, body, x, cols, taps, y, gy,
                                    (kt, kh, kw), kernels.stream_handle(x))

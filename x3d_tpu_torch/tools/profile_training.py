@@ -32,7 +32,9 @@ from x3d_tpu_torch.utils import use_deterministic_cudnn
 # the port's kernels by the names of their __global__ functions
 _PORT = (
     ("K1 depthwise_conv3d", ("dw_conv3d_fwd_kernel",)),
-    ("K2 dw_bn_act_conv", ("dw_bn_act_conv_fwd_kernel",)),
+    ("K2 dw_bn_act_conv", ("dw_bn_act_conv_fwd_kernel",
+                           "dw_bn_act_conv_fwd_ring_kernel",
+                           "dw_bn_act_conv_fwd_sum_kernel")),
     ("K3 dw_bn_act_conv_bwd", ("dw_bn_act_conv_bwd_kernel",
                                 "dw_bn_act_conv_bwd_ring_kernel",
                                 "dw_bn_act_conv_bwd_sum_kernel")),
