@@ -10,28 +10,34 @@ CUDA toolkit::
 It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
 nvcc per source, in parallel; ptxas's registers, spills and static shared
 memory of each instantiation of K5-K7's tensor-core body, K4 dx's phase
-body and K3's and K2's ring bodies on a line of its own, which fails on a
-spill where the body must not spill) and then:
+body, K1's temporal and ring bodies and K3's and K2's ring bodies on a line
+of its own, which fails on a spill where the body must not spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
-  serving shape (B = 10 clips, float32 and bfloat16) and times kernel,
-  plain version and the library's ``F.conv3d(groups=C)``; K2 likewise at
-  X3D-M's and X3D-S's requests of 1 and 8 videos (X3D-S's eval batch),
-  its rows naming the body that ran (the ring body at every fused
-  segment), its plan, and the generic body's time on the same inputs;
+  and X3D-S serving shape, in requests of 1 and 8 videos (10 and 80
+  clips; X3D-S's eval batch is 80 too), float32 and bfloat16, and times
+  kernel, the library's ``F.conv3d(groups=C)`` and, at one X3D-M video,
+  the plain version; each row names the body that ran (K1: the temporal
+  body at the stem, the ring body at the stride-2 stage entries; K2: the
+  ring body at every fused segment), its plan and the generic body's time
+  on the same inputs; K1's rows fail where the body is behind the generic
+  body, the plain version or the library;
 * serves X3D-M at full width (16×224², 10 views, bfloat16, random weights
   from a seed) through ``InferenceEngine``, checks the probabilities and
-  that each forward launched K1 5 times and K2 22 times (all by its ring
-  body), and checks one float32 forward through the kernels against the
-  same forward through the plain versions;
+  that each forward launched K1 5 times (once by its temporal body, four
+  times by its ring body) and K2 22 times (all by its ring body), and
+  checks one float32 forward through the kernels against the same forward
+  through the plain versions;
 * holds every kernel of the training step -- K1, K2, K3 (fused-segment
   backward), K4 (depthwise backward: dx and dk), K5 and K6 (pointwise
   GEMMs with BN sums) -- against its plain version at every X3D-M
   training shape and the training batch (32 clips, per-sample
   coefficient columns) in float32 and bfloat16, and times K2-K6 there
   beside their plain versions and library calls; then the same at X3D-S's
-  training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes); K4's
+  training shapes (64 clips of 13 frames; 40², 20², 10², 5² planes); K1's
+  rows there carry the same fields as in serving and are summed per step;
+  K4's
   dx rows name the body that ran (the parity-phase body at the stride-2
   stage entries, the gather body elsewhere) and time the gather body on the
   same inputs beside the phase body; K2's and K3's rows likewise name
@@ -43,7 +49,8 @@ spill where the body must not spill) and then:
   over each variant's training step;
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
-  step (K4 dx by its phase body only, K2 and K3 by their ring bodies only),
+  step (K1 by its temporal and ring bodies only, K4 dx by its phase body
+  only, K2 and K3 by their ring bodies only),
   checks that two runs of one step from one state are bit-identical, and
   checks one float32 step through the kernels against the same step
   through the plain versions (loss, every gradient, the updated parameters
@@ -62,8 +69,9 @@ spill where the body must not spill) and then:
   card's peak;
 * drives the command-line tools at X3D-S full width and depth (13×160², 64
   clips, bfloat16), in this process through their ``main(argv)``: train two
-  epochs of three steps with step-keyed checkpoints (K2 and K3 by their
-  ring bodies only), resume for a third epoch (the restored step is 6 and
+  epochs of three steps with step-keyed checkpoints (K1 by its new bodies
+  only, K2 and K3 by their ring bodies only), resume for a third epoch (the
+  restored step is 6 and
   the losses equal an uninterrupted run's, bit for bit, with cuDNN's flags
   as the tools set them), evaluate two batches of 8 videos × 10 views, and
   serve one video from the checkpoint.
@@ -270,6 +278,36 @@ def main() -> int:
     check(len(entries) == 20 and all("registers" in e for e in entries)
           and len(main) == 1 and main[0]["spill_bytes"] == 0,
           f"K3 ring body's ptxas report: {entries}")
+    # K1's temporal body, <element, channels a cell, temporal taps>: 35
+    # instantiations (float32 1, 2, 4 channels, bfloat16 1, 2, 4, 8; kt 1 ..
+    # 5); the one every X3D stem runs in bfloat16 (16-byte cells, kt 5) must
+    # not spill
+    entries = ptxas_entries(
+        ("depthwise.cu",),
+        r"dw_conv3d_fwd_temporal_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E",
+        lambda m: "dw_conv3d_fwd_temporal_kernel<"
+                  f"{'float' if m[1] == 'f' else 'bfloat16'}, {m[2]}, {m[3]}>")
+    emit(phase="build, K1 temporal body", kernels=entries)
+    main = [e for e in entries
+            if e["kernel"].endswith("<bfloat16, 8, 5>")]
+    check(len(entries) == 35 and all("registers" in e for e in entries)
+          and len(main) == 1 and main[0]["spill_bytes"] == 0,
+          f"K1 temporal body's ptxas report: {entries}")
+    # K1's ring body, <element, channels a vector, temporal taps, spatial
+    # stride>: 40 instantiations; the one every X3D stage entry runs in
+    # bfloat16 (2 channels, kt 3, stride 2) must not spill
+    entries = ptxas_entries(
+        ("depthwise.cu",),
+        r"dw_conv3d_fwd_ring_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELi(\d)E",
+        lambda m: "dw_conv3d_fwd_ring_kernel<"
+                  f"{'float' if m[1] == 'f' else 'bfloat16'}, {m[2]}, {m[3]}, "
+                  f"{m[4]}>")
+    emit(phase="build, K1 ring body", kernels=entries)
+    main = [e for e in entries
+            if e["kernel"].endswith("<bfloat16, 2, 3, 2>")]
+    check(len(entries) == 40 and all("registers" in e for e in entries)
+          and len(main) == 1 and main[0]["spill_bytes"] == 0,
+          f"K1 ring body's ptxas report: {entries}")
     # K2's ring body, the same 20 instantiations; the one every X3D segment
     # runs (bfloat16, 2 channels, kt 3) must not spill
     entries = ptxas_entries(
@@ -284,20 +322,33 @@ def main() -> int:
           and len(main) == 1 and main[0]["spill_bytes"] == 0,
           f"K2 ring body's ptxas report: {entries}")
 
-    # X3D-M's depthwise shapes at one video, from its architecture plan
+    # the depthwise shapes of X3D-M and X3D-S, from their architecture plans
     cfg = variant_config("M")
     arch = build_arch(cfg)
     cfg_s = variant_config("S")
     arch_s = build_arch(cfg_s)
-    T, S = cfg.DATA.TEMP_DURATION, -(-cfg.DATA.TEST_CROP_SIZE // 2)
-    k1_cases = [("conv_1.conv_t", (CLIPS, T, S, S, arch.conv1_dim),
-                 (arch.temp_filter, 1, 1), (1, 1, 1),
-                 ((arch.temp_filter // 2,) * 2, (0, 0), (0, 0)), 1)]
-    for si, blocks in enumerate(arch.stages):
-        C = blocks[0].inner_channels
-        k1_cases.append((f"stage{si + 2}_block0.b", (CLIPS, T, S, S, C),
-                         (arch.temp_kernel, 3, 3), (1, 2, 2), "SAME", 1))
-        S = -(-S // 2)
+
+    def k1_cases(vcfg, varch, B):
+        """(name, (B, T, H, W, C), kdims, strides, padding, launches per
+        forward) of K1's launches in a serving forward: the stem's conv_t
+        and the four stage entries."""
+        T, S = vcfg.DATA.TEMP_DURATION, -(-vcfg.DATA.TEST_CROP_SIZE // 2)
+        kt = varch.temp_filter
+        cases = [("conv_1.conv_t", (B, T, S, S, varch.conv1_dim), (kt, 1, 1),
+                  (1, 1, 1), ((kt // 2,) * 2, (0, 0), (0, 0)), 1)]
+        for si, blocks in enumerate(varch.stages):
+            cases.append((f"stage{si + 2}_block0.b",
+                          (B, T, S, S, blocks[0].inner_channels),
+                          (varch.temp_kernel, 3, 3), (1, 2, 2), "SAME", 1))
+            S = -(-S // 2)
+        return cases
+
+    # K1 at the serving shapes: X3D-M and X3D-S, requests of 1 and 8 videos
+    # (X3D-S's eval batch is 8 videos too); the 1-video X3D-M rows feed the
+    # kernel line
+    k1_paths = [(v, B, k1_cases(c, a_, B))
+                for v, c, a_ in (("M", cfg, arch), ("S", cfg_s, arch_s))
+                for B in (CLIPS, S_EVAL_CLIPS)]
 
     def segment_cases(vcfg, varch, B, crop):
         """(name, (B, T, H, W, C), launches per forward) of each stage's
@@ -342,26 +393,40 @@ def main() -> int:
                 "library_ms": sum(r["n"] * r["library_ms"] for r in rows)}
 
     # ------------------------------------------- 2. K1 vs its plain version
-    k1_rows = []
-    for name, shape, kdims, strides, padding, n in k1_cases:
-        C = shape[-1]
-        x, k = randn(*shape), randn(*kdims, 1, C) * 0.3
-        pads = depthwise._resolve_pads(shape, kdims, strides, padding)
-        ref = depthwise.depthwise_conv3d_reference(x, k, strides, pads)
-        got = depthwise.depthwise_conv3d(x, k, strides, pads)
-        torch.cuda.synchronize()
-        err32 = (got - ref).abs().max().item()
-        xb, kb = x.bfloat16(), k.bfloat16()
-        refb = depthwise.depthwise_conv3d_reference(xb.float(), kb.float(),
-                                                    strides, pads)
-        gotb = depthwise.depthwise_conv3d(xb, kb, strides, pads)
-        rel16 = ((gotb.float() - refb).abs().max()
-                 / refb.abs().max()).item()
-        del x, k, ref, got, refb
-        ms = time_ms(lambda: depthwise.depthwise_conv3d(xb, kb, strides,
-                                                        pads))
-        plain_ms = time_ms(lambda: depthwise.depthwise_conv3d_reference(
-            xb, kb, strides, pads))
+    k1_lib = _build.load("depthwise.cu", depthwise._SIGNATURES)
+
+    def k1_times(xb, kb, strides, pads, n, plain=True):
+        """A bfloat16 K1 row's times and bound on these inputs: the body the
+        wrapper picks and the generic body (what the new bodies replaced;
+        its C entry point takes every geometry), both launched as the
+        wrapper launches them on the same prepared taps, the plain version
+        and the library's ``F.conv3d(groups=C)``; with the body, its launch
+        plan and the shares."""
+        C = xb.shape[-1]
+        kdims = tuple(kb.shape[:3])
+        taps_f32 = kb.float().reshape(-1, C).contiguous()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def body_ms(body):
+            return time_ms(lambda: depthwise._launch_fwd(
+                k1_lib, body, xb, taps_f32, kdims, strides, pads, stream))
+
+        row = dict(n=n, body=depthwise.fwd_body(kdims, strides, pads))
+        row.update(ms=body_ms(row["body"]), generic_ms=body_ms("generic"))
+        out = [depthwise._out_size(d, kk, st, p) for d, kk, st, p in
+               zip(xb.shape[1:4], kdims, strides, pads)]
+        if row["body"] == "ring":
+            row["plan"] = depthwise._ring_plan(k1_lib, xb, kdims[0],
+                                               strides[1], out)
+        elif row["body"] == "temporal":
+            y = torch.empty((xb.shape[0], *out, C), dtype=xb.dtype,
+                            device=xb.device)
+            row["plan"] = depthwise._temporal_plan(k1_lib, xb, y, kdims[0],
+                                                   out[0])
+        if plain:
+            row["plain_ms"] = time_ms(
+                lambda: depthwise.depthwise_conv3d_reference(xb, kb, strides,
+                                                             pads))
         # library yardstick: one F.conv3d(groups=C) on the channels-last
         # view; an asymmetric (TF SAME, stride 2) pad is applied beforehand
         xc, w = xb.permute(0, 4, 1, 2, 3), kb.permute(4, 3, 0, 1, 2)
@@ -371,22 +436,61 @@ def main() -> int:
             xc = F.pad(xc, (wl, wh, hl, hh, tl, th)).contiguous(
                 memory_format=torch.channels_last_3d)
         lib_pad = tuple(lo for lo, _ in pads) if sym else 0
-        library_ms = time_ms(lambda: F.conv3d(xc, w, stride=strides,
-                                              padding=lib_pad, groups=C))
+        row["library_ms"] = time_ms(lambda: F.conv3d(
+            xc, w, stride=strides, padding=lib_pad, groups=C))
+        row["library_pre_padded"] = not sym
         taps = math.prod(kdims)
-        nbytes = xb.numel() * 2 + gotb.numel() * 2 + taps * C * 4
-        bms, by = bound(nbytes, 2 * taps * gotb.numel())
-        row = dict(name=name, shape=list(shape), kernel=list(kdims),
-                   strides=list(strides), pads=[list(p) for p in pads], n=n,
-                   max_abs_err_f32=err32, rel_err_bf16=rel16, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   library_pre_padded=not sym, bound_ms=bms, bound_by=by)
-        emit(phase="K1 depthwise_conv3d", **row)
-        check(err32 <= TOL_F32, f"K1 {name} f32 err {err32}")
-        check(rel16 <= TOL_BF16, f"K1 {name} bf16 rel err {rel16}")
-        k1_rows.append(row)
-        del xb, kb, gotb, xc, w
-    torch.cuda.empty_cache()
+        ny = xb.shape[0] * math.prod(out) * C
+        row["bound_ms"], row["bound_by"] = bound(
+            (xb.numel() + ny) * 2 + taps * C * 4, 2 * taps * ny)
+        row.update(shares(row))
+        return row
+
+    k1_serving = {}
+    for variant, B, cases in k1_paths:
+        rows = k1_serving[variant, B] = []
+        for name, shape, kdims, strides, padding, n in cases:
+            C = shape[-1]
+            x, k = randn(*shape), randn(*kdims, 1, C) * 0.3
+            pads = depthwise._resolve_pads(shape, kdims, strides, padding)
+            ref = depthwise.depthwise_conv3d_reference(x, k, strides, pads)
+            got = depthwise.depthwise_conv3d(x, k, strides, pads)
+            torch.cuda.synchronize()
+            err32 = (got - ref).abs().max().item()
+            xb, kb = x.bfloat16(), k.bfloat16()
+            del x, k, ref, got
+            refb = depthwise.depthwise_conv3d_reference(
+                xb.float(), kb.float(), strides, pads)
+            gotb = depthwise.depthwise_conv3d(xb, kb, strides, pads)
+            rel16 = ((gotb.float() - refb).abs().max()
+                     / refb.abs().max()).item()
+            del refb, gotb
+            plain = (variant, B) == ("M", CLIPS)
+            row = dict(variant=variant, clips=B, name=name, shape=list(shape),
+                       kernel=list(kdims), strides=list(strides),
+                       pads=[list(p) for p in pads], max_abs_err_f32=err32,
+                       rel_err_bf16=rel16,
+                       **k1_times(xb, kb, strides, pads, n, plain=plain))
+            emit(phase="K1 depthwise_conv3d", **row)
+            where = f"X3D-{variant} {B} clips {name}"
+            check(err32 <= TOL_F32, f"K1 {where} f32 err {err32}")
+            check(rel16 <= TOL_BF16, f"K1 {where} bf16 rel err {rel16}")
+            rivals = [row[key] for key in ("generic_ms", "plain_ms",
+                                           "library_ms") if key in row]
+            check(row["ms"] < min(rivals),
+                  f"K1 {where}: the {row['body']} body behind the generic "
+                  f"body, the plain version or the library: {row}")
+            rows.append(row)
+            del xb, kb
+            torch.cuda.empty_cache()
+    k1_rows = k1_serving["M", CLIPS]
+    for (variant, B), rows in k1_serving.items():
+        keys = ("ms", "generic_ms", "library_ms", "bound_ms") + (
+            ("plain_ms",) if (variant, B) == ("M", CLIPS) else ())
+        total = {key: sum(r["n"] * r[key] for r in rows) for key in keys}
+        emit(phase="K1 depthwise_conv3d, whole forward", variant=variant,
+             clips=B, launches=sum(r["n"] for r in rows), **total,
+             **shares(total))
 
     # ------------------------------------------- 3. K2 vs its plain version
     def sums_err(got, ref, yref):
@@ -500,13 +604,14 @@ def main() -> int:
                 "K9": fma_probe.fma_chain}
 
     dx_bodies = depthwise.depthwise_conv3d_dx.body_launches
+    k1_bodies = depthwise.depthwise_conv3d.body_launches
     k2_bodies = dw_fused.dw_bn_act_conv.body_launches
     k3_bodies = dw_fused.dw_bn_act_conv_bwd.body_launches
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
-        for bodies in (dx_bodies, k2_bodies, k3_bodies):
+        for bodies in (k1_bodies, dx_bodies, k2_bodies, k3_bodies):
             bodies.update(dict.fromkeys(bodies, 0))
 
     def read_counts():
@@ -527,11 +632,18 @@ def main() -> int:
         outputs.append((name, probs, {k: after[k] - before[k]
                                       for k in after}))
     serve_launches = read_counts()           # ... and ends here
+    serve_k1_bodies = dict(k1_bodies)
     serve_k2_bodies = dict(k2_bodies)
     # every K2 of a forward is a fused segment with 3x3 taps: the ring body
     want_k2 = {"ring": len(requests) * n_k2, "generic": 0}
     check(serve_k2_bodies == want_k2,
           f"serving K2 bodies {serve_k2_bodies}, want {want_k2}")
+    # K1 of a forward: the stem's k x 1 x 1 conv by the temporal body, the
+    # four stride-2 stage entries by the ring body
+    want_k1 = {"temporal": len(requests), "ring": len(requests) * (n_k1 - 1),
+               "generic": 0}
+    check(serve_k1_bodies == want_k1,
+          f"serving K1 bodies {serve_k1_bodies}, want {want_k1}")
     for name, probs, d in outputs:
         n_videos = probs.shape[0]
         finite = bool(np.isfinite(probs).all())
@@ -628,6 +740,7 @@ def main() -> int:
 
         # K1 forward and K4 (dx, dk): the stem's conv_t and the stage entries
         k4_rows = {"dx": [], "dk": []}
+        k1_rows_t = []
         for name, dims, kdims, strides, padding, n in k4_cases:
             C = dims[-1]
             pads = depthwise._resolve_pads((1, *dims), kdims, strides, padding)
@@ -658,13 +771,22 @@ def main() -> int:
                 del y, ry, dx, dk, rdx, rdk
             e32, e16 = errs[torch.float32], errs[torch.bfloat16]
             train_err["K1"] = max(train_err["K1"], e32[0])
+            # K1 runs once a step at every one of these shapes
+            row = dict(name=name, shape=[B, *dims], kernel=list(kdims),
+                       strides=list(strides), pads=[list(p) for p in pads],
+                       max_abs_err_f32=e32[0], rel_err_bf16=e16[1],
+                       **k1_times(x, k, strides, pads, 1))
             emit(phase="K1 depthwise_conv3d, training shape",
-                 variant=variant, name=name, shape=[B, *dims],
-                 max_abs_err_f32=e32[0], rel_err_bf16=e16[1])
+                 variant=variant, **row)
+            k1_rows_t.append(row)
             where = f"X3D-{variant} {name}"
             check(e32[0] <= TOL_F32 and e16[1] <= TOL_BF16,
                   f"K1 {where} training shape err f32 {e32[0]} "
                   f"bf16 {e16[1]}")
+            check(row["ms"] < min(row["generic_ms"], row["plain_ms"],
+                                  row["library_ms"]),
+                  f"K1 {where}: the {row['body']} body behind the generic "
+                  f"body, the plain version or the library: {row}")
             check(e32[2] <= TOL_F32 and e32[4] <= TOL_TRAIN_SUMS,
                   f"K4 {where} f32 err dx {e32[2]} dk {e32[4]}")
             check(e16[3] <= TOL_BF16 and e16[4] <= TOL_TRAIN_SUMS,
@@ -867,11 +989,12 @@ def main() -> int:
                 rows.append(row)
             del x, y, xa
             torch.cuda.empty_cache()
-        return train_err, k4_rows, k2_rows, k3_rows, k5_rows, k6_rows
+        return (train_err, k1_rows_t, k4_rows, k2_rows, k3_rows, k5_rows,
+                k6_rows)
 
-    (train_err, k4_rows, k2_train, k3_rows, k5_rows,
+    (train_err, k1_train, k4_rows, k2_train, k3_rows, k5_rows,
      k6_rows) = training_kernels("M", cfg, arch, TRAIN_CLIPS)
-    (train_err_s, k4_rows_s, k2_train_s, k3_rows_s, k5_rows_s,
+    (train_err_s, k1_train_s, k4_rows_s, k2_train_s, k3_rows_s, k5_rows_s,
      k6_rows_s) = training_kernels("S", cfg_s, arch_s, S_TRAIN_CLIPS)
 
     # ----------------------------------------------- 6. X3D-M training
@@ -918,6 +1041,7 @@ def main() -> int:
                           launches={k: after[k] - before[k] for k in after}))
     train_launches = read_counts()            # ... and ends here
     train_dx_bodies = dict(dx_bodies)
+    train_k1_bodies = dict(k1_bodies)
     train_k2_bodies = dict(k2_bodies)
     train_k3_bodies = dict(k3_bodies)
     train_peak = torch.cuda.max_memory_allocated()
@@ -933,12 +1057,17 @@ def main() -> int:
          step_ms_median_after_first=step_ms,
          clips_per_s=TRAIN_CLIPS / step_ms * 1e3,
          first_step_ms=steps[0]["device_ms"], peak_memory_bytes=train_peak,
-         launches_per_step=want_step, k4_dx_bodies=train_dx_bodies,
-         k2_bodies=train_k2_bodies, k3_bodies=train_k3_bodies)
+         launches_per_step=want_step, k1_bodies=train_k1_bodies,
+         k4_dx_bodies=train_dx_bodies, k2_bodies=train_k2_bodies,
+         k3_bodies=train_k3_bodies)
     # every K4 dx of the step is a stride-2 stage entry: the phase body
     want_bodies = {"phase": TRAIN_STEPS * want_step["K4 dx"], "gather": 0}
     check(train_dx_bodies == want_bodies,
           f"K4 dx bodies {train_dx_bodies}, want {want_bodies}")
+    want = {"temporal": TRAIN_STEPS, "ring": TRAIN_STEPS * (n_k1 - 1),
+            "generic": 0}
+    check(train_k1_bodies == want,
+          f"K1 bodies {train_k1_bodies}, want {want}")
     # every K2 and K3 of the step is a fused segment with 3x3 taps: the
     # ring bodies
     for kname, got in (("K2", train_k2_bodies), ("K3", train_k3_bodies)):
@@ -1153,15 +1282,16 @@ def main() -> int:
              launches=sum(r["n"] for r in rows) * (2 if path == "training"
                                                    else 1),
              **total, **shares(total))
-    # K2, K5 and K6 over one training step of each variant, against the
-    # library's depthwise conv (K2) or matmul + sums (K5, K6)
-    for variant, rows2, rows5, rows6 in (
-            ("M", k2_train, k5_rows, k6_rows),
-            ("S", k2_train_s, k5_rows_s, k6_rows_s)):
-        for kname, rows in (("K2", rows2), ("K5", rows5), ("K6", rows6)):
+    # K1, K2, K5 and K6 over one training step of each variant, against
+    # the library's depthwise conv (K1, K2) or matmul + sums (K5, K6)
+    for variant, rows1, rows2, rows5, rows6 in (
+            ("M", k1_train, k2_train, k5_rows, k6_rows),
+            ("S", k1_train_s, k2_train_s, k5_rows_s, k6_rows_s)):
+        for kname, rows in (("K1", rows1), ("K2", rows2), ("K5", rows5),
+                            ("K6", rows6)):
             total = {key: sum(r["n"] * r[key] for r in rows)
                      for key in ("ms", "plain_ms", "library_ms", "bound_ms")
-                     + (("generic_ms",) if kname == "K2" else ())}
+                     + (("generic_ms",) if kname in ("K1", "K2") else ())}
             emit(phase=f"{kname}, whole training step", variant=variant,
                  launches=sum(r["n"] for r in rows), **total,
                  **shares(total))
@@ -1346,6 +1476,7 @@ def main() -> int:
         zero_counts()                       # the X3D-S path starts here
         first, _ = run_train(run_dir, epochs=2, cadence=2)
         s_train_launches = read_counts()    # (its training part ends here)
+        s_k1_bodies = dict(k1_bodies)
         s_k2_bodies = dict(k2_bodies)
         s_k3_bodies = dict(k3_bodies)
         s_peak = torch.cuda.max_memory_allocated()
@@ -1353,7 +1484,8 @@ def main() -> int:
         emit(phase="X3D-S train CLI", clips=S_TRAIN_CLIPS, epochs=2,
              steps_per_epoch=3, losses=first.losses, checkpoints=saved,
              launches=s_train_launches, launches_per_step=want_s_step,
-             k2_bodies=s_k2_bodies, k3_bodies=s_k3_bodies,
+             k1_bodies=s_k1_bodies, k2_bodies=s_k2_bodies,
+             k3_bodies=s_k3_bodies,
              # from one step's end to the next, hooks and saves included
              step_interval_ms=[a.elapsed_time(b) for a, b in
                                zip(first.events, first.events[1:])],
@@ -1369,6 +1501,9 @@ def main() -> int:
         for kname, got in (("K2", s_k2_bodies), ("K3", s_k3_bodies)):
             want = {"ring": 6 * want_s_step[kname], "generic": 0}
             check(got == want, f"X3D-S {kname} bodies {got}, want {want}")
+        want = {"temporal": 6, "ring": 6 * (n_k1_s - 1), "generic": 0}
+        check(s_k1_bodies == want,
+              f"X3D-S K1 bodies {s_k1_bodies}, want {want}")
 
         # the same command with one more epoch resumes at step 6 ...
         resumed, lines = run_train(run_dir, epochs=3, cadence=1)
@@ -1478,7 +1613,13 @@ def main() -> int:
         (summary("depthwise_conv3d", "cuda", csrc + "depthwise.cu",
                  "x3d_tpu/ops/dw_batchminor.py:101, "
                  "x3d_tpu/ops/pallas_dw.py:97", k1_rows,
-                 max(train_err["K1"], train_err_s["K1"])), "K1", "serve"),
+                 max(train_err["K1"], train_err_s["K1"]))
+         | {"bodies_serving": serve_k1_bodies,
+            "bodies_training": train_k1_bodies,
+            "bodies_x3d_s_training": s_k1_bodies,
+            "generic_ms": sum(r["n"] * r["generic_ms"] for r in k1_rows),
+            "training_step_ms": sum(r["n"] * r["ms"] for r in k1_train)},
+         "K1", "serve"),
         (summary("dw_bn_act_conv", "cuda", csrc + "dw_fused.cu",
                  "x3d_tpu/ops/dw_fused.py:298", k2_rows,
                  max(train_err["K2"], train_err_s["K2"],

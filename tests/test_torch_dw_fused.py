@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from x3d_tpu_torch.ops import dw_fused
+from x3d_tpu_torch.ops import dw_fused, ring
 
 KDIMS = [(3, 3, 3), (3, 1, 1), (5, 3, 3)]
 SHAPES = [(3, 5, 6, 5, 7), (2, 5, 4, 9, 3)]
@@ -160,26 +160,26 @@ def test_fwd_plan_covers_the_clip(shape, elem, align, slots):
     p = dw_fused.fwd_plan(B, T, H, W, C, 3, elem, align, slots)
     for n, side, tiles in ((H, p["tile_h"], p["tiles_h"]),
                            (W, p["tile_w"], p["tiles_w"])):
-        assert side == n if n <= dw_fused.RING_MAX_SIDE else 7 <= side <= 14
+        assert side == n if n <= ring.RING_MAX_SIDE else 7 <= side <= 14
         assert (tiles - 1) * side < n <= tiles * side
     frames = [t for i in range(p["runs"])
               for t in range(i * p["run"], min((i + 1) * p["run"], T))]
     assert frames == list(range(T))
-    assert p["runs"] == 1 or p["run"] >= dw_fused.RING_MIN_RUN
+    assert p["runs"] == 1 or p["run"] >= ring.RING_MIN_RUN
     g, vec = p["granule"], p["vec"]
     assert vec == 2 and p["group"] % vec == 0
     assert g == (vec * elem if align % (vec * elem) == 0 else elem)
     starts = [i * p["group"] for i in range(p["groups"])]
     assert all(c * elem % g == 0 for c in starts)
     assert starts[-1] < C <= starts[-1] + p["group"]
-    assert p["group"] <= dw_fused.RING_MAX_VECS * vec
+    assert p["group"] <= ring.RING_MAX_VECS * vec
     assert p["rows"] == p["tile_h"]                   # a tile row a thread
     block = p["group"] // vec * p["rows"]             # one role
-    assert block <= dw_fused.RING_MAX_THREADS
+    assert block <= ring.RING_MAX_THREADS
     assert p["threads"] == -(-block // 32) * 32
     assert p["smem_bytes"] <= dw_fused.FWD_SMEM
-    ring = 3 + dw_fused.RING_AHEAD                     # slots, kt 3
-    assert p["smem_bytes"] >= ring * p["group"] // vec * (
+    ring_slots = 3 + ring.RING_AHEAD               # kt 3
+    assert p["smem_bytes"] >= ring_slots * p["group"] // vec * (
         (p["tile_h"] + 2) * p["row_cells"] + p["vec_pad"]) * vec * elem
     assert 0 <= p["vec_pad"] < 32
     assert 0 <= p["row_cells"] - (p["tile_w"] + 2 + p["tile_w"] % 2) < 8
@@ -256,11 +256,11 @@ def test_failed_ring_launch_raises_without_fallback():
     x, a, b, k = (torch.from_numpy(v)
                   for v in _inputs(9, (2, 5, 6, 6, 8), (3, 3, 3)))
     lib = _FailingLibrary()
-    dw_fused._slots.clear()
+    ring._slots.clear()
     with pytest.raises(RuntimeError, match=r"ring body.*CUDA error 1"):
         dw_fused._launch_fwd(lib, "ring", x, a, b,
                              k.reshape(27, 8).contiguous(), (3, 3, 3), 0)
-    dw_fused._slots.clear()
+    ring._slots.clear()
     assert lib.calls == ["occupancy", "ring"]
 
 

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from x3d_tpu_torch.ops import dw_fused
+from x3d_tpu_torch.ops import dw_fused, ring
 
 
 @pytest.fixture(autouse=True)
@@ -172,21 +172,21 @@ def test_ring_plan_covers_the_clip(shape, elem, align, slots):
     p = dw_fused.bwd_plan(B, T, H, W, C, 3, elem, align, slots)
     for n, side, tiles in ((H, p["tile_h"], p["tiles_h"]),
                            (W, p["tile_w"], p["tiles_w"])):
-        assert side == n if n <= dw_fused.RING_MAX_SIDE else 7 <= side <= 14
+        assert side == n if n <= ring.RING_MAX_SIDE else 7 <= side <= 14
         assert (tiles - 1) * side < n <= tiles * side
     frames = [t for i in range(p["runs"])
               for t in range(i * p["run"], min((i + 1) * p["run"], T))]
     assert frames == list(range(T))
-    assert p["runs"] == 1 or p["run"] >= dw_fused.RING_MIN_RUN
+    assert p["runs"] == 1 or p["run"] >= ring.RING_MIN_RUN
     g, vec = p["granule"], p["vec"]
     assert vec == 2 and p["group"] % vec == 0
     assert g == (vec * elem if align % (vec * elem) == 0 else elem)
     starts = [i * p["group"] for i in range(p["groups"])]
     assert all(c * elem % g == 0 for c in starts)
     assert starts[-1] < C <= starts[-1] + p["group"]
-    assert p["group"] <= dw_fused.RING_MAX_VECS * vec
+    assert p["group"] <= ring.RING_MAX_VECS * vec
     role = p["group"] // vec * p["rows"]              # du and dk roles
-    assert role <= dw_fused.RING_MAX_THREADS
+    assert role <= ring.RING_MAX_THREADS
     assert p["threads"] == 2 * -(-role // 32) * 32
     assert p["smem_bytes"] <= dw_fused.RING_SMEM
     assert 0 <= p["vec_pad"] < 32
@@ -285,12 +285,12 @@ def test_failed_ring_launch_raises_without_fallback():
     gy, gp, gs2 = (torch.from_numpy(v) for v in cots)
     y = dw_fused.reference(x, a, b, k)[0]
     lib = _FailingLibrary()
-    dw_fused._slots.clear()
+    ring._slots.clear()
     with pytest.raises(RuntimeError, match=r"ring body.*CUDA error 1"):
         dw_fused._launch_bwd(lib, "ring", x, [a, b, gp, gs2],
                              k.reshape(27, 8).contiguous(), y, gy,
                              (3, 3, 3), 0)
-    dw_fused._slots.clear()
+    ring._slots.clear()
     assert lib.calls == ["occupancy", "ring"]
 
 

@@ -47,6 +47,10 @@ def test_family(name, want):
 
 @pytest.mark.parametrize("name, want", [
     ("void dw_conv3d_fwd_kernel<__nv_bfloat16>(...)", "K1 depthwise_conv3d"),
+    ("void (anonymous namespace)::dw_conv3d_fwd_temporal_kernel<"
+     "__nv_bfloat16, 8, 5>(...)", "K1 depthwise_conv3d"),
+    ("void (anonymous namespace)::dw_conv3d_fwd_ring_kernel<__nv_bfloat16, "
+     "2, 3, 2>(...)", "K1 depthwise_conv3d"),
     ("void dw_bn_act_conv_fwd_kernel<__nv_bfloat16>(...)",
      "K2 dw_bn_act_conv"),
     ("void (anonymous namespace)::dw_bn_act_conv_fwd_ring_kernel<"

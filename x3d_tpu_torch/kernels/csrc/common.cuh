@@ -1,13 +1,14 @@
 // Shared pieces of the port's kernels: element conversion, the depthwise
-// kernels' block shape, the cp.async copies, and what the fused segment's
-// two ring bodies (K2, K3) share: their limits, geometry, instantiations
-// and second pass.
+// kernels' block shape, the cp.async copies, and what the three ring bodies
+// (K1's, K2's, K3's) share: their limits, geometry, instantiations, a
+// cell's unpacking and the fused segment's second pass.
 // Every kernel here takes NDHWC activations (C contiguous) in float32 or
 // bfloat16 and accumulates in float32.
 #pragma once
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,7 +133,7 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
 }
 
-// ------------------------------ the fused segment's ring bodies (K2, K3)
+// ------------------------------------------- the ring bodies (K1, K2, K3)
 
 constexpr int kRingMaxKt = 5;         // temporal taps a ring body takes
 constexpr int kRingMaxVecs = 32;      // channel vectors a block owns
@@ -146,8 +147,9 @@ __host__ __device__ constexpr bool ring_taps_shared(int kt, int ve) {
   return kt * 9 * ve > 64;
 }
 
-// A ring-body call's geometry, from its plan (ops/dw_fused.fwd_plan,
-// bwd_plan).
+// A ring-body call's geometry, from its plan (ops/ring.plan by way of
+// ops/dw_fused.fwd_plan, bwd_plan and ops/depthwise.ring_plan).  T, H, W
+// are the output's (K2's and K3's equal their input's).
 struct RingGeom {
   int B, T, H, W, C;
   int TH, TW;      // a block's pixel tile
@@ -156,31 +158,46 @@ struct RingGeom {
   int rows;        // thread rows: a role has CG / VE * rows threads
   int TC, nruns;   // frames a run, runs along T
   int granule;     // bytes a copy moves: a cell, or an element (plain)
-  int WP;          // cells a staged row: the tile's and its halo's, made
-                   // even, and a pad
-  int VP;          // cells between vector planes: (TH + 2) * WP and a pad
+  int WP;          // cells a staged row: ring_cols and a pad
+  int VP;          // cells between vector planes: ring_rows * WP and a pad
   int slot;        // cells of one ring slot: CG / VE vector planes
   int taps_at;     // byte offset of the taps in shared memory (if there)
 };
 
-// Fills q from a plan, or returns false where a ring body cannot run it.
+// Staged rows of a tile of th output rows under 3 taps at stride s: the
+// tile's and its halo's.
+__host__ __device__ constexpr int ring_rows(int th, int s) {
+  return (th - 1) * s + 3;
+}
+
+// The fewest cells a staged row takes for a tile of tw output columns at
+// stride s, input columns in order: the tile's and its halo's, and at odd
+// tw those that the idle half of its last pair of pixels reads.
+__host__ __device__ constexpr int ring_cols(int tw, int s) {
+  return s * (tw - 1 + tw % 2) + 3;
+}
+
+// Fills q from a plan, or returns false where a ring body cannot run it
+// (`stride`, 1 or 2, is the spatial one: K1's ring body takes both).
 inline bool ring_geometry(RingGeom& q, int elem, int kt, int ve, int tile_h,
                           int tile_w, int group, int rows, int run,
-                          int granule, int row_cells, int vec_pad) {
+                          int granule, int row_cells, int vec_pad,
+                          int stride = 1) {
   q.TH = tile_h, q.TW = tile_w, q.CG = group, q.rows = rows, q.TC = run;
   q.granule = granule;
   if (kt < 1 || kt > kRingMaxKt || (ve != 1 && ve != 2) || q.C % ve ||
-      tile_h < 1 || tile_w < 1 || rows < 1 || run < 1 || group < ve ||
-      group % ve || group / ve > kRingMaxVecs ||
-      group / ve * rows > kRingMaxThreads || q.B > 65535 ||
+      (stride != 1 && stride != 2) || tile_h < 1 || tile_w < 1 ||
+      rows < 1 || run < 1 || group < ve || group % ve ||
+      group / ve > kRingMaxVecs || group / ve * rows > kRingMaxThreads ||
+      q.B > 65535 ||
       !(granule == elem || (granule == ve * elem && granule >= 4)) ||
-      row_cells < tile_w + 2 + tile_w % 2 || vec_pad < 0)
+      row_cells < ring_cols(tile_w, stride) || vec_pad < 0)
     return false;
   q.nth = ceil_div(q.H, q.TH);
   q.ntw = ceil_div(q.W, q.TW);
   q.nruns = ceil_div(q.T, q.TC);
   q.WP = row_cells;
-  q.VP = (q.TH + 2) * q.WP + vec_pad;
+  q.VP = ring_rows(q.TH, stride) * q.WP + vec_pad;
   const int cell = ve * elem;
   q.slot = ceil_div(group / ve * q.VP * cell, 16) * 16 / cell;
   return q.nruns <= 65535;
@@ -200,6 +217,19 @@ inline size_t ring_layout(RingGeom& q, size_t ring, size_t red, int kt,
 template <typename T, int VE> struct CellOf { using type = T; };
 template <> struct CellOf<float, 2> { using type = float2; };
 template <> struct CellOf<__nv_bfloat16, 2> { using type = __nv_bfloat162; };
+
+// A cell's VE channels as float32.  A bfloat16 pair unpacks by a shift and
+// a mask, two instructions (the library's conversion takes three).
+template <typename T, int VE>
+__device__ __forceinline__ void cell_f32(const void* p, float (&v)[VE]) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && VE == 2) {
+    const uint32_t bits = *static_cast<const uint32_t*>(p);
+    v[0] = __uint_as_float(bits << 16);
+    v[1] = __uint_as_float(bits & 0xffff0000u);
+  } else {
+    load_f32(static_cast<const T*>(p), v);
+  }
+}
 
 template <typename T, int VE, int KT>
 struct Ring {

@@ -6,28 +6,62 @@
 // Replaces the TPU kernels dw_batchminor._fwd_kernel
 // (x3d_tpu/ops/dw_batchminor.py:101) and pallas_dw._fwd_kernel
 // (x3d_tpu/ops/pallas_dw.py:97), which computed the stride-1 SAME case in a
-// batch-minor and a dense-row layout.  This kernel also takes any (kt, kh, kw),
-// strides (st, sh, sw) and explicit low pads (the high pads follow from the
-// output size), so the stem's 5x1x1 temporal conv and the stride-2
-// stage-entry convs run through it too.
+// batch-minor and a dense-row layout and kept a temporal ring of planes in
+// VMEM.  K1 also takes the stem's k x 1 x 1 temporal conv and the stride-2
+// stage-entry convs (which the JAX package left to XLA), any strides and
+// explicit low pads (the high pads follow from the output size).
 //
 // What bounds it on an H100: bytes.  A 3x3x3 conv does 27 FMAs (54 flop) per
 // output element and moves 4 bytes per element in bf16 (2 read, 2 written):
 // 13.5 flop/byte, under the 20 flop/byte at which the CUDA cores' 67 TFLOP/s
 // f32 rate would take over from 3.35 TB/s.  The stride-2 and 5x1x1 convs move
-// more bytes per FMA still.  So the design aims at reading each input element
-// from device memory about once:
-//   * a block owns one output frame `to` of one clip, an 8x8 (stride 1) or
-//     4x4 (stride 2) tile of output pixels and 32 channels;
-//   * it stages the kt x HR x WR x 32 input halo in shared memory once
-//     (HR = (TH-1)*sh + kh rows, WR likewise), out-of-image elements as zero,
-//     and the taps beside it;
-//   * threads run along C, which is contiguous, so a warp's loads and
-//     stores are consecutive addresses;
-//   * each output element sums its taps in f32 from shared memory.
-// Not yet done (later work): staging with cp.async/TMA, a temporal rolling
-// window so that neighbouring frames do not each load the kt planes they
-// share (the L2 cache absorbs most of that today), wider loads.
+// more bytes per FMA still.  So each body aims at reading each input element
+// from device memory once and writing each output once.  Three bodies,
+// picked by the wrapper (ops/depthwise.fwd_body); every K1 launch of X3D
+// takes one of the first two:
+//   * temporal body (x3d_dw_conv3d_fwd_temporal): spatial taps 1x1 at
+//     stride 1 (the stem's conv_t, kt <= kRingMaxKt).  The spatial taps are
+//     1x1, so no pixel shares an input with another and shared memory buys
+//     nothing: a thread owns one pixel's cell of VE channels (16 bytes where
+//     C x elem and both addresses allow, narrower otherwise) and walks a run
+//     of frames, reading each input frame of the run once (and kt - 1 halo
+//     frames a run) with one vector load, and keeping KT running sums in
+//     registers: input frame r adds into the sums of outputs r - dt, and the
+//     sum of output r - kt + 1, then complete, is stored and cleared.  The
+//     loop is unrolled by KT, so every sum's register is fixed; the KT loads
+//     of an unrolled step are issued before their sums.  The bytes bound it;
+//     what remains is the loads in flight a thread keeps;
+//   * ring body (x3d_dw_conv3d_fwd_ring): spatial taps 3x3 at temporal
+//     stride 1 and spatial stride S = 1 or 2, kt <= kRingMaxKt, low pads 0 or
+//     1 in H and W (the four stride-2 stage entries, at even and odd planes).
+//     K2's ring staging (dw_fused.cu) without its affine and sums: a block
+//     owns one clip, an output tile, a group of channel vectors (VE = 2
+//     channels, 1 at odd C) and a run of frames; each input plane enters a
+//     shared-memory ring of KT + kRingAhead slots once per block, halo
+//     included, by cp.async (a cell a copy; plain loads where x's address
+//     does not allow it), with row and vector-plane pitches the plan pads
+//     against bank conflicts.  A thread owns a vector and one output row of
+//     the tile and walks it in runs of four pixels, then pairs, taps in
+//     registers (in shared memory where KT * 9 * VE > 64).  At S = 2 a tile
+//     of TH x TW outputs stages (2 TH + 1) x (2 TW + 1) input pixels, input
+//     columns in order, so a run of four outputs reads nine consecutive
+//     cells a tap row (staging even and odd columns apart measured slower,
+//     PERF.md §6).  What holds it is K2's: the fill and the multiply-adds
+//     do not overlap (one barrier a plane);
+//   * generic body (x3d_dw_conv3d_fwd): every other geometry.  A block owns
+//     one output frame `to` of one clip, an 8x8 (stride 1) or 4x4 (stride 2)
+//     tile of output pixels and 32 channels; it stages the kt x HR x WR x 32
+//     input halo in f32 in shared memory with scalar loads (out-of-image
+//     elements as zero), threads along the contiguous C, and each output
+//     element sums its taps from shared memory.  Each input plane is staged
+//     once for each of the kt output frames that read it.
+// Not yet done (later work): the ring body's fill overlapping its
+// multiply-adds (a producer warp, TMA) and wider copies (its fill alone
+// takes about twice its input bytes' time); a temporal window in the
+// generic body.
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -124,6 +158,409 @@ int launch(const void* x, const float* taps, void* y, const DwGeom& g,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- temporal body
+
+constexpr int kTemporalThreads = 256;
+
+// A temporal-body call: a thread owns one cell (VE channels of one pixel)
+// of one clip and a run of TC output frames.
+struct TemporalGeom {
+  int B, T, C;          // input clips, frames, channels
+  int tlo;              // the low temporal pad
+  int To;               // output frames
+  long long cells;      // cells a frame: H * W * C / VE
+  int TC, nruns;        // frames a run, runs along To
+};
+
+// The unsigned word of N bytes, which moves a cell as one access.
+template <int N> struct WordOf;
+template <> struct WordOf<2> { using type = uint16_t; };
+template <> struct WordOf<4> { using type = uint32_t; };
+template <> struct WordOf<8> { using type = uint2; };
+template <> struct WordOf<16> { using type = uint4; };
+
+// A cell of VE elements of T as 32-bit words (a lone bfloat16 in the high
+// half of one), so that unpacking is a shift, a mask or nothing.
+template <typename T, int VE>
+struct Cell32 {
+  static constexpr int bytes = VE * (int)sizeof(T);
+  static constexpr int words = bytes < 4 ? 1 : bytes / 4;
+  uint32_t w[words];
+
+  __device__ __forceinline__ void load(const T* p) {
+    using Word = typename WordOf<bytes>::type;
+    const Word v = *reinterpret_cast<const Word*>(p);
+    if constexpr (bytes == 2) {
+      w[0] = (uint32_t)v << 16;
+    } else if constexpr (bytes == 4) {
+      w[0] = v;
+    } else if constexpr (bytes == 8) {
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < words; ++i) w[i] = 0;
+  }
+  __device__ __forceinline__ void unpack(float (&v)[VE]) const {
+    if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+      for (int i = 0; i < VE; ++i) v[i] = __uint_as_float(w[i]);
+    } else if constexpr (VE == 1) {
+      v[0] = __uint_as_float(w[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VE / 2; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+};
+
+// VE float32 values rounded to T (nearest even) and stored as one access.
+template <typename T, int VE>
+__device__ __forceinline__ void store_cell(T* p, const float (&v)[VE]) {
+  constexpr int bytes = VE * (int)sizeof(T);
+  if constexpr (bytes == 2) {
+    *p = __float2bfloat16(v[0]);
+  } else {
+    uint32_t w[bytes / 4];
+    if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+      for (int i = 0; i < VE; ++i) w[i] = __float_as_uint(v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VE / 2; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    using Word = typename WordOf<bytes>::type;
+    if constexpr (bytes == 4) {
+      *reinterpret_cast<Word*>(p) = w[0];
+    } else if constexpr (bytes == 8) {
+      *reinterpret_cast<Word*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<Word*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// Registers: at most 128 a thread, so that two blocks of 256 share an SM.
+template <typename T, int VE, int KT>
+__global__ void __launch_bounds__(kTemporalThreads, 2)
+    dw_conv3d_fwd_temporal_kernel(const T* __restrict__ x,
+                                  const float* __restrict__ taps,
+                                  T* __restrict__ y, TemporalGeom g) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= g.B * g.cells) return;
+  const int b = (int)(i / g.cells);
+  const long long cell = i % g.cells;
+  const int c = (int)(cell % (g.C / VE)) * VE;
+  const int t0 = blockIdx.y * g.TC, t1 = min(t0 + g.TC, g.To);
+  const size_t frame = (size_t)g.cells * VE;
+  const T* xp = x + (size_t)b * g.T * frame + (size_t)cell * VE;
+  T* yp = y + ((size_t)b * g.To + t0) * frame + (size_t)cell * VE;
+
+  float w[KT][VE];
+#pragma unroll
+  for (int dt = 0; dt < KT; ++dt)
+#pragma unroll
+    for (int e = 0; e < VE; ++e) w[dt][e] = taps[(size_t)dt * g.C + c + e];
+
+  // Input r of the run is frame t0 - tlo + r; it completes output r - KT + 1
+  // (outputs before 0 are never stored).  acc[m % KT] sums output m.
+  const int first = t0 - g.tlo, n_in = t1 - t0 + KT - 1;
+  float acc[KT][VE] = {};
+  for (int r0 = 0; r0 < n_in; r0 += KT) {
+    Cell32<T, VE> in[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int ti = first + r0 + j;
+      if (r0 + j < n_in && ti >= 0 && ti < g.T)
+        in[j].load(xp + (size_t)ti * frame);
+      else
+        in[j].zero();
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (r0 + j >= n_in) break;
+      float v[VE];
+      in[j].unpack(v);
+#pragma unroll
+      for (int dt = 0; dt < KT; ++dt)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          float& s = acc[(j - dt + KT) % KT][e];
+          s = fmaf(v[e], w[dt][e], s);
+        }
+      const int m = r0 + j - (KT - 1);
+      float (&done)[VE] = acc[(j + 1) % KT];
+      if (m >= 0) store_cell(yp + (size_t)m * frame, done);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) done[e] = 0.f;
+    }
+  }
+}
+
+template <typename T, int VE, int KT>
+int launch_temporal(const void* x, const float* taps, void* y,
+                    const TemporalGeom& g, cudaStream_t stream) {
+  const long long n = g.B * g.cells;
+  const dim3 grid((unsigned)((n + kTemporalThreads - 1) / kTemporalThreads),
+                  g.nruns);
+  dw_conv3d_fwd_temporal_kernel<T, VE, KT>
+      <<<grid, kTemporalThreads, 0, stream>>>(
+          static_cast<const T*>(x), taps, static_cast<T*>(y), g);
+  return cudaGetLastError();
+}
+
+// fn(Ring<T, VE, KT>{}) (common.cuh's instantiation tag) for the temporal
+// body a call takes: VE 1, 2, 4 (float32) or 1, 2, 4, 8 (bfloat16)
+// channels a cell, KT 1 .. kRingMaxKt.
+template <typename Fn>
+int with_temporal(int dtype, int ve, int kt, Fn&& fn) {
+  if (dtype == kF32) {
+    switch (ve) {
+      case 1: return with_kt<float, 1>(kt, fn);
+      case 2: return with_kt<float, 2>(kt, fn);
+      case 4: return with_kt<float, 4>(kt, fn);
+    }
+  } else if (dtype == kBF16) {
+    switch (ve) {
+      case 1: return with_kt<__nv_bfloat16, 1>(kt, fn);
+      case 2: return with_kt<__nv_bfloat16, 2>(kt, fn);
+      case 4: return with_kt<__nv_bfloat16, 4>(kt, fn);
+      case 8: return with_kt<__nv_bfloat16, 8>(kt, fn);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ----------------------------------------------------------- ring body
+
+// A ring-body call: the ring's geometry (its T, H, W the output's) and the
+// input's frames, rows, columns and low pads.
+struct ConvRing {
+  RingGeom q;
+  int T, H, W;
+  int tlo, hlo, wlo;
+};
+
+// Dynamic shared memory of a ring-body block: KT + kRingAhead slots of x,
+// then the taps where they live there.
+size_t conv_ring_smem(RingGeom& q, int elem, int kt, int ve) {
+  return ring_layout(q, (size_t)(kt + kRingAhead) * q.slot * ve * elem, 0,
+                     kt, ve);
+}
+
+// Registers: at most 128 a thread, so that four blocks of 128 threads (the
+// plan's most) share an SM.
+template <typename T, int VE, int KT, int S>
+__global__ void __launch_bounds__(kRingMaxThreads, 4)
+    dw_conv3d_fwd_ring_kernel(const T* __restrict__ x,
+                              const float* __restrict__ taps,
+                              T* __restrict__ y, ConvRing g) {
+  using Cell = typename CellOf<T, VE>::type;
+  const RingGeom& q = g.q;
+  constexpr int NT = KT * 9;
+  constexpr bool kSharedTaps = ring_taps_shared(KT, VE);
+  constexpr int SL = KT + kRingAhead;  // ring slots
+  extern __shared__ __align__(16) unsigned char conv_ring_smem_[];
+  Cell* ring = reinterpret_cast<Cell*>(conv_ring_smem_);  // [SL][slot]
+  float* wsm = reinterpret_cast<float*>(conv_ring_smem_ + q.taps_at);
+
+  int bx = blockIdx.x;
+  const int tw = bx % q.ntw;
+  bx /= q.ntw;
+  const int th = bx % q.nth;
+  const int c0 = bx / q.nth * q.CG;
+  const int t0 = blockIdx.y * q.TC, t1 = min(t0 + q.TC, q.T);
+  const int b = blockIdx.z;
+  const int h0 = th * q.TH, w0 = tw * q.TW;  // the output tile's origin
+  const int hi0 = h0 * S - g.hlo, wi0 = w0 * S - g.wlo;  // staged origin
+  // thread (cv, r): vector cv of the group at tile rows r, r + rows, ...
+  const int nv = q.CG / VE;
+  const bool active = threadIdx.x < nv * q.rows;
+  const int cv = threadIdx.x % nv, r = threadIdx.x / nv;
+  const int c = c0 + cv * VE;
+  const bool live = active && c < q.C;  // at VE 2, C is even: c + 1 < C
+  const int vplane = cv * q.VP;  // the thread's vector plane in a slot
+  const size_t in_frame = (size_t)g.H * g.W * q.C;
+  const size_t out_frame = (size_t)q.H * q.W * q.C;
+  const int srows = ring_rows(q.TH, S);
+  const int npix = srows * q.WP;
+
+  // the taps, w[dt][3 dh + dw] (unless they live in shared memory)
+  float w[KT][9][VE];
+  if constexpr (kSharedTaps) {
+    for (int i = threadIdx.x; i < NT * q.CG; i += blockDim.x) {
+      const int cc = c0 + i % q.CG;
+      wsm[i] = cc < q.C ? taps[(size_t)(i / q.CG) * q.C + cc] : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int dt = 0; dt < KT; ++dt)
+#pragma unroll
+      for (int j = 0; j < 9; ++j)
+#pragma unroll
+        for (int e = 0; e < VE; ++e)
+          w[dt][j][e] = live ? taps[(size_t)(dt * 9 + j) * q.C + c + e] : 0.f;
+  }
+
+  // Thread (cv, r) moves its vector's cells of the staged rows: whole rows
+  // r, r + rows, ... up to the last multiple of rows (a cell's column only
+  // steps), then its share (i = r, r + rows, ...) of the cells of the rows
+  // left.  Cell (pr, pc) holds input column wi0 + pc of row hi0 + pr and
+  // sits pr * WP + pc into the vector plane.
+  const int whole = srows / q.rows * q.rows;
+  auto for_cells = [&](auto&& fn) {
+    if (!active) return;
+    for (int pr = r; pr < whole; pr += q.rows) {
+      const int hi = hi0 + pr, at = vplane + pr * q.WP;
+      const bool row_in = live && hi >= 0 && hi < g.H;
+      for (int pc = 0, wi = wi0; pc < q.WP; ++pc, ++wi)
+        fn(at + pc, hi, wi, row_in && wi >= 0 && wi < g.W);
+    }
+    for (int i = r; i < npix - whole * q.WP; i += q.rows) {
+      const int pr = whole + i / q.WP, pc = i % q.WP;
+      const int hi = hi0 + pr, wi = wi0 + pc;
+      fn(vplane + pr * q.WP + pc, hi, wi,
+         live && hi >= 0 && hi < g.H && wi >= 0 && wi < g.W);
+    }
+  };
+  // Input plane p into slot p % SL; zeros outside the image.
+  auto fetch = [&](int p) {
+    Cell* to = ring + (p % SL) * q.slot;
+    const size_t base = (size_t)(b * g.T + p) * in_frame + c;
+    for_cells([&](int at, int hi, int wi, bool ok) {
+      const T* from = x + (ok ? base + ((size_t)hi * g.W + wi) * q.C : 0);
+      if constexpr (sizeof(Cell) >= 4) {
+        if (q.granule == (int)sizeof(Cell)) {
+          cp_async<sizeof(Cell)>(to + at, from, ok);
+          return;
+        }
+      }
+      T* e = reinterpret_cast<T*>(to + at);  // plain loads, an element a time
+#pragma unroll
+      for (int i = 0; i < VE; ++i) e[i] = ok ? from[i] : from_f32<T>(0.f);
+    });
+  };
+
+  // Output frame t along rows r, r + rows, ...: runs of N = 4 pixels, then
+  // pairs for the rest of the row.  A run reads S (N - 1) + 3 consecutive
+  // cells of each staged row it needs, and cell j feeds pixel k's tap
+  // dw = j - S k.
+  auto compute = [&](int t) {
+    T* out = y + (size_t)(b * q.T + t) * out_frame + c;
+    int plane[KT];  // the slot of input plane t - tlo + dt, or -1 outside
+#pragma unroll
+    for (int dt = 0; dt < KT; ++dt) {
+      const int tp = t - g.tlo + dt;
+      plane[dt] = tp >= 0 && tp < g.T ? (tp % SL) * q.slot + vplane : -1;
+    }
+    const int cols = min(q.TW, q.W - w0);  // the tile's columns in the image
+    // pixels ow .. ow + N - 1 of row oh, the first `valid` of them stored
+    auto run = [&](auto n_tag, int oh, int ow, int valid) {
+      constexpr int N = decltype(n_tag)::value;
+      float acc[N][VE] = {};
+#pragma unroll
+      for (int dt = 0; dt < KT; ++dt) {
+        if (plane[dt] < 0) continue;  // x is zero there
+        float wt[9][VE];
+#pragma unroll
+        for (int j = 0; j < 9; ++j) {
+          if constexpr (kSharedTaps) {
+            load_f32(wsm + (dt * 9 + j) * q.CG + cv * VE, wt[j]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VE; ++e) wt[j][e] = w[dt][j][e];
+          }
+        }
+#pragma unroll
+        for (int dh = 0; dh < 3; ++dh) {
+          const Cell* row = ring + plane[dt] + (S * oh + dh) * q.WP + S * ow;
+#pragma unroll
+          for (int j = 0; j < S * (N - 1) + 3; ++j) {
+            float v[VE];
+            cell_f32<T>(row + j, v);
+#pragma unroll
+            for (int k = 0; k < N; ++k)
+              if (j - S * k >= 0 && j - S * k < 3)
+#pragma unroll
+                for (int e = 0; e < VE; ++e)
+                  acc[k][e] =
+                      fmaf(v[e], wt[3 * dh + j - S * k][e], acc[k][e]);
+          }
+        }
+      }
+      T* px = out + ((size_t)(h0 + oh) * q.W + w0 + ow) * q.C;
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        if (k < valid) store_f32(px + (size_t)k * q.C, acc[k]);
+    };
+    for (int oh = r; oh < q.TH && h0 + oh < q.H; oh += q.rows) {
+      int ow = 0;
+      for (; ow + 4 <= cols; ow += 4)
+        run(std::integral_constant<int, 4>{}, oh, ow, 4);
+      for (; ow < cols; ow += 2)
+        run(std::integral_constant<int, 2>{}, oh, ow, min(2, cols - ow));
+    }
+  };
+
+  // Output frame t reads input planes t - tlo .. t - tlo + KT - 1, so it is
+  // computed once plane p = t + hi_t has landed.  Plane p + kRingAhead is
+  // fetched (its own cp.async group) while frame p - hi_t is computed; its
+  // slot held plane p - KT, last read by frame p - hi_t - 1.  One barrier a
+  // plane: after it every cell of plane p has landed and frame p - hi_t - 1
+  // is done.  (tlo <= KT - 1, so every frame's plane p is at or past p_lo.)
+  const int hi_t = KT - 1 - g.tlo;
+  const int p_lo = max(0, t0 - g.tlo), p_hi = min(g.T - 1, t1 - 1 + hi_t);
+  for (int j = 0; j < kRingAhead; ++j) {
+    if (p_lo + j <= p_hi) fetch(p_lo + j);
+    cp_async_commit();
+  }
+  for (int p = p_lo; p <= t1 - 1 + hi_t; ++p) {
+    if (p <= p_hi) {
+      cp_async_wait<kRingAhead - 1>();  // this thread's copies of plane p
+      __syncthreads();
+      if (p + kRingAhead <= p_hi) fetch(p + kRingAhead);
+      cp_async_commit();  // an empty group past the end keeps the count
+    }
+    const int t = p - hi_t;
+    if (t >= t0 && live) compute(t);
+  }
+}
+
+template <typename T, int VE, int KT, int S>
+int launch_conv_ring(const void* x, const float* taps, void* y, ConvRing g,
+                     cudaStream_t stream) {
+  auto kernel = dw_conv3d_fwd_ring_kernel<T, VE, KT, S>;
+  const size_t smem = conv_ring_smem(g.q, sizeof(T), KT, VE);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const RingGeom& q = g.q;
+  const int threads = ceil_div(q.CG / VE * q.rows, 32) * 32;
+  const dim3 grid(ceil_div(q.C, q.CG) * q.nth * q.ntw, q.nruns, q.B);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), taps,
+                                          static_cast<T*>(y), g);
+  return cudaGetLastError();
+}
+
+// fn(Ring<T, VE, KT>{}, std::integral_constant<int, S>{}) for the
+// instantiation a call takes.
+template <typename Fn>
+int with_conv_ring(int dtype, int ve, int kt, int stride, Fn&& fn) {
+  return with_ring(dtype, ve, kt, [&](auto ring) {
+    if (stride == 1) return fn(ring, std::integral_constant<int, 1>{});
+    if (stride == 2) return fn(ring, std::integral_constant<int, 2>{});
+    return (int)cudaErrorInvalidValue;
+  });
+}
+
 }  // namespace
 
 // x: (B, T, H, W, C) in `dtype` (0 float32, 1 bfloat16); taps: (kt*kh*kw, C)
@@ -150,4 +587,106 @@ extern "C" int x3d_dw_conv3d_fwd(const void* x, const void* taps, void* y,
   if (dtype == kF32) return launch<float>(x, w, y, g, s);
   if (dtype == kBF16) return launch<__nv_bfloat16>(x, w, y, g, s);
   return cudaErrorInvalidValue;
+}
+
+// The temporal body's blocks an SM and the card's SMs, into out[0] and
+// out[1], for `vec` channels a cell and kt temporal taps (blocks of
+// kTemporalThreads threads, no shared memory).
+extern "C" int x3d_dw_conv3d_fwd_temporal_occupancy(int dtype, int vec,
+                                                    int kt, void* out) {
+  int* o = static_cast<int*>(out);
+  return with_temporal(dtype, vec, kt, [&](auto inst) {
+    using I = decltype(inst);
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &o[0], dw_conv3d_fwd_temporal_kernel<typename I::Elem, I::ve, I::kt>,
+        kTemporalThreads, 0);
+    o[1] = sm_count();
+    return (int)err;
+  });
+}
+
+// K1 by the temporal body: x (B, T, H, W, C), taps (kt, C) float32, y (B,
+// To, H, W, C), for spatial taps 1x1 at stride 1 and no spatial pads; tlo
+// the low temporal pad; then the plan of ops/depthwise.temporal_plan
+// (channels a cell, frames a run).  cudaErrorInvalidValue for a plan the
+// kernel cannot run or addresses a cell does not divide.
+extern "C" int x3d_dw_conv3d_fwd_temporal(const void* x, const void* taps,
+                                          void* y, int dtype, int B, int T,
+                                          int H, int W, int C, int kt,
+                                          int tlo, int To, int vec, int run,
+                                          void* stream) {
+  if (B <= 0 || To <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaSuccess;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  const int elem = dtype == kF32 ? 4 : 2;
+  if (T <= 0 || kt < 1 || kt > kRingMaxKt || tlo < 0 || vec < 1 ||
+      C % vec || run < 1 || B > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % (vec * elem) ||
+      reinterpret_cast<uintptr_t>(y) % (vec * elem))
+    return cudaErrorInvalidValue;
+  TemporalGeom g{B, T, C, tlo, To, (long long)H * W * (C / vec), run,
+                 ceil_div(To, run)};
+  if (g.nruns > 65535 ||
+      (g.B * g.cells + kTemporalThreads - 1) / kTemporalThreads > INT32_MAX)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* w = static_cast<const float*>(taps);
+  return with_temporal(dtype, vec, kt, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_temporal<typename I::Elem, I::ve, I::kt>(x, w, y, g, s);
+  });
+}
+
+// The ring body's blocks an SM and the card's SMs, into out[0] and out[1],
+// for a block of `threads` threads and `smem` bytes of dynamic shared
+// memory.
+extern "C" int x3d_dw_conv3d_fwd_ring_occupancy(int dtype, int vec, int kt,
+                                                int stride, int threads,
+                                                int smem, void* out) {
+  int* o = static_cast<int*>(out);
+  return with_conv_ring(dtype, vec, kt, stride, [&](auto ring, auto s) {
+    using R = decltype(ring);
+    auto kernel = dw_conv3d_fwd_ring_kernel<typename R::Elem, R::ve, R::kt,
+                                            decltype(s)::value>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[0], kernel,
+                                                          threads, smem);
+    o[1] = sm_count();
+    return (int)err;
+  });
+}
+
+// K1 by the ring body: the arguments of x3d_dw_conv3d_fwd for spatial taps
+// 3x3 at strides (1, s, s) with s 1 or 2, kt in 1 .. 5, low pads tlo <=
+// kt - 1 and hlo, wlo 0 or 1; then the launch plan of
+// ops/depthwise.ring_plan (tile sides, channels a group, channels a
+// vector, thread rows, frames a run, copy granule in bytes, cells a staged
+// row, cells padding each vector plane).  cudaErrorInvalidValue for a
+// geometry or plan the kernel cannot run or pointers the granule does not
+// divide.
+extern "C" int x3d_dw_conv3d_fwd_ring(
+    const void* x, const void* taps, void* y, int dtype, int B, int T,
+    int H, int W, int C, int kt, int stride, int tlo, int hlo, int wlo,
+    int To, int Ho, int Wo, int tile_h, int tile_w, int group, int vec,
+    int rows, int run, int granule, int row_cells, int vec_pad,
+    void* stream) {
+  if (B <= 0 || To <= 0 || Ho <= 0 || Wo <= 0 || C <= 0) return cudaSuccess;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  const int elem = dtype == kF32 ? 4 : 2;
+  ConvRing g{{B, To, Ho, Wo, C}, T, H, W, tlo, hlo, wlo};
+  if (T <= 0 || H <= 0 || W <= 0 || tlo < 0 || tlo > kt - 1 || hlo < 0 ||
+      hlo > 1 || wlo < 0 || wlo > 1 ||
+      !ring_geometry(g.q, elem, kt, vec, tile_h, tile_w, group, rows, run,
+                     granule, row_cells, vec_pad, stride))
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % granule ||
+      reinterpret_cast<uintptr_t>(y) % (vec * elem))
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* w = static_cast<const float*>(taps);
+  return with_conv_ring(dtype, vec, kt, stride, [&](auto ring, auto st) {
+    using R = decltype(ring);
+    return launch_conv_ring<typename R::Elem, R::ve, R::kt,
+                            decltype(st)::value>(x, w, y, g, s);
+  });
 }

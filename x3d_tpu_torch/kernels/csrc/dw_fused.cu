@@ -225,19 +225,6 @@ int launch(const void* x, const float* a_cb, const float* b_cb,
 
 // -------------------------------------------------------------- ring body
 
-// A cell's VE channels as float32.  A bfloat16 pair unpacks by a shift and
-// a mask, two instructions (the library's conversion takes three).
-template <typename T, int VE>
-__device__ __forceinline__ void cell_f32(const void* p, float (&v)[VE]) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && VE == 2) {
-    const uint32_t bits = *static_cast<const uint32_t*>(p);
-    v[0] = __uint_as_float(bits << 16);
-    v[1] = __uint_as_float(bits & 0xffff0000u);
-  } else {
-    load_f32(static_cast<const T*>(p), v);
-  }
-}
-
 // Dynamic shared memory of a ring-body block: KT + kRingAhead slots of x
 // (then u); after the frames the same bytes hold the rows' sum partials; the
 // taps beyond both where they live there.

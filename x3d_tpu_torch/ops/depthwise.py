@@ -6,7 +6,14 @@ conv, and the stride-2 stage-entry convs.
 * :func:`depthwise_conv3d` is the wrapper of the hand-written CUDA kernel K1
   (``kernels/csrc/depthwise.cu``), which replaces the TPU kernels
   ``dw_batchminor._fwd_kernel`` and ``pallas_dw._fwd_kernel``;
-  :func:`depthwise_conv3d_reference` is its plain PyTorch version.
+  :func:`depthwise_conv3d_reference` is its plain PyTorch version.  K1 has
+  three bodies, picked by :func:`fwd_body`: the temporal body for 1x1
+  spatial taps at stride 1 (the stem's k×1×1 conv; a thread walks one
+  pixel's channel cell through a run of frames, the sums in registers,
+  launched by :func:`temporal_plan`), the ring body for 3x3 spatial taps at
+  spatial stride 1 or 2 (the stride-2 stage entries; K2's ring staging,
+  launched by :func:`ring_plan`), and the generic body for every other
+  geometry.
 * :func:`depthwise_conv3d_dx` and :func:`depthwise_conv3d_dk` are the
   wrappers of kernel K4 (``kernels/csrc/depthwise_bwd.cu``), the backward,
   which replaces the TPU kernels ``dw_batchminor._dk_kernel`` and
@@ -32,6 +39,7 @@ shift the sampling grid, so pads are always explicit (lo, hi) pairs.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -39,11 +47,20 @@ import torch.nn.functional as F
 
 from x3d_tpu_torch import kernels, ops
 from x3d_tpu_torch.kernels import _build
+from x3d_tpu_torch.ops import ring
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
 
 _SIGNATURES = {
     "x3d_dw_conv3d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
+    + [ctypes.c_void_p],
+    "x3d_dw_conv3d_fwd_temporal_occupancy": [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    "x3d_dw_conv3d_fwd_temporal": [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    "x3d_dw_conv3d_fwd_ring_occupancy": [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "x3d_dw_conv3d_fwd_ring": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 23
     + [ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
@@ -99,6 +116,148 @@ def depthwise_conv3d_reference(x: torch.Tensor, kernel: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+# ------------------------------------------------- K1's bodies and plans
+
+TEMPORAL_THREADS = 256       # kTemporalThreads in depthwise.cu
+CONV_RING_SMEM = 76 * 1024   # a ring-body block's most: three an SM
+
+
+def fwd_body(kdims, strides, pads) -> str:
+    """Which of K1's three bodies computes a call (pads explicit, none
+    negative):
+
+    * "temporal": spatial taps 1x1, strides (1, 1, 1), no spatial pads and
+      1 <= kt <= RING_MAX_KT (the stem's k×1×1 conv);
+    * "ring": spatial taps 3x3, temporal stride 1, spatial strides (s, s)
+      with s 1 or 2, 1 <= kt <= RING_MAX_KT, a low temporal pad of at most
+      kt - 1 and low pads of 0 or 1 in H and W (the stride-2 stage entries,
+      at even planes (0, 1) and odd ones (1, 1));
+    * "generic": every other geometry.
+    """
+    kt, kh, kw = (int(k) for k in kdims)
+    st, sh, sw = (int(s) for s in strides)
+    (tlo, thi), (hlo, hhi), (wlo, whi) = pads
+    if min(tlo, thi, hlo, hhi, wlo, whi) >= 0 and 1 <= kt <= ring.RING_MAX_KT:
+        if (kh, kw, st, sh, sw, hlo, hhi, wlo, whi) == (1, 1, 1, 1, 1, 0, 0,
+                                                          0, 0):
+            return "temporal"
+        if ((kh, kw) == (3, 3) and st == 1 and sh == sw and sh in (1, 2)
+                and tlo <= kt - 1 and hlo in (0, 1) and wlo in (0, 1)):
+            return "ring"
+    return "generic"
+
+
+@functools.lru_cache(maxsize=None)
+def temporal_plan(B: int, H: int, W: int, C: int, To: int, elem: int = 2,
+                  align: int = 16, slots: int = 0) -> dict:
+    """How the temporal body runs a call with To output frames: elements of
+    ``elem`` bytes, x and y at addresses that are multiples of ``align``
+    bytes, a card that holds ``slots`` threads at once (0: no runs are cut).
+
+    * ``vec`` channels a cell: the widest cell of 16, 8, 4 bytes or one
+      element that C and both addresses allow;
+    * a thread for each (clip, pixel, cell) and run, TEMPORAL_THREADS a
+      block;
+    * runs of ``run`` frames: To is cut while the threads would not fill the
+      card twice over, keeping runs of RING_MIN_RUN frames or more.
+    """
+    vec = next(v for v in (16 // elem, 8 // elem, 4 // elem, 1)
+               if v >= 1 and C % v == 0 and align % (v * elem) == 0)
+    cells = B * H * W * (C // vec)
+    runs = 1
+    while cells * runs < 2 * slots and -(-To // (runs + 1)) >= \
+            ring.RING_MIN_RUN:
+        runs += 1
+    run = -(-To // runs)
+    return dict(vec=vec, cell_bytes=vec * elem, run=run, runs=-(-To // run),
+                threads=TEMPORAL_THREADS,
+                blocks=-(-cells // TEMPORAL_THREADS))
+
+
+def _conv_ring_smem(kt, stride, vec, elem, tile_h, row_cells, vec_pad, group,
+                    rows) -> int:
+    """Dynamic shared memory of a K1 ring-body block, as ``conv_ring_smem``
+    in depthwise.cu lays it out: kt + RING_AHEAD slots of x, then the taps
+    where they live there."""
+    slot = ring.ring_slot(group // vec, vec, elem, tile_h, row_cells,
+                          vec_pad, stride)
+    return (-(-(kt + ring.RING_AHEAD) * slot // 16) * 16
+            + ring.taps_smem(kt, vec, group))
+
+
+@functools.lru_cache(maxsize=None)
+def ring_plan(B: int, To: int, Ho: int, Wo: int, C: int, kt: int,
+              stride: int = 1, elem: int = 2, align: int = 16,
+              slots: int = 0) -> dict:
+    """How K1's ring body runs a call with an output of (B, To, Ho, Wo, C)
+    at spatial ``stride`` (x's address the one ``align`` counts), by
+    ``ops/ring.plan``'s rules, as K2's ring body runs (``dw_fused.fwd_plan``):
+    one role, one tile row a thread, a block of at most RING_MAX_THREADS
+    threads and CONV_RING_SMEM bytes of shared memory (the ring's kt +
+    RING_AHEAD slots of x, the taps where they do not fit in registers).
+    At stride 2 a tile has at most RING_MAX_SIDE_2 pixels a side."""
+    p = ring.plan(B, To, Ho, Wo, C, elem, align, slots,
+                  ring.RING_MAX_THREADS, CONV_RING_SMEM,
+                  lambda vec, *rest: _conv_ring_smem(kt, stride, vec, elem,
+                                                     *rest),
+                  row_a_thread=True, stride=stride)
+    p["threads"] = 32 * p.pop("warps")
+    del p["parts"]
+    return p
+
+
+def _launch_fwd(lib, body, x, taps, kdims, strides, pads, stream):
+    """K1's ``body`` on x (contiguous, on a CUDA device) and prepared taps
+    ((kt * kh * kw, C) float32, rounded to x's dtype); returns y or
+    raises."""
+    B, T, H, W, C = x.shape
+    kt, kh, kw = kdims
+    out = [_out_size(n, k, s, p) for n, k, s, p in
+           zip((T, H, W), kdims, strides, pads)]
+    y = torch.empty((B, *out, C), dtype=x.dtype, device=x.device)
+    code = kernels.dtype_code(x)
+    args = (x.data_ptr(), taps.data_ptr(), y.data_ptr(), code, B, T, H, W, C,
+            kt)
+    if body == "temporal":
+        p = _temporal_plan(lib, x, y, kt, out[0])
+        rc = lib.x3d_dw_conv3d_fwd_temporal(*args, pads[0][0], out[0],
+                                            p["vec"], p["run"], stream)
+    elif body == "ring":
+        p = _ring_plan(lib, x, kt, strides[1], out)
+        rc = lib.x3d_dw_conv3d_fwd_ring(
+            *args, strides[1], pads[0][0], pads[1][0], pads[2][0], *out,
+            p["tile_h"], p["tile_w"], p["group"], p["vec"], p["rows"],
+            p["run"], p["granule"], p["row_cells"], p["vec_pad"], stream)
+    else:
+        rc = lib.x3d_dw_conv3d_fwd(*args, kh, kw, *strides, pads[0][0],
+                                   pads[1][0], pads[2][0], *out, stream)
+    kernels.raise_on_error(rc, f"depthwise_conv3d ({body} body) kernel "
+                           "launch")
+    return y
+
+
+def _temporal_plan(lib, x, y, kt: int, To: int) -> dict:
+    """:func:`temporal_plan` for a call on x and y and this card (its
+    threads at once from the library's occupancy query)."""
+    B, T, H, W, C = x.shape
+    args = (B, H, W, C, To, x.element_size(), ring.align(x, y))
+    p = temporal_plan(*args)
+    blocks = ring.card_slots(lib, "x3d_dw_conv3d_fwd_temporal_occupancy",
+                             kernels.dtype_code(x), p["vec"], kt)
+    return temporal_plan(*args, slots=blocks * TEMPORAL_THREADS)
+
+
+def _ring_plan(lib, x, kt: int, stride: int, out) -> dict:
+    """:func:`ring_plan` for a call on x and this card (its blocks at once
+    from the library's occupancy query)."""
+    B, C = x.shape[0], x.shape[-1]
+    args = (B, *out, C, kt, stride, x.element_size(), ring.align(x))
+    p = ring_plan(*args)
+    return ring_plan(*args, slots=ring.card_slots(
+        lib, "x3d_dw_conv3d_fwd_ring_occupancy", kernels.dtype_code(x),
+        p["vec"], kt, stride, p["threads"], p["smem_bytes"]))
+
+
 def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
                      strides: Sequence[int] = (1, 1, 1),
                      padding="SAME") -> torch.Tensor:
@@ -107,7 +266,8 @@ def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
     ``kernel`` (kt, kh, kw, 1, C) is rounded to x's dtype, as the JAX op
     casts it; the kernel sums taps in float32.  ``padding``: "SAME",
     "VALID" or explicit ((lo, hi),)*3.  A CPU tensor takes the plain
-    version; a CUDA tensor launches K1 (float32 or bfloat16) or raises.
+    version; a CUDA tensor launches K1's body that :func:`fwd_body` names
+    (float32 or bfloat16), or raises.
     """
     if x.dim() != 5 or kernel.dim() != 5 or kernel.shape[3] != 1 \
             or kernel.shape[4] != x.shape[4]:
@@ -119,25 +279,21 @@ def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
     if x.device.type == "cpu":
         return depthwise_conv3d_reference(x, kernel, strides, pads)
     kernels.check_cuda(x)
-    B, T, H, W, C = x.shape
-    kt, kh, kw = kernel.shape[:3]
-    out = [_out_size(n, k, s, p) for n, k, s, p in
-           zip((T, H, W), (kt, kh, kw), strides, pads)]
-    y = torch.empty((B, *out, C), dtype=x.dtype, device=x.device)
-    taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
+    kdims = tuple(int(k) for k in kernel.shape[:3])
+    taps = kernel.to(x.dtype).to(torch.float32).reshape(-1, x.shape[-1])
     taps = taps.contiguous()
-    kernels.check_cuda(x, taps, y)
+    kernels.check_cuda(x, taps)
+    body = fwd_body(kdims, strides, pads)
     lib = _build.load("depthwise.cu", _SIGNATURES)
-    rc = lib.x3d_dw_conv3d_fwd(
-        x.data_ptr(), taps.data_ptr(), y.data_ptr(), kernels.dtype_code(x),
-        B, T, H, W, C, kt, kh, kw, *strides, pads[0][0], pads[1][0],
-        pads[2][0], *out, kernels.stream_handle(x))
-    kernels.raise_on_error(rc, "depthwise_conv3d kernel launch")
+    y = _launch_fwd(lib, body, x, taps, kdims, strides, pads,
+                    kernels.stream_handle(x))
     depthwise_conv3d.launches += 1
+    depthwise_conv3d.body_launches[body] += 1
     return y
 
 
 depthwise_conv3d.launches = 0
+depthwise_conv3d.body_launches = {"temporal": 0, "ring": 0, "generic": 0}
 
 
 # ------------------------------------------------------------ K4: backward

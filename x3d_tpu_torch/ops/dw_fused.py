@@ -37,6 +37,10 @@ from x3d_tpu_torch.kernels import _build
 from x3d_tpu_torch.ops.depthwise import (depthwise_conv3d_dk_reference,
                                          depthwise_conv3d_reference,
                                          same_pads)
+from x3d_tpu_torch.ops.ring import (RING_AHEAD, RING_MAX_KT,
+                                    RING_MAX_THREADS, align, card_slots,
+                                    ring_slot, taps_smem)
+from x3d_tpu_torch.ops.ring import plan as ring_plan
 
 _SIGNATURES = {
     "x3d_dw_bn_act_conv_tiles": [ctypes.c_int] * 3,
@@ -226,16 +230,10 @@ def bwd_abs_sums(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
 
 # ------------------------------------------- the ring bodies' plans (K2, K3)
 
-# The ring bodies' limits (common.cuh: kRingMaxKt, kRingMaxVecs,
-# kRingMaxThreads, kRingAhead) and their plans' rules.
-RING_MAX_KT = 5
-RING_MAX_VECS = 32
-RING_MAX_THREADS = 128    # a role's (K3's block has a du and a dk role)
-RING_AHEAD = 1            # planes in flight beyond the newest
+# The limits and rules K2's and K3's ring bodies share with K1's live in
+# ops/ring; these are K2's and K3's own.
 RING_SMEM = 113 * 1024    # K3: a block's shared memory: two blocks an SM
 FWD_SMEM = 72 * 1024      # K2: the most shared memory a block takes
-RING_MAX_SIDE = 14        # a plane up to this side is one tile
-RING_MIN_RUN = 4          # frames a run keeps (each reloads kt - 1 planes)
 
 
 def segment_body(kdims) -> str:
@@ -247,40 +245,14 @@ def segment_body(kdims) -> str:
         else "generic"
 
 
-def _ring_side(n: int) -> int:
-    """A tile's side along a plane of n pixels: n itself up to
-    RING_MAX_SIDE, else the side in 7 .. RING_MAX_SIDE that leaves the fewest
-    idle pixels (the larger on a tie)."""
-    if n <= RING_MAX_SIDE:
-        return n
-    best = RING_MAX_SIDE
-    for side in range(RING_MAX_SIDE - 1, 6, -1):
-        if -(-n // side) * side < -(-n // best) * best:
-            best = side
-    return best
-
-
-def _ring_slot(nv, vec, elem, tile_h, row_cells, vec_pad) -> int:
-    """Bytes of one ring slot: nv vector planes of (tile_h + 2) rows of
-    ``row_cells`` cells and a pad, rounded up to 16 bytes."""
-    plane = (tile_h + 2) * row_cells + vec_pad
-    return -(-nv * plane * vec * elem // 16) * 16
-
-
-def _taps_smem(kt, vec, group) -> int:
-    """Bytes of taps a ring-body block keeps in shared memory (common.cuh's
-    ring_taps_shared): none where they fit in registers."""
-    return 9 * kt * group * 4 if 9 * kt * vec > 64 else 0
-
-
 def _ring_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
                rows) -> int:
     """Dynamic shared memory of a K3 ring-body block, as ``ring_smem`` in
     dw_fused_bwd.cu lays it out."""
-    slot = _ring_slot(group // vec, vec, elem, tile_h, row_cells, vec_pad)
+    slot = ring_slot(group // vec, vec, elem, tile_h, row_cells, vec_pad)
     ring = (2 * (kt + RING_AHEAD) + RING_AHEAD + 1) * slot
     red = rows * (9 * kt + 2) * group * 4
-    return -(-max(ring, red) // 16) * 16 + _taps_smem(kt, vec, group)
+    return -(-max(ring, red) // 16) * 16 + taps_smem(kt, vec, group)
 
 
 def _fwd_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
@@ -288,85 +260,10 @@ def _fwd_smem(kt, vec, elem, tile_h, row_cells, vec_pad, group,
     """Dynamic shared memory of a K2 ring-body block, as ``ring_smem`` in
     dw_fused.cu lays it out: kt + RING_AHEAD slots of x (then u), after the
     frames the rows' two sums."""
-    slot = _ring_slot(group // vec, vec, elem, tile_h, row_cells, vec_pad)
+    slot = ring_slot(group // vec, vec, elem, tile_h, row_cells, vec_pad)
     ring = (kt + RING_AHEAD) * slot
     red = rows * 2 * group * 4
-    return -(-max(ring, red) // 16) * 16 + _taps_smem(kt, vec, group)
-
-
-def _bank_ways(nv: int, threads: int, cell: int, plane: int,
-               row: int) -> int:
-    """Shared-memory wavefronts of one tap load over a block's warps, where
-    thread i = (cv, r) = (i % nv, i // nv) reads a cell of ``cell`` bytes at
-    cv * plane + r * row cells: per warp (per half-warp for 8 bytes), the
-    most distinct 4-byte words that one of the 32 banks serves."""
-    total = 0
-    per = 16 if cell == 8 else 32
-    for first in range(0, threads, per):
-        banks = {}
-        for i in range(first, min(first + per, threads)):
-            at = (i % nv * plane + i // nv * row) * cell
-            for word in range(at // 4, (at + cell - 1) // 4 + 1):
-                banks.setdefault(word % 32, set()).add(word)
-        total += max(len(words) for words in banks.values())
-    return total
-
-
-@functools.lru_cache(maxsize=None)
-def _ring_pitch(nv, threads, cell, tile_h, tile_w):
-    """(cells a staged row, cells padding a vector plane): a row holds the
-    tile's columns and the halo's, made even (pixel pairs), and up to 7
-    more; the pair that spreads a warp's tap loads over the banks best,
-    then the smaller plane."""
-    least = tile_w + 2 + tile_w % 2
-    return min(((cols, pad) for cols in range(least, least + 8)
-                for pad in range(32)),
-               key=lambda cp: (_bank_ways(nv, threads, cell,
-                                          (tile_h + 2) * cp[0] + cp[1],
-                                          cp[0]),
-                               (tile_h + 2) * cp[0] + cp[1]))
-
-
-def _plan(B, T, H, W, C, elem, align, slots, role_threads, budget, smem_of,
-          row_a_thread=False):
-    """What the two ring bodies' plans share (see :func:`bwd_plan`): the
-    granule, the tile, channel groups whose block fits ``budget`` bytes of
-    shared memory by ``smem_of(vec, tile_h, row_cells, vec_pad, group,
-    rows)``, thread rows of a role of at most ``role_threads`` threads (with
-    ``row_a_thread``, groups small enough that each thread takes one tile
-    row), the pitches and the runs."""
-    vec = 2 if C % 2 == 0 else 1
-    cell = vec * elem
-    granule = cell if cell >= 4 and align % cell == 0 else elem
-    tile_h, tile_w = _ring_side(H), _ring_side(W)
-    most = RING_MAX_VECS * vec
-    if row_a_thread:
-        most = min(most, max(1, role_threads // tile_h) * vec)
-    for groups in range(-(-C // most), C + 1):
-        group = -(-(-(-C // groups)) // vec) * vec
-        nv = group // vec
-        passes = -(-tile_h // max(1, role_threads // nv))
-        rows = -(-tile_h // passes)
-        row_cells, vec_pad = _ring_pitch(nv, nv * rows, cell, tile_h,
-                                         tile_w)
-        smem = smem_of(vec, tile_h, row_cells, vec_pad, group, rows)
-        if group <= most and smem <= budget:
-            break
-    else:
-        raise ValueError(f"no ring-body plan fits C={C}")
-    groups = -(-C // group)
-    tiles_h, tiles_w = -(-H // tile_h), -(-W // tile_w)
-    blocks = groups * tiles_h * tiles_w * B
-    runs = 1
-    while blocks * runs < 2 * slots and -(-T // (runs + 1)) >= RING_MIN_RUN:
-        runs += 1
-    run = -(-T // runs)
-    runs = -(-T // run)
-    return dict(granule=granule, vec=vec, tile_h=tile_h, tile_w=tile_w,
-                tiles_h=tiles_h, tiles_w=tiles_w, group=group, groups=groups,
-                rows=rows, warps=-(-nv * rows // 32), row_cells=row_cells,
-                vec_pad=vec_pad, smem_bytes=smem, run=run, runs=runs,
-                parts=B * tiles_h * tiles_w * runs)
+    return -(-max(ring, red) // 16) * 16 + taps_smem(kt, vec, group)
 
 
 @functools.lru_cache(maxsize=None)
@@ -378,7 +275,7 @@ def bwd_plan(B: int, T: int, H: int, W: int, C: int, kt: int, elem: int = 2,
 
     * the copy granule: a cell (``vec`` channels of one pixel, 4 or 8 bytes)
       where every address allows it, else one element (plain loads);
-    * the tile: :func:`_ring_side` along H and along W;
+    * the tile: :func:`ring.ring_side` along H and along W;
     * channel groups of ``vec`` channels a vector (2 at even C), at most
       RING_MAX_VECS vectors, as even as they come, and small enough for
       RING_SMEM bytes of shared memory: every group starts on a cell;
@@ -386,12 +283,13 @@ def bwd_plan(B: int, T: int, H: int, W: int, C: int, kt: int, elem: int = 2,
       block's two roles (du and dk), a role at most RING_MAX_THREADS
       threads and whole warps;
     * the ring's row and vector-plane pitches, so that a warp's loads fall
-      on distinct shared-memory banks (:func:`_ring_pitch`);
+      on distinct shared-memory banks (:func:`ring.ring_pitch`);
     * runs of ``run`` frames: T is cut while the blocks would not fill the
       card twice over, keeping runs of RING_MIN_RUN frames or more.
     """
-    p = _plan(B, T, H, W, C, elem, align, slots, RING_MAX_THREADS, RING_SMEM,
-              lambda vec, *rest: _ring_smem(kt, vec, elem, *rest))
+    p = ring_plan(B, T, H, W, C, elem, align, slots, RING_MAX_THREADS,
+                  RING_SMEM,
+                  lambda vec, *rest: _ring_smem(kt, vec, elem, *rest))
     p["threads"] = 2 * 32 * p.pop("warps")
     return p
 
@@ -406,41 +304,26 @@ def fwd_plan(B: int, T: int, H: int, W: int, C: int, kt: int, elem: int = 2,
     taps where they do not fit in registers.  A group has at most
     RING_MAX_THREADS // tile_h vectors, so that each thread takes one tile
     row: more, smaller blocks, four an SM."""
-    p = _plan(B, T, H, W, C, elem, align, slots, RING_MAX_THREADS, FWD_SMEM,
-              lambda vec, *rest: _fwd_smem(kt, vec, elem, *rest),
-              row_a_thread=True)
+    p = ring_plan(B, T, H, W, C, elem, align, slots, RING_MAX_THREADS,
+                  FWD_SMEM, lambda vec, *rest: _fwd_smem(kt, vec, elem, *rest),
+                  row_a_thread=True)
     p["threads"] = 32 * p.pop("warps")
     return p
-
-
-_slots = {}
 
 
 def _ring_slots(lib, body: str, code: int, vec: int, kt: int, threads: int,
                 smem: int) -> int:
     """Blocks of this shape of K2's (``body`` "fwd") or K3's ("bwd") ring
     body that the card holds at once (blocks an SM x SMs)."""
-    key = (body, code, vec, kt, threads, smem)
-    if key not in _slots:
-        out = (ctypes.c_int * 2)()
-        query = getattr(lib, f"x3d_dw_bn_act_conv_{body}_ring_occupancy")
-        kernels.raise_on_error(query(
-            code, vec, kt, threads, smem, ctypes.addressof(out)),
-            f"dw_bn_act_conv_{body} ring occupancy")
-        _slots[key] = out[0] * out[1]
-    return _slots[key]
-
-
-def _align(*tensors) -> int:
-    """The largest power of two up to 16 dividing every tensor's address."""
-    return min(16, *(t.data_ptr() & -t.data_ptr() for t in tensors))
+    return card_slots(lib, f"x3d_dw_bn_act_conv_{body}_ring_occupancy",
+                      code, vec, kt, threads, smem)
 
 
 def _fwd_ring_plan(lib, x, kt: int) -> dict:
     """:func:`fwd_plan` for a ring-body call on x and this card (its blocks
     at once from the library's occupancy query)."""
     B, T, H, W, C = x.shape
-    args = (B, T, H, W, C, kt, x.element_size(), _align(x))
+    args = (B, T, H, W, C, kt, x.element_size(), align(x))
     p = fwd_plan(*args)
     return fwd_plan(*args, slots=_ring_slots(
         lib, "fwd", kernels.dtype_code(x), p["vec"], kt, p["threads"],
@@ -451,7 +334,7 @@ def _ring_plan(lib, x, y, gy, kt: int) -> dict:
     """:func:`bwd_plan` for a ring-body call on these tensors and this card
     (its blocks at once from the library's occupancy query)."""
     B, T, H, W, C = x.shape
-    args = (B, T, H, W, C, kt, x.element_size(), _align(x, y, gy))
+    args = (B, T, H, W, C, kt, x.element_size(), align(x, y, gy))
     p = bwd_plan(*args)
     return bwd_plan(*args, slots=_ring_slots(
         lib, "bwd", kernels.dtype_code(x), p["vec"], kt, p["threads"],

@@ -31,7 +31,9 @@ from x3d_tpu_torch.utils import use_deterministic_cudnn
 
 # the port's kernels by the names of their __global__ functions
 _PORT = (
-    ("K1 depthwise_conv3d", ("dw_conv3d_fwd_kernel",)),
+    ("K1 depthwise_conv3d", ("dw_conv3d_fwd_kernel",
+                             "dw_conv3d_fwd_temporal_kernel",
+                             "dw_conv3d_fwd_ring_kernel")),
     ("K2 dw_bn_act_conv", ("dw_bn_act_conv_fwd_kernel",
                            "dw_bn_act_conv_fwd_ring_kernel",
                            "dw_bn_act_conv_fwd_sum_kernel")),
