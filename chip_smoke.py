@@ -10,8 +10,9 @@ CUDA toolkit::
 It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
 nvcc per source, in parallel; ptxas's registers, spills and static shared
 memory of each instantiation of K5-K7's tensor-core body, K4 dx's phase
-body, K1's temporal and ring bodies and K3's and K2's ring bodies on a line
-of its own, which fails on a spill where the body must not spill) and then:
+body, K4 dk's ring body, K1's temporal and ring bodies and K3's and K2's
+ring bodies on a line of its own, which fails on a spill where the body
+must not spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
@@ -40,7 +41,11 @@ of its own, which fails on a spill where the body must not spill) and then:
   K4's
   dx rows name the body that ran (the parity-phase body at the stride-2
   stage entries, the gather body elsewhere) and time the gather body on the
-  same inputs beside the phase body; K2's and K3's rows likewise name
+  same inputs beside the phase body; its dk rows name theirs (the ring body
+  at the stride-2 stage entries, the generic body at the stem, which K8
+  takes in the step) and time the generic body on the same inputs, and a
+  ring row fails where it is behind the generic body, the plain version or
+  cuDNN's weight gradient; K2's and K3's rows likewise name
   their body (the ring body at every fused segment), carry the ring body's
   launch plan and time the generic body on the same inputs;
   K5-K7's rows carry how the call runs (copy granule, block columns, ring
@@ -50,7 +55,7 @@ of its own, which fails on a spill where the body must not spill) and then:
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
   step (K1 by its temporal and ring bodies only, K4 dx by its phase body
-  only, K2 and K3 by their ring bodies only),
+  only, K4 dk, K2 and K3 by their ring bodies only),
   checks that two runs of one step from one state are bit-identical, and
   checks one float32 step through the kernels against the same step
   through the plain versions (loss, every gradient, the updated parameters
@@ -60,7 +65,8 @@ of its own, which fails on a spill where the body must not spill) and then:
   against its plain version and times it
   beside ``F.linear`` at every bulk 1x1x1 conv of X3D-M and X3D-S
   (serving requests of 10 and 80 clips, training at 32 and 64 clips),
-  forward and dx;
+  forward and dx, and takes K7's and ``F.linear``'s device time over the 57
+  launches of an X3D-M 10-clip forward with ``torch.profiler``;
 * holds K8 (the depthwise conv's one-pass backward) against its plain
   version and against K4's dx and dk at the stems of X3D-M and X3D-S and
   at a 3x3x3 stage-2 shape, with the times of all three and of cuDNN;
@@ -70,7 +76,8 @@ of its own, which fails on a spill where the body must not spill) and then:
 * drives the command-line tools at X3D-S full width and depth (13×160², 64
   clips, bfloat16), in this process through their ``main(argv)``: train two
   epochs of three steps with step-keyed checkpoints (K1 by its new bodies
-  only, K2 and K3 by their ring bodies only), resume for a third epoch (the
+  only, K4 dk, K2 and K3 by their ring bodies only), resume for a third
+  epoch (the
   restored step is 6 and
   the losses equal an uninterrupted run's, bit for bit, with cuDNN's flags
   as the tools set them), evaluate two batches of 8 videos × 10 views, and
@@ -181,6 +188,7 @@ def main() -> int:
         from x3d_tpu_torch.tools import fma_probe
         from x3d_tpu_torch.tools import predict as predict_cli
         from x3d_tpu_torch.tools import train as train_cli
+        from x3d_tpu_torch.tools.trace import family, trace
         from x3d_tpu_torch.train import (create_train_state, make_eval_step,
                                          make_train_step)
         from x3d_tpu_torch.train.checkpoint import CheckpointManager
@@ -264,6 +272,21 @@ def main() -> int:
     check(len(entries) == 20 and all(
         e["spill_bytes"] == 0 and "registers" in e for e in entries),
         f"K4 dx phase body's ptxas report: {entries}")
+    # K4 dk's ring body, <element, channels a vector, temporal taps,
+    # spatial stride>: 40 instantiations; the one every X3D stage entry runs
+    # in bfloat16 (2 channels, kt 3, stride 2) must not spill
+    entries = ptxas_entries(
+        ("depthwise_bwd.cu",),
+        r"dw_conv3d_dk_ring_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELi(\d)E",
+        lambda m: "dw_conv3d_dk_ring_kernel<"
+                  f"{'float' if m[1] == 'f' else 'bfloat16'}, {m[2]}, {m[3]}, "
+                  f"{m[4]}>")
+    emit(phase="build, K4 dk ring body", kernels=entries)
+    main = [e for e in entries
+            if e["kernel"].endswith("<bfloat16, 2, 3, 2>")]
+    check(len(entries) == 40 and all("registers" in e for e in entries)
+          and len(main) == 1 and main[0]["spill_bytes"] == 0,
+          f"K4 dk ring body's ptxas report: {entries}")
     # K3's ring body, <element, channels a thread, temporal taps>: 20
     # instantiations; the one every X3D segment runs in training (bfloat16,
     # 2 channels, kt 3) must not spill
@@ -604,6 +627,7 @@ def main() -> int:
                 "K9": fma_probe.fma_chain}
 
     dx_bodies = depthwise.depthwise_conv3d_dx.body_launches
+    dk_bodies = depthwise.depthwise_conv3d_dk.body_launches
     k1_bodies = depthwise.depthwise_conv3d.body_launches
     k2_bodies = dw_fused.dw_bn_act_conv.body_launches
     k3_bodies = dw_fused.dw_bn_act_conv_bwd.body_launches
@@ -611,7 +635,8 @@ def main() -> int:
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
-        for bodies in (k1_bodies, dx_bodies, k2_bodies, k3_bodies):
+        for bodies in (k1_bodies, dx_bodies, dk_bodies, k2_bodies,
+                       k3_bodies):
             bodies.update(dict.fromkeys(bodies, 0))
 
     def read_counts():
@@ -806,12 +831,12 @@ def main() -> int:
             ops_ = 2 * taps * g.numel()
             nbytes = (g.numel() + x.numel()) * 2 + taps * C * 4
             body = depthwise.dx_body(kdims, strides, pads)
+            lib = _build.load("depthwise_bwd.cu", depthwise._BWD_SIGNATURES)
+            stream = torch.cuda.current_stream().cuda_stream
             extra = {"dx": {"body": body}, "dk": {}}
             if body == "phase":
                 # the gather body on the same inputs (its C entry point
                 # takes every geometry): what the phase body replaced
-                lib = _build.load("depthwise_bwd.cu",
-                                  depthwise._BWD_SIGNATURES)
                 geom = depthwise._bwd_geometry(x.shape, g, kdims, strides,
                                                pads)
                 taps_f32 = k.float().reshape(-1, C).contiguous()
@@ -821,19 +846,33 @@ def main() -> int:
                     rc = lib.x3d_dw_conv3d_dx(
                         g.data_ptr(), taps_f32.data_ptr(),
                         gathered.data_ptr(), 1, *geom,   # bfloat16
-                        torch.cuda.current_stream().cuda_stream)
+                        stream)
                     check(rc == 0, f"K4 dx gather body at {name}: rc {rc}")
 
                 extra["dx"]["gather_ms"] = time_ms(gather)
                 del taps_f32, gathered
+
+            def dk_body_ms(dk_body):
+                # a dk body launched as the wrapper launches it
+                return time_ms(lambda: depthwise._launch_dk(
+                    lib, dk_body, x, g, kdims, strides, pads, stream))
+
+            # dk: the body the wrapper picks and the generic body (what the
+            # ring body replaced; its C entry point takes every geometry)
+            # on the same inputs, through one launcher
+            dk_body = depthwise.dk_body(kdims, strides, pads)
+            extra["dk"] = {"body": dk_body, "ms": dk_body_ms(dk_body),
+                           "generic_ms": dk_body_ms("generic")}
+            if dk_body == "ring":
+                extra["dk"]["plan"] = depthwise._dk_ring_plan(
+                    x, kdims[0], strides[1], out)
             for part, kern, plain, mask, err32, err16 in (
                     ("dx", lambda: depthwise.depthwise_conv3d_dx(
                         g, k, x.shape, strides, pads),
                      lambda: depthwise.depthwise_conv3d_dx_reference(
                          g, k, x.shape, strides, pads),
                      [True, False, False], e32[2], e16[3]),
-                    ("dk", lambda: depthwise.depthwise_conv3d_dk(
-                        x, g, kdims, strides, pads),
+                    ("dk", None,
                      lambda: depthwise.depthwise_conv3d_dk_reference(
                          x, g, kdims, strides, pads),
                      [False, True, False], e32[4], e16[4])):
@@ -841,12 +880,20 @@ def main() -> int:
                 row = dict(name=name, shape=[B, *dims], kernel=list(kdims),
                            strides=list(strides), pads=[list(p) for p in pads],
                            n=n, max_abs_err_f32=err32, err_bf16=err16,
-                           ms=time_ms(kern), plain_ms=time_ms(plain),
+                           plain_ms=time_ms(plain),
                            library_ms=time_ms(lambda: cudnn(mask)),
                            bound_ms=bms, bound_by=by, **extra[part])
+                if kern is not None:
+                    row["ms"] = time_ms(kern)
+                row.update(shares(row))
                 emit(phase=f"K4 depthwise_conv3d_{part}", variant=variant,
                      **row)
                 k4_rows[part].append(row)
+            row = k4_rows["dk"][-1]
+            check(row["body"] != "ring" or row["ms"] < min(
+                row["generic_ms"], row["plain_ms"], row["library_ms"]),
+                f"K4 dk {where}: the ring body behind the generic body, "
+                f"the plain version or cuDNN: {row}")
             del x, g, k, xc, gc, w
             torch.cuda.empty_cache()
 
@@ -1041,6 +1088,7 @@ def main() -> int:
                           launches={k: after[k] - before[k] for k in after}))
     train_launches = read_counts()            # ... and ends here
     train_dx_bodies = dict(dx_bodies)
+    train_dk_bodies = dict(dk_bodies)
     train_k1_bodies = dict(k1_bodies)
     train_k2_bodies = dict(k2_bodies)
     train_k3_bodies = dict(k3_bodies)
@@ -1058,7 +1106,8 @@ def main() -> int:
          clips_per_s=TRAIN_CLIPS / step_ms * 1e3,
          first_step_ms=steps[0]["device_ms"], peak_memory_bytes=train_peak,
          launches_per_step=want_step, k1_bodies=train_k1_bodies,
-         k4_dx_bodies=train_dx_bodies, k2_bodies=train_k2_bodies,
+         k4_dx_bodies=train_dx_bodies, k4_dk_bodies=train_dk_bodies,
+         k2_bodies=train_k2_bodies,
          k3_bodies=train_k3_bodies)
     # every K4 dx of the step is a stride-2 stage entry: the phase body
     want_bodies = {"phase": TRAIN_STEPS * want_step["K4 dx"], "gather": 0}
@@ -1068,9 +1117,10 @@ def main() -> int:
             "generic": 0}
     check(train_k1_bodies == want,
           f"K1 bodies {train_k1_bodies}, want {want}")
-    # every K2 and K3 of the step is a fused segment with 3x3 taps: the
-    # ring bodies
-    for kname, got in (("K2", train_k2_bodies), ("K3", train_k3_bodies)):
+    # every K4 dk of the step is a stride-2 stage entry, and every K2 and
+    # K3 a fused segment with 3x3 taps: the ring bodies
+    for kname, got in (("K4 dk", train_dk_bodies), ("K2", train_k2_bodies),
+                       ("K3", train_k3_bodies)):
         want = {"ring": TRAIN_STEPS * want_step[kname], "generic": 0}
         check(got == want, f"{kname} bodies {got}, want {want}")
 
@@ -1282,6 +1332,46 @@ def main() -> int:
              launches=sum(r["n"] for r in rows) * (2 if path == "training"
                                                    else 1),
              **total, **shares(total))
+
+    # K7's and F.linear's device time (torch.profiler, as the profile tools
+    # take it) over the bulk 1x1x1 convs of one X3D-M 10-clip forward, each
+    # case as often as the forward runs it, in bfloat16; F.linear on the
+    # rows a strided conv reads, subsampled beforehand, as in the rows above
+    calls = []
+    for _, shape, N, strides, n in k7_cases(cfg, arch, CLIPS,
+                                             cfg.DATA.TEST_CROP_SIZE, False):
+        x = randn(*shape).bfloat16()
+        w = (randn(N, shape[-1]) / math.sqrt(shape[-1])).bfloat16()
+        calls.append((x, w, strides, pointwise._subsample(x, strides)
+                      .contiguous(), n))
+
+    def k7_forward():
+        for x, w, strides, _, n in calls:
+            for _ in range(n):
+                pointwise.pw_conv(x, w, strides)
+
+    def linear_forward():
+        for _, w, _, xs, n in calls:
+            for _ in range(n):
+                F.linear(xs, w)
+
+    dev = {}
+    for label, fn in (("k7", k7_forward), ("library", linear_forward)):
+        got = trace(fn, 5, "forward", group=lambda name: "K7"
+                    if "pw_conv" in name else family(name))
+        dev[label] = {"busy_ms": got["device_busy_ms_per_forward"],
+                      "by_group_ms": got["group_ms_per_forward"],
+                      "kernels": got["kernels_per_forward"]}
+    emit(phase="K7 pw_conv, device time", variant="M",
+         path=f"serving, {CLIPS} clips", launches=sum(c[-1] for c in calls),
+         k7_ms=dev["k7"]["by_group_ms"].get("K7", 0.0),
+         k7_busy_ms=dev["k7"]["busy_ms"],
+         library_busy_ms=dev["library"]["busy_ms"], detail=dev)
+    check(sum(c[-1] for c in calls) == n_k7,
+          f"K7 device-time cases: {sum(c[-1] for c in calls)} launches, "
+          f"want {n_k7}")
+    del calls
+    torch.cuda.empty_cache()
     # K1, K2, K5 and K6 over one training step of each variant, against
     # the library's depthwise conv (K1, K2) or matmul + sums (K5, K6)
     for variant, rows1, rows2, rows5, rows6 in (
@@ -1477,6 +1567,7 @@ def main() -> int:
         first, _ = run_train(run_dir, epochs=2, cadence=2)
         s_train_launches = read_counts()    # (its training part ends here)
         s_k1_bodies = dict(k1_bodies)
+        s_dk_bodies = dict(dk_bodies)
         s_k2_bodies = dict(k2_bodies)
         s_k3_bodies = dict(k3_bodies)
         s_peak = torch.cuda.max_memory_allocated()
@@ -1484,7 +1575,8 @@ def main() -> int:
         emit(phase="X3D-S train CLI", clips=S_TRAIN_CLIPS, epochs=2,
              steps_per_epoch=3, losses=first.losses, checkpoints=saved,
              launches=s_train_launches, launches_per_step=want_s_step,
-             k1_bodies=s_k1_bodies, k2_bodies=s_k2_bodies,
+             k1_bodies=s_k1_bodies, k4_dk_bodies=s_dk_bodies,
+             k2_bodies=s_k2_bodies,
              k3_bodies=s_k3_bodies,
              # from one step's end to the next, hooks and saves included
              step_interval_ms=[a.elapsed_time(b) for a, b in
@@ -1498,7 +1590,8 @@ def main() -> int:
         check(s_train_launches == {k: 6 * v for k, v in want_s_step.items()},
               f"X3D-S train launches {s_train_launches}, want 6 x "
               f"{want_s_step}")
-        for kname, got in (("K2", s_k2_bodies), ("K3", s_k3_bodies)):
+        for kname, got in (("K4 dk", s_dk_bodies), ("K2", s_k2_bodies),
+                           ("K3", s_k3_bodies)):
             want = {"ring": 6 * want_s_step[kname], "generic": 0}
             check(got == want, f"X3D-S {kname} bodies {got}, want {want}")
         want = {"temporal": 6, "ring": 6 * (n_k1_s - 1), "generic": 0}
@@ -1646,7 +1739,13 @@ def main() -> int:
         (summary("depthwise_conv3d_dk", "cuda", csrc + "depthwise_bwd.cu",
                  "x3d_tpu/ops/dw_batchminor.py:120, "
                  "x3d_tpu/ops/pallas_dw.py:123", k4_rows["dk"],
-                 worst(k4_rows_s["dk"])), "K4 dk", "train"),
+                 worst(k4_rows_s["dk"]))
+         | {"bodies_training": train_dk_bodies,
+            "bodies_x3d_s_training": s_dk_bodies,
+            "generic_ms": sum(r["n"] * r["generic_ms"]
+                              for r in k4_rows["dk"]),
+            "x3d_s_step_ms": sum(r["n"] * r["ms"] for r in k4_rows_s["dk"])},
+         "K4 dk", "train"),
         (summary("pw_conv_stats", "cuda", csrc + "pw_stats.cu",
                  "x3d_tpu/ops/pw_batchminor.py:132", k5_rows,
                  worst(k5_rows_s)), "K5", "train"),

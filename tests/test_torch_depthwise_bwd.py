@@ -13,7 +13,13 @@ mode.  Tolerances (float32, sums in another order): dx atol 1e-5; dk rtol
 dx has two bodies on the card: :func:`depthwise.dx_body` sends the stride-2
 stage entries to the parity-phase body and every other geometry to the
 gather body.  The phase body's tap rule is written out here in numpy and
-held against the plain dx, so an index error shows before the card.
+held against the plain dx, so an index error shows before the card.  dk has
+two bodies too: :func:`depthwise.dk_body` sends every 3x3 conv at spatial
+stride 1 or 2 (the stage entries) to the ring body, on K1's ring staging,
+and every other geometry to the generic body.  The ring body's plan is
+pure Python and is checked over a sweep; its order of sums (thread rows,
+blocks, the second pass's chunks) is written out in numpy and held against
+the plain dk (float32, rtol 1e-5, atol 1e-4).
 
 JAX is imported inside the tests, so that the card tests (marker ``cuda``)
 run on a machine without it:
@@ -23,8 +29,10 @@ run on a machine without it:
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
-from x3d_tpu_torch.ops import depthwise
+from x3d_tpu_torch.ops import depthwise, ring
 
 # (shape, kernel dims, strides, padding)
 CASES = [
@@ -251,16 +259,22 @@ def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims, strides,
     (tap, channel); bfloat16 against the plain version in float32 on the
     same bfloat16 inputs: dx 2e-2 of the largest |dx|, dk 1e-4 of the
     |x·g| sums (dk sums in float32 either way).  dx runs the phase body at
-    stride (1, 2, 2) with 3x3 spatial taps, the gather body elsewhere."""
+    stride (1, 2, 2) with 3x3 spatial taps, the gather body elsewhere; dk
+    the ring body at 3x3 spatial taps and strides (1, s, s), the generic
+    body elsewhere; each call counts one launch under its body."""
     x, k, g, pads = (a if isinstance(a, tuple) else
                      torch.from_numpy(a).to(cuda).to(dtype)
                      for a in _inputs(4, shape, kdims, strides, padding))
     body = "phase" if (strides, kdims[1:]) == ((1, 2, 2), (3, 3)) \
         else "gather"
     assert depthwise.dx_body(kdims, strides, pads) == body
+    dk_body = "ring" if kdims[1:] == (3, 3) and strides[0] == 1 \
+        and strides[1] == strides[2] else "generic"
+    assert depthwise.dk_body(kdims, strides, pads) == dk_body
     before = (depthwise.depthwise_conv3d_dx.launches,
               depthwise.depthwise_conv3d_dk.launches,
-              dict(depthwise.depthwise_conv3d_dx.body_launches))
+              dict(depthwise.depthwise_conv3d_dx.body_launches),
+              dict(depthwise.depthwise_conv3d_dk.body_launches))
     dx = depthwise.depthwise_conv3d_dx(g, k, x.shape, strides, pads)
     dk = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
     torch.cuda.synchronize()
@@ -269,6 +283,8 @@ def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims, strides,
                                                         before[1] + 1)
     assert depthwise.depthwise_conv3d_dx.body_launches == \
         before[2] | {body: before[2][body] + 1}
+    assert depthwise.depthwise_conv3d_dk.body_launches == \
+        before[3] | {dk_body: before[3][dk_body] + 1}
     rdx = depthwise.depthwise_conv3d_dx_reference(g.float(), k.float(),
                                                   x.shape, strides, pads)
     rdk = depthwise.depthwise_conv3d_dk_reference(x.float(), g.float(),
@@ -326,4 +342,295 @@ def test_phase_body_repeats_bit_for_bit(cuda, thwc):
                      for a in _inputs(7, (2, *thwc), kdims, strides, "SAME"))
     first = depthwise.depthwise_conv3d_dx(g, k, (2, *thwc), strides, pads)
     second = depthwise.depthwise_conv3d_dx(g, k, (2, *thwc), strides, pads)
+    assert torch.equal(first, second)
+
+
+# ------------------------------------------------------------ dk's bodies
+
+@pytest.mark.parametrize("thwc", STAGE_ENTRIES, ids=STAGE_IDS)
+def test_dk_body_takes_ring_at_stage_entries(thwc):
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    pads = depthwise._resolve_pads((1, *thwc), kdims, strides, "SAME")
+    assert depthwise.dk_body(kdims, strides, pads) == "ring"
+
+
+@pytest.mark.parametrize("kdims,strides,pads", [
+    ((5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0))),      # X3D-XS's stem
+    ((6, 3, 3), (1, 2, 2), ((2, 3), (0, 1), (0, 1))),      # kt above 5
+    ((3, 3, 3), (1, 3, 3), ((1, 1), (1, 1), (1, 1))),      # stride 3
+    ((3, 3, 3), (1, 2, 2), ((1, 1), (2, 0), (0, 1))),      # low pad 2
+    ((3, 3, 3), (1, 2, 2), ((3, 0), (1, 1), (1, 1))),      # low t pad kt
+    ((3, 5, 5), (1, 2, 2), ((1, 1), (1, 2), (1, 2))),      # taps 5x5
+    ((3, 3, 3), (2, 2, 2), ((0, 1), (0, 1), (0, 1))),      # temporal stride 2
+    ((3, 3, 3), (1, 2, 1), ((1, 1), (0, 1), (1, 1))),      # stride 1 along W
+], ids=["xs_stem", "kt6", "stride3", "lowpad2", "tpad3", "taps5x5",
+        "tstride2", "wstride1"])
+def test_dk_body_takes_generic_elsewhere(kdims, strides, pads):
+    assert depthwise.dk_body(kdims, strides, pads) == "generic"
+
+
+def _check_dk_plan(B, To, Ho, Wo, C, kt, stride, elem, align):
+    p = depthwise.dk_ring_plan(B, To, Ho, Wo, C, kt, stride, elem, align)
+    most = ring.RING_MAX_SIDE if stride == 1 else ring.RING_MAX_SIDE_2
+    for n, side, tiles in ((Ho, p["tile_h"], p["tiles_h"]),
+                           (Wo, p["tile_w"], p["tiles_w"])):
+        assert 1 <= side <= most and (tiles - 1) * side < n <= tiles * side
+    vec = p["vec"]
+    assert vec == (2 if C % 2 == 0 else 1) and p["group"] % vec == 0
+    cell = vec * elem
+    assert p["granule"] == (cell if cell >= 4 and align % cell == 0
+                            else elem)
+    assert (p["groups"] - 1) * p["group"] < C <= p["groups"] * p["group"]
+    assert p["rows"] == p["tile_h"]                    # a tile row a thread
+    block = p["group"] // vec * p["rows"]
+    assert block <= ring.RING_MAX_THREADS
+    assert p["threads"] == -(-block // 32) * 32
+    slot = ring.ring_slot(p["group"] // vec, vec, elem, p["tile_h"],
+                          p["row_cells"], p["vec_pad"], stride)
+    assert p["smem_bytes"] <= depthwise.CONV_RING_SMEM
+    assert p["smem_bytes"] >= (kt + ring.RING_AHEAD) * slot
+    assert p["smem_bytes"] >= p["rows"] * 9 * kt * p["group"] * 4
+    assert p["row_cells"] >= ring.ring_cols(p["tile_w"], stride)
+    assert (p["runs"], p["run"]) == (1, To)       # a block walks all frames
+    tiles = p["tiles_h"] * p["tiles_w"]
+    assert p["parts"] == B * tiles * p["runs"]
+    assert p["partials"] == B * tiles * p["runs"] * p["groups"]
+    return p
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(B=st.integers(1, 64), To=st.integers(1, 20), Ho=st.integers(1, 60),
+       Wo=st.integers(1, 60), C=st.integers(1, 500), kt=st.integers(1, 5),
+       stride=st.sampled_from([1, 2]), layout=st.sampled_from(
+           [(2, 16), (2, 2), (4, 16), (4, 4), (2, 8)]))
+def test_dk_ring_plan_invariants(B, To, Ho, Wo, C, kt, stride, layout):
+    """Over a sweep of shapes, element sizes and alignments: tiles of at
+    most the ring side cover Ho x Wo, channel groups cover C, the copy
+    granule is a cell where the address allows, one tile row a thread and
+    at most RING_MAX_THREADS threads, shared memory within CONV_RING_SMEM
+    and enough for the ring and for the rows' sums, one run of all the
+    frames, and the partials are clips x tiles x runs x groups blocks in
+    clips x tiles x runs rows."""
+    _check_dk_plan(B, To, Ho, Wo, C, kt, stride, *layout)
+
+
+@pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16)])
+@pytest.mark.parametrize("thwc,B", [(e, 32 if e[0] == 16 else 64)
+                                    for e in STAGE_ENTRIES],
+                         ids=STAGE_IDS)
+def test_dk_ring_plan_at_stage_entries(thwc, B, elem, align):
+    """The plan of every X3D-M (32 clips) and X3D-S (64 clips) stage entry
+    keeps the invariants above, in bfloat16 and float32, at aligned and
+    unaligned addresses."""
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    shape = (B, *thwc)
+    pads = depthwise._resolve_pads(shape, kdims, strides, "SAME")
+    out = [depthwise._out_size(n, k, s_, p_) for n, k, s_, p_ in
+           zip(thwc[:3], kdims, strides, pads)]
+    p = _check_dk_plan(B, *out, thwc[3], 3, 2, elem, align)
+    assert p["vec"] == 2
+
+
+def _dk_by_ring_partials(x, g, kdims, strides, pads):
+    """dk rebuilt in numpy in the ring body's order of sums: for each block
+    of the plan (clip, tile, run; channel groups only split C) each thread
+    row sums in float32 over its run's frames and its row's pixels (runs of
+    four, then pairs) the staged x cell times the pixel's g, cell j of a run
+    feeding pixel k's tap dw = j - s k; the rows are added in order into one
+    partial per (clip, tile, run), and the second pass adds the partials in
+    kSumLanes (16) interleaved chunks in double, then the chunks in order."""
+    B, T, H, W, C = x.shape
+    _, To, Ho, Wo, _ = g.shape
+    kt, s = kdims[0], strides[1]
+    (tlo, _), (hlo, _), (wlo, _) = pads
+    p = depthwise.dk_ring_plan(B, To, Ho, Wo, C, kt, s, 4, 16)
+    TH, TW, WP = p["tile_h"], p["tile_w"], p["row_cells"]
+    part = np.zeros((p["parts"], kt, 9, C), np.float32)
+    for b in range(B):
+        for th in range(p["tiles_h"]):
+            for tw in range(p["tiles_w"]):
+                h0, w0 = th * TH, tw * TW
+                staged = np.zeros((T, ring.ring_rows(TH, s), WP, C),
+                                  np.float32)
+                for pr in range(staged.shape[1]):
+                    for pc in range(WP):
+                        hi, wi = h0 * s - hlo + pr, w0 * s - wlo + pc
+                        if 0 <= hi < H and 0 <= wi < W:
+                            staged[:, pr, pc] = x[b, :, hi, wi]
+                cols = min(TW, Wo - w0)
+                for run in range(p["runs"]):
+                    rows = np.zeros((TH, kt, 9, C), np.float32)
+                    for oh in range(min(TH, Ho - h0)):
+                        for t in range(run * p["run"],
+                                       min((run + 1) * p["run"], To)):
+                            ow = 0
+                            while ow < cols:
+                                n = 4 if ow + 4 <= cols else 2
+                                gv = np.zeros((n, C), np.float32)
+                                valid = min(n, cols - ow)
+                                gv[:valid] = g[b, t, h0 + oh,
+                                               w0 + ow:w0 + ow + valid]
+                                for dt in range(kt):
+                                    tp = t - tlo + dt
+                                    if not 0 <= tp < T:
+                                        continue
+                                    for dh in range(3):
+                                        row = staged[tp, s * oh + dh, s * ow:]
+                                        for j in range(s * (n - 1) + 3):
+                                            for k in range(n):
+                                                dw = j - s * k
+                                                if 0 <= dw < 3:
+                                                    rows[oh, dt, 3 * dh + dw] \
+                                                        += row[j] * gv[k]
+                                ow += n
+                    acc = np.zeros((kt, 9, C), np.float32)
+                    for r in range(TH):
+                        acc += rows[r]
+                    part[((b * p["tiles_h"] + th) * p["tiles_w"] + tw)
+                         * p["runs"] + run] = acc
+    lanes = [part[lane::16].astype(np.float64).sum(axis=0)
+             if lane < len(part) else 0.0 for lane in range(16)]
+    total = np.zeros((kt, 9, C), np.float64)
+    for lane in lanes:
+        total += lane
+    return total.astype(np.float32).reshape(kt, 3, 3, 1, C)
+
+
+@pytest.mark.parametrize("shape,kdims,strides,padding", [
+    ((2, 4, 9, 11, 3), (3, 3, 3), (1, 2, 2), "SAME"),      # odd: (1, 1)
+    ((2, 9, 8, 10, 4), (3, 3, 3), (1, 2, 2), "SAME"),      # even: (0, 1)
+    ((1, 3, 20, 17, 2), (5, 3, 3), (1, 2, 2), "SAME"),     # 2x2 tiles
+    ((1, 3, 7, 9, 2), (1, 3, 3), (1, 2, 2), ((0, 0), (0, 2), (1, 0))),
+    ((2, 4, 9, 11, 3), (3, 3, 3), (1, 1, 1), "SAME"),
+    ((1, 9, 16, 17, 5), (2, 3, 3), (1, 1, 1), ((0, 1), (0, 2), (1, 1))),
+], ids=["stride2_odd", "stride2_even", "tiles", "kt1_pads", "stride1",
+        "stride1_tiles"])
+def test_dk_ring_partials_rebuild_dk(shape, kdims, strides, padding):
+    x, k, g, pads = _inputs(8, shape, kdims, strides, padding)
+    assert depthwise.dk_body(kdims, strides, pads) == "ring"
+    want = depthwise.depthwise_conv3d_dk_reference(
+        torch.from_numpy(x), torch.from_numpy(g), kdims, strides, pads)
+    got = _dk_by_ring_partials(x, g, kdims, strides, pads)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-4)
+
+
+class _FailingDkLibrary:
+    """A K4 library whose dk ring body fails at launch; it records the
+    calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def x3d_dw_conv3d_dk_ring(self, *args):
+        self.calls.append("ring")
+        return 1                                   # cudaErrorInvalidValue
+
+    def __getattr__(self, name):                   # the generic body's
+        raise AssertionError(f"fell back to {name}")
+
+
+def test_failed_dk_ring_launch_raises_without_fallback():
+    """A dk ring-body launch that returns an error raises; the generic body
+    is never asked to take over."""
+    shape, kdims, strides = (2, 5, 6, 6, 8), (3, 3, 3), (1, 2, 2)
+    x, _, g, pads = _inputs(9, shape, kdims, strides, "SAME")
+    lib = _FailingDkLibrary()
+    with pytest.raises(RuntimeError, match=r"ring body.*CUDA error 1"):
+        depthwise._launch_dk(lib, "ring", torch.from_numpy(x),
+                             torch.from_numpy(g), kdims, strides, pads, 0)
+    assert lib.calls == ["ring"]
+
+
+# ------------------------------------------------- dk's ring body, on card
+
+def _assert_dk_matches_plain(dk, x, g, kdims, strides, pads):
+    """float32 dk within 1e-5 of each (tap, channel)'s sum of |x·g|,
+    bfloat16 within 1e-4 (the plain version in float32 on the same
+    inputs); as in test_kernel_matches_plain_on_card."""
+    rdk = depthwise.depthwise_conv3d_dk_reference(x.float(), g.float(),
+                                                  kdims, strides, pads)
+    scale = depthwise.depthwise_conv3d_dk_reference(
+        x.float().abs(), g.float().abs(), kdims, strides, pads)
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-4
+    assert dk.dtype == torch.float32
+    assert ((dk - rdk).abs() <= tol * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kdims,strides", [
+    ((2, 16, 14, 14, 432), (3, 3, 3), (1, 2, 2)),     # X3D-M stage 5: 7²
+    ((2, 13, 10, 10, 432), (3, 3, 3), (1, 2, 2)),     # X3D-S stage 5: 5²
+    ((2, 6, 13, 15, 7), (3, 3, 3), (1, 2, 2)),        # odd C: VE 1
+    ((2, 6, 28, 28, 54), (1, 3, 3), (1, 2, 2)),
+    ((2, 6, 28, 28, 54), (2, 3, 3), (1, 2, 2)),
+    ((2, 6, 28, 28, 54), (4, 3, 3), (1, 2, 2)),
+    ((2, 6, 28, 28, 54), (5, 3, 3), (1, 2, 2)),
+    ((2, 7, 21, 19, 33), (3, 3, 3), (1, 1, 1)),       # stride 1, odd C
+    ((3, 5, 39, 39, 70), (5, 3, 3), (1, 2, 2)),
+], ids=["M5_7sq", "S5_5sq", "oddC", "kt1", "kt2", "kt4", "kt5", "stride1",
+        "odd39_kt5"])
+def test_dk_ring_edges_on_card(cuda, dtype, shape, kdims, strides):
+    """Ragged planes (7² and 5² outputs), odd C (a vector of one channel),
+    kt 1 to 5 and stride 1: the ring body against the plain version."""
+    x, _, g, pads = (a if isinstance(a, tuple) else
+                     torch.from_numpy(a).to(cuda).to(dtype)
+                     for a in _inputs(10, shape, kdims, strides, "SAME"))
+    assert depthwise.dk_body(kdims, strides, pads) == "ring"
+    dk = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
+    _assert_dk_matches_plain(dk, x, g, kdims, strides, pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.bfloat16, 2), (torch.bfloat16, 4), (torch.bfloat16, 8),
+    (torch.bfloat16, 16), (torch.float32, 4), (torch.float32, 8),
+    (torch.float32, 16)])
+@pytest.mark.parametrize("which", ["x", "g", "both"])
+def test_dk_ring_takes_unaligned_inputs(cuda, dtype, offset, which):
+    """x, g or both starting 2 to 16 bytes into their allocations: x's copy
+    granule shrinks to what its address allows, g is read an element at a
+    time where its address does not allow a vector."""
+    shape, kdims, strides = (2, 5, 28, 28, 54), (3, 3, 3), (1, 2, 2)
+    x, _, g, pads = _inputs(11, shape, kdims, strides, "SAME")
+    xt = _on_card_at(x, cuda, dtype, offset if which != "g" else 0)
+    gt = _on_card_at(g, cuda, dtype, offset if which != "x" else 0)
+    dk = depthwise.depthwise_conv3d_dk(xt, gt, kdims, strides, pads)
+    _assert_dk_matches_plain(dk, xt, gt, kdims, strides, pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thwc", STAGE_ENTRIES, ids=STAGE_IDS)
+def test_dk_ring_matches_generic_body(cuda, thwc):
+    """The ring body and the generic body on the same float32 inputs: the
+    same sums in another order, within 1e-5 of the |x·g| sums."""
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    x, _, g, pads = (a if isinstance(a, tuple) else
+                     torch.from_numpy(a).to(cuda)
+                     for a in _inputs(12, (2, *thwc), kdims, strides, "SAME"))
+    from x3d_tpu_torch.kernels import _build
+    lib = _build.load("depthwise_bwd.cu", depthwise._BWD_SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
+    got, want = (depthwise._launch_dk(lib, body, x, g, kdims, strides, pads,
+                                      stream) for body in ("ring", "generic"))
+    scale = depthwise.depthwise_conv3d_dk_reference(
+        x.abs(), g.abs(), kdims, strides, pads).reshape(got.shape)
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thwc", STAGE_ENTRIES[:8], ids=STAGE_IDS[:8])
+def test_dk_ring_repeats_bit_for_bit(cuda, thwc):
+    """No atomics and a fixed order of sums: bfloat16 dk of one input gives
+    equal bits twice, at the training batch (X3D-M 32 clips, X3D-S 64)."""
+    B = 32 if thwc[0] == 16 else 64
+    kdims, strides = (3, 3, 3), (1, 2, 2)
+    pads = depthwise._resolve_pads((B, *thwc), kdims, strides, "SAME")
+    out = [depthwise._out_size(n, k, s_, p_) for n, k, s_, p_ in
+           zip(thwc[:3], kdims, strides, pads)]
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((B, *thwc), generator=gen, device=cuda).bfloat16()
+    g = torch.randn((B, *out, thwc[3]), generator=gen, device=cuda).bfloat16()
+    first = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
+    second = depthwise.depthwise_conv3d_dk(x, g, kdims, strides, pads)
     assert torch.equal(first, second)

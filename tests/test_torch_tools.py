@@ -25,6 +25,10 @@ from x3d_tpu_torch.tools.trace import family
      "2, 3>(...)", "port kernels"),
     ("sum_pbwd_partials_kernel(float const*, float*, int, int, int)",
      "port kernels"),
+    ("void (anonymous namespace)::dw_conv3d_dk_ring_kernel<__nv_bfloat16, "
+     "2, 3, 2>(...)", "port kernels"),
+    ("(anonymous namespace)::dw_conv3d_dk_sum_kernel(float const*, float*, "
+     "int, int)", "port kernels"),
     ("void pw_stats_kernel<float, false>(...)", "port kernels"),
     ("void (anonymous namespace)::pw_conv_stats_mma_kernel<16, 24>(...)",
      "port kernels"),
@@ -71,6 +75,10 @@ def test_family(name, want):
      "K4 depthwise_conv3d_dk"),
     ("sum_dk_partials_kernel(float const*, float*, int, int)",
      "K4 depthwise_conv3d_dk"),
+    ("void (anonymous namespace)::dw_conv3d_dk_ring_kernel<__nv_bfloat16, "
+     "2, 3, 2>(...)", "K4 depthwise_conv3d_dk"),
+    ("(anonymous namespace)::dw_conv3d_dk_sum_kernel(float const*, float*, "
+     "int, int)", "K4 depthwise_conv3d_dk"),
     ("void pw_stats_kernel<__nv_bfloat16, true>(...)", "K5/K6 pw_stats"),
     ("void (anonymous namespace)::pw_conv_stats_mma_kernel<16, 24>(...)",
      "K5 pw_conv_stats"),

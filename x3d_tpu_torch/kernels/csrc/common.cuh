@@ -1,7 +1,8 @@
 // Shared pieces of the port's kernels: element conversion, the depthwise
-// kernels' block shape, the cp.async copies, and what the three ring bodies
-// (K1's, K2's, K3's) share: their limits, geometry, instantiations, a
-// cell's unpacking and the fused segment's second pass.
+// kernels' block shape, the cp.async copies, and what the ring bodies (K1's,
+// K2's, K3's, K4 dk's) share: their limits, geometry, instantiations, a
+// cell's unpacking, the second pass, and K1's staging and walk, which K4
+// dk's ring body runs too.
 // Every kernel here takes NDHWC activations (C contiguous) in float32 or
 // bfloat16 and accumulates in float32.
 #pragma once
@@ -133,7 +134,7 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
 }
 
-// ------------------------------------------- the ring bodies (K1, K2, K3)
+// -------------------------------------- the ring bodies (K1, K2, K3, K4 dk)
 
 constexpr int kRingMaxKt = 5;         // temporal taps a ring body takes
 constexpr int kRingMaxVecs = 32;      // channel vectors a block owns
@@ -259,6 +260,117 @@ int with_ring(int dtype, int ve, int kt, Fn&& fn) {
     return ve == 2 ? with_kt<__nv_bfloat16, 2>(kt, fn)
                    : with_kt<__nv_bfloat16, 1>(kt, fn);
   return cudaErrorInvalidValue;
+}
+
+// --------------------------- the conv ring bodies' staging (K1, K4 dk)
+
+// A conv ring-body call (K1's forward, K4's dk): the ring's geometry (its T,
+// H, W the output's) and the input's frames, rows, columns and low pads.
+struct ConvRing {
+  RingGeom q;
+  int T, H, W;
+  int tlo, hlo, wlo;
+};
+
+// fn(Ring<T, VE, KT>{}, std::integral_constant<int, S>{}) for the
+// instantiation a conv ring-body call takes (spatial stride S 1 or 2).
+template <typename Fn>
+int with_conv_ring(int dtype, int ve, int kt, int stride, Fn&& fn) {
+  return with_ring(dtype, ve, kt, [&](auto ring) {
+    if (stride == 1) return fn(ring, std::integral_constant<int, 1>{});
+    if (stride == 2) return fn(ring, std::integral_constant<int, 2>{});
+    return (int)cudaErrorInvalidValue;
+  });
+}
+
+// The fill of a conv ring body's slots, by thread (cv, r) of a block whose
+// tile's staged origin is input row hi0, column wi0; `vplane` is the
+// thread's vector plane in a slot.  Built once a thread, so that what does
+// not change from plane to plane is computed once.  fill(to, x, base) moves
+// one input plane into the slot `to`, x + base being the thread's channels
+// of the plane's first pixel: the thread moves its vector's cells of the
+// staged rows, whole rows r, r + rows, ... up to the last multiple of rows
+// (a cell's column only steps), then its share (i = r, r + rows, ...) of
+// the cells of the rows left.  Cell (pr, pc) holds input column wi0 + pc of
+// row hi0 + pr and sits pr * WP + pc into the vector plane; zeros outside
+// the image (and for channels past C: `live` false).  A cell moves by
+// cp.async where the plan's granule is a cell, else by plain loads, an
+// element a time.
+template <typename T, int VE, int S>
+struct ConvRingFill {
+  using Cell = typename CellOf<T, VE>::type;
+  const ConvRing& g;
+  int hi0, wi0, vplane, r, whole, left;
+  bool live;
+
+  __device__ __forceinline__ ConvRingFill(const ConvRing& g_, int hi0_,
+                                          int wi0_, int vplane_, int r_,
+                                          bool live_)
+      : g(g_), hi0(hi0_), wi0(wi0_), vplane(vplane_), r(r_), live(live_) {
+    const int srows = ring_rows(g.q.TH, S);
+    whole = srows / g.q.rows * g.q.rows;
+    left = (srows - whole) * g.q.WP;
+  }
+
+  __device__ __forceinline__ void operator()(Cell* to, const T* x,
+                                             size_t base) const {
+    const RingGeom& q = g.q;
+    auto move = [&](int at, int hi, int wi, bool ok) {
+      const T* from = x + (ok ? base + ((size_t)hi * g.W + wi) * q.C : 0);
+      if constexpr (sizeof(Cell) >= 4) {
+        if (q.granule == (int)sizeof(Cell)) {
+          cp_async<sizeof(Cell)>(to + at, from, ok);
+          return;
+        }
+      }
+      T* e = reinterpret_cast<T*>(to + at);
+#pragma unroll
+      for (int i = 0; i < VE; ++i) e[i] = ok ? from[i] : from_f32<T>(0.f);
+    };
+    for (int pr = r; pr < whole; pr += q.rows) {
+      const int hi = hi0 + pr, at = vplane + pr * q.WP;
+      const bool row_in = live && hi >= 0 && hi < g.H;
+      for (int pc = 0, wi = wi0; pc < q.WP; ++pc, ++wi)
+        move(at + pc, hi, wi, row_in && wi >= 0 && wi < g.W);
+    }
+    for (int i = r; i < left; i += q.rows) {
+      const int pr = whole + i / q.WP, pc = i % q.WP;
+      const int hi = hi0 + pr, wi = wi0 + pc;
+      move(vplane + pr * q.WP + pc, hi, wi,
+           live && hi >= 0 && hi < g.H && wi >= 0 && wi < g.W);
+    }
+  }
+};
+
+// A conv ring body's walk over its run of output frames t0 .. t1 - 1 of a
+// clip with T input frames.  Output frame t reads input planes t - tlo ..
+// t - tlo + KT - 1, so it is computed once plane p = t + hi_t has landed
+// (hi_t = KT - 1 - tlo).  fetch(p + kRingAhead) issues plane p + kRingAhead
+// (its own cp.async group) while frame p - hi_t is computed; its slot held
+// plane p - KT, last read by frame p - hi_t - 1.  One barrier a plane: after
+// it every cell of plane p has landed and frame p - hi_t - 1 is done.  (tlo
+// <= KT - 1, so every frame's plane p is at or past p_lo.)  On return every
+// copy has landed; the frames' reads of the ring need a barrier.
+template <int KT, typename Fetch, typename Compute>
+__device__ __forceinline__ void conv_ring_walk(int T, int tlo, int t0, int t1,
+                                               Fetch&& fetch,
+                                               Compute&& compute) {
+  const int hi_t = KT - 1 - tlo;
+  const int p_lo = max(0, t0 - tlo), p_hi = min(T - 1, t1 - 1 + hi_t);
+  for (int j = 0; j < kRingAhead; ++j) {
+    if (p_lo + j <= p_hi) fetch(p_lo + j);
+    cp_async_commit();
+  }
+  for (int p = p_lo; p <= t1 - 1 + hi_t; ++p) {
+    if (p <= p_hi) {
+      cp_async_wait<kRingAhead - 1>();  // this thread's copies of plane p
+      __syncthreads();
+      if (p + kRingAhead <= p_hi) fetch(p + kRingAhead);
+      cp_async_commit();  // an empty group past the end keeps the count
+    }
+    const int t = p - hi_t;
+    if (t >= t0) compute(t);
+  }
 }
 
 // A ring body's second pass, run by a block of (32, kSumLanes) threads:

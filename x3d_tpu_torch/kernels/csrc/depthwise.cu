@@ -40,9 +40,13 @@
 //     shared-memory ring of KT + kRingAhead slots once per block, halo
 //     included, by cp.async (a cell a copy; plain loads where x's address
 //     does not allow it), with row and vector-plane pitches the plan pads
-//     against bank conflicts.  A thread owns a vector and one output row of
-//     the tile and walks it in runs of four pixels, then pairs, taps in
-//     registers (in shared memory where KT * 9 * VE > 64).  At S = 2 a tile
+//     against bank conflicts (the fill and the walk live in common.cuh,
+//     ConvRingFill and conv_ring_walk, and serve K4 dk's ring body too; the
+//     fill is built once a thread, so what does not change from plane to
+//     plane is computed once: per plane it cost K1 16%, PERF.md §6).
+//     A thread owns a vector and one output row of the tile and walks it in
+//     runs of four pixels, then pairs, taps in registers (in shared memory
+//     where KT * 9 * VE > 64).  At S = 2 a tile
 //     of TH x TW outputs stages (2 TH + 1) x (2 TW + 1) input pixels, input
 //     columns in order, so a run of four outputs reads nine consecutive
 //     cells a tap row (staging even and odd columns apart measured slower,
@@ -342,14 +346,6 @@ int with_temporal(int dtype, int ve, int kt, Fn&& fn) {
 
 // ----------------------------------------------------------- ring body
 
-// A ring-body call: the ring's geometry (its T, H, W the output's) and the
-// input's frames, rows, columns and low pads.
-struct ConvRing {
-  RingGeom q;
-  int T, H, W;
-  int tlo, hlo, wlo;
-};
-
 // Dynamic shared memory of a ring-body block: KT + kRingAhead slots of x,
 // then the taps where they live there.
 size_t conv_ring_smem(RingGeom& q, int elem, int kt, int ve) {
@@ -391,8 +387,6 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
   const int vplane = cv * q.VP;  // the thread's vector plane in a slot
   const size_t in_frame = (size_t)g.H * g.W * q.C;
   const size_t out_frame = (size_t)q.H * q.W * q.C;
-  const int srows = ring_rows(q.TH, S);
-  const int npix = srows * q.WP;
 
   // the taps, w[dt][3 dh + dw] (unless they live in shared memory)
   float w[KT][9][VE];
@@ -411,43 +405,12 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
           w[dt][j][e] = live ? taps[(size_t)(dt * 9 + j) * q.C + c + e] : 0.f;
   }
 
-  // Thread (cv, r) moves its vector's cells of the staged rows: whole rows
-  // r, r + rows, ... up to the last multiple of rows (a cell's column only
-  // steps), then its share (i = r, r + rows, ...) of the cells of the rows
-  // left.  Cell (pr, pc) holds input column wi0 + pc of row hi0 + pr and
-  // sits pr * WP + pc into the vector plane.
-  const int whole = srows / q.rows * q.rows;
-  auto for_cells = [&](auto&& fn) {
-    if (!active) return;
-    for (int pr = r; pr < whole; pr += q.rows) {
-      const int hi = hi0 + pr, at = vplane + pr * q.WP;
-      const bool row_in = live && hi >= 0 && hi < g.H;
-      for (int pc = 0, wi = wi0; pc < q.WP; ++pc, ++wi)
-        fn(at + pc, hi, wi, row_in && wi >= 0 && wi < g.W);
-    }
-    for (int i = r; i < npix - whole * q.WP; i += q.rows) {
-      const int pr = whole + i / q.WP, pc = i % q.WP;
-      const int hi = hi0 + pr, wi = wi0 + pc;
-      fn(vplane + pr * q.WP + pc, hi, wi,
-         live && hi >= 0 && hi < g.H && wi >= 0 && wi < g.W);
-    }
-  };
-  // Input plane p into slot p % SL; zeros outside the image.
+  // Input plane p into slot p % SL (common.cuh's ConvRingFill).
+  const ConvRingFill<T, VE, S> fill(g, hi0, wi0, vplane, r, live);
   auto fetch = [&](int p) {
-    Cell* to = ring + (p % SL) * q.slot;
-    const size_t base = (size_t)(b * g.T + p) * in_frame + c;
-    for_cells([&](int at, int hi, int wi, bool ok) {
-      const T* from = x + (ok ? base + ((size_t)hi * g.W + wi) * q.C : 0);
-      if constexpr (sizeof(Cell) >= 4) {
-        if (q.granule == (int)sizeof(Cell)) {
-          cp_async<sizeof(Cell)>(to + at, from, ok);
-          return;
-        }
-      }
-      T* e = reinterpret_cast<T*>(to + at);  // plain loads, an element a time
-#pragma unroll
-      for (int i = 0; i < VE; ++i) e[i] = ok ? from[i] : from_f32<T>(0.f);
-    });
+    if (active)
+      fill(ring + (p % SL) * q.slot, x,
+           (size_t)(b * g.T + p) * in_frame + c);
   };
 
   // Output frame t along rows r, r + rows, ...: runs of N = 4 pixels, then
@@ -511,28 +474,9 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
     }
   };
 
-  // Output frame t reads input planes t - tlo .. t - tlo + KT - 1, so it is
-  // computed once plane p = t + hi_t has landed.  Plane p + kRingAhead is
-  // fetched (its own cp.async group) while frame p - hi_t is computed; its
-  // slot held plane p - KT, last read by frame p - hi_t - 1.  One barrier a
-  // plane: after it every cell of plane p has landed and frame p - hi_t - 1
-  // is done.  (tlo <= KT - 1, so every frame's plane p is at or past p_lo.)
-  const int hi_t = KT - 1 - g.tlo;
-  const int p_lo = max(0, t0 - g.tlo), p_hi = min(g.T - 1, t1 - 1 + hi_t);
-  for (int j = 0; j < kRingAhead; ++j) {
-    if (p_lo + j <= p_hi) fetch(p_lo + j);
-    cp_async_commit();
-  }
-  for (int p = p_lo; p <= t1 - 1 + hi_t; ++p) {
-    if (p <= p_hi) {
-      cp_async_wait<kRingAhead - 1>();  // this thread's copies of plane p
-      __syncthreads();
-      if (p + kRingAhead <= p_hi) fetch(p + kRingAhead);
-      cp_async_commit();  // an empty group past the end keeps the count
-    }
-    const int t = p - hi_t;
-    if (t >= t0 && live) compute(t);
-  }
+  conv_ring_walk<KT>(g.T, g.tlo, t0, t1, fetch, [&](int t) {
+    if (live) compute(t);
+  });
 }
 
 template <typename T, int VE, int KT, int S>
@@ -548,17 +492,6 @@ int launch_conv_ring(const void* x, const float* taps, void* y, ConvRing g,
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), taps,
                                           static_cast<T*>(y), g);
   return cudaGetLastError();
-}
-
-// fn(Ring<T, VE, KT>{}, std::integral_constant<int, S>{}) for the
-// instantiation a call takes.
-template <typename Fn>
-int with_conv_ring(int dtype, int ve, int kt, int stride, Fn&& fn) {
-  return with_ring(dtype, ve, kt, [&](auto ring) {
-    if (stride == 1) return fn(ring, std::integral_constant<int, 1>{});
-    if (stride == 2) return fn(ring, std::integral_constant<int, 2>{});
-    return (int)cudaErrorInvalidValue;
-  });
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // K4: the depthwise 3-D convolution's backward on NDHWC activations, for any
 // taps, strides and explicit (lo, hi) pads -- the gradient of K1
-// (depthwise.cu).  Three entry points, two of them for dx:
+// (depthwise.cu).  Four bodies, two for dx and two for dk:
 //
 //   dx[b, ti, hi, wi, c] = sum over the taps (dt, dh, dw) and the outputs
 //                          (to, ho, wo) with to*st + dt - tlo = ti (and so on
@@ -12,8 +12,9 @@
 // (x3d_tpu/ops/dw_batchminor.py:120, run by _dw_bm_bwd at :231) and
 // pallas_dw._dk_kernel (x3d_tpu/ops/pallas_dw.py:123, run by _dw_rows_bwd at
 // :221), whose dx reran the forward kernel with flipped taps.  Those covered
-// stride 1 SAME only; the stem's 5x1x1 conv and the stride-2 stage entries
-// were left to XLA.
+// stride 1 SAME only, streaming each x window once into a VMEM ring and
+// carrying the dk sums across the grid; the stem's 5x1x1 conv and the
+// stride-2 stage entries were left to XLA.
 //
 // What bounds it on an H100: bytes, as for K1 -- 27 FMAs per element against
 // 4 bytes (dx: g read, dx written) or 4 bytes (dk: x and g read) per element
@@ -38,15 +39,36 @@
 //     (threads along the contiguous C); it stages the g planes, rows and
 //     columns that reach the tile in shared memory (out-of-range ones as
 //     zero) and each thread sums its taps in f32;
-//   * dk: a block owns one output tile of one clip and 32 channels and walks
-//     over all output frames, staging the x halo and the g tile of each in
-//     shared memory; each warp owns every 8th tap and keeps its sums in
-//     shared memory, so a block writes one f32 partial per (tap, channel);
-//     a second kernel sums the partials of each (tap, channel) in a fixed
-//     order, in double: deterministic, no atomics.
-// Not yet done (later work): the gather body and dk stage with scalar loads
-// and without a rolling temporal window; one pass for dx and dk together
-// (ROADMAP B5's kernel).
+//   * dk, ring body (x3d_dw_conv3d_dk_ring): under K1's ring-body conditions
+//     (spatial taps 3x3, temporal stride 1, spatial stride S = 1 or 2, kt <=
+//     kRingMaxKt, low pads tlo <= kt - 1 and 0 or 1 in H and W: the four
+//     stride-2 stage entries).  K1's ring staging and walk (common.cuh's
+//     ConvRingFill, conv_ring_walk): a block owns one clip, an output tile, a
+//     group of channel vectors (VE = 2 channels, 1 at odd C) and a run of
+//     frames, and each x plane of its tile and halo enters a ring of
+//     kt + kRingAhead slots once, by cp.async.  Thread (cv, r) owns vector
+//     cv and output row r of the tile; for each frame it loads its row's g
+//     cells straight from device memory into registers (each is read by this
+//     thread alone, once) and, in runs of four pixels then pairs, adds x cell
+//     times g into kt * 9 * VE sums held in registers (54 at bf16, VE 2, kt
+//     3, as K3's dk role holds them), reading the staged cells as K1's ring
+//     body reads them for the same output.  At the block's end the thread
+//     rows' sums go through shared memory (the ring's bytes) and are added
+//     over the rows in a fixed order into one f32 partial per (tap, channel)
+//     of the block; partials are (clip, tile, run) rows of a (parts, taps,
+//     C) buffer, and the second pass (common.cuh's sum_columns) sums each
+//     column in kSumLanes fixed chunks in double: deterministic, no atomics;
+//   * dk, generic body (x3d_dw_conv3d_dk): every other geometry (the XS
+//     stem's 5x1x1 conv at 4 frames, which K8 does not take).  A block owns
+//     one output tile of one clip and 32 channels and walks over all output
+//     frames, staging the x halo and the g tile of each in shared memory;
+//     each warp owns every 8th tap and keeps its sums in shared memory; a
+//     second kernel sums the per-block partials in a fixed order, in double.
+// Not yet done (later work): in the dk ring body, as in K1's, the fill does
+// not overlap the multiply-adds (one barrier a plane, 4-byte copies); the
+// gather body and the generic dk body stage with scalar loads and without
+// a rolling temporal window; one pass for dx and dk together (ROADMAP B5's
+// kernel).
 
 #include <algorithm>
 #include <cstdint>
@@ -534,6 +556,185 @@ PhaseGeom phase_geometry(int B, int T, int H, int W, int C, int tlo, int hlo,
   return q;
 }
 
+// ----------------------------------------------------------- dk, ring body
+
+// Dynamic shared memory of a dk ring-body block: KT + kRingAhead slots of x,
+// whose bytes the thread rows' dk sums reuse after the frames.
+size_t dk_ring_smem(const RingGeom& q, int elem, int kt, int ve) {
+  const size_t ring = (size_t)(kt + kRingAhead) * q.slot * ve * elem;
+  const size_t red = (size_t)q.rows * 9 * kt * q.CG * sizeof(float);
+  return (std::max(ring, red) + 15) / 16 * 16;
+}
+
+// Registers: at most 128 a thread, so that four blocks of 128 threads (the
+// plan's most) share an SM.  g_cells: g's address allows a cell's VE
+// channels to move as one load.
+template <typename T, int VE, int KT, int S>
+__global__ void __launch_bounds__(kRingMaxThreads, 4)
+    dw_conv3d_dk_ring_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                             float* __restrict__ part, ConvRing cr,
+                             bool g_cells) {
+  using Cell = typename CellOf<T, VE>::type;
+  const RingGeom& q = cr.q;
+  constexpr int NT = KT * 9;
+  constexpr int SL = KT + kRingAhead;  // ring slots
+  extern __shared__ __align__(16) unsigned char dk_ring_smem_[];
+  Cell* ring = reinterpret_cast<Cell*>(dk_ring_smem_);  // [SL][slot]
+  float* red = reinterpret_cast<float*>(dk_ring_smem_);  // [rows][NT][CG]
+
+  int bx = blockIdx.x;
+  const int tw = bx % q.ntw;
+  bx /= q.ntw;
+  const int th = bx % q.nth;
+  const int c0 = bx / q.nth * q.CG;
+  const int run = blockIdx.y;
+  const int t0 = run * q.TC, t1 = min(t0 + q.TC, q.T);
+  const int b = blockIdx.z;
+  const int h0 = th * q.TH, w0 = tw * q.TW;  // the output tile's origin
+  const int hi0 = h0 * S - cr.hlo, wi0 = w0 * S - cr.wlo;  // staged origin
+  // thread (cv, r): vector cv of the group at tile rows r, r + rows, ...
+  const int nv = q.CG / VE;
+  const bool active = threadIdx.x < nv * q.rows;
+  const int cv = threadIdx.x % nv, r = threadIdx.x / nv;
+  const int c = c0 + cv * VE;
+  const bool live = active && c < q.C;  // at VE 2, C is even: c + 1 < C
+  const int vplane = cv * q.VP;  // the thread's vector plane in a slot
+  const size_t in_frame = (size_t)cr.H * cr.W * q.C;
+  const size_t out_frame = (size_t)q.H * q.W * q.C;
+
+  // the thread's dk sums, dk[dt][3 dh + dw]
+  float dk[KT][9][VE] = {};
+
+  // Input plane p into slot p % SL (common.cuh's ConvRingFill, K1's).
+  const ConvRingFill<T, VE, S> fill(cr, hi0, wi0, vplane, r, live);
+  auto fetch = [&](int p) {
+    if (active)
+      fill(ring + (p % SL) * q.slot, x,
+           (size_t)(b * cr.T + p) * in_frame + c);
+  };
+
+  // Output frame t along rows r, r + rows, ...: runs of N = 4 pixels, then
+  // pairs for the rest of the row, as K1's ring body walks them.  A run
+  // loads its pixels' g cells from device memory (each is read by this
+  // thread alone, once) and reads S (N - 1) + 3 consecutive staged cells of
+  // each staged row it needs; cell j times pixel k's g adds into tap
+  // dw = j - S k.
+  auto compute = [&](int t) {
+    const T* gf = g + (size_t)(b * q.T + t) * out_frame + c;
+    int plane[KT];  // the slot of input plane t - tlo + dt, or -1 outside
+#pragma unroll
+    for (int dt = 0; dt < KT; ++dt) {
+      const int tp = t - cr.tlo + dt;
+      plane[dt] = tp >= 0 && tp < cr.T ? (tp % SL) * q.slot + vplane : -1;
+    }
+    const int cols = min(q.TW, q.W - w0);  // the tile's columns in the image
+    // pixels ow .. ow + N - 1 of row oh, the first `valid` of them in g
+    auto run_of = [&](auto n_tag, int oh, int ow, int valid) {
+      constexpr int N = decltype(n_tag)::value;
+      const T* px = gf + ((size_t)(h0 + oh) * q.W + w0 + ow) * q.C;
+      float gv[N][VE];
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        if (k < valid && g_cells) {
+          load_f32(px + (size_t)k * q.C, gv[k]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VE; ++e)
+            gv[k][e] = k < valid ? to_f32(px[(size_t)k * q.C + e]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int dt = 0; dt < KT; ++dt) {
+        if (plane[dt] < 0) continue;  // x is zero there
+#pragma unroll
+        for (int dh = 0; dh < 3; ++dh) {
+          const Cell* row = ring + plane[dt] + (S * oh + dh) * q.WP + S * ow;
+#pragma unroll
+          for (int j = 0; j < S * (N - 1) + 3; ++j) {
+            float v[VE];
+            cell_f32<T>(row + j, v);
+#pragma unroll
+            for (int k = 0; k < N; ++k)
+              if (j - S * k >= 0 && j - S * k < 3)
+#pragma unroll
+                for (int e = 0; e < VE; ++e) {
+                  float& s = dk[dt][3 * dh + j - S * k][e];
+                  s = fmaf(v[e], gv[k][e], s);
+                }
+          }
+        }
+      }
+    };
+    for (int oh = r; oh < q.TH && h0 + oh < q.H; oh += q.rows) {
+      int ow = 0;
+      for (; ow + 4 <= cols; ow += 4)
+        run_of(std::integral_constant<int, 4>{}, oh, ow, 4);
+      for (; ow < cols; ow += 2)
+        run_of(std::integral_constant<int, 2>{}, oh, ow, min(2, cols - ow));
+    }
+  };
+
+  conv_ring_walk<KT>(cr.T, cr.tlo, t0, t1, fetch, [&](int t) {
+    if (live) compute(t);
+  });
+
+  // Each thread row's sums through shared memory (the ring's bytes, free
+  // once every thread is past its last frame), added over the rows in
+  // order into the block's partial: one per (tap, channel) of its group,
+  // row (clip, tile, run) of the (parts, taps, C) buffer.
+  __syncthreads();
+  if (active) {
+    float* mine = red + (size_t)r * NT * q.CG + cv * VE;
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+        mine[(size_t)i * q.CG + e] = dk[i / 9][i % 9][e];
+  }
+  __syncthreads();
+  const size_t slot = (((size_t)b * q.nth + th) * q.ntw + tw) * q.nruns + run;
+  for (int i = threadIdx.x; i < NT * q.CG; i += blockDim.x) {
+    const int cc = c0 + i % q.CG;
+    if (cc >= q.C) continue;
+    float s = 0.f;
+    for (int rr = 0; rr < q.rows; ++rr) s += red[(size_t)rr * NT * q.CG + i];
+    part[(slot * NT + i / q.CG) * q.C + cc] = s;
+  }
+}
+
+// The second pass (common.cuh's sum_columns): dk (taps, C) from the
+// (parts, taps, C) partials.
+__global__ void __launch_bounds__(32 * kSumLanes)
+    dw_conv3d_dk_sum_kernel(const float* __restrict__ part,
+                            float* __restrict__ dk, int ncols, int nparts) {
+  sum_columns(part, dk, ncols, nparts);
+}
+
+// Rows of the partials buffer a dk ring-body call writes: one per (clip,
+// tile, run).
+int dk_ring_parts(const RingGeom& q) { return q.B * q.nth * q.ntw * q.nruns; }
+
+template <typename T, int VE, int KT, int S>
+int launch_dk_ring(const void* x, const void* g, float* part, float* dk,
+                   const ConvRing& cr, bool g_cells, cudaStream_t stream) {
+  auto kernel = dw_conv3d_dk_ring_kernel<T, VE, KT, S>;
+  const RingGeom& q = cr.q;
+  const size_t smem = dk_ring_smem(q, sizeof(T), KT, VE);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int threads = ceil_div(q.CG / VE * q.rows, 32) * 32;
+  const dim3 grid(ceil_div(q.C, q.CG) * q.nth * q.ntw, q.nruns, q.B);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(x),
+                                          static_cast<const T*>(g), part, cr,
+                                          g_cells);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int ncols = KT * 9 * q.C;
+  dw_conv3d_dk_sum_kernel<<<ceil_div(ncols, 32), dim3(32, kSumLanes), 0,
+                            stream>>>(part, dk, ncols, dk_ring_parts(q));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dk's partial sums: the wrapper allocates a (parts, taps, C) float32 buffer.
@@ -609,4 +810,42 @@ extern "C" int x3d_dw_conv3d_dx_phase(const void* g, const void* taps,
                    : launch_phase_kt<float, 1>(kt, g, w, dx, q, s);
   return ve == 2 ? launch_phase_kt<__nv_bfloat16, 2>(kt, g, w, dx, q, s)
                  : launch_phase_kt<__nv_bfloat16, 1>(kt, g, w, dx, q, s);
+}
+
+// dk by the ring body: x, g, part, dk and the geometry as for
+// x3d_dw_conv3d_dk, for spatial taps 3x3 at strides (1, s, s) with s 1 or 2,
+// kt in 1 .. 5, low pads tlo <= kt - 1 and hlo, wlo 0 or 1; then the launch
+// plan of ops/depthwise.dk_ring_plan (rows of the partials buffer, tile
+// sides, channels a group, channels a vector, thread rows, frames a run,
+// copy granule in bytes, cells a staged row, cells padding each vector
+// plane).  part: (parts, kt * 9, C) float32 scratch.  cudaErrorInvalidValue
+// for a geometry or plan the kernel cannot run, a partials count that is not
+// the plan's, or an x the granule does not divide.
+extern "C" int x3d_dw_conv3d_dk_ring(
+    const void* x, const void* g, void* part, void* dk, int dtype, int B,
+    int T, int H, int W, int C, int kt, int stride, int tlo, int hlo, int wlo,
+    int To, int Ho, int Wo, int parts, int tile_h, int tile_w, int group,
+    int vec, int rows, int run, int granule, int row_cells, int vec_pad,
+    void* stream) {
+  if (C <= 0) return cudaSuccess;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  const int elem = dtype == kF32 ? 4 : 2;
+  ConvRing cr{{B, To, Ho, Wo, C}, T, H, W, tlo, hlo, wlo};
+  if (B <= 0 || To <= 0 || Ho <= 0 || Wo <= 0 || T <= 0 || H <= 0 ||
+      W <= 0 || tlo < 0 || tlo > kt - 1 || hlo < 0 || hlo > 1 || wlo < 0 ||
+      wlo > 1 ||
+      !ring_geometry(cr.q, elem, kt, vec, tile_h, tile_w, group, rows, run,
+                     granule, row_cells, vec_pad, stride) ||
+      parts != dk_ring_parts(cr.q) ||
+      reinterpret_cast<uintptr_t>(x) % granule)
+    return cudaErrorInvalidValue;
+  const bool g_cells = reinterpret_cast<uintptr_t>(g) % (vec * elem) == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto f = [](void* ptr) { return static_cast<float*>(ptr); };
+  return with_conv_ring(dtype, vec, kt, stride, [&](auto ring, auto st) {
+    using R = decltype(ring);
+    return launch_dk_ring<typename R::Elem, R::ve, R::kt,
+                          decltype(st)::value>(x, g, f(part), f(dk), cr,
+                                               g_cells, s);
+  });
 }

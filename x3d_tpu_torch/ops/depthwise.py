@@ -20,7 +20,10 @@ conv, and the stride-2 stage-entry convs.
   ``pallas_dw._dk_kernel`` (and their dx, which reran the forward); each has
   its plain version beside it.  dx has two bodies, picked by
   :func:`dx_body`: the parity-phase body at the stride-2 stage entries and
-  the gather body for every other geometry.
+  the gather body for every other geometry; dk two, picked by
+  :func:`dk_body`: the ring body for 3x3 spatial taps at spatial stride 1
+  or 2 (the stride-2 stage entries; K1's ring staging, launched by
+  :func:`dk_ring_plan`) and the generic body for every other geometry.
 * :func:`depthwise_conv3d_pbwd` is the wrapper of kernel K8
   (``kernels/csrc/depthwise_pbwd.cu``), the one-pass backward of a stride-1
   SAME odd-tap conv (both gradients from one stream over the input and the
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -70,6 +74,8 @@ _BWD_SIGNATURES = {
     "x3d_dw_conv3d_dx_phase": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
     + [ctypes.c_void_p],
     "x3d_dw_conv3d_dk": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
+    + [ctypes.c_void_p],
+    "x3d_dw_conv3d_dk_ring": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 24
     + [ctypes.c_void_p],
 }
 _PBWD_SIGNATURES = {
@@ -395,37 +401,120 @@ def depthwise_conv3d_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape,
     return dx
 
 
+def dk_body(kdims, strides, pads) -> str:
+    """Which of K4's two dk bodies computes a call: "ring" under exactly
+    K1's ring-body conditions (:func:`fwd_body`: spatial taps 3x3, temporal
+    stride 1, spatial strides (s, s) with s 1 or 2, 1 <= kt <= RING_MAX_KT,
+    a low temporal pad of at most kt - 1, low pads of 0 or 1 in H and W --
+    the stride-2 stage entries, at even and odd planes); "generic" for
+    every other geometry."""
+    return "ring" if fwd_body(kdims, strides, pads) == "ring" else "generic"
+
+
+def _dk_ring_smem(kt, stride, vec, elem, tile_h, row_cells, vec_pad, group,
+                  rows) -> int:
+    """Dynamic shared memory of a K4 dk ring-body block, as ``dk_ring_smem``
+    in depthwise_bwd.cu lays it out: kt + RING_AHEAD slots of x (K1's
+    ring), whose bytes the thread rows' kt * 9 dk sums a channel reuse after
+    the frames."""
+    slot = ring.ring_slot(group // vec, vec, elem, tile_h, row_cells,
+                          vec_pad, stride)
+    red = rows * 9 * kt * group * 4
+    return -(-max((kt + ring.RING_AHEAD) * slot, red) // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def dk_ring_plan(B: int, To: int, Ho: int, Wo: int, C: int, kt: int,
+                 stride: int = 1, elem: int = 2, align: int = 16) -> dict:
+    """How K4 dk's ring body runs a call whose cotangent is (B, To, Ho, Wo,
+    C) at spatial ``stride`` (x's address the one ``align`` counts), by
+    ``ops/ring.plan``'s rules, as K1's ring body runs the forward
+    (:func:`ring_plan`): one tile row a thread, a block of at most
+    RING_MAX_THREADS threads and CONV_RING_SMEM bytes of shared memory (the
+    ring's kt + RING_AHEAD slots of x, or the rows' sums after the frames if
+    they take more).  At stride 2 a tile has at most RING_MAX_SIDE_2 pixels
+    a side.
+
+    The run rule: one run, a block walks all To frames.  Cutting them into
+    runs to fill the card, as K1's plan does, measured slower at every X3D
+    stage entry (each run rereads kt - 1 planes and adds a partial; PERF.md
+    §6).  Each block writes one float32 partial per (tap, channel) of
+    its group: ``partials`` = clips x tiles x runs x groups blocks, into
+    ``parts`` = clips x tiles x runs rows of a (parts, taps, C) buffer,
+    which the second pass sums in a fixed order."""
+    p = ring.plan(B, To, Ho, Wo, C, elem, align, 0,
+                  ring.RING_MAX_THREADS, CONV_RING_SMEM,
+                  lambda vec, *rest: _dk_ring_smem(kt, stride, vec, elem,
+                                                   *rest),
+                  row_a_thread=True, stride=stride)
+    p["threads"] = 32 * p.pop("warps")
+    p["partials"] = p["parts"] * p["groups"]
+    return p
+
+
+def _dk_ring_plan(x, kt: int, stride: int, out) -> dict:
+    """:func:`dk_ring_plan` for a call on x."""
+    return dk_ring_plan(x.shape[0], *out, x.shape[-1], kt, stride,
+                        x.element_size(), ring.align(x))
+
+
+def _launch_dk(lib, body, x, g, kdims, strides, pads, stream):
+    """K4 dk's ``body`` on x and g (contiguous, one dtype, on a CUDA device,
+    g of the conv's output shape); returns dk as (taps, C) float32 or
+    raises."""
+    dims = _bwd_geometry(x.shape, g, kdims, strides, pads)
+    B, C = x.shape[0], x.shape[-1]
+    ntaps = math.prod(kdims)
+    dk = torch.empty((ntaps, C), dtype=torch.float32, device=x.device)
+    if body == "ring":
+        p = _dk_ring_plan(x, kdims[0], strides[1], dims[-3:])
+        parts = p["parts"]
+    else:
+        parts = lib.x3d_dw_conv3d_dk_parts(B, *dims[-2:], *strides[1:])
+    part = torch.empty((parts, ntaps, C), dtype=torch.float32,
+                       device=x.device)
+    ptrs = (x.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(),
+            kernels.dtype_code(x))
+    if body == "ring":
+        rc = lib.x3d_dw_conv3d_dk_ring(
+            *ptrs, *dims[:6], strides[1], *(lo for lo, _ in pads),
+            *dims[-3:], parts, p["tile_h"], p["tile_w"], p["group"],
+            p["vec"], p["rows"], p["run"], p["granule"], p["row_cells"],
+            p["vec_pad"], stream)
+    else:
+        rc = lib.x3d_dw_conv3d_dk(*ptrs, *dims, stream)
+    kernels.raise_on_error(rc, f"depthwise_conv3d_dk ({body} body) kernel "
+                           "launch")
+    return dk
+
+
 def depthwise_conv3d_dk(x: torch.Tensor, g: torch.Tensor, kdims,
                         strides: Sequence[int], pads: Pads) -> torch.Tensor:
     """dk of :func:`depthwise_conv3d` (kernel K4): (kt, kh, kw, 1, C)
     float32, from per-block partials summed in a fixed order.  x and g share
     a dtype.  A CPU tensor takes the plain version; a CUDA tensor launches
-    K4 or raises."""
+    K4's body that :func:`dk_body` names, or raises."""
     strides, pads = tuple(int(s) for s in strides), _check_pads(pads)
     kdims = tuple(int(k) for k in kdims)
-    dims = _bwd_geometry(x.shape, g, kdims, strides, pads)
+    _bwd_geometry(x.shape, g, kdims, strides, pads)
     if g.dtype != x.dtype:
         raise TypeError(f"x is {x.dtype} but its gradient {g.dtype}")
     if x.device.type == "cpu":
         return depthwise_conv3d_dk_reference(x, g, kdims, strides, pads)
     kernels.check_cuda(x, g)
     lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
-    B, C = x.shape[0], x.shape[-1]
-    ntaps = kdims[0] * kdims[1] * kdims[2]
-    parts = lib.x3d_dw_conv3d_dk_parts(B, g.shape[2], g.shape[3], *strides[1:])
-    part = torch.empty((parts, ntaps, C), dtype=torch.float32, device=x.device)
-    dk = torch.empty((ntaps, C), dtype=torch.float32, device=x.device)
-    rc = lib.x3d_dw_conv3d_dk(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                              dk.data_ptr(), kernels.dtype_code(x), *dims,
-                              kernels.stream_handle(x))
-    kernels.raise_on_error(rc, "depthwise_conv3d_dk kernel launch")
+    body = dk_body(kdims, strides, pads)
+    dk = _launch_dk(lib, body, x, g, kdims, strides, pads,
+                    kernels.stream_handle(x))
     depthwise_conv3d_dk.launches += 1
-    return dk.reshape(*kdims, 1, C)
+    depthwise_conv3d_dk.body_launches[body] += 1
+    return dk.reshape(*kdims, 1, x.shape[-1])
 
 
 depthwise_conv3d_dx.launches = 0
 depthwise_conv3d_dx.body_launches = {"phase": 0, "gather": 0}
 depthwise_conv3d_dk.launches = 0
+depthwise_conv3d_dk.body_launches = {"ring": 0, "generic": 0}
 
 
 # ------------------------------------------------ K8: one-pass backward

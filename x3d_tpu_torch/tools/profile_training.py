@@ -43,7 +43,9 @@ _PORT = (
     ("K4 depthwise_conv3d_dx", ("dw_conv3d_dx_kernel",
                                 "dw_conv3d_dx_phase_kernel")),
     ("K4 depthwise_conv3d_dk", ("dw_conv3d_dk_kernel",
-                                "sum_dk_partials_kernel")),
+                                "sum_dk_partials_kernel",
+                                "dw_conv3d_dk_ring_kernel",
+                                "dw_conv3d_dk_sum_kernel")),
     ("K5 pw_conv_stats", ("pw_conv_stats_mma_kernel",)),
     ("K6 pw_act_conv_stats", ("pw_act_conv_stats_mma_kernel",)),
     ("K5/K6 pw_stats", ("pw_stats_kernel",)),          # float32, odd K
