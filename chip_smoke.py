@@ -9,10 +9,10 @@ CUDA toolkit::
 
 It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
 nvcc per source, in parallel; ptxas's registers, spills and static shared
-memory of each instantiation of K5-K7's tensor-core body, K4 dx's phase
-body, K4 dk's ring body, K1's temporal and ring bodies and K3's and K2's
-ring bodies on a line of its own, which fails on a spill where the body
-must not spill) and then:
+memory of each instantiation of K5-K7's pipelined tensor-core body, K7's
+Hopper (wg) body, K4 dx's phase body, K4 dk's ring body, K1's temporal and
+ring bodies and K3's and K2's ring bodies on a line of its own, which
+fails on a spill where the body must not spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
@@ -61,12 +61,17 @@ must not spill) and then:
   through the plain versions (loss, every gradient, the updated parameters
   and the BN running statistics);
 * holds K7 (the plain 1x1x1 conv as a GEMM: float32 on the CUDA cores,
-  bfloat16 on the pipelined tensor-core body it shares with K5 and K6)
-  against its plain version and times it
-  beside ``F.linear`` at every bulk 1x1x1 conv of X3D-M and X3D-S
-  (serving requests of 10 and 80 clips, training at 32 and 64 clips),
-  forward and dx, and takes K7's and ``F.linear``'s device time over the 57
-  launches of an X3D-M 10-clip forward with ``torch.profiler``;
+  bfloat16 on its Hopper wg body or the pipelined tensor-core body it
+  shares with K5 and K6, as ``pointwise.pw_body`` names) against its plain
+  version and times it beside ``F.linear`` and the pipe body at every bulk
+  1x1x1 conv of X3D-M and X3D-S (serving requests of 10 and 80 clips,
+  training at 32 and 64 clips), forward and dx; takes each case's device
+  time for K7, each body and ``F.linear`` (``tools/profile_pointwise``),
+  failing where the wg body is behind the pipe body by more than 3%, the
+  host's time to launch each body, and K7's and ``F.linear``'s device time
+  over the 57 launches of an X3D-M 10-clip forward with
+  ``torch.profiler``; the serving path, the X3D-M step and the X3D-S tool
+  run check that every K7 launch ran the body its plan names;
 * holds K8 (the depthwise conv's one-pass backward) against its plain
   version and against K4's dx and dk at the stems of X3D-M and X3D-S and
   at a 3x3x3 stage-2 shape, with the times of all three and of cuDNN;
@@ -187,6 +192,7 @@ def main() -> int:
         from x3d_tpu_torch.tools import eval as eval_cli
         from x3d_tpu_torch.tools import fma_probe
         from x3d_tpu_torch.tools import predict as predict_cli
+        from x3d_tpu_torch.tools import profile_pointwise
         from x3d_tpu_torch.tools import train as train_cli
         from x3d_tpu_torch.tools.trace import family, trace
         from x3d_tpu_torch.train import (create_train_state, make_eval_step,
@@ -261,6 +267,35 @@ def main() -> int:
     check(len(entries) == 27 and all(
         e["spill_bytes"] == 0 and "registers" in e for e in entries),
         f"K5-K7 tensor-core kernels' ptxas report: {entries}")
+    # K7's wg body, <column tile, consumer warpgroups>: 18 instantiations;
+    # those that the X3D-M serving and training calls run must not spill
+    entries = ptxas_entries(("pointwise.cu",),
+                            r"pw_conv_wg_kernelILi(\d+)ELi(\d)E",
+                            lambda m: f"pw_conv_wg_kernel<{m[1]}, {m[2]}>")
+    emit(phase="build, K7 wg body", kernels=entries)
+    x3d_m = variant_config("M")
+    x3d_m_arch = build_arch(x3d_m)
+    used = set()
+    for train in (False, True):
+        crop = x3d_m.DATA.TRAIN_CROP_SIZE if train \
+            else x3d_m.DATA.TEST_CROP_SIZE
+        found = profile_pointwise.cases(x3d_m, x3d_m_arch, CLIPS, crop, train)
+        for _, shape, N, strides, _ in (profile_pointwise.with_dx(found)
+                                        if train else found):
+            M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
+                * -(-shape[3] // strides[2])
+            if pointwise.pw_body(shape[-1], N, M, strides, width=shape[3],
+                                 height=shape[2]) == "wg":
+                plane = None if strides == (1, 1, 1) else (
+                    shape[0] * shape[1], *shape[2:4], *strides[1:])
+                p = pointwise.wg_plan(M, shape[-1], N, plane=plane)
+                used.add(f"pw_conv_wg_kernel<{p['block_columns']}, "
+                         f"{p['consumers']}>")
+    main = [e for e in entries if e["kernel"] in used]
+    check(len(entries) == 18 and all("registers" in e for e in entries)
+          and len(main) == len(used)
+          and all(e["spill_bytes"] == 0 for e in main),
+          f"K7 wg body's ptxas report: {entries}, used {sorted(used)}")
     # K4 dx's phase body, <element, channels a thread, temporal taps>
     entries = ptxas_entries(
         ("depthwise_bwd.cu",),
@@ -631,13 +666,30 @@ def main() -> int:
     k1_bodies = depthwise.depthwise_conv3d.body_launches
     k2_bodies = dw_fused.dw_bn_act_conv.body_launches
     k3_bodies = dw_fused.dw_bn_act_conv_bwd.body_launches
+    k7_bodies = pointwise.pw_conv.body_launches
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
         for bodies in (k1_bodies, dx_bodies, dk_bodies, k2_bodies,
-                       k3_bodies):
+                       k3_bodies, k7_bodies):
             bodies.update(dict.fromkeys(bodies, 0))
+
+    def k7_want(vcfg, varch, train, times):
+        """K7's launches by body over ``times`` forwards (training steps:
+        forward and dx) of X3D-``vcfg``, each call by the body its plan
+        names (``pointwise.pw_body``)."""
+        crop = vcfg.DATA.TRAIN_CROP_SIZE if train \
+            else vcfg.DATA.TEST_CROP_SIZE
+        found = profile_pointwise.cases(vcfg, varch, CLIPS, crop, train)
+        want = dict.fromkeys(k7_bodies, 0)
+        for _, shape, N, strides, n in (profile_pointwise.with_dx(found)
+                                        if train else found):
+            M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
+                * -(-shape[3] // strides[2])
+            want[pointwise.pw_body(shape[-1], N, M, strides, width=shape[3],
+                                   height=shape[2])] += n * times
+        return want
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -659,6 +711,14 @@ def main() -> int:
     serve_launches = read_counts()           # ... and ends here
     serve_k1_bodies = dict(k1_bodies)
     serve_k2_bodies = dict(k2_bodies)
+    serve_k7_bodies = dict(k7_bodies)
+    # every bfloat16 K7 launch by the body its plan names: the wg body but
+    # at K = 54, 108 (rows of 108 and 216 bytes: no tensor map), stage 2's
+    # conv a and the strided projections with pixels under 128 bytes, where
+    # the pipe body measured faster
+    want_k7 = k7_want(cfg, arch, False, len(requests))
+    check(serve_k7_bodies == want_k7,
+          f"serving K7 bodies {serve_k7_bodies}, want {want_k7}")
     # every K2 of a forward is a fused segment with 3x3 taps: the ring body
     want_k2 = {"ring": len(requests) * n_k2, "generic": 0}
     check(serve_k2_bodies == want_k2,
@@ -1092,6 +1152,7 @@ def main() -> int:
     train_k1_bodies = dict(k1_bodies)
     train_k2_bodies = dict(k2_bodies)
     train_k3_bodies = dict(k3_bodies)
+    train_k7_bodies = dict(k7_bodies)
     train_peak = torch.cuda.max_memory_allocated()
     for s in steps:
         emit(phase="train step", clips=TRAIN_CLIPS, **s)
@@ -1108,7 +1169,10 @@ def main() -> int:
          launches_per_step=want_step, k1_bodies=train_k1_bodies,
          k4_dx_bodies=train_dx_bodies, k4_dk_bodies=train_dk_bodies,
          k2_bodies=train_k2_bodies,
-         k3_bodies=train_k3_bodies)
+         k3_bodies=train_k3_bodies, k7_bodies=train_k7_bodies)
+    want = k7_want(cfg, arch, True, TRAIN_STEPS)
+    check(train_k7_bodies == want,
+          f"K7 bodies {train_k7_bodies}, want {want}")
     # every K4 dx of the step is a stride-2 stage entry: the phase body
     want_bodies = {"phase": TRAIN_STEPS * want_step["K4 dx"], "gather": 0}
     check(train_dx_bodies == want_bodies,
@@ -1226,34 +1290,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------ 7. K7 vs its plain version and F.linear
-    def k7_cases(vcfg, varch, B, crop, train):
-        """(name, x shape, Cout, strides, launches per forward) of every
-        bulk 1x1x1 conv that runs K7: all of them in a forward-only pass;
-        in the training step those that K5/K6 do not take."""
-        T, S = vcfg.DATA.TEMP_DURATION, -(-crop // 2)
-        cases = []
-        for si, blocks in enumerate(varch.stages):
-            b0, stage = blocks[0], f"stage{si + 2}"
-            cases += [(f"{stage}_block0.a", (B, T, S, S, b0.in_channels),
-                       b0.inner_channels, (1, 1, 1), 1),
-                      (f"{stage}_block0 projection",
-                       (B, T, S, S, b0.in_channels), b0.out_channels,
-                       (1, 2, 2), 1)]
-            S = -(-S // 2)
-            cases.append((f"{stage}_block0.c", (B, T, S, S, b0.inner_channels),
-                          b0.out_channels, (1, 1, 1), 1))
-            if not train and len(blocks) > 1:
-                n = len(blocks) - 1
-                cases += [(f"{stage} stride-1 blocks' a",
-                           (B, T, S, S, b0.out_channels), b0.inner_channels,
-                           (1, 1, 1), n),
-                          (f"{stage} stride-1 blocks' c",
-                           (B, T, S, S, b0.inner_channels), b0.out_channels,
-                           (1, 1, 1), n)]
-        cases.append(("conv_5",
-                      (B, T, S, S, varch.stages[-1][-1].out_channels),
-                      varch.conv5_dim, (1, 1, 1), 1))
-        return cases
+    k7_cases = profile_pointwise.cases
+    k7_lib = _build.load("pointwise.cu", pointwise._SIGNATURES)
+    k7_stream = torch.cuda.current_stream().cuda_stream
 
     def k7_rows(variant, path, vcfg, varch, B, crop, train):
         rows = []
@@ -1283,6 +1322,12 @@ def main() -> int:
             check(e32[1] <= TOL_K7_F32, f"K7 {where} f32 rel err {e32[1]}")
             check(e16[1] <= TOL_K7_BF16, f"K7 {where} bf16 rel err {e16[1]}")
             xs = pointwise._subsample(x, strides).contiguous()
+            wt = w.t().contiguous()
+            # the generic body (pipe_gemm) on the same inputs
+            gen_fwd = time_ms(lambda: pointwise._launch(
+                k7_lib, "pipe", x, w, strides, k7_stream))
+            gen_dx = time_ms(lambda: pointwise._launch(
+                k7_lib, "pipe", g, wt, (1, 1, 1), k7_stream))
             M = y.numel() // N
             nbytes = (M * (K + N) + N * K) * 2
             bms, by = bound(nbytes, 2 * M * K * N, BF16_TC_FLOP_PER_S)
@@ -1304,14 +1349,15 @@ def main() -> int:
                        ms=fwd + bwd if train else fwd,
                        plain_ms=plain + lib_bwd if train else plain,
                        library_ms=lib_fwd + lib_bwd if train else lib_fwd,
+                       generic_ms=gen_fwd + gen_dx if train else gen_fwd,
                        bound_ms=both * bms, bound_by=by,
-                       plan=pointwise.plan(K, N))
+                       plan=pointwise.plan(shape, N, strides))
             if train:
-                row["plan_dx"] = pointwise.plan(N, K)
+                row["plan_dx"] = pointwise.plan(y.shape, K)
             row.update(shares(row))
             emit(phase="K7 pw_conv", variant=variant, path=path, **row)
             rows.append(row)
-            del x, w, y, g, dx, xs
+            del x, w, y, g, dx, xs, wt
             torch.cuda.empty_cache()
         return rows
 
@@ -1327,11 +1373,69 @@ def main() -> int:
             vcfg.DATA.TRAIN_CROP_SIZE, True)
     for (variant, path), rows in k7.items():
         total = {key: sum(r["n"] * r[key] for r in rows)
-                 for key in ("ms", "library_ms", "bound_ms")}
+                 for key in ("ms", "library_ms", "bound_ms", "generic_ms")}
         emit(phase="K7 pw_conv, whole path", variant=variant, path=path,
              launches=sum(r["n"] for r in rows) * (2 if path == "training"
                                                    else 1),
              **total, **shares(total))
+
+    # device time per case (tools/profile_pointwise): K7 as the model calls
+    # it, each tensor-core body that takes the call and F.linear on the same
+    # inputs; a case fails where the wg body is behind the pipe body by
+    # more than device time's spread between runs (3%)
+    for variant, vcfg, varch, train_clips in (
+            ("M", cfg, arch, TRAIN_CLIPS), ("S", cfg_s, arch_s, S_TRAIN_CLIPS)):
+        for path, clips, train in (
+                (f"serving, {CLIPS} clips", CLIPS, False),
+                (f"serving, {S_EVAL_CLIPS} clips", S_EVAL_CLIPS, False),
+                ("training", train_clips, True)):
+            crop = vcfg.DATA.TRAIN_CROP_SIZE if train \
+                else vcfg.DATA.TEST_CROP_SIZE
+            found = k7_cases(vcfg, varch, clips, crop, train)
+            rows = []
+            for name, shape, N, strides, n in (
+                    profile_pointwise.with_dx(found) if train else found):
+                row = {"case": name, "n": n,
+                       **profile_pointwise.case_row(shape, N, strides)}
+                emit(phase="K7 pw_conv, device time per case",
+                     variant=variant, path=path, clips=clips, **row)
+                rows.append(row)
+                if row["body"] == "wg":
+                    check(row["wg_us"] <= 1.03 * row["pipe_us"],
+                          f"K7 X3D-{variant} {path} {name}: wg body "
+                          f"{row['wg_us']} us behind the pipe body "
+                          f"{row['pipe_us']} us")
+            total = {key: sum(r["n"] * r.get(key, r["k7_us"]) for r in rows)
+                     for key in ("k7_us", "pipe_us", "library_us",
+                                 "bound_us")}
+            emit(phase="K7 pw_conv, device time per path", variant=variant,
+                 path=path, clips=clips, launches=sum(r["n"] for r in rows),
+                 **total, bound_share=total["bound_us"] / total["k7_us"],
+                 vs_library=total["k7_us"] / total["library_us"],
+                 vs_generic=total["k7_us"] / total["pipe_us"])
+
+    # the host's time to launch K7 (tensor maps encoded per call for the wg
+    # body) at X3D-M's stage-5 conv c, each body through _launch and K7 as
+    # the model calls it; enqueued back to back, one synchronise at the end
+    x5 = randn(CLIPS, 16, 7, 7, 432).bfloat16()
+    w5 = (randn(192, 432) / math.sqrt(432)).bfloat16()
+    host_us = {}
+    for label, fn in (
+            ("pw_conv", lambda: pointwise.pw_conv(x5, w5)),
+            ("wg", lambda: pointwise._launch(k7_lib, "wg", x5, w5, (1, 1, 1),
+                                             k7_stream)),
+            ("pipe", lambda: pointwise._launch(k7_lib, "pipe", x5, w5,
+                                               (1, 1, 1), k7_stream))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_us[label] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    emit(phase="K7 pw_conv, host time per launch", case="stage5 c, 10 clips",
+         host_us=host_us)
+    del x5, w5
 
     # K7's and F.linear's device time (torch.profiler, as the profile tools
     # take it) over the bulk 1x1x1 convs of one X3D-M 10-clip forward, each
@@ -1570,6 +1674,7 @@ def main() -> int:
         s_dk_bodies = dict(dk_bodies)
         s_k2_bodies = dict(k2_bodies)
         s_k3_bodies = dict(k3_bodies)
+        s_k7_bodies = dict(k7_bodies)
         s_peak = torch.cuda.max_memory_allocated()
         saved = CheckpointManager(f"{run_dir}/checkpoints").keys()
         emit(phase="X3D-S train CLI", clips=S_TRAIN_CLIPS, epochs=2,
@@ -1577,7 +1682,7 @@ def main() -> int:
              launches=s_train_launches, launches_per_step=want_s_step,
              k1_bodies=s_k1_bodies, k4_dk_bodies=s_dk_bodies,
              k2_bodies=s_k2_bodies,
-             k3_bodies=s_k3_bodies,
+             k3_bodies=s_k3_bodies, k7_bodies=s_k7_bodies,
              # from one step's end to the next, hooks and saves included
              step_interval_ms=[a.elapsed_time(b) for a, b in
                                zip(first.events, first.events[1:])],
@@ -1597,6 +1702,9 @@ def main() -> int:
         want = {"temporal": 6, "ring": 6 * (n_k1_s - 1), "generic": 0}
         check(s_k1_bodies == want,
               f"X3D-S K1 bodies {s_k1_bodies}, want {want}")
+        want = k7_want(cfg_s, arch_s, True, 6)
+        check(s_k7_bodies == want,
+              f"X3D-S K7 bodies {s_k7_bodies}, want {want}")
 
         # the same command with one more epoch resumes at step 6 ...
         resumed, lines = run_train(run_dir, epochs=3, cadence=1)
@@ -1756,7 +1864,13 @@ def main() -> int:
         # the stem's backward); their X3D-M rows are on the lines above
         (summary("pw_conv", "cuda", csrc + "pointwise.cu",
                  "x3d_tpu/ops/pw_batchminor.py:56", k7[("S", "training")],
-                 worst(*k7.values())), "K7", "s_train"),
+                 worst(*k7.values()))
+         | {"bodies_serving": serve_k7_bodies,
+            "bodies_training": train_k7_bodies,
+            "bodies_x3d_s_training": s_k7_bodies,
+            "generic_ms": sum(r["n"] * r["generic_ms"]
+                              for r in k7[("S", "training")])},
+         "K7", "s_train"),
         (summary("depthwise_conv3d_pbwd", "cuda", csrc + "depthwise_pbwd.cu",
                  "x3d_tpu/ops/dw_fused.py:418", [k8_s],
                  k8_m["max_abs_err_f32"])

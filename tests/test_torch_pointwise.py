@@ -19,8 +19,13 @@ run on a machine without it:
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
-from x3d_tpu_torch.ops import plain_versions, pointwise
+from x3d_tpu_torch import variant_config
+from x3d_tpu_torch.models import build_arch
+from x3d_tpu_torch.ops import plain_versions, pointwise, ring
+from x3d_tpu_torch.tools import profile_pointwise
 
 
 @pytest.fixture(autouse=True)
@@ -269,3 +274,450 @@ def test_bf16_repeats_bit_for_bit_on_card(cuda, shape, cout, strides):
         pointwise.pw_conv(x, w, strides)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# --------------------------------------------- the wg body's plan, on CPU
+
+def _check_wg_plan(M, K, N, sms=pointwise.H100_SMS, plane=None):
+    """The wg plan's invariants: an instantiated column tile, the column
+    tiles cover N and none is empty, 64 rows a consumer warpgroup, the row
+    tiles cover M (a strided call's: whole output rows of one frame, one
+    column tile), the k-tiles cover K, a block for every row-tile slot and
+    column tile, every row tile in some slot, the ring 2 .. 12 stages deep,
+    shared memory as wg_smem lays it out and within the block's share of
+    the SM, and the grid as wide as the card where the work allows."""
+    p = pointwise.wg_plan(M, K, N, sms, plane)
+    bn, nct = p["block_columns"], p["column_tiles"]
+    assert bn in pointwise.WG_COLUMNS
+    assert (nct - 1) * bn < N <= nct * bn
+    assert nct == 1 or N % 8 == 0               # a row of y a bulk copy
+    assert p["consumers"] in (1, 2)
+    assert p["block_rows"] == 64 * p["consumers"]
+    if plane is None:
+        assert p["rows_per_tile"] == 0
+        assert (p["tiles"] - 1) * p["block_rows"] < M <= p["tiles"] * p[
+            "block_rows"]
+    else:
+        frames, H, W, sh, sw = plane
+        Ho, Wo = -(-H // sh), -(-W // sw)
+        r = p["rows_per_tile"]
+        assert nct == 1 and 1 <= r <= Ho
+        assert r * Wo <= p["block_rows"] and (r + 1) * Wo > p["block_rows"] \
+            or r == Ho
+        assert p["tiles"] == frames * -(-Ho // r) and M == frames * Ho * Wo
+    assert (p["k_tiles"] - 1) * 64 < K <= p["k_tiles"] * 64
+    assert p["blocks"] == p["slots"] * nct
+    assert p["slots"] * p["tiles_per_block"] >= p["tiles"]
+    assert p["slots"] <= p["tiles"]
+    assert 2 <= p["stages"] <= pointwise.WG_MAX_STAGES
+    assert p["smem_bytes"] == pointwise.wg_smem(
+        K, bn, p["consumers"], p["stages"], p["w_resident"])
+    assert p["smem_bytes"] <= min(227 * 1024,
+                                  228 * 1024 // p["blocks_per_sm"] - 1024)
+    if p["w_resident"]:
+        assert p["k_tiles"] * bn * 128 <= min(
+            pointwise.WG_RESIDENT_MAX,
+            p["tiles_per_block"] * pointwise.WG_RESIDENT_PER_TILE)
+    assert nct == 1 or bn <= pointwise.WG_SPLIT_BN
+    assert p["blocks"] >= min(p["blocks_per_sm"] * sms - nct + 1,
+                              p["tiles"] * nct)
+    assert p["cluster"] == 1
+    return p
+
+
+def _variant_calls(variant, path):
+    """(name, K, N, M, strides, (frames, H, W)) of every K7 call of
+    X3D-<variant> on a
+    path: serving one video (its views), evaluating TEST.BATCH_SIZE videos,
+    or a training step at TRAIN.BATCH_SIZE clips (forward and dx)."""
+    cfg = variant_config(variant)
+    arch = build_arch(cfg)
+    views = cfg.TEST.NUM_TEMPORAL_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    train = path == "training"
+    clips = {"serving": views, "eval": cfg.TEST.BATCH_SIZE * views,
+             "training": cfg.TRAIN.BATCH_SIZE}[path]
+    crop = cfg.DATA.TRAIN_CROP_SIZE if train else cfg.DATA.TEST_CROP_SIZE
+    found = profile_pointwise.cases(cfg, arch, clips, crop, train)
+    if train:
+        found = profile_pointwise.with_dx(found)
+    out = []
+    for name, shape, N, strides, _ in found:
+        B, T, H, W, K = shape
+        M = B * T * -(-H // strides[1]) * -(-W // strides[2])
+        out.append((name, K, N, M, strides, (B * T, H, W)))
+    return out
+
+
+def _plane(shape, strides):
+    """The input plane a strided call gives wg_plan (None at stride 1)."""
+    if tuple(strides) == (1, 1, 1):
+        return None
+    return (shape[0] * shape[1], *shape[2:4], *strides[1:])
+
+
+@pytest.mark.parametrize("path", ["serving", "eval", "training"])
+@pytest.mark.parametrize("variant", ["XS", "S", "M", "L", "XL"])
+def test_plan_at_every_x3d_shape(variant, path):
+    """Every K7 call of X3D-XS/S/M/L/XL takes the body the rule names: wg
+    where a row of x is a multiple of 16 bytes (2K % 16 == 0, a tensor
+    map's rule), N fits the bulk stores and the call is not of the
+    narrowest (K <= 32 with N <= 64), a strided projection where also its
+    plane fits a tensor map's box, one column tile covers N, its pixels are
+    whole lines (K >= 64) and its frames fill half a tile; pipe for the
+    other even K; and each wg plan keeps its invariants.  At X3D-M, 43 of
+    the 57 calls of a forward are wg; pipe takes the 8 at K = 54, 108,
+    stage 2's 3 convs a and the projections of stages 2 to 4."""
+    cfg = variant_config(variant)
+    arch = build_arch(cfg)
+    views = cfg.TEST.NUM_TEMPORAL_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    train = path == "training"
+    clips = {"serving": views, "eval": cfg.TEST.BATCH_SIZE * views,
+             "training": cfg.TRAIN.BATCH_SIZE}[path]
+    crop = cfg.DATA.TRAIN_CROP_SIZE if train else cfg.DATA.TEST_CROP_SIZE
+    found = profile_pointwise.cases(cfg, arch, clips, crop, train)
+    if train:
+        found = profile_pointwise.with_dx(found)
+    n = {"wg": 0, "pipe": 0, "cuda_core": 0}
+    for name, shape, N, strides, launches in found:
+        B, T, H, W, K = shape
+        M = B * T * -(-H // strides[1]) * -(-W // strides[2])
+        body = pointwise.pw_body(K, N, M, strides, width=W, height=H)
+        wg = ((2 * K) % 16 == 0
+              and (N % 8 == 0 or (N % 2 == 0 and N <= 256))
+              and not (K <= 32 and N <= 64)
+              and (strides == (1, 1, 1)
+                   or (N <= 256 and W <= 256 and -(-W // 2) <= 128
+                       and K >= 64 and -(-H // 2) * -(-W // 2) >= 32)))
+        assert body == ("wg" if wg else "pipe" if K % 2 == 0
+                        else "cuda_core"), name
+        n[body] += launches
+        if body == "wg":
+            _check_wg_plan(M, K, N, plane=_plane(shape, strides))
+    if variant == "M" and path == "serving":
+        assert n == {"wg": 43, "pipe": 14, "cuda_core": 0}
+
+
+def test_plan_at_stage_5():
+    """X3D-M's stage-5 conv c (7 840 rows, K 432 -> N 192): two column
+    tiles of 96 (one of 192 leaves SMs idle at 64-row tiles) and 128-row
+    tiles with W streamed, 62 x 2 blocks -- on an H100 faster than 132
+    blocks of 64 rows with W resident (PERF.md §6)."""
+    p = _check_wg_plan(7840, 432, 192)
+    assert (p["block_rows"], p["block_columns"], p["column_tiles"]) == \
+        (128, 96, 2)
+    assert p["blocks"] == 124 and p["tiles"] == 62
+    assert p["w_resident"] == 0 and p["stages"] >= 4
+
+
+def test_plan_of_strided_projections():
+    """A stride-2 projection's row tiles are whole output rows of one
+    frame: X3D-M's stage-5 entry (7 x 7 outputs a frame) one frame a 64-row
+    tile, stage 2's (56 wide) two rows a 128-row tile."""
+    p = _check_wg_plan(160 * 49, 96, 192, plane=(160, 14, 14, 2, 2))
+    assert (p["block_rows"], p["rows_per_tile"], p["tiles"]) == (64, 7, 160)
+    p = _check_wg_plan(160 * 56 * 56, 24, 24, plane=(160, 112, 112, 2, 2))
+    assert (p["block_rows"], p["rows_per_tile"]) == (128, 2)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(M=st.integers(1, 1 << 22), K=st.integers(1, 160).map(lambda k: 8 * k),
+       N=st.integers(1, 640).map(lambda n: 2 * n),
+       sms=st.sampled_from([132, 114, 8]))
+def test_wg_plan_invariants(M, K, N, sms):
+    """Over a sweep of rows, widths and SM counts the wg plan keeps its
+    invariants wherever the rule gives the call to the wg body."""
+    if pointwise.pw_body(K, N, M) == "wg":
+        _check_wg_plan(M, K, N, sms)
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(frames=st.integers(1, 300), H=st.integers(1, 130),
+       W=st.integers(1, 300), K=st.integers(1, 60).map(lambda k: 8 * k),
+       N=st.integers(1, 128).map(lambda n: 2 * n),
+       s=st.sampled_from([(2, 2), (1, 2), (2, 1), (3, 3)]),
+       sms=st.sampled_from([132, 8]))
+def test_wg_plan_invariants_strided(frames, H, W, K, N, s, sms):
+    """The same for strided calls over planes and strides."""
+    sh, sw = s
+    M = frames * -(-H // sh) * -(-W // sw)
+    if pointwise.pw_body(K, N, M, (1, sh, sw), width=W, height=H) == "wg":
+        _check_wg_plan(M, K, N, sms, plane=(frames, H, W, sh, sw))
+
+
+@pytest.mark.parametrize("K,N,strides,aligned,plane,want", [
+    (48, 108, (1, 1, 1), 16, 28, "wg"), (24, 108, (1, 1, 1), 16, 56, "wg"),
+    (432, 192, (1, 1, 1), 16, 7, "wg"), (96, 432, (1, 1, 1), 16, 14, "wg"),
+    (24, 54, (1, 1, 1), 16, 56, "pipe"),       # the narrowest calls
+    (24, 24, (1, 1, 1), 16, 56, "pipe"), (54, 24, (1, 1, 1), 16, 56, "pipe"),
+    (108, 48, (1, 1, 1), 16, 28, "pipe"),
+    (96, 192, (1, 2, 2), 16, 14, "wg"),        # 7 x 7 outputs a frame
+    (96, 192, (1, 2, 2), 16, 10, "pipe"),      # 5 x 5: under half a tile
+    (48, 96, (1, 2, 2), 16, 28, "pipe"),       # pixels of 96 bytes
+    (64, 96, (1, 2, 2), 16, 300, "pipe"),      # wider than a box
+    (96, 432, (1, 2, 2), 16, 14, "pipe"),      # two column tiles
+    (108, 216, (1, 2, 2), 16, 20, "pipe"),     # K = 108
+    (48, 108, (1, 1, 1), 8, 28, "pipe"), (48, 108, (1, 1, 1), 4, 28, "pipe"),
+    (48, 108, (1, 1, 1), 2, 28, "cuda_core"),
+    (7, 5, (1, 1, 1), 16, 5, "cuda_core"),
+    (48, 306, (1, 1, 1), 16, 5, "pipe"), (48, 55, (1, 1, 1), 16, 5, "pipe"),
+])
+def test_body_rule(K, N, strides, aligned, plane, want):
+    """The wg body needs 2K % 16 == 0, 16-byte alignment, an N its stores
+    take (a multiple of 8, or even within one column tile) and a call wider
+    than the narrowest; a strided call also a square plane a tensor map's
+    box holds, one column tile, pixels of whole lines and frames of half a
+    tile; the pipe body an even K and 4-byte alignment; float32 runs on the
+    CUDA cores."""
+    assert pointwise.pw_body(K, N, 1000, strides, aligned, width=plane,
+                             height=plane) == want
+    assert pointwise.pw_body(K, N, 1000, strides, aligned, elem=4,
+                             width=plane, height=plane) == "cuda_core"
+
+
+def _tile_rows(p, plane, M, tile):
+    """The first output row and the rows of row tile ``tile`` (wg_tile)."""
+    if plane is None:
+        m0 = tile * p["block_rows"]
+        return m0, min(p["block_rows"], M - m0)
+    _, H, W, sh, sw = plane
+    Ho, Wo, r = -(-H // sh), -(-W // sw), p["rows_per_tile"]
+    tpf = -(-Ho // r)
+    frame, ho0 = tile // tpf, tile % tpf * r
+    return (frame * Ho + ho0) * Wo, min(r, Ho - ho0) * Wo
+
+
+def _wg_by_tiles(x, w, p, plane=None):
+    """y = x @ w^T rebuilt in numpy in the wg body's order: each block
+    (column tile ct, slot) walks row tiles slot, slot + slots, ...; each
+    warpgroup's 64 rows of a tile are summed in float32 over the k-tiles in
+    order, 16 k a wgmma step (all four steps of a k-tile: zeros fill it past
+    K, and the rows and columns past the tile and N), the step's products
+    added exactly and rounded once into the float32 sum.  x holds the rows
+    the conv reads, in output order.  Returns y and how often each output
+    was written."""
+    M, K = x.shape
+    N = w.shape[0]
+    bn = p["block_columns"]
+    y = np.zeros((M, N), np.float32)
+    seen = np.zeros((M, N), np.int64)
+    width = 64 * p["k_tiles"]
+    for block in range(p["blocks"]):
+        ct, slot = block % p["column_tiles"], block // p["column_tiles"]
+        n0 = bn * ct
+        for tile in range(slot, p["tiles"], p["slots"]):
+            t0, t_rows = _tile_rows(p, plane, M, tile)
+            for cg in range(p["consumers"]):
+                m0, rows = t0 + 64 * cg, min(64, t_rows - 64 * cg)
+                if rows <= 0:
+                    continue
+                xt = np.zeros((64, width), np.float64)
+                wt = np.zeros((bn, width), np.float64)
+                xt[:rows, :K] = x[m0:m0 + rows]
+                wt[:min(bn, N - n0), :K] = w[n0:n0 + bn]
+                acc = np.zeros((64, bn), np.float32)
+                for k in range(0, width, 16):
+                    step = xt[:, k:k + 16] @ wt[:, k:k + 16].T
+                    acc = (acc + step).astype(np.float32)
+                c = min(bn, N - n0)
+                y[m0:m0 + rows, n0:n0 + c] = acc[:rows, :c]
+                seen[m0:m0 + rows, n0:n0 + c] += 1
+    return y, seen
+
+
+@pytest.mark.parametrize("M,K,N,sms,plane", [
+    (7840 // 20, 432, 192, 132, None),    # stage 5 c, fewer rows
+    (300, 96, 432, 8, None),              # three column tiles of 144
+    (1000, 24, 54, 4, None),              # N = 54 in one tile of 56
+    (130, 216, 96, 132, None), (77, 40, 24, 3, None),
+    (3 * 7 * 7, 96, 192, 8, (3, 14, 14, 2, 2)),    # a frame a tile
+    (2 * 10 * 8, 24, 48, 5, (2, 19, 15, 2, 2)),    # odd planes
+    (4 * 28 * 28, 48, 96, 6, (4, 56, 56, 2, 2)),   # two rows a tile
+])
+def test_wg_order_of_sums_rebuilds_the_product(M, K, N, sms, plane):
+    """The wg body's schedule writes every output exactly once, and its
+    order of sums (k-tiles in order, 16 k a step, float32 between steps)
+    gives the plain product within float32 rounding."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = rng.normal(size=(N, K)).astype(np.float32)
+    p = _check_wg_plan(M, K, N, sms, plane)
+    y, seen = _wg_by_tiles(x, w, p, plane)
+    assert (seen == 1).all()
+    want = x.astype(np.float64) @ w.astype(np.float64).T
+    np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-4)
+
+
+class _FailingWgLibrary:
+    """A K7 library whose wg body fails at launch; it records the calls and
+    checks that each passes as many arguments as its C signature takes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def x3d_pw_conv_wg(self, *args):
+        assert len(args) == len(pointwise._SIGNATURES["x3d_pw_conv_wg"])
+        self.calls.append("wg")
+        return 1                                   # cudaErrorInvalidValue
+
+    def __getattr__(self, name):                   # the other bodies'
+        raise AssertionError(f"fell back to {name}")
+
+
+@pytest.mark.parametrize("strides", [(1, 1, 1), (1, 2, 2)])
+def test_failed_wg_launch_raises_without_fallback(strides):
+    """A wg launch that returns an error raises; neither the pipe body nor
+    the CUDA cores are asked to take over."""
+    x, w, _ = _inputs(12, (2, 3, 4, 5, 24), 54, strides)
+    xt, wt = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    plane = None if strides == (1, 1, 1) else (6, 4, 5, 2, 2)
+    M = 6 * 4 * 5 if plane is None else 6 * 2 * 3
+    lib = _FailingWgLibrary()
+    with pytest.raises(RuntimeError, match=r"wg body.*CUDA error 1"):
+        pointwise._launch(lib, "wg", xt, wt, strides, 0,
+                          plan=pointwise.wg_plan(M, 24, 54, plane=plane))
+    assert lib.calls == ["wg"]
+
+
+# ------------------------------------------------ the wg body, on the card
+
+def _body_counts(fn):
+    before = dict(pointwise.pw_conv.body_launches)
+    out = fn()
+    return out, {k: v - before[k]
+                 for k, v in pointwise.pw_conv.body_launches.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 3, 5, 7, 24), 54), ((3, 4, 7, 7, 54), 192), ((2, 5, 7, 7, 108), 432),
+    ((2, 13, 5, 5, 432), 192), ((1, 7, 9, 11, 432), 54),
+    ((2, 16, 7, 7, 432), 432), ((1, 3, 7, 9, 24), 192),
+    ((10, 16, 14, 14, 96), 432), ((3, 16, 7, 7, 192), 432)])
+def test_bodies_match_plain_on_card(cuda, shape, cout):
+    """bfloat16 at ragged M (no multiple of 64), N and K (K = 24, 54, 108,
+    432; N = 54, 192, 432): K7 runs the body its rule names (counted once
+    under it), within one bfloat16 ulp (2^-7) of the largest value of the
+    plain version (float32 product of the same bfloat16 inputs), and each
+    tensor-core body that takes the call, on the same inputs, within one
+    ulp of the other."""
+    x, w, _ = (torch.from_numpy(v).to(cuda) for v in _inputs(13, shape, cout))
+    x, w = x.bfloat16(), w.bfloat16()
+    K, M = shape[-1], x.numel() // shape[-1]
+    body = pointwise.pw_body(K, cout, M)
+    y, counts = _body_counts(lambda: pointwise.pw_conv(x, w))
+    torch.cuda.synchronize()
+    assert counts == {b: int(b == body) for b in counts}
+    want = pointwise.pointwise_conv3d_reference(x.float(), w.float())
+    scale = want.abs().max().item()
+    assert (y.float() - want).abs().max().item() <= 2.0 ** -7 * scale
+    lib = _build_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    bodies = {b: pointwise._launch(lib, b, x, w, (1, 1, 1), stream)
+              for b in ("wg", "pipe") if b == body or b == "pipe"}
+    torch.cuda.synchronize()
+    assert torch.equal(bodies[body], y)
+    diff = (bodies["pipe"].float() - y.float()).abs().max().item()
+    assert diff <= 2.0 ** -7 * scale
+
+
+def _build_lib():
+    from x3d_tpu_torch.kernels import _build
+    return _build.load("pointwise.cu", pointwise._SIGNATURES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+@pytest.mark.parametrize("K,cout", [(48, 216), (432, 192)])
+def test_unaligned_bases_take_the_planned_body_on_card(cuda, offset, K,
+                                                       cout):
+    """x starting 2, 4, 8 or 16 bytes into an allocation: K7 runs the body
+    pw_body names for that alignment (wg at 16 bytes, pipe at 4 and 8,
+    the CUDA cores at 2), within one bfloat16 ulp of the plain version."""
+    shape = (2, 4, 7, 7, K)
+    x, w, _ = (torch.from_numpy(v).to(cuda) for v in _inputs(14, shape, cout))
+    flat = torch.empty(x.numel() + offset, dtype=torch.bfloat16, device=cuda)
+    xs = flat[offset:].view(shape)
+    xs.copy_(x)
+    wb = w.bfloat16()
+    body = pointwise.pw_body(K, cout, x.numel() // K, (1, 1, 1),
+                             ring.align(xs, wb))
+    assert body == {1: "cuda_core", 2: "pipe", 4: "pipe", 8: "wg"}[offset]
+    y, counts = _body_counts(lambda: pointwise.pw_conv(xs, wb))
+    torch.cuda.synchronize()
+    assert counts[body] == 1 and sum(counts.values()) == 1
+    want = pointwise.pointwise_conv3d_reference(xs.float(), wb.float())
+    scale = want.abs().max().item()
+    assert (y.float() - want).abs().max().item() <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["M", "S"])
+def test_wg_repeats_bit_for_bit_at_training_batches_on_card(cuda, variant):
+    """Every wg call of an X3D-M (32 clips) and X3D-S (64 clips) training
+    step, forward and dx, twice on the same inputs: the same bits (no
+    atomics, no split-K)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for name, K, N, M, strides, plane in _variant_calls(variant, "training"):
+        if pointwise.pw_body(K, N, M, strides, width=plane[2],
+                             height=plane[1]) != "wg":
+            continue
+        x = torch.randn((plane[0], 1, plane[1], plane[2], K), generator=gen,
+                        device="cuda").bfloat16()
+        w = torch.randn((N, K), generator=gen, device="cuda").bfloat16()
+        first = pointwise.pw_conv(x, w, strides)
+        second = pointwise.pw_conv(x, w, strides)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), name
+        del x, first, second
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,want", [
+    ((2, 13, 21, 19, 24), 48, "pipe"), ((4, 16, 14, 14, 96), 192, "wg"),
+    ((2, 16, 112, 112, 24), 24, "pipe"), ((3, 5, 9, 7, 56), 24, "pipe"),
+    ((64, 13, 10, 10, 96), 192, "pipe"), ((2, 3, 5, 5, 96), 432, "pipe"),
+    ((2, 16, 28, 28, 96), 96, "wg"), ((3, 4, 13, 11, 64), 200, "wg"),
+    ((2, 3, 130, 129, 64), 24, "wg")])
+def test_strided_projection_on_card(cuda, shape, cout, want):
+    """A stride-(1, 2, 2) projection reads its rows in place -- on the wg
+    body through a rank-4 tensor map where its rule allows (pixels of
+    whole lines, frames of half a tile, one column tile; output rows of 65
+    values need a 128-row tile), else on the pipe body's gathered rows --
+    within one bfloat16 ulp of the plain version on the subsampled input;
+    the pipe body on the same inputs within one ulp of it."""
+    strides = (1, 2, 2)
+    x, w, _ = (torch.from_numpy(v).to(cuda)
+               for v in _inputs(16, shape, cout, strides))
+    x, w = x.bfloat16(), w.bfloat16()
+    M = shape[0] * shape[1] * -(-shape[2] // 2) * -(-shape[3] // 2)
+    body = pointwise.pw_body(shape[-1], cout, M, strides, width=shape[3],
+                             height=shape[2])
+    assert body == want
+    y, counts = _body_counts(lambda: pointwise.pw_conv(x, w, strides))
+    torch.cuda.synchronize()
+    assert counts == {b: int(b == body) for b in counts}
+    pipe = pointwise._launch(_build_lib(), "pipe", x, w, strides,
+                             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    want = pointwise.pointwise_conv3d_reference(x.float(), w.float(),
+                                                strides)
+    scale = want.abs().max().item()
+    assert (y.float() - want).abs().max().item() <= 2.0 ** -7 * scale
+    assert (pipe.float() - y.float()).abs().max().item() <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+def test_wg_smem_matches_the_kernel_on_card(cuda):
+    """wg_smem (Python) counts the same bytes as the kernel's layout, for
+    every plan of X3D-M's serving and training calls."""
+    lib = _build_lib()
+    for path in ("serving", "training"):
+        for _, K, N, M, strides, plane in _variant_calls("M", path):
+            if pointwise.pw_body(K, N, M, strides, width=plane[2],
+                                 height=plane[1]) != "wg":
+                continue
+            p = pointwise.wg_plan(M, K, N, plane=_plane(
+                (plane[0], 1) + plane[1:3], strides))
+            assert lib.x3d_pw_conv_wg_smem(
+                K, p["block_columns"], p["consumers"], p["stages"],
+                p["w_resident"]) == p["smem_bytes"]

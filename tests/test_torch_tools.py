@@ -36,6 +36,8 @@ from x3d_tpu_torch.tools.trace import family
      "port kernels"),
     ("void (anonymous namespace)::pw_conv_mma_kernel<8, 16>(...)",
      "port kernels"),
+    ("void (anonymous namespace)::pw_conv_wg_kernel<216, 1>(CUtensorMap_st, "
+     "...)", "port kernels"),
     ("void fma_chain_bf16_kernel<8>(...)", "port kernels"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),
     ("void cudnn::ops::convolve_kernel<...>", "cudnn conv"),
@@ -87,6 +89,8 @@ def test_family(name, want):
     ("void (anonymous namespace)::pw_conv_mma_kernel<8, 16>(...)",
      "K7 pw_conv"),
     ("void pw_conv_kernel<float>(...)", "K7 pw_conv"),
+    ("void (anonymous namespace)::pw_conv_wg_kernel<96, 2>(CUtensorMap_st, "
+     "...)", "K7 pw_conv"),
     ("(anonymous namespace)::pw_conv_mma_kernel(__nv_bfloat16 const*, ...)",
      "K7 pw_conv"),
     ("void dw_conv3d_pbwd_kernel<__nv_bfloat16>(...)",

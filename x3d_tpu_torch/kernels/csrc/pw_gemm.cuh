@@ -33,9 +33,14 @@
 //     store_tile turns a warp's 16 rows through shared memory, 64 columns
 //     at a time, and writes them with 16-byte stores where N % 8 == 0, else
 //     4-byte words or single values.
-// Not done yet: wgmma and TMA, a warp layout that shares B fragments
-// between warps (each warp reads all of the block's W slice), and a W slice
-// larger than shared memory (such a call takes gemm_tile).
+// What this body bounds at small M (each block copies its whole W slice
+// before its first product, each of its 8 warps reads all of that slice
+// at every k-step, and 128-row tiles leave SMs idle at X3D's stage 5) is
+// what pw_wgmma.cuh's Hopper body does away with: wgmma reading a W k-tile
+// once a warpgroup, TMA, W streamed or resident by plan, tiles that fill
+// the card.  K7 runs that body where it takes the call (K7's "wg"); K5 and
+// K6, and K7 at K = 54, 108, the narrowest calls and most strided ones,
+// run this one.  A W slice larger than shared memory takes gemm_tile.
 //
 // gemm_tile: a block of kGemmThreads threads computes a kBM x kBN tile of
 // y = A @ W^T in float32 on the CUDA cores, from kBM x kBK and kBK x kBN

@@ -49,7 +49,8 @@ _PORT = (
     ("K5 pw_conv_stats", ("pw_conv_stats_mma_kernel",)),
     ("K6 pw_act_conv_stats", ("pw_act_conv_stats_mma_kernel",)),
     ("K5/K6 pw_stats", ("pw_stats_kernel",)),          # float32, odd K
-    ("K7 pw_conv", ("pw_conv_kernel", "pw_conv_mma_kernel")),
+    ("K7 pw_conv", ("pw_conv_kernel", "pw_conv_mma_kernel",
+                    "pw_conv_wg_kernel")),
     ("K8 depthwise_conv3d_pbwd", ("dw_conv3d_pbwd_kernel",
                                   "sum_pbwd_partials_kernel")),
     ("K2/K3/K5/K6 second passes", ("sum_partials_kernel",)),
