@@ -11,8 +11,8 @@ It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
 nvcc per source, in parallel; ptxas's registers, spills and static shared
 memory of each instantiation of K5-K7's pipelined tensor-core body, K7's
 Hopper (wg) body, K4 dx's phase body, K4 dk's ring body, K1's temporal and
-ring bodies and K3's and K2's ring bodies on a line of its own, which
-fails on a spill where the body must not spill) and then:
+ring bodies, K3's and K2's ring bodies and K8's temporal body on a line of
+its own, which fails on a spill where the body must not spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
@@ -55,7 +55,8 @@ fails on a spill where the body must not spill) and then:
 * trains X3D-M at full width and depth (16×224², 32 clips, bfloat16,
   SGD-Nesterov) for a few steps, checks the losses and the launches per
   step (K1 by its temporal and ring bodies only, K4 dx by its phase body
-  only, K4 dk, K2 and K3 by their ring bodies only),
+  only, K4 dk, K2 and K3 by their ring bodies only, K8 by its temporal
+  body only),
   checks that two runs of one step from one state are bit-identical, and
   checks one float32 step through the kernels against the same step
   through the plain versions (loss, every gradient, the updated parameters
@@ -75,13 +76,19 @@ fails on a spill where the body must not spill) and then:
 * holds K8 (the depthwise conv's one-pass backward) against its plain
   version and against K4's dx and dk at the stems of X3D-M and X3D-S and
   at a 3x3x3 stage-2 shape, with the times of all three and of cuDNN;
+  each row names the body that ran (the temporal body at the stems, the
+  generic body at 3x3x3) and its plan, and times the generic body on the
+  same inputs; a temporal row fails where it is behind the generic body,
+  the plain version or cuDNN; the X3D-M step and the X3D-S tool run check
+  that every K8 launch took the temporal body;
 * holds K9 (the multiply-add chain) against its plain version and runs the
   probe tool: the float32 and packed-bfloat16 rates and their share of the
   card's peak;
 * drives the command-line tools at X3D-S full width and depth (13×160², 64
   clips, bfloat16), in this process through their ``main(argv)``: train two
   epochs of three steps with step-keyed checkpoints (K1 by its new bodies
-  only, K4 dk, K2 and K3 by their ring bodies only), resume for a third
+  only, K4 dk, K2 and K3 by their ring bodies only, K8 by its temporal
+  body only), resume for a third
   epoch (the
   restored step is 6 and
   the losses equal an uninterrupted run's, bit for bit, with cuDNN's flags
@@ -380,6 +387,22 @@ def main() -> int:
           and len(main) == 1 and main[0]["spill_bytes"] == 0,
           f"K2 ring body's ptxas report: {entries}")
 
+    # K8's temporal body, <element, channels a cell, temporal taps>: 15
+    # instantiations (float32 1, 2 channels, bfloat16 1, 2, 4; kt 1, 3, 5);
+    # the bfloat16 ones of 4 channels at kt 5 (the X3D stems') and 3 must
+    # not spill
+    entries = ptxas_entries(
+        ("depthwise_pbwd.cu",),
+        r"dw_conv3d_pbwd_temporal_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E",
+        lambda m: "dw_conv3d_pbwd_temporal_kernel<"
+                  f"{'float' if m[1] == 'f' else 'bfloat16'}, {m[2]}, {m[3]}>")
+    emit(phase="build, K8 temporal body", kernels=entries)
+    main = [e for e in entries
+            if re.search(r"<bfloat16, 4, [35]>$", e["kernel"])]
+    check(len(entries) == 15 and all("registers" in e for e in entries)
+          and len(main) == 2 and all(e["spill_bytes"] == 0 for e in main),
+          f"K8 temporal body's ptxas report: {entries}")
+
     # the depthwise shapes of X3D-M and X3D-S, from their architecture plans
     cfg = variant_config("M")
     arch = build_arch(cfg)
@@ -667,12 +690,13 @@ def main() -> int:
     k2_bodies = dw_fused.dw_bn_act_conv.body_launches
     k3_bodies = dw_fused.dw_bn_act_conv_bwd.body_launches
     k7_bodies = pointwise.pw_conv.body_launches
+    k8_bodies = depthwise.depthwise_conv3d_pbwd.body_launches
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
         for bodies in (k1_bodies, dx_bodies, dk_bodies, k2_bodies,
-                       k3_bodies, k7_bodies):
+                       k3_bodies, k7_bodies, k8_bodies):
             bodies.update(dict.fromkeys(bodies, 0))
 
     def k7_want(vcfg, varch, train, times):
@@ -1153,6 +1177,7 @@ def main() -> int:
     train_k2_bodies = dict(k2_bodies)
     train_k3_bodies = dict(k3_bodies)
     train_k7_bodies = dict(k7_bodies)
+    train_k8_bodies = dict(k8_bodies)
     train_peak = torch.cuda.max_memory_allocated()
     for s in steps:
         emit(phase="train step", clips=TRAIN_CLIPS, **s)
@@ -1169,7 +1194,8 @@ def main() -> int:
          launches_per_step=want_step, k1_bodies=train_k1_bodies,
          k4_dx_bodies=train_dx_bodies, k4_dk_bodies=train_dk_bodies,
          k2_bodies=train_k2_bodies,
-         k3_bodies=train_k3_bodies, k7_bodies=train_k7_bodies)
+         k3_bodies=train_k3_bodies, k7_bodies=train_k7_bodies,
+         k8_bodies=train_k8_bodies)
     want = k7_want(cfg, arch, True, TRAIN_STEPS)
     check(train_k7_bodies == want,
           f"K7 bodies {train_k7_bodies}, want {want}")
@@ -1187,6 +1213,10 @@ def main() -> int:
                        ("K3", train_k3_bodies)):
         want = {"ring": TRAIN_STEPS * want_step[kname], "generic": 0}
         check(got == want, f"{kname} bodies {got}, want {want}")
+    # the step's one K8, the stem's 5x1x1 conv_t: the temporal body
+    want = {"temporal": TRAIN_STEPS * want_step["K8"], "generic": 0}
+    check(train_k8_bodies == want,
+          f"K8 bodies {train_k8_bodies}, want {want}")
 
     # two runs of one step from one state: bit-identical (no atomics in
     # the kernels; cuDNN asked for its deterministic algorithms)
@@ -1491,6 +1521,8 @@ def main() -> int:
                  **shares(total))
 
     # ------------------------- 8. K8 vs its plain version and vs K4 dx + dk
+    k8_lib = _build.load("depthwise_pbwd.cu", depthwise._PBWD_SIGNATURES)
+
     def k8_row(name, shape, kdims):
         C = shape[-1]
         pads = depthwise._resolve_pads(shape, kdims, (1, 1, 1), "SAME")
@@ -1525,14 +1557,29 @@ def main() -> int:
             memory_format=torch.channels_last_3d)
         gc, w = gy.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
         taps = math.prod(kdims)
-        bms, by = bound(3 * u.numel() * 2 + taps * C * 8,
+        body = depthwise.pbwd_body(kdims, pads)
+        plan = {}
+        # a temporal-body run cut along T rereads kt - 1 frames of u and gy
+        reread = 0
+        if body == "temporal":
+            plan = depthwise._pbwd_temporal_plan(k8_lib, u, gy, u, kdims[0])
+            reread = (plan["runs"] - 1) * (kdims[0] - 1) * 2 * \
+                u[:, 0].numel()
+        bms, by = bound((3 * u.numel() + reread) * 2 + taps * C * 8,
                         4 * taps * u.numel())
+        taps_f32 = k.float().reshape(taps, C).contiguous()
+        stream = torch.cuda.current_stream().cuda_stream
         row = dict(
             name=name, shape=list(shape), kernel=list(kdims), n=1,
+            body=body, plan=plan,
             max_abs_err_f32=e32[0], dk_err_f32=e32[2], err_bf16=e16[1],
             dk_err_bf16=e16[2], du_vs_k4_f32=e32[3], du_vs_k4_bf16=e16[3],
             dk_vs_k4_f32=e32[4], dk_vs_k4_bf16=e16[4],
             ms=time_ms(lambda: depthwise.depthwise_conv3d_pbwd(u, gy, k)),
+            # the generic body, which took every call before the temporal
+            # body existed, on the same inputs
+            generic_ms=time_ms(lambda: depthwise._launch_pbwd(
+                k8_lib, "generic", u, gy, taps_f32, kdims, stream)),
             plain_ms=time_ms(
                 lambda: depthwise.depthwise_conv3d_pbwd_reference(u, gy, k)),
             k4_dx_ms=time_ms(lambda: depthwise.depthwise_conv3d_dx(
@@ -1546,7 +1593,14 @@ def main() -> int:
                 [0, 0, 0], C, [True, True, False])),
             bound_ms=bms, bound_by=by)
         emit(phase="K8 depthwise_conv3d_pbwd", **row)
-        del u, gy, k, uc, gc, w
+        if body == "temporal":
+            check(row["ms"] < min(row["generic_ms"], row["plain_ms"],
+                                  row["library_ms"]),
+                  f"K8 {name}: the temporal body ({row['ms']} ms) is behind "
+                  f"the generic body ({row['generic_ms']}), the plain "
+                  f"version ({row['plain_ms']}) or cuDNN "
+                  f"({row['library_ms']})")
+        del u, gy, k, uc, gc, w, taps_f32
         torch.cuda.empty_cache()
         return row
 
@@ -1675,6 +1729,7 @@ def main() -> int:
         s_k2_bodies = dict(k2_bodies)
         s_k3_bodies = dict(k3_bodies)
         s_k7_bodies = dict(k7_bodies)
+        s_k8_bodies = dict(k8_bodies)
         s_peak = torch.cuda.max_memory_allocated()
         saved = CheckpointManager(f"{run_dir}/checkpoints").keys()
         emit(phase="X3D-S train CLI", clips=S_TRAIN_CLIPS, epochs=2,
@@ -1683,6 +1738,7 @@ def main() -> int:
              k1_bodies=s_k1_bodies, k4_dk_bodies=s_dk_bodies,
              k2_bodies=s_k2_bodies,
              k3_bodies=s_k3_bodies, k7_bodies=s_k7_bodies,
+             k8_bodies=s_k8_bodies,
              # from one step's end to the next, hooks and saves included
              step_interval_ms=[a.elapsed_time(b) for a, b in
                                zip(first.events, first.events[1:])],
@@ -1705,6 +1761,9 @@ def main() -> int:
         want = k7_want(cfg_s, arch_s, True, 6)
         check(s_k7_bodies == want,
               f"X3D-S K7 bodies {s_k7_bodies}, want {want}")
+        want = {"temporal": 6 * want_s_step["K8"], "generic": 0}
+        check(s_k8_bodies == want,
+              f"X3D-S K8 bodies {s_k8_bodies}, want {want}")
 
         # the same command with one more epoch resumes at step 6 ...
         resumed, lines = run_train(run_dir, epochs=3, cadence=1)
@@ -1874,7 +1933,13 @@ def main() -> int:
         (summary("depthwise_conv3d_pbwd", "cuda", csrc + "depthwise_pbwd.cu",
                  "x3d_tpu/ops/dw_fused.py:418", [k8_s],
                  k8_m["max_abs_err_f32"])
-         | {"k4_dx_ms": k8_s["k4_dx_ms"], "k4_dk_ms": k8_s["k4_dk_ms"]},
+         | {"k4_dx_ms": k8_s["k4_dx_ms"], "k4_dk_ms": k8_s["k4_dk_ms"],
+            "bodies_training": train_k8_bodies,
+            "bodies_x3d_s_training": s_k8_bodies,
+            "plan": k8_s["plan"], "generic_ms": k8_s["generic_ms"],
+            "x3d_m_step_ms": k8_m["ms"],
+            "x3d_m_generic_ms": k8_m["generic_ms"],
+            "x3d_m_bound_ms": k8_m["bound_ms"]},
          "K8", "s_train"),
         ({"name": "fma_chain", "route": "cuda",
           "source": csrc + "fma_probe.cu",

@@ -25,6 +25,10 @@ from x3d_tpu_torch.tools.trace import family
      "2, 3>(...)", "port kernels"),
     ("sum_pbwd_partials_kernel(float const*, float*, int, int, int)",
      "port kernels"),
+    ("void (anonymous namespace)::dw_conv3d_pbwd_temporal_kernel<float, "
+     "4, 3>(...)", "port kernels"),
+    ("(anonymous namespace)::dw_conv3d_pbwd_sum_kernel(float const*, "
+     "float*, int, int)", "port kernels"),
     ("void (anonymous namespace)::dw_conv3d_dk_ring_kernel<__nv_bfloat16, "
      "2, 3, 2>(...)", "port kernels"),
     ("(anonymous namespace)::dw_conv3d_dk_sum_kernel(float const*, float*, "
@@ -97,6 +101,10 @@ def test_family(name, want):
      "K8 depthwise_conv3d_pbwd"),
     ("sum_pbwd_partials_kernel(float const*, float*, int, int, int)",
      "K8 depthwise_conv3d_pbwd"),
+    ("void (anonymous namespace)::dw_conv3d_pbwd_temporal_kernel<"
+     "__nv_bfloat16, 8, 5>(...)", "K8 depthwise_conv3d_pbwd"),
+    ("(anonymous namespace)::dw_conv3d_pbwd_sum_kernel(float const*, "
+     "float*, int, int)", "K8 depthwise_conv3d_pbwd"),
     ("sum_partials_kernel(float const*, float*, int, int)",
      "K2/K3/K5/K6 second passes"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),

@@ -2,7 +2,7 @@
 // kernels' block shape, the cp.async copies, and what the ring bodies (K1's,
 // K2's, K3's, K4 dk's) share: their limits, geometry, instantiations, a
 // cell's unpacking, the second pass, and K1's staging and walk, which K4
-// dk's ring body runs too.
+// dk's ring body runs too; and the temporal bodies' (K1's, K8's) cells.
 // Every kernel here takes NDHWC activations (C contiguous) in float32 or
 // bfloat16 and accumulates in float32.
 #pragma once
@@ -259,6 +259,107 @@ int with_ring(int dtype, int ve, int kt, Fn&& fn) {
   if (dtype == kBF16)
     return ve == 2 ? with_kt<__nv_bfloat16, 2>(kt, fn)
                    : with_kt<__nv_bfloat16, 1>(kt, fn);
+  return cudaErrorInvalidValue;
+}
+
+// ------------------------------ the temporal bodies' cells (K1, K8)
+
+// The unsigned word of N bytes, which moves a cell as one access.
+template <int N> struct WordOf;
+template <> struct WordOf<2> { using type = uint16_t; };
+template <> struct WordOf<4> { using type = uint32_t; };
+template <> struct WordOf<8> { using type = uint2; };
+template <> struct WordOf<16> { using type = uint4; };
+
+// A cell of VE elements of T as 32-bit words (a lone bfloat16 in the high
+// half of one), so that unpacking is a shift, a mask or nothing.
+template <typename T, int VE>
+struct Cell32 {
+  static constexpr int bytes = VE * (int)sizeof(T);
+  static constexpr int words = bytes < 4 ? 1 : bytes / 4;
+  uint32_t w[words];
+
+  __device__ __forceinline__ void load(const T* p) {
+    using Word = typename WordOf<bytes>::type;
+    const Word v = *reinterpret_cast<const Word*>(p);
+    if constexpr (bytes == 2) {
+      w[0] = (uint32_t)v << 16;
+    } else if constexpr (bytes == 4) {
+      w[0] = v;
+    } else if constexpr (bytes == 8) {
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < words; ++i) w[i] = 0;
+  }
+  __device__ __forceinline__ void unpack(float (&v)[VE]) const {
+    if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+      for (int i = 0; i < VE; ++i) v[i] = __uint_as_float(w[i]);
+    } else if constexpr (VE == 1) {
+      v[0] = __uint_as_float(w[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VE / 2; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+};
+
+// VE float32 values rounded to T (nearest even) and stored as one access.
+template <typename T, int VE>
+__device__ __forceinline__ void store_cell(T* p, const float (&v)[VE]) {
+  constexpr int bytes = VE * (int)sizeof(T);
+  if constexpr (bytes == 2) {
+    *p = __float2bfloat16(v[0]);
+  } else {
+    uint32_t w[bytes / 4];
+    if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+      for (int i = 0; i < VE; ++i) w[i] = __float_as_uint(v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VE / 2; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    using Word = typename WordOf<bytes>::type;
+    if constexpr (bytes == 4) {
+      *reinterpret_cast<Word*>(p) = w[0];
+    } else if constexpr (bytes == 8) {
+      *reinterpret_cast<Word*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<Word*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// fn(Ring<T, VE, KT>{}) (the instantiation tag above) for the temporal
+// body a call takes (K1's or K8's): VE 1, 2, 4 (float32) or 1, 2, 4, 8
+// (bfloat16) channels a cell, KT 1 .. kRingMaxKt.
+template <typename Fn>
+int with_temporal(int dtype, int ve, int kt, Fn&& fn) {
+  if (dtype == kF32) {
+    switch (ve) {
+      case 1: return with_kt<float, 1>(kt, fn);
+      case 2: return with_kt<float, 2>(kt, fn);
+      case 4: return with_kt<float, 4>(kt, fn);
+    }
+  } else if (dtype == kBF16) {
+    switch (ve) {
+      case 1: return with_kt<__nv_bfloat16, 1>(kt, fn);
+      case 2: return with_kt<__nv_bfloat16, 2>(kt, fn);
+      case 4: return with_kt<__nv_bfloat16, 4>(kt, fn);
+      case 8: return with_kt<__nv_bfloat16, 8>(kt, fn);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 

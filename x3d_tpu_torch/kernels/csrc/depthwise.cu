@@ -23,7 +23,8 @@
 //     stride 1 (the stem's conv_t, kt <= kRingMaxKt).  The spatial taps are
 //     1x1, so no pixel shares an input with another and shared memory buys
 //     nothing: a thread owns one pixel's cell of VE channels (16 bytes where
-//     C x elem and both addresses allow, narrower otherwise) and walks a run
+//     C x elem and both addresses allow, narrower otherwise; common.cuh's
+//     Cell32, which K8's temporal body shares) and walks a run
 //     of frames, reading each input frame of the run once (and kt - 1 halo
 //     frames a run) with one vector load, and keeping KT running sums in
 //     registers: input frame r adds into the sums of outputs r - dt, and the
@@ -176,83 +177,6 @@ struct TemporalGeom {
   int TC, nruns;        // frames a run, runs along To
 };
 
-// The unsigned word of N bytes, which moves a cell as one access.
-template <int N> struct WordOf;
-template <> struct WordOf<2> { using type = uint16_t; };
-template <> struct WordOf<4> { using type = uint32_t; };
-template <> struct WordOf<8> { using type = uint2; };
-template <> struct WordOf<16> { using type = uint4; };
-
-// A cell of VE elements of T as 32-bit words (a lone bfloat16 in the high
-// half of one), so that unpacking is a shift, a mask or nothing.
-template <typename T, int VE>
-struct Cell32 {
-  static constexpr int bytes = VE * (int)sizeof(T);
-  static constexpr int words = bytes < 4 ? 1 : bytes / 4;
-  uint32_t w[words];
-
-  __device__ __forceinline__ void load(const T* p) {
-    using Word = typename WordOf<bytes>::type;
-    const Word v = *reinterpret_cast<const Word*>(p);
-    if constexpr (bytes == 2) {
-      w[0] = (uint32_t)v << 16;
-    } else if constexpr (bytes == 4) {
-      w[0] = v;
-    } else if constexpr (bytes == 8) {
-      w[0] = v.x, w[1] = v.y;
-    } else {
-      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-    }
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < words; ++i) w[i] = 0;
-  }
-  __device__ __forceinline__ void unpack(float (&v)[VE]) const {
-    if constexpr (std::is_same_v<T, float>) {
-#pragma unroll
-      for (int i = 0; i < VE; ++i) v[i] = __uint_as_float(w[i]);
-    } else if constexpr (VE == 1) {
-      v[0] = __uint_as_float(w[0]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VE / 2; ++i) {
-        v[2 * i] = __uint_as_float(w[i] << 16);
-        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-      }
-    }
-  }
-};
-
-// VE float32 values rounded to T (nearest even) and stored as one access.
-template <typename T, int VE>
-__device__ __forceinline__ void store_cell(T* p, const float (&v)[VE]) {
-  constexpr int bytes = VE * (int)sizeof(T);
-  if constexpr (bytes == 2) {
-    *p = __float2bfloat16(v[0]);
-  } else {
-    uint32_t w[bytes / 4];
-    if constexpr (std::is_same_v<T, float>) {
-#pragma unroll
-      for (int i = 0; i < VE; ++i) w[i] = __float_as_uint(v[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VE / 2; ++i) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-        w[i] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-    }
-    using Word = typename WordOf<bytes>::type;
-    if constexpr (bytes == 4) {
-      *reinterpret_cast<Word*>(p) = w[0];
-    } else if constexpr (bytes == 8) {
-      *reinterpret_cast<Word*>(p) = make_uint2(w[0], w[1]);
-    } else {
-      *reinterpret_cast<Word*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
 // Registers: at most 128 a thread, so that two blocks of 256 share an SM.
 template <typename T, int VE, int KT>
 __global__ void __launch_bounds__(kTemporalThreads, 2)
@@ -320,28 +244,6 @@ int launch_temporal(const void* x, const float* taps, void* y,
       <<<grid, kTemporalThreads, 0, stream>>>(
           static_cast<const T*>(x), taps, static_cast<T*>(y), g);
   return cudaGetLastError();
-}
-
-// fn(Ring<T, VE, KT>{}) (common.cuh's instantiation tag) for the temporal
-// body a call takes: VE 1, 2, 4 (float32) or 1, 2, 4, 8 (bfloat16)
-// channels a cell, KT 1 .. kRingMaxKt.
-template <typename Fn>
-int with_temporal(int dtype, int ve, int kt, Fn&& fn) {
-  if (dtype == kF32) {
-    switch (ve) {
-      case 1: return with_kt<float, 1>(kt, fn);
-      case 2: return with_kt<float, 2>(kt, fn);
-      case 4: return with_kt<float, 4>(kt, fn);
-    }
-  } else if (dtype == kBF16) {
-    switch (ve) {
-      case 1: return with_kt<__nv_bfloat16, 1>(kt, fn);
-      case 2: return with_kt<__nv_bfloat16, 2>(kt, fn);
-      case 4: return with_kt<__nv_bfloat16, 4>(kt, fn);
-      case 8: return with_kt<__nv_bfloat16, 8>(kt, fn);
-    }
-  }
-  return cudaErrorInvalidValue;
 }
 
 // ----------------------------------------------------------- ring body

@@ -28,7 +28,13 @@ conv, and the stride-2 stage-entry convs.
   (``kernels/csrc/depthwise_pbwd.cu``), the one-pass backward of a stride-1
   SAME odd-tap conv (both gradients from one stream over the input and the
   cotangent), which replaces the TPU kernel ``dw_fused._pbwd_kernel``;
-  :func:`depthwise_conv3d_pbwd_reference` is its plain version.
+  :func:`depthwise_conv3d_pbwd_reference` is its plain version.  K8 has
+  two bodies, picked by :func:`pbwd_body`: the temporal body for 1x1
+  spatial taps (the stem's k×1×1 conv; a thread walks one pixel's channel
+  cell through a run of frames, du and the dk sums in registers, one
+  partial a block summed in a fixed order, launched by
+  :func:`pbwd_temporal_plan`) and the generic body for every other
+  geometry.
 * :func:`depthwise` is the differentiable op the model calls: K1 forward;
   backward K8 where :func:`pbwd_eligible` holds and both gradients are
   wanted, else K4 (or the plain versions, see ``ops.plain_versions``).
@@ -82,6 +88,10 @@ _PBWD_SIGNATURES = {
     "x3d_dw_conv3d_pbwd_tiles": [ctypes.c_int] * 2,
     "x3d_dw_conv3d_pbwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
+    "x3d_dw_conv3d_pbwd_temporal_occupancy": [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "x3d_dw_conv3d_pbwd_temporal": [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 13 + [ctypes.c_void_p],
 }
 
 
@@ -560,6 +570,115 @@ def depthwise_conv3d_pbwd_reference(u: torch.Tensor, gy: torch.Tensor,
             depthwise_conv3d_dk_reference(u, gy, kdims, (1, 1, 1), pads))
 
 
+PBWD_THREADS = 256     # kPbwdThreads in depthwise_pbwd.cu
+PBWD_MAX_CELL = 8      # kPbwdMaxCell: the widest cell in bytes
+PBWD_MAX_PARTS = 512   # partials past which a block walks more pixel rows
+
+
+def pbwd_body(kdims, pads) -> str:
+    """Which of K8's two bodies computes a call (one that
+    :func:`pbwd_eligible` admits): "temporal" for spatial taps 1x1, odd
+    1 <= kt <= RING_MAX_KT and SAME pads ((kt // 2,) * 2 in time, none in
+    space) -- the stem's k×1×1 conv; "generic" for every other geometry."""
+    kt, kh, kw = (int(k) for k in kdims)
+    lo = kt // 2
+    if ((kh, kw) == (1, 1) and kt % 2 == 1 and 1 <= kt <= ring.RING_MAX_KT
+            and tuple(tuple(int(v) for v in p) for p in pads)
+            == ((lo, lo), (0, 0), (0, 0))):
+        return "temporal"
+    return "generic"
+
+
+@functools.lru_cache(maxsize=None)
+def pbwd_temporal_plan(B: int, T: int, H: int, W: int, C: int, kt: int,
+                       elem: int = 2, align: int = 16,
+                       slots: int = 0) -> dict:
+    """How K8's temporal body runs a call on (B, T, H, W, C) with kt taps:
+    elements of ``elem`` bytes, u, gy and du at addresses that are
+    multiples of ``align`` bytes, a card that holds ``slots`` threads at
+    once (0: no runs are cut).
+
+    * ``vec`` channels a cell: the widest cell of PBWD_MAX_CELL or 4 bytes
+      or one element that C and the addresses allow (16-byte cells measured
+      slower at the X3D stems, PERF.md §6);
+    * a block of ``threads`` = ``group`` x ``pixels`` threads (cell, pixel):
+      ``group`` cells of one channel group (all C / vec where they fit in
+      PBWD_THREADS, else ``groups`` equal groups) by ``pixels`` rows;
+    * runs of ``run`` frames: T is cut while a thread a cell would not fill
+      the card twice over, keeping runs of RING_MIN_RUN frames or more (the
+      rule of :func:`temporal_plan`; each cut rereads kt - 1 frames);
+    * a block takes ``walk`` pixel rows one after another, the fewest that
+      keep the partials at PBWD_MAX_PARTS or under (a partial a block cost
+      the second pass 9% of the kernel at X3D-M; walking cost the kernel
+      nothing, PERF.md §6); ``pblocks`` blocks along the pixels,
+      ``blocks`` = pblocks x runs x groups in all;
+    * ``parts`` = pblocks x runs rows of the (parts, kt, C) float32
+      partials, one a block and channel group, which the second pass sums in
+      a fixed order; ``smem_bytes`` the block's kt x vec sums a thread.
+    """
+    vec = next(v for v in (PBWD_MAX_CELL // elem, 4 // elem, 1)
+               if v >= 1 and C % v == 0 and align % (v * elem) == 0)
+    cells = C // vec
+    groups = -(-cells // PBWD_THREADS)
+    group = -(-cells // groups)
+    pixels = PBWD_THREADS // group
+    N = B * H * W
+    runs = 1
+    while N * cells * runs < 2 * slots and -(-T // (runs + 1)) >= \
+            ring.RING_MIN_RUN:
+        runs += 1
+    run = -(-T // runs)
+    runs = -(-T // run)
+    rows = -(-N // pixels)
+    walk = max(1, -(-rows * runs // PBWD_MAX_PARTS))
+    pblocks = -(-rows // walk)
+    return dict(vec=vec, cell_bytes=vec * elem, group=group, groups=groups,
+                pixels=pixels, threads=group * pixels, walk=walk, run=run,
+                runs=runs, pblocks=pblocks, blocks=pblocks * runs * groups,
+                parts=pblocks * runs,
+                smem_bytes=group * pixels * kt * vec * 4)
+
+
+def _pbwd_temporal_plan(lib, u, gy, du, kt: int) -> dict:
+    """:func:`pbwd_temporal_plan` for a call on u, gy, du and this card (its
+    threads at once from the library's occupancy query)."""
+    args = (*u.shape, kt, u.element_size(), ring.align(u, gy, du))
+    p = pbwd_temporal_plan(*args)
+    blocks = ring.card_slots(lib, "x3d_dw_conv3d_pbwd_temporal_occupancy",
+                             kernels.dtype_code(u), p["vec"], kt,
+                             p["threads"], p["smem_bytes"])
+    return pbwd_temporal_plan(*args, slots=blocks * p["threads"])
+
+
+def _launch_pbwd(lib, body, u, gy, taps, kdims, stream):
+    """K8's ``body`` on u and gy (contiguous, one dtype, on a CUDA device)
+    and prepared taps ((kt * kh * kw, C) float32, rounded to u's dtype);
+    returns du and dk as (taps, C) float32, or raises."""
+    B, T, H, W, C = u.shape
+    ntaps = math.prod(kdims)
+    du = torch.empty_like(u)
+    dk = torch.empty((ntaps, C), dtype=torch.float32, device=u.device)
+    if body == "temporal":
+        p = _pbwd_temporal_plan(lib, u, gy, du, kdims[0])
+        parts = p["parts"]
+    else:
+        parts = B * lib.x3d_dw_conv3d_pbwd_tiles(H, W)
+    part = torch.empty((parts, ntaps, C), dtype=torch.float32,
+                       device=u.device)
+    ptrs = (u.data_ptr(), gy.data_ptr(), taps.data_ptr(), du.data_ptr(),
+            part.data_ptr(), dk.data_ptr(), kernels.dtype_code(u), B, T, H, W,
+            C)
+    if body == "temporal":
+        rc = lib.x3d_dw_conv3d_pbwd_temporal(
+            *ptrs, kdims[0], p["vec"], p["group"], p["pixels"], p["walk"],
+            p["run"], parts, stream)
+    else:
+        rc = lib.x3d_dw_conv3d_pbwd(*ptrs, *kdims, stream)
+    kernels.raise_on_error(rc, f"depthwise_conv3d_pbwd ({body} body) kernel "
+                           "launch")
+    return du, dk
+
+
 def depthwise_conv3d_pbwd(u: torch.Tensor, gy: torch.Tensor,
                           kernel: torch.Tensor):
     """Both gradients of a stride-1 SAME odd-tap depthwise conv in one pass
@@ -574,33 +693,27 @@ def depthwise_conv3d_pbwd(u: torch.Tensor, gy: torch.Tensor,
       du (B, T, H, W, C) in u's dtype, taps summed in float32; dk (kt, kh,
       kw, 1, C) float32, from per-block partials summed in a fixed order.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K8 or
-    raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches K8's body
+    that :func:`pbwd_body` names, or raises.
     """
-    kdims, _ = _pbwd_check(u, gy, kernel)
+    kdims, pads = _pbwd_check(u, gy, kernel)
     if u.device.type == "cpu":
         return depthwise_conv3d_pbwd_reference(u, gy, kernel)
     kernels.check_cuda(u, gy)
-    B, T, H, W, C = u.shape
-    ntaps = kdims[0] * kdims[1] * kdims[2]
-    taps = kernel.to(u.dtype).to(torch.float32).reshape(ntaps, C).contiguous()
+    C = u.shape[-1]
+    taps = kernel.to(u.dtype).to(torch.float32).reshape(-1, C).contiguous()
+    kernels.check_cuda(u, gy, taps)
+    body = pbwd_body(kdims, pads)
     lib = _build.load("depthwise_pbwd.cu", _PBWD_SIGNATURES)
-    tiles = lib.x3d_dw_conv3d_pbwd_tiles(H, W)
-    du = torch.empty_like(u)
-    part = torch.empty((B, tiles, ntaps, C), dtype=torch.float32,
-                       device=u.device)
-    dk = torch.empty((ntaps, C), dtype=torch.float32, device=u.device)
-    kernels.check_cuda(u, gy, taps, du, part, dk)
-    rc = lib.x3d_dw_conv3d_pbwd(
-        u.data_ptr(), gy.data_ptr(), taps.data_ptr(), du.data_ptr(),
-        part.data_ptr(), dk.data_ptr(), kernels.dtype_code(u), B, T, H, W, C,
-        *kdims, kernels.stream_handle(u))
-    kernels.raise_on_error(rc, "depthwise_conv3d_pbwd kernel launch")
+    du, dk = _launch_pbwd(lib, body, u, gy, taps, kdims,
+                          kernels.stream_handle(u))
     depthwise_conv3d_pbwd.launches += 1
+    depthwise_conv3d_pbwd.body_launches[body] += 1
     return du, dk.reshape(*kdims, 1, C)
 
 
 depthwise_conv3d_pbwd.launches = 0
+depthwise_conv3d_pbwd.body_launches = {"temporal": 0, "generic": 0}
 
 
 class _Depthwise(torch.autograd.Function):

@@ -52,7 +52,9 @@ _PORT = (
     ("K7 pw_conv", ("pw_conv_kernel", "pw_conv_mma_kernel",
                     "pw_conv_wg_kernel")),
     ("K8 depthwise_conv3d_pbwd", ("dw_conv3d_pbwd_kernel",
-                                  "sum_pbwd_partials_kernel")),
+                                  "sum_pbwd_partials_kernel",
+                                  "dw_conv3d_pbwd_temporal_kernel",
+                                  "dw_conv3d_pbwd_sum_kernel")),
     ("K2/K3/K5/K6 second passes", ("sum_partials_kernel",)),
 )
 
