@@ -67,7 +67,9 @@ its own, which fails on a spill where the body must not spill) and then:
   version and times it beside ``F.linear`` and the pipe body at every bulk
   1x1x1 conv of X3D-M and X3D-S (serving requests of 10 and 80 clips,
   training at 32 and 64 clips), forward and dx; takes each case's device
-  time for K7, each body and ``F.linear`` (``tools/profile_pointwise``),
+  time for K7, each body and ``F.linear`` (``tools/profile_pointwise``:
+  the profiler's, or CUDA events with the stream held where the profiler
+  loses part of a case's window three times),
   failing where the wg body is behind the pipe body by more than 3%, the
   host's time to launch each body, and K7's and ``F.linear``'s device time
   over the 57 launches of an X3D-M 10-clip forward with
@@ -93,7 +95,27 @@ its own, which fails on a spill where the body must not spill) and then:
   restored step is 6 and
   the losses equal an uninterrupted run's, bit for bit, with cuDNN's flags
   as the tools set them), evaluate two batches of 8 videos × 10 views, and
-  serve one video from the checkpoint.
+  serve one video from the checkpoint;
+* takes X3D-XS (4×160², 128 training clips, 10 views), X3D-L and X3D-XL
+  (16×312², 16 training clips, 3 views) from their YAMLs at full width
+  and depth, bfloat16: holds every kernel against its plain version at
+  the shapes their serving requests (1 and 8 videos) and training steps
+  give it, float32 and bfloat16, with fewer timing repeats (a row on the
+  path fails where the kernel is behind its plain version, or a new body
+  behind the generic body where that takes 0.15 ms or more; K7's plain
+  version is its library call, ``F.linear``, so its rows behind it are
+  recorded, not failed); serves 1 and 8 videos through ``InferenceEngine``
+  (probabilities, device and wall ms, peak memory, launches and bodies per
+  forward); trains
+  the bare step for a few steps at the config's batch (first and median
+  ms, clips/s, peak memory, launches and bodies per step), L and XL with
+  remat as ``create_model`` resolves it from the YAML ("auto": per block)
+  and without, and checks that one step repeats bit for bit and that the
+  step with remat equals the step without, bit for bit (loss, gradients,
+  parameters, running statistics); and checks a float32 step through the
+  kernels against the plain versions for XS (whose stem's 4 frames are
+  fewer than its 5 taps, so K4 takes its backward) and XL (SCALE_RES2,
+  widths 2 mod 4).
 
 Every result line is a JSON object carrying the card's name and power
 limit; the ``kernels`` line comes second to last, and the last line is
@@ -126,6 +148,9 @@ MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (published)
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bfloat16 tensor cores, dense
 ITERS = 20
+NEW_ITERS = 5                 # timing repeats in the X3D-XS/L/XL phase
+HOST_BOUND_MS = 0.15          # time_fn below this reads the host's gaps
+NEW_VARIANTS = ("XS", "L", "XL")
 
 # Tolerances: float32 kernel vs plain float32 (cuDNN without TF32): sums in
 # another order, so 1e-4 absolute on activations of order 1, and 1e-5 of a
@@ -161,7 +186,10 @@ TOL_TRAIN_SUMS = 1e-4
 # The updated parameters likewise against the plain step's update, after
 # two float32 ulps of each parameter (a small update is rounded into a
 # parameter of order 1).  The loss rtol 1e-5, the running statistics
-# (forward only) within 1e-4 of their leaf's largest value.
+# (forward only) within 1e-4 of their leaf's largest value.  X3D-XS and
+# X3D-XL (55 blocks) are held to the larger of these bounds and what a
+# 1e-6 relative nudge of each input value moves the plain step by,
+# measured in the same run (f32_step_check's ``calibrate``).
 TOL_STEP_LOSS, TOL_STEP_STATS = 1e-5, 1e-4
 TOL_STEP_L2, TOL_STEP_LEAF_L2, TOL_STEP_COS = 5e-2, 1e-1, 0.999
 
@@ -224,8 +252,10 @@ def main() -> int:
             failures.append(what)
             print(f"chip_smoke: FAILED {what}", file=sys.stderr, flush=True)
 
-    def time_ms(fn, iters: int = ITERS) -> float:
-        return time_fn(fn, iters=iters) * 1e3
+    timing = {"iters": ITERS}
+
+    def time_ms(fn, iters: int = 0) -> float:
+        return time_fn(fn, iters=iters or timing["iters"]) * 1e3
 
     def bound(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
         t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / rate
@@ -527,9 +557,11 @@ def main() -> int:
         row.update(shares(row))
         return row
 
-    k1_serving = {}
-    for variant, B, cases in k1_paths:
-        rows = k1_serving[variant, B] = []
+    def k1_serving_rows(variant, B, cases, plain):
+        """K1 against its plain version at one serving batch's shapes,
+        float32 and bfloat16, with the bfloat16 times (the plain version's
+        where ``plain``)."""
+        rows = []
         for name, shape, kdims, strides, padding, n in cases:
             C = shape[-1]
             x, k = randn(*shape), randn(*kdims, 1, C) * 0.3
@@ -546,7 +578,6 @@ def main() -> int:
             rel16 = ((gotb.float() - refb).abs().max()
                      / refb.abs().max()).item()
             del refb, gotb
-            plain = (variant, B) == ("M", CLIPS)
             row = dict(variant=variant, clips=B, name=name, shape=list(shape),
                        kernel=list(kdims), strides=list(strides),
                        pads=[list(p) for p in pads], max_abs_err_f32=err32,
@@ -564,6 +595,11 @@ def main() -> int:
             rows.append(row)
             del xb, kb
             torch.cuda.empty_cache()
+        return rows
+
+    k1_serving = {(variant, B): k1_serving_rows(variant, B, cases,
+                                                (variant, B) == ("M", CLIPS))
+                  for variant, B, cases in k1_paths}
     k1_rows = k1_serving["M", CLIPS]
     for (variant, B), rows in k1_serving.items():
         keys = ("ms", "generic_ms", "library_ms", "bound_ms") + (
@@ -618,9 +654,11 @@ def main() -> int:
         row.update(shares(row))
         return row
 
-    k2_serving = {}
-    for variant, B, kt, cases in k2_paths:
-        rows = k2_serving[variant, B] = []
+    def k2_serving_rows(variant, B, kt, cases, plain):
+        """K2 against its plain version at one serving batch's shapes,
+        float32 and bfloat16, with the bfloat16 times (the plain version's
+        where ``plain``)."""
+        rows = []
         for name, shape, n in cases:
             C = shape[-1]
             x = randn(*shape)
@@ -639,12 +677,12 @@ def main() -> int:
             rel16 = ((yb.float() - yr).abs().max() / yr.abs().max()).item()
             errp16, errs16 = sums_err(pb, pr, yr), sums_err(s2b, s2r, None)
             del yb, pb, s2b, yr, pr, s2r
-            row = dict(variant=variant, name=name, shape=list(shape),
-                       max_abs_err_f32=err32, p_err_f32=errp32,
-                       s2_err_f32=errs32, rel_err_bf16=rel16,
-                       p_err_bf16=errp16, s2_err_bf16=errs16,
-                       **k2_times(xb, a, b, kb, n,
-                                  plain=(variant, B) == ("M", CLIPS)))
+            row = dict(variant=variant, clips=B, name=name,
+                       shape=list(shape), max_abs_err_f32=err32,
+                       p_err_f32=errp32, s2_err_f32=errs32,
+                       rel_err_bf16=rel16, p_err_bf16=errp16,
+                       s2_err_bf16=errs16,
+                       **k2_times(xb, a, b, kb, n, plain=plain))
             emit(phase="K2 dw_bn_act_conv", **row)
             where = f"X3D-{variant} {B} clips {name}"
             check(err32 <= TOL_F32, f"K2 {where} f32 y err {err32}")
@@ -655,6 +693,11 @@ def main() -> int:
             rows.append(row)
             del xb, kb
             torch.cuda.empty_cache()
+        return rows
+
+    k2_serving = {(variant, B): k2_serving_rows(variant, B, kt, cases,
+                                                (variant, B) == ("M", CLIPS))
+                  for variant, B, kt, cases in k2_paths}
     k2_rows = k2_serving["M", CLIPS]
     for (variant, B), rows in k2_serving.items():
         total = {key: sum(r["n"] * r[key] for r in rows)
@@ -699,16 +742,19 @@ def main() -> int:
                        k3_bodies, k7_bodies, k8_bodies):
             bodies.update(dict.fromkeys(bodies, 0))
 
-    def k7_want(vcfg, varch, train, times):
+    def k7_want(vcfg, varch, train, times, remat=False):
         """K7's launches by body over ``times`` forwards (training steps:
-        forward and dx) of X3D-``vcfg``, each call by the body its plan
-        names (``pointwise.pw_body``)."""
+        forward and dx, and with ``remat`` the blocks' forward calls once
+        more) of X3D-``vcfg``, each call by the body its plan names
+        (``pointwise.pw_body``)."""
         crop = vcfg.DATA.TRAIN_CROP_SIZE if train \
             else vcfg.DATA.TEST_CROP_SIZE
         found = profile_pointwise.cases(vcfg, varch, CLIPS, crop, train)
+        calls = profile_pointwise.with_dx(found) if train else found
+        if remat:
+            calls = calls + found[:-1]         # all but conv_5, in the head
         want = dict.fromkeys(k7_bodies, 0)
-        for _, shape, N, strides, n in (profile_pointwise.with_dx(found)
-                                        if train else found):
+        for _, shape, N, strides, n in calls:
             M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
                 * -(-shape[3] // strides[2])
             want[pointwise.pw_body(shape[-1], N, M, strides, width=shape[3],
@@ -822,12 +868,16 @@ def main() -> int:
         rows of K4, K2, K3, K5 and K6."""
         T = vcfg.DATA.TEMP_DURATION
         S = vcfg.DATA.TRAIN_CROP_SIZE // 2
-        # n: K4 launches per step; the stem's backward runs as K8, so its
-        # K4 rows stay out of the line's sums
-        seg_cases, k4_cases = [], [
-            ("conv_1.conv_t", (T, S, S, varch.conv1_dim),
-             (varch.temp_filter, 1, 1), (1, 1, 1),
-             ((varch.temp_filter // 2,) * 2, (0, 0), (0, 0)), 0)]
+        # n: K4 launches per step; the stem's backward runs as K8 where it
+        # can (not at X3D-XS: 4 frames, 5 taps), and then its K4 rows stay
+        # out of the line's sums
+        kt = varch.temp_filter
+        stem = ((T, S, S, varch.conv1_dim), (kt, 1, 1), (1, 1, 1),
+                ((kt // 2,) * 2, (0, 0), (0, 0)))
+        seg_cases, k4_cases = [], [("conv_1.conv_t", *stem, 0 if
+                                    depthwise.pbwd_eligible((B, *stem[0]),
+                                                            *stem[1:])
+                                    else 1)]
         for si, blocks in enumerate(varch.stages):
             k4_cases.append((f"stage{si + 2}_block0.b",
                              (T, S, S, blocks[0].inner_channels),
@@ -1239,85 +1289,117 @@ def main() -> int:
     del model, state, train_step, batch, runs, snap
     torch.cuda.empty_cache()
 
-    # one float32 step, kernels vs plain versions, same state and batch
-    model = create_model(cfg, dtype=torch.float32, seed=SEED + 1)
-    state = create_train_state(cfg, model)
-    train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
-    batch = next(synthetic_batches(cfg, PARITY_CLIPS, dtype=torch.float32,
-                                   seed=SEED + 1))
-    snap = snapshot(state)
-    results = []
-    for plain in (False, True):
-        restore(state, snap)
-        zero_counts()
-        if plain:
-            with plain_versions():
-                state, metrics = train_step(state, batch, dropout_gen)
-        else:
-            state, metrics = train_step(state, batch, dropout_gen)
-        torch.cuda.synchronize()
-        results.append((float(metrics["loss"]),
-                        {n: p.grad.clone()
-                         for n, p in model.named_parameters()},
-                        copy.deepcopy(model.state_dict()), read_counts()))
+    def f32_step_check(vcfg, variant, want, calibrate=False):
+        """One float32 step at PARITY_CLIPS clips through the kernels
+        against the same step through the plain versions, from one state
+        and batch: the loss, every gradient, the updated parameters and the
+        BN running statistics; ``want``: the kernels' launches.  With
+        ``calibrate`` (the deeper variants) the plain step also runs on the
+        batch nudged by 1e-6 of each input value, and the gradient and
+        update bounds become what that nudge moves the plain step by where
+        it moves it by more than TOL_STEP_*: the step's own sensitivity."""
+        model = create_model(vcfg, dtype=torch.float32, seed=SEED + 1)
+        state = create_train_state(vcfg, model)
+        train_step = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
+        batch = next(synthetic_batches(vcfg, PARITY_CLIPS,
+                                       dtype=torch.float32, seed=SEED + 1))
+        runs = [(False, batch), (True, batch)]
+        if calibrate:
+            nudge = torch.Generator(device="cuda").manual_seed(SEED + 2)
+            runs.append((True, {**batch, "video": batch["video"] * (
+                1 + 1e-6 * torch.randn(batch["video"].shape, generator=nudge,
+                                       device="cuda"))}))
+        snap = snapshot(state)
+        results = []
+        for plain, clips in runs:
+            restore(state, snap)
+            zero_counts()
+            if plain:
+                with plain_versions():
+                    state, metrics = train_step(state, clips, dropout_gen)
+            else:
+                state, metrics = train_step(state, clips, dropout_gen)
+            torch.cuda.synchronize()
+            results.append((float(metrics["loss"]),
+                            {n: p.grad.clone()
+                             for n, p in model.named_parameters()},
+                            copy.deepcopy(model.state_dict()), read_counts()))
 
-    def grad_diff(got, want):
-        """(relative L2 over all leaves, worst leaf's relative L2, least
-        leaf cosine) of two gradient dicts."""
-        num = den = 0.0
-        worst, cos = 0.0, 1.0
-        for n, w in want.items():
-            g = got[n].double().flatten()
-            w = w.double().flatten()
-            num += (g - w).square().sum().item()
-            den += w.square().sum().item()
-            worst = max(worst, ((g - w).norm() / w.norm().clamp_min(1e-30))
-                        .item())
-            cos = min(cos, F.cosine_similarity(g, w, dim=0).item())
-        return (num / max(den, 1e-300)) ** 0.5, worst, cos
+        def grad_diff(got, want):
+            """(relative L2 over all leaves, worst leaf's relative L2, least
+            leaf cosine) of two gradient dicts."""
+            num = den = 0.0
+            worst, cos = 0.0, 1.0
+            for n, w in want.items():
+                g = got[n].double().flatten()
+                w = w.double().flatten()
+                num += (g - w).square().sum().item()
+                den += w.square().sum().item()
+                worst = max(worst, ((g - w).norm()
+                                    / w.norm().clamp_min(1e-30)).item())
+                cos = min(cos, F.cosine_similarity(g, w, dim=0).item())
+            return (num / max(den, 1e-300)) ** 0.5, worst, cos
 
-    def update_diff(got, want):
-        """(relative L2 over all leaves, worst leaf's) of the updated
-        parameters against the plain step's update, after two float32 ulps
-        of each parameter's norm."""
-        num = den = 0.0
-        worst = 0.0
-        for n, _ in model.named_parameters():
-            w = want[n].double()
-            u = (w - snap[0][n].double()).norm().item()
-            d = max((got[n].double() - w).norm().item()
-                    - 2.4e-7 * w.norm().item(), 0.0)
-            num, den = num + d * d, den + u * u
-            worst = max(worst, d / max(u, 1e-30))
-        return (num / max(den, 1e-300)) ** 0.5, worst
+        def update_diff(got, want):
+            """(relative L2 over all leaves, worst leaf's) of the updated
+            parameters against the plain step's update, after two float32
+            ulps of each parameter's norm."""
+            num = den = 0.0
+            worst = 0.0
+            for n, _ in model.named_parameters():
+                w = want[n].double()
+                u = (w - snap[0][n].double()).norm().item()
+                d = max((got[n].double() - w).norm().item()
+                        - 2.4e-7 * w.norm().item(), 0.0)
+                num, den = num + d * d, den + u * u
+                worst = max(worst, d / max(u, 1e-30))
+            return (num / max(den, 1e-300)) ** 0.5, worst
 
-    (loss_k, grads_k, after_k, n_k), (loss_p, grads_p, after_p, n_p) = \
-        results
-    g_l2, g_leaf, g_cos = grad_diff(grads_k, grads_p)
-    u_l2, u_leaf = update_diff(after_k, after_p)
-    stats_err = max((after_k[n] - v).abs().max().item() / v.abs().max().item()
-                    for n, v in after_p.items()
-                    if n.endswith((".mean", ".var")))
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    emit(phase="train f32 kernels vs plain", clips=PARITY_CLIPS,
-         loss_kernels=loss_k, loss_plain=loss_p, loss_rel_err=loss_err,
-         grad_rel_l2=g_l2, grad_worst_leaf_rel_l2=g_leaf,
-         grad_least_leaf_cosine=g_cos, update_rel_l2=u_l2,
-         update_worst_leaf_rel_l2=u_leaf,
-         stats_err_of_leaf_max=stats_err,
-         kernel_launches=n_k, plain_launches=n_p)
-    check(loss_err <= TOL_STEP_LOSS, f"f32 step loss err {loss_err}")
-    check(g_l2 <= TOL_STEP_L2 and g_leaf <= TOL_STEP_LEAF_L2
-          and g_cos >= TOL_STEP_COS,
-          f"f32 step grads: rel L2 {g_l2}, worst leaf {g_leaf}, "
-          f"least cosine {g_cos}")
-    check(u_l2 <= TOL_STEP_L2 and u_leaf <= TOL_STEP_LEAF_L2,
-          f"f32 step update: rel L2 {u_l2}, worst leaf {u_leaf}")
-    check(stats_err <= TOL_STEP_STATS, f"f32 step stats err {stats_err}")
-    check(n_k == want_step and set(n_p.values()) == {0},
-          f"f32 step launches kernels {n_k} plain {n_p}")
-    del model, state, results
-    torch.cuda.empty_cache()
+        (loss_k, grads_k, after_k, n_k), (loss_p, grads_p, after_p, n_p) = \
+            results[:2]
+        g_l2, g_leaf, g_cos = grad_diff(grads_k, grads_p)
+        u_l2, u_leaf = update_diff(after_k, after_p)
+        tol_l2, tol_leaf, tol_cos = TOL_STEP_L2, TOL_STEP_LEAF_L2, TOL_STEP_COS
+        sensitivity = {}
+        if calibrate:
+            n_l2, n_leaf, n_cos = grad_diff(results[2][1], grads_p)
+            nu_l2, nu_leaf = update_diff(results[2][2], after_p)
+            sensitivity = dict(nudged_grad_rel_l2=n_l2,
+                               nudged_grad_worst_leaf_rel_l2=n_leaf,
+                               nudged_grad_least_leaf_cosine=n_cos,
+                               nudged_update_rel_l2=nu_l2,
+                               nudged_update_worst_leaf_rel_l2=nu_leaf)
+            tol_l2 = max(tol_l2, n_l2, nu_l2)
+            tol_leaf = max(tol_leaf, n_leaf, nu_leaf)
+            tol_cos = min(tol_cos, n_cos)
+        stats_err = max((after_k[n] - v).abs().max().item()
+                        / v.abs().max().item()
+                        for n, v in after_p.items()
+                        if n.endswith((".mean", ".var")))
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        where = "" if variant == "M" else f"X3D-{variant} "
+        emit(phase=f"{where}train f32 kernels vs plain", clips=PARITY_CLIPS,
+             remat=model.remat, loss_kernels=loss_k, loss_plain=loss_p,
+             loss_rel_err=loss_err, grad_rel_l2=g_l2,
+             grad_worst_leaf_rel_l2=g_leaf, grad_least_leaf_cosine=g_cos,
+             update_rel_l2=u_l2, update_worst_leaf_rel_l2=u_leaf,
+             stats_err_of_leaf_max=stats_err, **sensitivity,
+             kernel_launches=n_k, plain_launches=n_p)
+        check(loss_err <= TOL_STEP_LOSS,
+              f"{where}f32 step loss err {loss_err}")
+        check(g_l2 <= tol_l2 and g_leaf <= tol_leaf and g_cos >= tol_cos,
+              f"{where}f32 step grads: rel L2 {g_l2}, worst leaf {g_leaf}, "
+              f"least cosine {g_cos}; {sensitivity}")
+        check(u_l2 <= tol_l2 and u_leaf <= tol_leaf,
+              f"{where}f32 step update: rel L2 {u_l2}, worst leaf {u_leaf}")
+        check(stats_err <= TOL_STEP_STATS,
+              f"{where}f32 step stats err {stats_err}")
+        check(n_k == want and set(n_p.values()) == {0},
+              f"{where}f32 step launches kernels {n_k} plain {n_p}")
+        del model, state, results
+        torch.cuda.empty_cache()
+
+    f32_step_check(cfg, "M", want_step)
 
     # ------------------------------ 7. K7 vs its plain version and F.linear
     k7_cases = profile_pointwise.cases
@@ -1442,7 +1524,9 @@ def main() -> int:
                  path=path, clips=clips, launches=sum(r["n"] for r in rows),
                  **total, bound_share=total["bound_us"] / total["k7_us"],
                  vs_library=total["k7_us"] / total["library_us"],
-                 vs_generic=total["k7_us"] / total["pipe_us"])
+                 vs_generic=total["k7_us"] / total["pipe_us"],
+                 lost_windows=trace.lost,
+                 rows_by_events=sum(r["timer"] == "events" for r in rows))
 
     # the host's time to launch K7 (tensor maps encoded per call for the wg
     # body) at X3D-M's stage-5 conv c, each body through _launch and K7 as
@@ -1489,10 +1573,15 @@ def main() -> int:
             for _ in range(n):
                 F.linear(xs, w)
 
-    dev = {}
-    for label, fn in (("k7", k7_forward), ("library", linear_forward)):
+    dev, n_calls = {}, sum(c[-1] for c in calls)
+    # a window is complete with a kernel for every call (tools/trace)
+    for label, fn, complete in (
+            ("k7", k7_forward, lambda got: got["group_kernels_per_forward"]
+             .get("K7", 0) >= n_calls),
+            ("library", linear_forward,
+             lambda got: got["kernels_per_forward"] >= n_calls)):
         got = trace(fn, 5, "forward", group=lambda name: "K7"
-                    if "pw_conv" in name else family(name))
+                    if "pw_conv" in name else family(name), complete=complete)
         dev[label] = {"busy_ms": got["device_busy_ms_per_forward"],
                       "by_group_ms": got["group_ms_per_forward"],
                       "kernels": got["kernels_per_forward"]}
@@ -1864,7 +1953,269 @@ def main() -> int:
         del engine, eval_model, eval_state, batch
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------- 11. the kernel line
+    # --------------- 11. X3D-XS, -L and -XL: kernels, serving and training
+    # Each variant at full width and depth from its YAML, bfloat16, random
+    # weights from a seed: every kernel against its plain version at the
+    # shapes its serving requests (1 and 8 videos) and its training step
+    # (the config's batch) give it, float32 and bfloat16, timed with fewer
+    # repeats (NEW_ITERS); the engine serving 1 and 8 videos; the bare
+    # training step at the config's batch, L and XL with remat as
+    # create_model resolves it ("auto": per block at 312²) and without,
+    # the two bit for bit equal; a float32 step through the kernels against
+    # the plain versions (X3D-XS: its stem's 4 frames are fewer than its 5
+    # taps; X3D-XL: SCALE_RES2, widths 2 mod 4).
+    def bodies():
+        return {"K1": dict(k1_bodies), "K2": dict(k2_bodies),
+                "K3": dict(k3_bodies), "K4 dx": dict(dx_bodies),
+                "K4 dk": dict(dk_bodies), "K7": dict(k7_bodies),
+                "K8": dict(k8_bodies)}
+
+    def want_step_of(varch, stem_k8, remat):
+        """Launches per training step by kernel: the stem's backward by K8,
+        or by K4 dx and dk where K8 cannot take it (X3D-XS); with remat
+        every kernel of a block's forward runs once more in the backward
+        pass (the stem and the head are outside every region)."""
+        ns = len(varch.stages)
+        n2 = sum(len(b) - 1 for b in varch.stages)
+        again = 1 + (remat != "off")
+        k4 = ns + (not stem_k8)
+        return {"K1": 1 + ns * again, "K2": n2 * again, "K3": n2,
+                "K4 dx": k4, "K4 dk": k4, "K5": n2 * again, "K6": n2 * again,
+                "K7": 2 * (3 * ns + 1) + (again - 1) * 3 * ns,
+                "K8": int(stem_k8), "K9": 0}
+
+    def bodies_of_steps(vcfg, varch, want, steps, stem_k8, remat):
+        """The bodies ``steps`` training steps launch: K1 the temporal body
+        at the stem and the ring body at the stage entries; K2, K3 and K4
+        dk's stage entries the ring bodies, K4 dx's the phase body; the
+        XS stem's backward K4's gather and generic bodies; K8 the temporal
+        body; K7 as its plan names."""
+        ns, xs = len(varch.stages), int(not stem_k8)
+        return {"K1": {"temporal": steps, "ring": steps * (want["K1"] - 1),
+                       "generic": 0},
+                "K2": {"ring": steps * want["K2"], "generic": 0},
+                "K3": {"ring": steps * want["K3"], "generic": 0},
+                "K4 dx": {"phase": steps * ns, "gather": steps * xs},
+                "K4 dk": {"ring": steps * ns, "generic": steps * xs},
+                "K7": k7_want(vcfg, varch, True, steps, remat != "off"),
+                "K8": {"temporal": steps * want["K8"], "generic": 0}}
+
+    def check_new_row(kname, where, row):
+        """A row at a new variant's shape fails where the kernel is behind
+        its plain version, or behind the generic body on the same inputs
+        where the rule picked another body and the generic body takes
+        HOST_BOUND_MS or more (below that time_fn reads the host's gaps
+        between launches, which both bodies share).  K7's plain version is
+        its library call, F.linear: K7's rows behind it are findings."""
+        if kname == "K7" or row["n"] == 0:   # K7; a row off the path
+            return
+        check(row["ms"] < row["plain_ms"],
+              f"{kname} {where}: {row['ms']} ms, behind the plain version's "
+              f"{row['plain_ms']} ms")
+        generic = row.get("generic_ms", row.get("gather_ms"))
+        if row.get("body") not in (None, "generic", "gather") \
+                and generic is not None and generic >= HOST_BOUND_MS:
+            check(row["ms"] < generic,
+                  f"{kname} {where}: the {row['body']} body ({row['ms']} ms) "
+                  f"behind the generic body ({generic} ms)")
+
+    def same_step(a, b):
+        return (a[0] == b[0] and all(torch.equal(x, y)
+                                     for x, y in zip(a[1], b[1]))
+                and all(torch.equal(a[2][k], v) for k, v in b[2].items()))
+
+    def x3d_variant(v):
+        vcfg = variant_config(v)
+        varch = build_arch(vcfg)
+        views = vcfg.TEST.NUM_TEMPORAL_VIEWS * vcfg.TEST.NUM_SPATIAL_CROPS
+        clips = vcfg.TRAIN.BATCH_SIZE
+        kt = varch.temp_filter
+        stem_k8 = depthwise.pbwd_eligible(
+            stem_shape(vcfg, varch, clips), (kt, 1, 1), (1, 1, 1),
+            ((kt // 2,) * 2, (0, 0), (0, 0)))
+        out = {"rows": {}}
+        rows = out["rows"]
+
+        # every kernel against its plain version at this variant's shapes
+        for B in (views, 8 * views):
+            rows["K1", B] = k1_serving_rows(v, B, k1_cases(vcfg, varch, B),
+                                            True)
+            rows["K2", B] = k2_serving_rows(
+                v, B, varch.temp_kernel,
+                segment_cases(vcfg, varch, B, vcfg.DATA.TEST_CROP_SIZE), True)
+            rows["K7", B] = k7_rows(v, f"serving, {B} clips", vcfg, varch, B,
+                                    vcfg.DATA.TEST_CROP_SIZE, False)
+        (_, rows["K1", "train"], k4, rows["K2", "train"],
+         rows["K3", "train"], rows["K5", "train"],
+         rows["K6", "train"]) = training_kernels(v, vcfg, varch, clips)
+        rows["K4 dx", "train"], rows["K4 dk", "train"] = k4["dx"], k4["dk"]
+        rows["K7", "train"] = k7_rows(v, "training", vcfg, varch, clips,
+                                      vcfg.DATA.TRAIN_CROP_SIZE, True)
+        if stem_k8:
+            rows["K8", "train"] = [k8_row(
+                f"X3D-{v} conv_1.conv_t", stem_shape(vcfg, varch, clips),
+                (kt, 1, 1))]
+        for (kname, path), rs in rows.items():
+            for r in rs:
+                check_new_row(kname, f"X3D-{v} {path} {r['name']}", r)
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
+                k for k in ("generic_ms",) if all(k in r for r in rs))
+            total = {k: sum(r["n"] * r[k] for r in rs) for k in keys}
+            emit(phase=f"{kname}, X3D-{v} path", variant=v, path=path,
+                 launches=sum(r["n"] for r in rs), **total, **shares(total))
+
+        # serving: the engine, requests of 1 and 8 videos
+        engine1 = InferenceEngine.random_init(vcfg, max_videos=1, seed=SEED)
+        engine8 = InferenceEngine(vcfg, engine1.model, max_videos=8)
+        clips8 = np.random.default_rng(SEED).integers(
+            0, 256, (8 * views,) + engine1.clip_shape[1:], dtype=np.uint8)
+        ns = len(varch.stages)
+        n2 = sum(len(b) - 1 for b in varch.stages)
+        per_forward = dict.fromkeys(counters, 0) | {
+            "K1": ns + 1, "K2": n2, "K7": 2 * (ns + n2) + ns + 1}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        served = []
+        zero_counts()                       # X3D-v serving starts here
+        for name, engine, batch_u8 in (("1 video", engine1, clips8[:views]),
+                                       ("8 videos", engine8, clips8)):
+            before = read_counts()
+            probs = engine.predict(batch_u8)
+            after = read_counts()
+            served.append((name, engine, probs,
+                           {k: after[k] - before[k] for k in after}))
+        out["serve_launches"] = read_counts()      # ... and ends here
+        out["serve_bodies"] = bodies()
+        peak = torch.cuda.max_memory_allocated()
+        want = {"K1": {"temporal": 2, "ring": 2 * ns, "generic": 0},
+                "K2": {"ring": 2 * n2, "generic": 0},
+                "K7": k7_want(vcfg, varch, False, 2)}
+        for kname, w in want.items():
+            check(out["serve_bodies"][kname] == w,
+                  f"X3D-{v} serving {kname} bodies "
+                  f"{out['serve_bodies'][kname]}, want {w}")
+        for name, engine, probs, launches in served:
+            n_videos = probs.shape[0]
+            finite = bool(np.isfinite(probs).all())
+            row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+            dev_s = engine.device_latency_s(iters=NEW_ITERS)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.predict(clips8[:n_videos * views])
+                walls.append(time.perf_counter() - t0)
+            emit(phase=f"X3D-{v} serve", request=name,
+                 clips=n_videos * views, probs_shape=list(probs.shape),
+                 finite=finite, max_row_sum_err=row_err,
+                 device_ms=dev_s * 1e3,
+                 clips_per_s=n_videos * views / dev_s,
+                 wall_ms_median=float(np.median(walls)) * 1e3,
+                 peak_memory_bytes=peak, launches=launches,
+                 bodies=out["serve_bodies"])
+            check(probs.shape == (n_videos, vcfg.NETWORK.NUM_CLASSES)
+                  and finite and row_err <= TOL_ROW_SUM,
+                  f"X3D-{v} serve {name} probabilities")
+            check(launches == per_forward,
+                  f"X3D-{v} serve {name}: launches {launches}, want "
+                  f"{per_forward}")
+        del engine1, engine8, served
+        torch.cuda.empty_cache()
+
+        # training: the bare step at the config's batch, with remat as
+        # create_model resolves it from the YAML and, where that is on,
+        # without
+        model = create_model(vcfg, dtype=torch.bfloat16, seed=SEED)
+        state = create_train_state(vcfg, model)
+        step_fn = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
+        batch = next(synthetic_batches(vcfg, clips, seed=SEED))
+        gen_v = torch.Generator(device="cuda").manual_seed(SEED)
+        snap0 = snapshot(state)
+        modes = [model.remat] + (["off"] if model.remat != "off" else [])
+        out["train"] = {}
+        for mode in modes:
+            model.remat = mode
+            restore(state, snap0)
+            want = want_step_of(varch, stem_k8, mode)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            zero_counts()                   # X3D-v training starts here
+            for i in range(TRAIN_STEPS):
+                before = read_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                state, metrics = step_fn(state, batch, gen_v)
+                end.record()
+                end.synchronize()
+                wall = time.perf_counter() - t0
+                after = read_counts()
+                steps.append(dict(step=i, loss=float(metrics["loss"]),
+                                  device_ms=start.elapsed_time(end),
+                                  wall_ms=wall * 1e3,
+                                  launches={k: after[k] - before[k]
+                                            for k in after}))
+            launches = read_counts()        # ... and ends here
+            got = bodies()
+            peak = torch.cuda.max_memory_allocated()
+            steady = sorted(s["device_ms"] for s in steps[1:])
+            step_ms = steady[len(steady) // 2]
+            out["train"][mode] = dict(
+                step_ms_median_after_first=step_ms,
+                first_step_ms=steps[0]["device_ms"],
+                clips_per_s=clips / step_ms * 1e3, peak_memory_bytes=peak,
+                launches=launches, launches_per_step=want, bodies=got)
+            emit(phase=f"X3D-{v} train timing", clips=clips, remat=mode,
+                 steps=steps, **out["train"][mode])
+            for s_ in steps:
+                check(math.isfinite(s_["loss"]),
+                      f"X3D-{v} train step {s_['step']} loss")
+                check(s_["launches"] == want,
+                      f"X3D-{v} remat {mode} step {s_['step']} launches "
+                      f"{s_['launches']}, want {want}")
+            want_b = bodies_of_steps(vcfg, varch, want, TRAIN_STEPS,
+                                     stem_k8, mode)
+            for kname, w in want_b.items():
+                check(got[kname] == w, f"X3D-{v} remat {mode} {kname} "
+                                       f"bodies {got[kname]}, want {w}")
+
+        # one step from one state, twice with the resolved remat and once
+        # without: bit for bit the same loss, gradients, parameters and
+        # running statistics (deterministic kernels; the recompute repeats
+        # the same launches)
+        torch.backends.cudnn.deterministic = True
+        runs = []
+        for mode in [modes[0]] + modes:
+            model.remat = mode
+            restore(state, snap0)
+            state, metrics = step_fn(state, batch, gen_v)
+            runs.append((float(metrics["loss"]),
+                         [p.grad.clone() for p in model.parameters()],
+                         copy.deepcopy(model.state_dict())))
+        torch.backends.cudnn.deterministic = False
+        repeat = same_step(runs[0], runs[1])
+        vs_off = same_step(runs[0], runs[2]) if len(modes) > 1 else None
+        emit(phase=f"X3D-{v} train determinism", remat=modes,
+             losses=[r[0] for r in runs], repeat_bit_identical=repeat,
+             remat_vs_off_bit_identical=vs_off)
+        check(repeat, f"X3D-{v}: two runs of one training step differ")
+        check(vs_off is not False, f"X3D-{v}: the step with remat "
+                                   f"{modes[0]} differs from the step without")
+        del model, state, step_fn, batch, runs, snap0
+        torch.cuda.empty_cache()
+        if v in ("XS", "XL"):
+            f32_step_check(vcfg, v, want_step_of(
+                varch, stem_k8, create_model(vcfg, device="meta").remat),
+                calibrate=True)
+        return out
+
+    timing["iters"] = NEW_ITERS
+    new = {v: x3d_variant(v) for v in NEW_VARIANTS}
+    timing["iters"] = ITERS
+
+    # ----------------------------------------------- 12. the kernel line
     def worst(*row_lists):
         return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
 
@@ -1961,6 +2312,19 @@ def main() -> int:
         entry["launches_serving"] = serve_launches[key]
         entry["launches_training"] = train_launches[key]
         entry["launches_x3d_s_training"] = s_train_launches[key]
+        # X3D-XS, -L and -XL: launches and bodies on their serving path (1
+        # and 8 videos) and over TRAIN_STEPS steps with each remat mode,
+        # and the kernel's time summed over one training step's launches
+        entry["x3d_xs_l_xl"] = {v: {
+            "launches_serving": n["serve_launches"][key],
+            "bodies_serving": n["serve_bodies"].get(key),
+            "launches_training": {m: t["launches"][key]
+                                  for m, t in n["train"].items()},
+            "bodies_training": {m: t["bodies"].get(key)
+                                for m, t in n["train"].items()},
+            "training_step_ms": sum(r["n"] * r["ms"] for r in
+                                    n["rows"].get((key, "train"), []))}
+            for v, n in new.items()}
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on its main path")
         kernels_line.append(entry)

@@ -32,6 +32,8 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from test_torch_dw_fused import x3d_planes
+from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.ops import depthwise, ring
 
 # (shape, kernel dims, strides, padding)
@@ -116,9 +118,17 @@ STAGE_ENTRIES = [(16, 112, 112, 54), (16, 56, 56, 108), (16, 28, 28, 216),
                  (16, 14, 14, 432), (13, 80, 80, 54), (13, 40, 40, 108),
                  (13, 20, 20, 216), (13, 10, 10, 432), (16, 39, 39, 216)]
 STAGE_IDS = ["M2", "M3", "M4", "M5", "S2", "S3", "S4", "S5", "odd39"]
+# X3D-XS, -L and -XL's stage entries at their training batches: XS at 4
+# frames (80² .. 10²), L and XL at 156², 78², 39², 20² (XL 72, 162, 306,
+# 630 channels)
+NEW_ENTRIES = [(f"{v}{st}", entry, variant_config(v).TRAIN.BATCH_SIZE)
+               for v in ("XS", "L", "XL")
+               for st, entry, _ in x3d_planes(v, True)]
 
 
-@pytest.mark.parametrize("thwc", STAGE_ENTRIES, ids=STAGE_IDS)
+@pytest.mark.parametrize(
+    "thwc", STAGE_ENTRIES + [e for _, e, _ in NEW_ENTRIES],
+    ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES])
 def test_dx_body_takes_phase_at_stage_entries(thwc):
     kdims, strides = (3, 3, 3), (1, 2, 2)
     pads = depthwise._resolve_pads((1, *thwc), kdims, strides, "SAME")
@@ -347,7 +357,9 @@ def test_phase_body_repeats_bit_for_bit(cuda, thwc):
 
 # ------------------------------------------------------------ dk's bodies
 
-@pytest.mark.parametrize("thwc", STAGE_ENTRIES, ids=STAGE_IDS)
+@pytest.mark.parametrize(
+    "thwc", STAGE_ENTRIES + [e for _, e, _ in NEW_ENTRIES],
+    ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES])
 def test_dk_body_takes_ring_at_stage_entries(thwc):
     kdims, strides = (3, 3, 3), (1, 2, 2)
     pads = depthwise._resolve_pads((1, *thwc), kdims, strides, "SAME")
@@ -416,10 +428,12 @@ def test_dk_ring_plan_invariants(B, To, Ho, Wo, C, kt, stride, layout):
 
 @pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16)])
 @pytest.mark.parametrize("thwc,B", [(e, 32 if e[0] == 16 else 64)
-                                    for e in STAGE_ENTRIES],
-                         ids=STAGE_IDS)
+                                    for e in STAGE_ENTRIES]
+                         + [(e, B) for _, e, B in NEW_ENTRIES],
+                         ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES])
 def test_dk_ring_plan_at_stage_entries(thwc, B, elem, align):
-    """The plan of every X3D-M (32 clips) and X3D-S (64 clips) stage entry
+    """The plan of every X3D-M (32 clips), X3D-S (64 clips), X3D-XS (128),
+    X3D-L and X3D-XL (16) stage entry
     keeps the invariants above, in bfloat16 and float32, at aligned and
     unaligned addresses."""
     kdims, strides = (3, 3, 3), (1, 2, 2)

@@ -14,7 +14,7 @@ K2 has two bodies on the card: :func:`dw_fused.segment_body` sends 3x3
 spatial taps with 1 to 5 temporal ones to the ring body and every other
 geometry to the generic body (its cases are in test_torch_dw_fused_bwd.py,
 as K3 shares it).  The ring body's launch plan (:func:`dw_fused.fwd_plan`)
-is checked here at every fused-segment shape of X3D-M and X3D-S, at the
+is checked here at every fused-segment shape of the five variants, at the
 serving, eval and training batches, and its per-(clip, tile, run) partial
 sums are rebuilt in numpy in the second pass's fixed order against the
 plain version's sums (float32, another order: within 1e-5 of the sums over
@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from x3d_tpu_torch import variant_config
+from x3d_tpu_torch.models import build_arch
 from x3d_tpu_torch.ops import dw_fused, ring
 
 KDIMS = [(3, 3, 3), (3, 1, 1), (5, 3, 3)]
@@ -148,7 +150,42 @@ SEGMENT_IDS = [f"{v}{i + 2}-B{B}" for v in "MS" for B in BATCHES[v]
                for i in range(4)]
 
 
-@pytest.mark.parametrize("shape", SEGMENTS, ids=SEGMENT_IDS)
+def x3d_planes(variant, train):
+    """(stage, entry, segment) of each stage of X3D-``variant`` from its
+    YAML's architecture plan at its training or test crop: the (T, H, W, C)
+    input of the stride-2 stage entry's depthwise conv, and the plane of
+    the stage's stride-1 blocks (the fused segments)."""
+    cfg = variant_config(variant)
+    arch = build_arch(cfg)
+    T = cfg.DATA.TEMP_DURATION
+    S = (cfg.DATA.TRAIN_CROP_SIZE if train else cfg.DATA.TEST_CROP_SIZE) // 2
+    out = []
+    for si, blocks in enumerate(arch.stages):
+        C = blocks[0].inner_channels
+        entry, S = (T, S, S, C), -(-S // 2)
+        out.append((si + 2, entry, (T, S, S, C)))
+    return out
+
+
+def x3d_batches(variant):
+    """(clips, training) of X3D-``variant``'s paths: a video's views and
+    eight videos' (serving), the eval batch and the training batch."""
+    cfg = variant_config(variant)
+    views = cfg.TEST.NUM_TEMPORAL_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    return sorted({(views, False), (8 * views, False),
+                   (cfg.TEST.BATCH_SIZE * views, False),
+                   (cfg.TRAIN.BATCH_SIZE, True)})
+
+
+# X3D-XS (4 frames at 80² .. 5²), -L and -XL (16 frames at 78², 39², 20²,
+# 10²; XL's widths 72, 162, 306, 630, two of them 2 mod 4) from their YAMLs
+NEW_SEGMENTS = [(f"{v}{st}-B{B}", (B, *seg)) for v in ("XS", "L", "XL")
+                for B, train in x3d_batches(v)
+                for st, _, seg in x3d_planes(v, train)]
+
+
+@pytest.mark.parametrize("shape", SEGMENTS + [s for _, s in NEW_SEGMENTS],
+                         ids=SEGMENT_IDS + [i for i, _ in NEW_SEGMENTS])
 @pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16), (4, 4),
                                         (2, 8)])
 @pytest.mark.parametrize("slots", [0, 396, 528])

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_dw_fused import x3d_planes
+from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.ops import dw_fused, ring
 
 
@@ -158,9 +160,14 @@ SEGMENTS = [(32, 16, 56, 56, 54), (32, 16, 28, 28, 108),
             (64, 13, 40, 40, 54), (64, 13, 20, 20, 108),
             (64, 13, 10, 10, 216), (64, 13, 5, 5, 432)]
 SEGMENT_IDS = ["M2", "M3", "M4", "M5", "S2", "S3", "S4", "S5"]
+# X3D-XS, -L and -XL at their training batches (128, 16, 16 clips)
+NEW_SEGMENTS = [(f"{v}{st}", (variant_config(v).TRAIN.BATCH_SIZE, *seg))
+                for v in ("XS", "L", "XL")
+                for st, _, seg in x3d_planes(v, True)]
 
 
-@pytest.mark.parametrize("shape", SEGMENTS, ids=SEGMENT_IDS)
+@pytest.mark.parametrize("shape", SEGMENTS + [s for _, s in NEW_SEGMENTS],
+                         ids=SEGMENT_IDS + [i for i, _ in NEW_SEGMENTS])
 @pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16), (4, 4),
                                         (2, 8)])
 @pytest.mark.parametrize("slots", [0, 132, 264])

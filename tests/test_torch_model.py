@@ -1,8 +1,11 @@
 """The port's eval-mode X3D against the JAX model, on converted weights.
 
 Tiny config (8-wide stem, six blocks, 2 views, T=5, 32² crop), float32 on
-the CPU.  The JAX model runs once with the fused segment off (the unfused
-composition) and once with the Pallas segment kernel in interpret mode; the
+the CPU; the ``_scale_res2`` cases take X3D-XL's branch of the plan
+(``SCALE_RES2: True``, ``WIDTH_FACTOR: 2.9``: a 16-wide stem, stages 16,
+24, 48 and 96 wide).  The JAX model runs once with the fused segment off
+(the unfused composition) and once with the Pallas segment kernel in
+interpret mode; the
 port runs its fused structure through the kernels' plain versions.  BN
 scales, offsets and running statistics are random and non-trivial, with
 offsets of both signs so that a border bug in the fused ReLU would show.
@@ -27,7 +30,10 @@ from x3d_tpu_torch.models import create_model
 VIEWS, VIDEOS, T, S, CLASSES = 2, 2, 5, 32, 11
 
 
-def _tiny(cfg):
+def _tiny(cfg, scale_res2=False):
+    if scale_res2:
+        cfg.NETWORK.SCALE_RES2 = True
+        cfg.NETWORK.WIDTH_FACTOR = 2.9
     cfg.NETWORK.C1_CHANNELS = 4
     cfg.NETWORK.DEPTH_FACTOR = 0.34
     cfg.NETWORK.NUM_CLASSES = CLASSES
@@ -61,10 +67,9 @@ def _thaw(tree):
             for k, v in tree.items()}
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(scale_res2):
     torch.set_num_threads(1)
-    cfg = _tiny(jax_default_config())
+    cfg = _tiny(jax_default_config(), scale_res2)
     model = jax_create_model(cfg, dtype=jnp.float32)
     rng = np.random.default_rng(0)
     x = rng.normal(size=(VIDEOS * VIEWS, T, S, S, 3)).astype(np.float32)
@@ -76,13 +81,23 @@ def setup():
     finally:
         jax_dw_fused.set_enabled(old)
     variables = randomize_bn(variables, rng)
-    port = create_model(_tiny(get_default_config()), dtype=torch.float32,
-                        device="cpu", init=False)
+    port = create_model(_tiny(get_default_config(), scale_res2),
+                        dtype=torch.float32, device="cpu", init=False)
     port.load_state_dict(convert.flax_to_state_dict(variables))
     with torch.inference_mode():
         xt = torch.from_numpy(x)
         got = (port(xt, return_logits=True).numpy(), port(xt).numpy())
     return dict(model=model, variables=variables, x=x, got=got, port=port)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(False)
+
+
+@pytest.fixture(scope="module")
+def setup_scale_res2():
+    return _setup(True)
 
 
 def _jax_forward(setup, mode):
@@ -102,14 +117,26 @@ def _jax_forward(setup, mode):
     return np.asarray(logits), np.asarray(probs.mean(axis=1))
 
 
-@pytest.mark.parametrize("mode", [False, "pallas"],
-                         ids=["jax_unfused", "jax_pallas_segment"])
-def test_eval_matches_jax(setup, mode):
+def _assert_eval(setup, mode):
     want_logits, want_probs = _jax_forward(setup, mode)
     got_logits, got_probs = setup["got"]
     assert got_probs.shape == (VIDEOS, CLASSES)
     np.testing.assert_allclose(got_logits, want_logits, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got_probs, want_probs, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", [False, "pallas"],
+                         ids=["jax_unfused", "jax_pallas_segment"])
+def test_eval_matches_jax(setup, mode):
+    _assert_eval(setup, mode)
+
+
+@pytest.mark.parametrize("mode", [False], ids=["jax_unfused"])
+def test_eval_matches_jax_scale_res2(setup_scale_res2, mode):
+    arch = setup_scale_res2["port"].arch
+    assert arch.conv1_dim == 16
+    assert [b[0].out_channels for b in arch.stages] == [16, 24, 48, 96]
+    _assert_eval(setup_scale_res2, mode)
 
 
 def test_training_mode_raises(setup):

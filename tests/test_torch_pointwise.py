@@ -592,10 +592,16 @@ def _body_counts(fn):
     ((2, 3, 5, 7, 24), 54), ((3, 4, 7, 7, 54), 192), ((2, 5, 7, 7, 108), 432),
     ((2, 13, 5, 5, 432), 192), ((1, 7, 9, 11, 432), 54),
     ((2, 16, 7, 7, 432), 432), ((1, 3, 7, 9, 24), 192),
-    ((10, 16, 14, 14, 96), 432), ((3, 16, 7, 7, 192), 432)])
+    ((10, 16, 14, 14, 96), 432), ((3, 16, 7, 7, 192), 432),
+    # X3D-XL's stage-5 convs and their dx, whose odd tile counts over a
+    # long K once sent the pipe body's B loads past its shared memory
+    ((2, 16, 10, 10, 136), 630), ((2, 16, 10, 10, 630), 136),
+    ((3, 16, 10, 10, 630), 280), ((2, 16, 10, 10, 280), 630),
+    ((2, 16, 20, 20, 306), 136), ((2, 16, 39, 39, 162), 72)])
 def test_bodies_match_plain_on_card(cuda, shape, cout):
     """bfloat16 at ragged M (no multiple of 64), N and K (K = 24, 54, 108,
-    432; N = 54, 192, 432): K7 runs the body its rule names (counted once
+    432 and X3D-XL's 136, 162, 280, 306, 630; N = 54, 192, 432 and XL's
+    72, 136, 280, 630): K7 runs the body its rule names (counted once
     under it), within one bfloat16 ulp (2^-7) of the largest value of the
     plain version (float32 product of the same bfloat16 inputs), and each
     tensor-core body that takes the call, on the same inputs, within one

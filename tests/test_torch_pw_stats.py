@@ -221,7 +221,11 @@ def test_non_cpu_tensor_never_falls_back():
     ((2, 4, 7, 7, 54), 24), ((2, 4, 7, 7, 54), 48), ((2, 4, 7, 7, 108), 24),
     ((2, 4, 7, 7, 108), 48),
     # X3D-S's stage 5: S = 325, odd and no multiple of a row tile
-    ((2, 13, 5, 5, 432), 192)])
+    ((2, 13, 5, 5, 432), 192),
+    # X3D-XL's widths, 2 mod 4 (4-byte granules) and N 630 (five column
+    # tiles of 16 mma tiles) or K 630 with N 280 (two of 18)
+    ((2, 16, 10, 10, 280), 630), ((2, 16, 10, 10, 630), 280),
+    ((2, 16, 20, 20, 136), 306), ((2, 16, 20, 20, 306), 136)])
 def test_kernel_matches_plain_on_card(cuda, dtype, act, shape, cout):
     """The plain version on the same inputs (float32 matmul, TF32 off)
     rounds u to x's dtype as the kernel does: y within 1e-5 (float32) or

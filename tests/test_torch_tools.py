@@ -1,11 +1,20 @@
 """The profile tools' kernel grouping: each of the port's CUDA kernels, by
 the name of its ``__global__`` function as the profiler reports it, and
-the library's kernel families land in their group."""
+the library's kernel families land in their group; the trace's summary and
+its retakes of windows the profiler lost, on stand-in profilers; and, on
+the card, K7's per-case rows timed with CUDA events where the profiler
+loses them."""
+
+import types
 
 import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.autograd.profiler_util import Interval
 
-from x3d_tpu_torch.tools import profile_training
-from x3d_tpu_torch.tools.trace import family
+from x3d_tpu_torch.tools import profile_pointwise, profile_training
+from x3d_tpu_torch.tools import trace as trace_mod
+from x3d_tpu_torch.tools.trace import LostTrace, family, summarize
 
 
 @pytest.mark.parametrize("name, want", [
@@ -111,3 +120,110 @@ def test_family(name, want):
 ])
 def test_training_group(name, want):
     assert profile_training._group(name) == want
+
+
+def _prof(*kernels):
+    """A stand-in for a finished profiler: (name, start us, end us) device
+    kernels and one host event, which the summary leaves out."""
+    events = [types.SimpleNamespace(name=name, device_type=DeviceType.CUDA,
+                                    time_range=Interval(start, end))
+              for name, start, end in kernels]
+    events.append(types.SimpleNamespace(name="aten::mm",
+                                        device_type=DeviceType.CPU,
+                                        time_range=Interval(0, 100)))
+    return types.SimpleNamespace(events=lambda: events)
+
+
+def test_summarize_counts_kernels_by_group():
+    prof = _prof(("pw_conv_wg_kernel<96, 1>", 0, 4),
+                 ("sm90_xmma_gemm_bf16", 5, 11),
+                 ("pw_conv_wg_kernel<96, 1>", 12, 16),
+                 ("sm90_xmma_gemm_bf16", 16, 20))
+    got = summarize(prof, 2, "call", group=profile_pointwise._group)
+    assert got["group_kernels_per_call"] == {"wg": 1.0, "library": 1.0}
+    assert got["group_ms_per_call"] == pytest.approx(
+        {"wg": 4e-3, "library": 5e-3})
+    assert got["kernels_per_call"] == 2.0
+    assert got["window_ms_per_call"] == pytest.approx(10e-3)
+    assert got["idle_share"] == pytest.approx(0.1)
+    family_keys = summarize(prof, 1, "step")
+    assert family_keys["family_kernels_per_step"] == {"port kernels": 2,
+                                                      "gemm": 2}
+
+
+def test_summarize_raises_lost_trace_without_device_activity():
+    with pytest.raises(LostTrace, match="no device activity"):
+        summarize(_prof(), 1, "call")
+
+
+@pytest.mark.parametrize("windows, want", [
+    # empty, then short of a kernel, then whole: the third window counts
+    ([(), (("pw_conv_wg_kernel", 0, 4),),
+      (("pw_conv_wg_kernel", 0, 4), ("pw_conv_wg_kernel", 5, 9))], 4e-3),
+    ([(), (), ()], None),
+    ([(("pw_conv_wg_kernel", 0, 4),)] * 3, None),
+])
+def test_trace_retakes_lost_windows(monkeypatch, windows, want):
+    queue = [_prof(*w) for w in windows]
+    taken = []
+
+    class Profiler:
+        def __enter__(self):
+            taken.append(queue[len(taken)])
+            return taken[-1]
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(trace_mod, "device_profiler", Profiler)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(trace_mod.trace, "lost", 0)
+    calls = []
+
+    def run():
+        calls.append(1)
+
+    def complete(got):
+        return got["group_kernels_per_call"].get("wg", 0) >= 1
+
+    if want is None:
+        with pytest.raises(LostTrace, match="3 windows of 2 calls"):
+            trace_mod.trace(run, 2, "call", group=profile_pointwise._group,
+                            complete=complete)
+    else:
+        got = trace_mod.trace(run, 2, "call", group=profile_pointwise._group,
+                              complete=complete)
+        assert got["group_ms_per_call"] == pytest.approx({"wg": want})
+    assert len(taken) == 3
+    assert trace_mod.trace.lost == (3 if want is None else 2)
+    assert len(calls) == 2 + 3 * 2        # the warm-up, then each window
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, N, strides", [
+    ((10, 16, 7, 7, 192), 432, (1, 1, 1)),
+    ((32, 16, 14, 14, 96), 192, (1, 2, 2)),
+])
+def test_case_row_times_with_events_where_the_profiler_loses(
+        cuda, monkeypatch, shape, N, strides):
+    got = profile_pointwise.case_row(shape, N, strides)
+    assert got["timer"] == "profiler"
+
+    def lost(*args, **kwargs):
+        raise LostTrace("stand-in")
+
+    monkeypatch.setattr(profile_pointwise, "trace", lost)
+    held = profile_pointwise.case_row(shape, N, strides)
+    assert held["timer"] == "events"
+    assert held["body"] == got["body"]
+    keys = {k for k in got if k.endswith("_us") and k != "bound_us"}
+    assert keys == {k for k in held if k.endswith("_us") and k != "bound_us"}
+    for key in keys:
+        # the events also count the device's gaps between kernels
+        assert 0.5 * got[key] < held[key] < 3 * got[key] + 5, key

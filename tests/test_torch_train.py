@@ -48,7 +48,11 @@ from x3d_tpu_torch.train import (create_train_state, l2_penalty,
 B, T, S, CLASSES = 2, 4, 32, 10
 
 
-def _tiny(cfg, optimizer="sgd", dropout=0.0):
+def _tiny(cfg, optimizer="sgd", dropout=0.0, scale_res2=False):
+    if scale_res2:
+        # X3D-XL's branch of the plan (test_torch_model._tiny)
+        cfg.NETWORK.SCALE_RES2 = True
+        cfg.NETWORK.WIDTH_FACTOR = 2.9
     cfg.NETWORK.C1_CHANNELS = 4
     cfg.NETWORK.DEPTH_FACTOR = 0.34
     cfg.NETWORK.NUM_CLASSES = CLASSES
@@ -94,10 +98,9 @@ def _leaves(tree):
             for p, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(scale_res2):
     torch.set_num_threads(1)
-    cfg = _tiny(jax_variant_config("XS"))
+    cfg = _tiny(jax_variant_config("XS"), scale_res2=scale_res2)
     model = jax_create_model(cfg, dtype=jnp.float32)
     rng = np.random.default_rng(0)
     x = rng.normal(size=(B, T, S, S, 3)).astype(np.float32)
@@ -120,11 +123,23 @@ def setup():
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return dict(cfg=cfg, model=model, state=state, params=params,
                 stats=stats, x=x, label=label, batch=batch,
-                loss=float(loss), grads=_leaves(grads))
+                loss=float(loss), grads=_leaves(grads),
+                scale_res2=scale_res2)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(False)
+
+
+@pytest.fixture(scope="module")
+def setup_scale_res2():
+    return _setup(True)
 
 
 def _port(setup, optimizer="sgd", dropout=0.0):
-    cfg = _tiny(variant_config("XS"), optimizer, dropout)
+    cfg = _tiny(variant_config("XS"), optimizer, dropout,
+                setup["scale_res2"])
     model = create_model(cfg, dtype=torch.float32, device="cpu", init=False)
     model.load_state_dict(convert.flax_to_state_dict(
         {"params": setup["params"], "batch_stats": setup["stats"]}))
@@ -144,9 +159,9 @@ def _assert_leaves(got, want, tol, what):
                                    err_msg=f"{what} {k}")
 
 
-@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
-def test_train_step_matches_jax(setup, optimizer):
-    jcfg = _tiny(jax_variant_config("XS"), optimizer)
+def _assert_step(setup, optimizer):
+    jcfg = _tiny(jax_variant_config("XS"), optimizer,
+                 scale_res2=setup["scale_res2"])
     jstate = jax_create_train_state(
         jcfg, setup["model"], jax.random.PRNGKey(0), setup["batch"]["video"])
     params = jax.tree_util.tree_map(jnp.asarray, setup["params"])
@@ -189,6 +204,18 @@ def test_train_step_matches_jax(setup, optimizer):
             np.testing.assert_allclose(got[k][clear], w[clear], rtol=0,
                                        atol=1e-3 * lr, err_msg=k)
             assert np.abs(got[k] - w).max() <= 2 * lr + 1e-7, k
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_train_step_matches_jax(setup, optimizer):
+    _assert_step(setup, optimizer)
+
+
+def test_train_step_matches_jax_scale_res2(setup_scale_res2):
+    arch = _port(setup_scale_res2)[1].arch
+    assert arch.conv1_dim == 16
+    assert [b[0].out_channels for b in arch.stages] == [16, 24, 48, 96]
+    _assert_step(setup_scale_res2, "sgd")
 
 
 def test_l2_penalty_matches_jax(setup):

@@ -162,9 +162,20 @@ __host__ __device__ __forceinline__ size_t pipe_out_offset(
   return pipe_ring_offset(q) + (size_t)q.stages * kStageBytes;
 }
 
+// Dynamic shared memory of a block: W's rows, the ring and the warps'
+// output buffers, and at least the rows of W's stride that the B loads
+// touch: pipe_gemm loads 8 mma tiles (64 rows) at a time, up to the next
+// multiple of 8 past nt, and the rows past W's read the ring or the
+// buffers (unused).  Where K is long and nt just past a multiple of 8 that
+// reach is the larger (X3D-XL's stage-5 dx: K 630, nt 9 read 12 KB past
+// the rest and faulted).
 inline size_t pipe_smem(const PipeShape& q) {
-  return pipe_out_offset(q) +
-         sizeof(uint32_t) * (kPipeThreads / 32) * 16 * kOutWords;
+  const size_t used =
+      pipe_out_offset(q) +
+      sizeof(uint32_t) * (kPipeThreads / 32) * 16 * kOutWords;
+  const size_t reach =
+      sizeof(__nv_bfloat16) * 8 * (ceil_div(q.nt, 8) * 8) * q.w_stride;
+  return std::max(used, reach);
 }
 
 // Fills q's copy granule, k-tiling and column tiling for q.K, q.N and
@@ -425,7 +436,9 @@ __device__ __forceinline__ void pipe_gemm(const __nv_bfloat16* __restrict__ w,
       xform(tile, 16 * warp + g, k + 2 * t, sides + ks + 2 * t, a);
       // B fragments 8 column tiles at a time, their four ldmatrix issued
       // back to back ahead of the eight products (one at a time left each
-      // product waiting on its load, slower at the large K of stage 5)
+      // product waiting on its load, slower at the large K of stage 5);
+      // the loads of tiles past nt read rows past W's (pipe_smem covers
+      // them)
 #pragma unroll
       for (int j0 = 0; j0 < NT; j0 += 8) {
         if (j0 >= q.nt) break;

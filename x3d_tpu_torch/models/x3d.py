@@ -25,19 +25,30 @@ sets the compute dtype.  In training mode (``model.train()``) BatchNorm
 normalises with batch statistics, taken in float32 as E[x²] − E[x]², and
 updates its running statistics in place as ``m·running + (1 − m)·batch``
 with the biased variance, as the JAX package does; dropout draws from the
-``generator`` passed to :meth:`X3D.forward`.  Per-replica (grouped) BN is
-not ported yet.
+``generator`` passed to :meth:`X3D.forward`.  BatchNorm applies its affine
+in float32 and rounds once to the compute dtype, as Flax's ``nn.BatchNorm``
+does.  Per-replica (grouped) BN is not ported yet.
+
+Rematerialisation (``remat``, the JAX package's modes): in a training step
+with gradients, "block" recomputes each ResBlock's forward in the backward
+pass and keeps only the block boundaries, "stage" each stage's
+(``torch.utils.checkpoint``, non-reentrant).  A recompute takes the same
+batch statistics (the kernels and plain versions are deterministic) and
+does not fold them into the running statistics a second time; dropout sits
+in the head, outside every recomputed region.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from x3d_tpu_torch import utils
 from x3d_tpu_torch.ops import depthwise, dw_fused, pw_stats
@@ -237,9 +248,45 @@ def stats_from_sums(p: torch.Tensor, s2: torch.Tensor,
     return mean, s2.sum(dim=1) / n - mean * mean
 
 
+class _Affine(torch.autograd.Function):
+    """x·mul + add over the last axis of a low-precision x, (C,) float32
+    coefficients: one pass that computes in float32 and rounds once to x's
+    dtype; backward dx = g·mul likewise, dmul = Σ g·x and dadd = Σ g summed
+    in float32."""
+
+    @staticmethod
+    def forward(ctx, x, mul, add):
+        ctx.save_for_backward(x, mul)
+        return torch.addcmul(add, x, mul, out=torch.empty_like(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mul = ctx.saved_tensors
+        dims = tuple(range(g.dim() - 1))
+        dx = dmul = dadd = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mul(g, mul, out=torch.empty_like(g))
+        if ctx.needs_input_grad[1]:
+            dmul = (g * x).sum(dims, dtype=torch.float32)
+        if ctx.needs_input_grad[2]:
+            dadd = g.sum(dims, dtype=torch.float32)
+        return dx, dmul, dadd
+
+
+def affine(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """x·mul + add with (C,) float32 coefficients, in float32, rounded once
+    to ``dtype``, as Flax's ``nn.BatchNorm`` applies its affine (on a
+    float32 x: a product and a sum)."""
+    if x.dtype == torch.float32:
+        return (x * mul + add).to(dtype)
+    return _Affine.apply(x, mul, add).to(dtype)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm as normalise coefficients: mul = rsqrt(var + eps) * scale,
-    add = bias - mean * mul (float32), applied in the compute dtype.  Eval
+    add = bias - mean * mul (float32), applied in float32 and rounded once
+    to the compute dtype (:func:`affine`).  Eval
     mode uses the running statistics; training mode the batch's, and it
     updates the running statistics in place.  Its variables live under
     ``<name>.norm``, as Flax's ``nn.BatchNorm`` child is named."""
@@ -249,6 +296,9 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.norm = _NormVars(c, device)
+        # set while a remat region recomputes its forward (_recomputing):
+        # the batch statistics were folded in by the first forward
+        self.recomputing = False
 
     def coefs(self) -> Tuple[torch.Tensor, torch.Tensor]:
         n = self.norm
@@ -258,18 +308,20 @@ class BatchNorm(nn.Module):
     def batch_coefs(self, mean: torch.Tensor, var: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training: coefficients from batch statistics, after folding them
-        into the running ones (running = m·running + (1 − m)·batch)."""
+        into the running ones (running = m·running + (1 − m)·batch) unless
+        a remat region is recomputing its forward."""
         n, m = self.norm, self.momentum
-        with torch.no_grad():
-            n.mean.copy_(m * n.mean + (1 - m) * mean)
-            n.var.copy_(m * n.var + (1 - m) * var)
+        if not self.recomputing:
+            with torch.no_grad():
+                n.mean.copy_(m * n.mean + (1 - m) * mean)
+                n.var.copy_(m * n.var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * n.scale
         return mul, n.bias - mean * mul
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mul, add = self.batch_coefs(*batch_stats(x)) if self.training \
             else self.coefs()
-        return x.to(self.dtype) * mul.to(self.dtype) + add.to(self.dtype)
+        return affine(x, mul, add, self.dtype)
 
 
 class Stem(nn.Module):
@@ -351,7 +403,7 @@ class Bottleneck(nn.Module):
         b_cb = add_a[:, None].expand(C, B)
         y, p, _ = dw_fused.segment(out, a_cb, b_cb, self.b.kernel)
         mul_b, add_b = self.bn_b.coefs()
-        out = y.to(self.dtype) * mul_b.to(self.dtype) + add_b.to(self.dtype)
+        out = affine(y, mul_b, add_b, self.dtype)
         if self.se is not None:
             # mean of bn_b(y) over (T, H, W) = mul * mean(y) + add
             pooled = mul_b[:, None] * (p / (T * H * W)) + add_b[:, None]
@@ -385,7 +437,7 @@ class Bottleneck(nn.Module):
             a_cb, o_cb = a_cb * gate, o_cb * gate
         z, p_c, s2_c = pw_stats.act_conv_stats(y, a_cb, o_cb, self.c.weight)
         mul_c, add_c = self.bn_c.batch_coefs(*stats_from_sums(p_c, s2_c, n))
-        return z * mul_c.to(self.dtype) + add_c.to(self.dtype)
+        return affine(z, mul_c, add_c, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.spec.stride == 1:
@@ -424,29 +476,83 @@ class ResBlock(nn.Module):
         return torch.relu(res.to(torch.float32) + out.to(torch.float32))
 
 
+def remat_mode(remat) -> str:
+    """The remat setting as one of "off", "block", "stage": False/None and
+    True are aliases of "off" and "block"; "convs" (the JAX package's
+    policy that keeps conv outputs) is not ported and raises
+    NotImplementedError; any other value raises ValueError, as
+    ``x3d_tpu/models/x3d.py:800-804`` does."""
+    mode = {False: "off", True: "block", None: "off"}.get(remat, remat)
+    if mode == "convs":
+        raise NotImplementedError(
+            "remat mode 'convs' (recompute only the BN/ReLU/SE/swish chains, "
+            "keep the conv outputs) is not ported: the kernels launch inside "
+            "autograd Functions that a checkpoint policy cannot name "
+            "(ROADMAP A16); use 'block' or 'stage'")
+    if mode not in ("off", "block", "stage"):
+        raise ValueError(f"remat mode {remat!r}")
+    return mode
+
+
+@contextlib.contextmanager
+def _recomputing(modules: Sequence[nn.Module]):
+    """While a remat region recomputes its forward: its BatchNorms take the
+    batch statistics without folding them into the running ones again."""
+    norms = [m for mod in modules for m in mod.modules()
+             if isinstance(m, BatchNorm)]
+    for bn in norms:
+        bn.recomputing = True
+    try:
+        yield
+    finally:
+        for bn in norms:
+            bn.recomputing = False
+
+
+def _run_blocks(blocks: Sequence[nn.Module], x: torch.Tensor
+                ) -> torch.Tensor:
+    for block in blocks:
+        x = block(x)
+    return x
+
+
+def _remat(blocks: Sequence[nn.Module], x: torch.Tensor) -> torch.Tensor:
+    """Run ``blocks`` keeping only their input for the backward pass, which
+    recomputes their forward.  No random numbers are drawn inside, so no
+    RNG state is kept."""
+    return checkpoint(_run_blocks, blocks, x, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing(blocks)))
+
+
 class X3D(nn.Module):
     """The full X3D network.
 
     ``forward`` returns float32 softmax probabilities, in eval mode averaged
     over each video's views (the batch is videos × views clips), or with
-    ``return_logits=True`` the per-clip logits.
+    ``return_logits=True`` the per-clip logits.  ``remat`` (see
+    :func:`remat_mode`) sets what a training step with gradients recomputes
+    in its backward pass.
     """
 
     def __init__(self, arch: X3DArch, dtype: torch.dtype = torch.bfloat16,
-                 in_channels: int = 3, device=None):
+                 in_channels: int = 3, device=None, remat=False):
         super().__init__()
         self.arch, self.dtype = arch, dtype
+        self.remat = remat_mode(remat)
         eps, m = arch.bn_eps, arch.bn_momentum
         self.conv_1 = Stem(in_channels, arch.conv1_dim, arch.temp_filter, eps,
                            m, dtype, device)
-        self.block_names = []
+        self.stage_names = []
         for si, blocks in enumerate(arch.stages):
+            self.stage_names.append([])
             for bi, spec in enumerate(blocks):
                 # stage numbering starts at 2, as in the paper
                 name = f"stage{si + 2}_block{bi}"
                 self.add_module(name, ResBlock(spec, arch.temp_kernel, eps,
                                                m, dtype, device))
-                self.block_names.append(name)
+                self.stage_names[-1].append(name)
         self.conv_5 = Pointwise(arch.stages[-1][-1].out_channels,
                                 arch.conv5_dim, dtype, device=device)
         self.bn_5 = BatchNorm(arch.conv5_dim, eps, m, dtype, device)
@@ -466,8 +572,17 @@ class X3D(nn.Module):
             raise ValueError("training with dropout needs a torch.Generator "
                              "for the dropout mask")
         x = self.conv_1(x)
-        for name in self.block_names:
-            x = getattr(self, name)(x)
+        remat = self.remat if self.training and torch.is_grad_enabled() \
+            else "off"
+        for names in self.stage_names:
+            blocks = [getattr(self, name) for name in names]
+            if remat == "off":
+                x = _run_blocks(blocks, x)
+            elif remat == "stage":
+                x = _remat(blocks, x)
+            else:
+                for block in blocks:
+                    x = _remat([block], x)
         x = torch.relu(self.bn_5(self.conv_5(x.to(self.dtype))))
         x = x.to(torch.float32).mean(dim=(1, 2, 3)).to(self.dtype)
         x = torch.relu(self.fc_1(x))
@@ -496,9 +611,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
-                 seed: int = 0, init: bool = True) -> X3D:
+                 seed: int = 0, init: bool = True, remat=None) -> X3D:
     """Build an eval-mode :class:`X3D` from a config (``.train()`` switches
     it to training mode).
+
+    ``remat`` defaults to ``cfg.TPU.REMAT``; "auto" is per-block remat for
+    the 312² variants (``DATA.TRAIN_CROP_SIZE >= 312``: X3D-L and -XL) and
+    none otherwise, as ``x3d_tpu.models.create_model`` resolves it.
 
     Weights are drawn on the CPU from a ``torch.Generator`` seeded with
     ``seed`` (``init=False`` leaves them to a later ``load_state_dict``),
@@ -507,9 +626,14 @@ def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
     """
     device = utils.resolve_device(device)
     dtype = dtype or getattr(torch, cfg.TPU.COMPUTE_DTYPE)
+    if remat is None:
+        remat = cfg.TPU.REMAT
+    if remat == "auto":
+        remat = cfg.DATA.TRAIN_CROP_SIZE >= 312
     arch = build_arch(cfg)
     build_on = device if device.type == "meta" else torch.device("cpu")
-    model = X3D(arch, dtype, cfg.DATA.NUM_INPUT_CHANNELS, device=build_on)
+    model = X3D(arch, dtype, cfg.DATA.NUM_INPUT_CHANNELS, device=build_on,
+                remat=remat)
     if init and build_on.type != "meta":
         init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -10,8 +10,12 @@ conv reads (``library_us``; a strided projection's subsample made
 beforehand), the bound (x read once, y written once and W read once at
 3.35 TB/s, or the operations at 989 TFLOP/s, whichever is larger), the
 share of it K7 reaches and K7 over the library.  Device time is
-``torch.profiler``'s (``tools/trace``), bfloat16, random inputs from a
-seed.  Needs a CUDA card::
+``torch.profiler``'s (``tools/trace``; ``timer`` "profiler"), or, where the
+profiler lost part of a case's window three times, each call's own span
+between CUDA events with the stream held while the host enqueues
+(``ops/timing.device_time_fn``; ``timer`` "events", which also counts the
+device's gaps between kernels).  bfloat16, random inputs from a seed.
+Needs a CUDA card::
 
     python -m x3d_tpu_torch.tools.profile_pointwise --variant M --clips 10
     python -m x3d_tpu_torch.tools.profile_pointwise --variant S --clips 64 \\
@@ -31,7 +35,8 @@ from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.kernels import _build
 from x3d_tpu_torch.models import build_arch
 from x3d_tpu_torch.ops import pointwise
-from x3d_tpu_torch.tools.trace import card, trace
+from x3d_tpu_torch.ops.timing import device_time_fn
+from x3d_tpu_torch.tools.trace import LostTrace, card, trace
 
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (published)
 BF16_TC_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores (published)
@@ -90,9 +95,9 @@ def _group(name: str) -> str:
 
 
 def case_row(shape, N: int, strides, iters: int = 10, seed: int = 0):
-    """One case's device times (module docstring); bfloat16.  A trace in
-    which a kernel reads faster than its bound lost events, and is taken
-    again (at most three times)."""
+    """One case's device times (module docstring); bfloat16.  A profiler
+    window is complete when it holds a kernel of every group it times for
+    each call."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     K = shape[-1]
     x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
@@ -110,21 +115,33 @@ def case_row(shape, N: int, strides, iters: int = 10, seed: int = 0):
               if b == body or (b == "pipe" and K % 2 == 0)]
     lib = _build.load("pointwise.cu", pointwise._SIGNATURES)
     stream = torch.cuda.current_stream().cuda_stream
-    for _ in range(3):
-        by = trace(lambda: (pointwise.pw_conv(x, w, strides),
-                            F.linear(xs, w)), iters, "call",
-                   group=_group)["group_ms_per_call"]
-        times = {"k7_us": by.get(body, 0.0) * 1e3,
-                 "library_us": by.get("library", 0.0) * 1e3}
+    calls = {"k7": lambda: pointwise.pw_conv(x, w, strides),
+             "library": lambda: F.linear(xs, w),
+             **{b: lambda b=b: pointwise._launch(lib, b, x, w, strides,
+                                                 stream) for b in bodies}}
+
+    def has(*groups):
+        return lambda got: all(got["group_kernels_per_call"].get(g, 0) >= 1
+                               for g in groups)
+
+    try:
+        by = trace(lambda: (calls["k7"](), calls["library"]()), iters,
+                   "call", group=_group,
+                   complete=has(body, "library"))["group_ms_per_call"]
+        times = {"k7_us": by[body] * 1e3, "library_us": by["library"] * 1e3}
         if bodies:
-            got = trace(lambda: [pointwise._launch(lib, b, x, w, strides,
-                                                   stream) for b in bodies],
-                        iters, "call", group=_group)["group_ms_per_call"]
-            times.update({f"{b}_us": got.get(b, 0.0) * 1e3 for b in bodies})
-        if min(times.values()) >= bound_us:
-            break
+            got = trace(lambda: [calls[b]() for b in bodies], iters, "call",
+                        group=_group,
+                        complete=has(*bodies))["group_ms_per_call"]
+            times.update({f"{b}_us": got[b] * 1e3 for b in bodies})
+        timer = "profiler"
+    except LostTrace:
+        times = {f"{name}_us": device_time_fn(fn, iters=iters) * 1e6
+                 for name, fn in calls.items()}
+        timer = "events"
     row = {"M": M, "K": K, "N": N, "strides": list(strides), "body": body,
            "plan": pointwise.plan(shape, N, strides), **times,
+           "timer": timer,
            "bound_us": bound_us,
            "bound_by": "bytes" if t_mem >= t_ops else "operations"}
     row["bound_share"] = row["bound_us"] / row["k7_us"]
