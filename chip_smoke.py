@@ -194,6 +194,429 @@ TOL_STEP_LOSS, TOL_STEP_STATS = 1e-5, 1e-4
 TOL_STEP_L2, TOL_STEP_LEAF_L2, TOL_STEP_COS = 5e-2, 1e-1, 0.999
 
 
+# Input phase: shard geometry (Kinetics frame sizes) and its thresholds.
+INPUT_VIDEOS = 16             # 4 shards of 4 videos, 300 frames each
+INPUT_FRAMES = 300            # 10 s at 30 fps: what the JAX writer keeps
+INPUT_SIZES = ((256, 340), (340, 256), (240, 320))   # (height, width)
+# nvJPEG's encode and decode of the frames (quality 90, 4:2:0) against
+# the frames written, in levels: the mean over 30 frames' values and the
+# largest value.  Measured on an H100: means 1.81-1.87, largest 13-14, at
+# the codes' sharp black/white edges.
+TOL_JPEG_MEAN = 3.0
+TOL_JPEG_MAX = 32
+INPUT_TIMED_STEPS = 6         # step medians, after one warm-up step
+
+
+def input_phase(emit, check):
+    """Phase 11b: real input data.  Writes TFRecord shards of coded 300-frame
+    videos on the card (nvJPEG, GZIP 9), checks nvJPEG's round trip, holds
+    the clip kernel against its plain version bit for bit on the decoded
+    frames of the loader's own batches (X3D-M training and eval, a 3-crop
+    eval, X3D-S training), reads the sampled frames' codes back, trains and
+    evaluates X3D-M at full width from the shards (its clip and decode
+    launches counted over that run), drives the X3D-S tools on the shards,
+    and measures the loader alone (at its own reservoir, the fill timed
+    apart) and a thread's record by stage, the shard-fed step against
+    synthetic input and against the synthetic step with the loader's host
+    work beside it, and the decode and clip kernel's device time.  Returns
+    the clip kernel's entry of the ``kernels`` line.  The loader prepares a
+    batch ahead, so its launches over the training run count one more batch
+    than the steps."""
+    import os
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from x3d_tpu_torch import variant_config
+    from x3d_tpu_torch.data import InputReader, synthetic_batches, tfrecords
+    from x3d_tpu_torch.data.synthetic import coded_video, read_code
+    from x3d_tpu_torch.models import create_model
+    from x3d_tpu_torch.ops import clip_prep, jpeg
+    from x3d_tpu_torch.tools import bench_loader
+    from x3d_tpu_torch.tools import eval as eval_cli
+    from x3d_tpu_torch.tools import predict as predict_cli
+    from x3d_tpu_torch.tools import train as train_cli
+    from x3d_tpu_torch.tools.trace import family, trace
+    from x3d_tpu_torch.train import (create_train_state, make_eval_step,
+                                     make_train_step)
+
+    dev = torch.device("cuda")
+    labels = [(37 * i + 5) % 400 for i in range(INPUT_VIDEOS)]
+    sizes = [INPUT_SIZES[i % 3] for i in range(INPUT_VIDEOS)]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_input_")
+    d = work.name
+    try:
+        # ------------------------------------------------ write the shards
+        t0 = time.perf_counter()
+
+        def write(s):
+            ids = range(4 * s, 4 * s + 4)
+            return tfrecords.write_shard(
+                os.path.join(d, f"train-{s:05d}.tfrecord"),
+                (tfrecords.frames_to_sequence_example(
+                    coded_video(INPUT_FRAMES, *sizes[i], labels[i], seed=i),
+                    labels[i]) for i in ids), device=dev)
+
+        with ThreadPoolExecutor(4) as pool:
+            written = sum(pool.map(write, range(INPUT_VIDEOS // 4)))
+        write_s = time.perf_counter() - t0
+        shard_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for f in os.listdir(d))
+        pattern = os.path.join(d, "train-*")
+        emit(phase="input: shards written on the card", videos=written,
+             frames=INPUT_FRAMES, sizes=[list(s) for s in INPUT_SIZES],
+             seconds=write_s, shard_mb=shard_bytes / 2**20,
+             nvjpeg_backend=jpeg.device_codec(dev).backend,
+             nvjpeg_refused=jpeg.device_codec(dev).refused)
+        check(written == INPUT_VIDEOS, f"wrote {written} videos")
+
+        # --------------------------------------------- nvJPEG's round trip
+        recs = tfrecords.read_shard(os.path.join(d, "train-00000.tfrecord"),
+                                    jpeg.crc32c)
+        trip = []
+        for i in range(3):
+            view = tfrecords.SequenceExampleView(recs[i])
+            h, w = sizes[i]
+            picks = list(range(0, INPUT_FRAMES, 10))
+            arena, offs = jpeg.decode_batch(
+                [bytes(view.frame(k)) for k in picks], [(h, w)] * len(picks),
+                dev)
+            got = torch.stack([arena[o:o + h * w * 3].view(h, w, 3)
+                               for o in offs])
+            want = coded_video(INPUT_FRAMES, h, w, labels[i], seed=i)[picks]
+            err = (got.int() - want.int()).abs()
+            trip.append({"size": [h, w], "frames": len(picks),
+                         "mean_err": float(err.float().mean()),
+                         "max_err": int(err.max()),
+                         "codes_ok": bool((read_code(got)[:, 0].cpu()
+                                           == torch.tensor(picks)).all())})
+        emit(phase="input: nvJPEG round trip", rows=trip,
+             tol_mean=TOL_JPEG_MEAN, tol_max=TOL_JPEG_MAX)
+        check(all(r["mean_err"] <= TOL_JPEG_MEAN
+                  and r["max_err"] <= TOL_JPEG_MAX and r["codes_ok"]
+                  for r in trip), f"nvJPEG round trip: {trip}")
+
+        # ---------------------- the clip kernel against its plain version
+        def config(v, crops=1):
+            c = variant_config(v)
+            c.TEST.NUM_SPATIAL_CROPS = crops
+            return c
+
+        def loader_batch(cfg, training, batch, seed=SEED):
+            reader = InputReader(cfg, training, seed=seed)
+            reader.keep_last = True
+            it = reader(pattern, batch)
+            out = next(it)
+            it.close()
+            return out, reader.last, cfg
+
+        def read_back(plan, cfg, training):
+            """Codes of every clip frame's decoded frame against its
+            record's sampled index and label, and the sampler's formula."""
+            T = cfg.DATA.TEMP_DURATION
+            views = 1 if training else cfg.TEST.NUM_TEMPORAL_VIEWS
+            ok = True
+            clip = 0
+            for r in plan.records:
+                crops = len(r.maps)
+                size = INPUT_FRAMES
+                if training:
+                    k = np.arange(T)
+                    ok &= bool(np.array_equal(
+                        r.indices, (r.indices[0] + k * cfg.DATA.FRAME_RATE)
+                        % size))
+                else:
+                    rate = max(1, size // T)
+                    ok &= bool(np.array_equal(
+                        r.indices, (np.arange(views * T) * rate) % size))
+                for c in range(crops):
+                    for m in range(views * T):
+                        row = plan.table[clip]
+                        off = int(row["src"])
+                        img = plan.arena[off:off + r.height * r.width * 3] \
+                            .view(r.height, r.width, 3)
+                        idx, lab = read_code(img).tolist()
+                        ok &= idx == int(r.indices[m]) and lab == r.label
+                        clip += 1
+            ok &= {r.label for r in plan.records} <= set(labels)
+            return ok
+
+        cases = []
+        worst_err = 0.0
+        for name, v, training, batch, crops in (
+                ("X3D-M training", "M", True, 32, 1),
+                ("X3D-M eval, 10 views", "M", False, 4, 1),
+                ("X3D-M eval, 3 crops", "M", False, 2, 3),
+                ("X3D-S training", "S", True, 64, 1)):
+            out, plan, cfg = loader_batch(config(v, crops), training, batch)
+            T = cfg.DATA.TEMP_DURATION
+            S = cfg.DATA.TRAIN_CROP_SIZE if training \
+                else cfg.DATA.TEST_CROP_SIZE
+            shape = (len(plan.table) // T, T, S, S, 3)
+            args = (plan.arena, plan.table, shape)
+            norm = (cfg.DATA.MEAN, cfg.DATA.STD)
+            u8 = clip_prep.clip_prep(*args, torch.uint8)
+            u8_ref = clip_prep.clip_prep_reference(*args, torch.uint8)
+            ref = clip_prep.clip_prep_reference(*args, torch.bfloat16, *norm)
+            same_u8 = torch.equal(u8, u8_ref)
+            same = torch.equal(out["video"], ref)
+            err = float((out["video"].float() - ref.float()).abs().max())
+            worst_err = max(worst_err, err)
+            flips = sorted({int(f) for f in plan.table["flip"]})
+            codes = read_back(plan, cfg, training)
+            plain_ms = statistics.median(
+                _wall_ms(lambda: clip_prep.clip_prep_reference(
+                    *args, torch.bfloat16, *norm)) for _ in range(3))
+            summary = trace(lambda: clip_prep.clip_prep(
+                *args, torch.bfloat16, *norm), n=5, unit="call",
+                group=lambda n: "clip" if "clip_prep_kernel" in n
+                else family(n))
+            ms = summary["group_ms_per_call"].get("clip", 0.0)
+            nbytes = clip_prep.bound_bytes(plan.table, shape, torch.bfloat16)
+            flops = 12 * int(np.prod(shape))
+            bound_ms = max(nbytes / MEM_BYTES_PER_S, flops / F32_FLOP_PER_S) \
+                * 1e3
+            row = {"case": name, "clips": shape[0], "shape": list(shape),
+                   "decoded_frames": len(plan.offsets),
+                   "bit_for_bit_uint8": same_u8,
+                   "bit_for_bit_bf16": same, "max_abs_err": err,
+                   "flips": flips, "codes_read_back": codes, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if nbytes / MEM_BYTES_PER_S
+                   >= flops / F32_FLOP_PER_S else "operations",
+                   "bound_bytes": nbytes}
+            cases.append(row)
+            emit(phase="input: clip kernel vs plain", **row)
+            check(same_u8 and same, f"clip kernel differs from its plain "
+                                    f"version: {name}")
+            check(codes, f"input: sampled frames' codes wrong: {name}")
+            if training and v == "M":
+                check(flips == [0, 1], f"X3D-M training flips {flips}")
+            del out, plan, u8, u8_ref, ref
+
+        # ---------------- X3D-M training and eval from the shards (counted)
+        cfg_m = variant_config("M")
+        model = create_model(cfg_m, seed=SEED)
+        state = create_train_state(cfg_m, model)
+        step_fn = make_train_step(model, cfg_m.NETWORK.WEIGHT_DECAY)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        reader = InputReader(cfg_m, True, seed=SEED)
+        it = reader(pattern, 32)
+        clip_prep.clip_prep.launches = 0
+        jpeg.decode_batch.launches = 0
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            state, metrics = step_fn(state, next(it), gen)
+            losses.append(float(metrics["loss"]))
+        it.close()      # waits for the batch prepared ahead of the last
+        torch.cuda.synchronize()
+        launches = {"clip_prep": clip_prep.clip_prep.launches,
+                    "nvjpeg_decode": jpeg.decode_batch.launches}
+        eval_reader = InputReader(cfg_m, False)
+        eval_step = make_eval_step(model)
+        eval_batch = next(eval_reader(pattern, cfg_m.TEST.BATCH_SIZE))
+        ev = eval_step(state, eval_batch)
+        ev = {k: float(v) for k, v in ev.items()}
+        emit(phase="input: X3D-M trained and evaluated from shards",
+             clips=32, steps=TRAIN_STEPS, losses=losses, launches=launches,
+             eval_clips=int(eval_batch["video"].shape[0]), eval=ev)
+        check(all(math.isfinite(x) for x in losses)
+              and all(math.isfinite(x) for x in ev.values())
+              and launches == {"clip_prep": TRAIN_STEPS + 1,
+                               "nvjpeg_decode": TRAIN_STEPS + 1}
+              and eval_batch["video"].shape[0] == 40,
+              f"X3D-M from shards: {losses} {ev} {launches}")
+
+        # ------------------- step median: shards against synthetic input
+        synth = next(synthetic_batches(cfg_m, 32, seed=SEED))
+        it = reader(pattern, 32)
+
+        def step_times(next_batch):
+            """Step ms, and the ms of them the caller waited for a batch."""
+            nonlocal state
+            out, waits = [], []
+            for i in range(INPUT_TIMED_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next_batch()
+                t1 = time.perf_counter()
+                state, _ = step_fn(state, batch, gen)
+                torch.cuda.synchronize()
+                if i:
+                    out.append((time.perf_counter() - t0) * 1e3)
+                    waits.append((t1 - t0) * 1e3)
+            return out, waits
+
+        shard_ms, shard_wait = step_times(lambda: next(it))
+        synth_ms, _ = step_times(lambda: synth)
+        shard_trace = trace(lambda: step_fn(state, next(it), gen), n=3,
+                            unit="step")
+        synth_trace = trace(lambda: step_fn(state, synth, gen), n=3,
+                            unit="step")
+        emit(phase="input: X3D-M step, shards vs synthetic",
+             clips=32, shard_step_ms=shard_ms, synthetic_step_ms=synth_ms,
+             shard_wait_ms=shard_wait,
+             shard_median_ms=statistics.median(shard_ms),
+             synthetic_median_ms=statistics.median(synth_ms),
+             shard_idle_share=shard_trace["idle_share"],
+             synthetic_idle_share=synth_trace["idle_share"],
+             shard_family_ms=shard_trace["family_ms_per_step"],
+             shard_busy_ms=shard_trace["device_busy_ms_per_step"],
+             synthetic_busy_ms=synth_trace["device_busy_ms_per_step"],
+             loader_threads=reader.threads)
+        it.close()
+        # the same with fewer loader threads: the loader's threads share
+        # the host's cores (and the interpreter) with the launch loop
+        sweep = {}
+        for threads in (4, 2):
+            it = InputReader(cfg_m, True, seed=SEED,
+                             num_threads=threads)(pattern, 32)
+            step_fn(state, next(it), gen)
+            ms, wait = step_times(lambda: next(it))
+            it.close()
+            sweep[threads] = {"median_ms": statistics.median(ms),
+                              "wait_median_ms": statistics.median(wait)}
+        sweep[reader.threads] = {
+            "median_ms": statistics.median(shard_ms),
+            "wait_median_ms": statistics.median(shard_wait)}
+        sweep["synthetic"] = {"median_ms": statistics.median(
+            step_times(lambda: synth)[0])}
+        # the synthetic step with the loader's host work beside it: each
+        # step the loader's threads plan one batch of records (inflate,
+        # CRC, walk, sampling, crop), and nothing is decoded; near the
+        # shard-fed step, the host work is what slows that step
+        planner = InputReader(cfg_m, True, seed=SEED + 1)
+        plans = planner.plan_batches(pattern, 32)
+        next(plans)                                  # fills the reservoir
+        ms, wait = step_times(lambda: (next(plans), synth)[1])
+        planned = trace(lambda: (next(plans), step_fn(state, synth, gen)),
+                        n=3, unit="step")
+        plans.close()
+        sweep["synthetic, a batch planned beside each step"] = {
+            "median_ms": statistics.median(ms),
+            "wait_median_ms": statistics.median(wait),
+            "idle_share": planned["idle_share"]}
+        emit(phase="input: X3D-M step from shards by loader threads",
+             clips=32, host_cores=os.cpu_count(), steps=INPUT_TIMED_STEPS,
+             rows=sweep)
+
+        # --------------- device time of a batch: decode and clip kernel
+        decode_rows = []
+        for v, training, batch in (("M", True, 32), ("XS", True, 128),
+                                   ("M", False, 4)):
+            cfg = config(v)
+            r = InputReader(cfg, training, seed=SEED)
+            chunks = r.plan_batches(pattern, batch)
+            plans = next(chunks)
+            chunks.close()
+            s = trace(lambda: r.batch(plans), n=3, unit="batch",
+                      group=lambda n: "clip" if "clip_prep_kernel" in n
+                      else family(n))
+            g = s["group_ms_per_batch"]
+            decode_rows.append({
+                "variant": v, "training": training, "videos": batch,
+                "decoded_frames": sum(len(p.blobs) for p in plans),
+                "busy_ms": s["device_busy_ms_per_batch"],
+                "clip_ms": g.get("clip", 0.0),
+                "decode_ms": s["device_busy_ms_per_batch"] - g.get("clip", 0),
+                "groups_ms": g, "top_kernels": s["top_kernels_ms_per_batch"],
+                "batch_wall_ms": statistics.median(
+                    _wall_ms(lambda: r.batch(plans)) for _ in range(3))})
+            emit(phase="input: device time a batch", **decode_rows[-1])
+            if v == "M" and training:
+                # the same decode on nvJPEG's default backend (Huffman on
+                # the host), against the backend the port chose
+                blobs = [b for p in plans for b in p.blobs]
+                hw = [(p.height, p.width) for p in plans for _ in p.blobs]
+                alt = jpeg.Codec(dev, backends=("default",))
+                a, _ = jpeg.decode_batch(blobs, hw, dev)
+                b, _ = jpeg.decode_batch(blobs, hw, dev, codec=alt)
+                emit(phase="input: nvJPEG backends, X3D-M batch",
+                     frames=len(blobs), chosen=jpeg.device_codec(dev).backend,
+                     chosen_wall_ms=statistics.median(_wall_ms(
+                         lambda: jpeg.decode_batch(blobs, hw, dev))
+                         for _ in range(3)),
+                     default_wall_ms=statistics.median(_wall_ms(
+                         lambda: jpeg.decode_batch(blobs, hw, dev,
+                                                   codec=alt))
+                         for _ in range(3)),
+                     same_pixels=bool(torch.equal(a, b)),
+                     max_abs_diff=int((a.int() - b.int()).abs().max()))
+                alt.close()
+                del a, b, alt
+
+        # --------------------------------------------- the loader alone
+        # (its own reservoir, 16 batches of records: the first batch fills
+        # it and is timed apart as set-up)
+        cores = os.cpu_count()
+        rates = {v: bench_loader.loader_rate(
+            variant_config(v), pattern, batch, n, None, dev)
+            for v, batch, n in (("M", 32, 6), ("XS", 128, 3))}
+        rates["M, one thread"] = bench_loader.loader_rate(
+            variant_config("M"), pattern, 32, 2, 1, dev)
+        split = bench_loader.thread_split(variant_config("M"), pattern, dev)
+        emit(phase="input: loader alone", host_cores=cores, rates=rates,
+             threads=min(8, cores), thread_ms_per_record=split)
+
+        # ----------------------------------------- the X3D-S tools on shards
+        s_config = "x3d_tpu_torch/configs/kinetics/X3D_S.yaml"
+        with tempfile.TemporaryDirectory() as run_dir:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc_train = train_cli.main(
+                    [f"--config={s_config}", f"--model_dir={run_dir}",
+                     "--use_tfrecord", f"--train_file_pattern={pattern}",
+                     f"--val_file_pattern={pattern}", "--steps_per_epoch=3",
+                     "--epochs=2"])
+                rc_eval = eval_cli.main(
+                    [f"--cfg={s_config}", f"--model_folder={run_dir}",
+                     "--tfrecord", f"--test_file_pattern={pattern}",
+                     "--max_batches=2"])
+                rc_pred = predict_cli.main(
+                    [f"--cfg={s_config}", f"--model_folder={run_dir}",
+                     f"--file_pattern={pattern}", "--max_batches=1",
+                     "--batch_videos=2"])
+            rows = [json.loads(ln) for ln in out.getvalue().splitlines()
+                    if ln.startswith("{")]
+        preds = [r for r in rows if "top" in r]
+        evals = [r for r in rows if "acc" in r]
+        emit(phase="input: X3D-S tools on shards",
+             rc=[rc_train, rc_eval, rc_pred], eval=evals, predictions=preds)
+        check(rc_train == rc_eval == rc_pred == 0 and len(evals) == 1
+              and evals[0]["count"] == 16.0 and len(preds) == 2
+              and [p["label"] for p in preds] == labels[:2],
+              f"X3D-S tools on shards: {rc_train} {rc_eval} {rc_pred} "
+              f"{evals} {preds}")
+
+        m = cases[0]
+        return {"name": "clip_prep", "route": "cuda",
+                "source": "x3d_tpu_torch/kernels/csrc/clip_prep.cu",
+                "replaces": "no TPU kernel: x3d_tpu/data/pipeline.py:142 "
+                            "(tf.data resize and crop, on the host) and "
+                            "x3d_tpu/data/device.py:17 (XLA normalise)",
+                "launches": launches["clip_prep"],
+                "path": f"X3D-M training from shards, {TRAIN_STEPS} steps",
+                "max_abs_err": worst_err, "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": None,
+                "cases": cases, "decode": decode_rows,
+                "nvjpeg_decode_launches": launches["nvjpeg_decode"]}
+    finally:
+        work.cleanup()
+
+
+def _wall_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -432,6 +855,17 @@ def main() -> int:
     check(len(entries) == 15 and all("registers" in e for e in entries)
           and len(main) == 2 and all(e["spill_bytes"] == 0 for e in main),
           f"K8 temporal body's ptxas report: {entries}")
+
+    if "--input-only" in sys.argv[1:]:
+        # the input phase alone, after the build (a quicker check of it)
+        entry = input_phase(emit, check)
+        print(json.dumps({"card": card, "kernels": [entry]}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # the depthwise shapes of X3D-M and X3D-S, from their architecture plans
     cfg = variant_config("M")
@@ -2215,6 +2649,9 @@ def main() -> int:
     new = {v: x3d_variant(v) for v in NEW_VARIANTS}
     timing["iters"] = ITERS
 
+    # ----------------------------------------------- 11b. real input data
+    input_entry = input_phase(emit, check)
+
     # ----------------------------------------------- 12. the kernel line
     def worst(*row_lists):
         return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
@@ -2328,6 +2765,9 @@ def main() -> int:
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on its main path")
         kernels_line.append(entry)
+    check(input_entry["launches"] > 0,
+          "clip_prep never launched on its main path")
+    kernels_line.append(input_entry)
     print(json.dumps({"card": card, "kernels": kernels_line}))
     if failures:
         fail(f"{len(failures)} check(s) failed: {failures}")

@@ -92,7 +92,9 @@ class _Keep:
     def on_step_end(self, step, state):
         self.state = state
 
-    def on_epoch_end(self, *args): ...
+    def on_epoch_end(self, epoch, state, train_metrics, val_metrics):
+        self.val = getattr(self, "val", []) + [val_metrics]
+
     def on_train_end(self): ...
 
 
@@ -231,11 +233,11 @@ def test_from_checkpoint_serves_the_trained_weights(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--synthetic", "--multigrid"], "A9"),
     (["--synthetic", "--opts", "MULTIGRID.ENABLE", "True"], "A9"),
-    (["--synthetic", "--native_loader"], "A8"),
+    (["--native_loader", "--train_file_pattern=/data/train.txt"], "A8"),
     (["--synthetic", "--multihost"], "A10"),
     (["--synthetic", "--num_gpus=2"], "A10"),
-    (["--train_file_pattern=/data/train-*"], "A8"),
-    (["--synthetic", "--val_file_pattern=/data/val-*"], "A8"),
+    (["--train_file_pattern=/data/train.txt"], "A8"),
+    (["--synthetic", "--val_file_pattern=/data/val.txt"], "A8"),
 ])
 def test_train_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -245,16 +247,88 @@ def test_train_refuses_unported_flags(tmp_path, flags, item):
 
 
 @pytest.mark.parametrize("cli,flags,item", [
-    (eval_cli, ["--synthetic", "--native_loader"], "A8"),
+    (eval_cli, ["--native_loader", "--test_file_pattern=/data/test.txt"],
+     "A8"),
     (eval_cli, ["--synthetic", "--gpus=2"], "A10"),
-    (eval_cli, ["--test_file_pattern=/data/test-*"], "A8"),
-    (predict_cli, ["--file_pattern=/data/test-*"], "A8"),
+    (eval_cli, ["--test_file_pattern=/data/test.txt"], "A8"),
+    (train_cli, ["--val_file_pattern=/data/val.txt", "--use_tfrecord=false",
+                 "--train_file_pattern=/data/train-*"], "A8"),
 ])
 def test_eval_and_predict_refuse_unported_flags(tmp_path, cli, flags, item):
+    """Text lists of raw videos (no --tfrecord / --use_tfrecord) still
+    raise; TFRecord shards run (the tests below)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main([f"--cfg={CONFIG}", f"--model_folder={tmp_path}",
-                  "--device=cpu", *flags]
-                 + (["--allow_random_init"] if cli is eval_cli else []))
+        if cli is train_cli:
+            cli.main([f"--config={CONFIG}", f"--model_dir={tmp_path}",
+                      "--device=cpu", *flags])
+        else:
+            cli.main([f"--cfg={CONFIG}", f"--model_folder={tmp_path}",
+                      "--device=cpu", *flags]
+                     + (["--allow_random_init"] if cli is eval_cli else []))
+
+
+def _frames(n, base):
+    y = np.arange(36)[:, None, None]
+    x = np.arange(48)[None, :, None]
+    return np.stack([np.broadcast_to((base * 40 + i * 5 + y + x) % 250,
+                                     (36, 48, 3)).astype(np.uint8)
+                     for i in range(n)])
+
+
+@pytest.fixture(scope="module")
+def shard_dir(tmp_path_factory):
+    """Six tiny videos (36x48, labels 0-5) in three train shards and one
+    val shard, written on the CPU by the port's writer."""
+    from x3d_tpu_torch.data import write_video_array_shards
+
+    d = tmp_path_factory.mktemp("shards")
+    videos = [(_frames(12 + i, i), i) for i in range(6)]
+    write_video_array_shards(videos, str(d), prefix="train",
+                             videos_per_record=2, device="cpu")
+    write_video_array_shards(videos[:4], str(d), prefix="val",
+                             videos_per_record=4, device="cpu")
+    return d
+
+
+@pytest.mark.parametrize("loader", [[], ["--native_loader",
+                                         "--native_threads=2"]])
+def test_train_on_shards_with_validation(tmp_path, shard_dir, loader):
+    keep = _Keep()
+    rc = train_cli.main(
+        [f"--config={CONFIG}", f"--model_dir={tmp_path}", "--use_tfrecord",
+         f"--train_file_pattern={shard_dir / 'train-*'}",
+         f"--val_file_pattern={shard_dir / 'val-*'}", "--steps_per_epoch=2",
+         "--epochs=2", "--mixed_precision=false", *loader, *OPTS],
+        extra_hooks=[keep])
+    assert rc == 0
+    assert sorted(keep.losses) == [2, 4]        # fetched at epoch ends
+    assert all(np.isfinite(v) for v in keep.losses.values())
+    assert [v["count"] for v in keep.val] == [4.0, 4.0]    # 2 batches of 2
+    assert all(np.isfinite(v["loss"]) for v in keep.val)
+
+
+@pytest.mark.parametrize("loader", [[], ["--native_loader",
+                                         "--native_threads=2"]])
+def test_eval_on_shards(trained, shard_dir, capsys, loader):
+    model_dir, _ = trained
+    rc = eval_cli.main([f"--cfg={CONFIG}", f"--model_folder={model_dir}",
+                        "--tfrecord",
+                        f"--test_file_pattern={shard_dir / 'train-*'}",
+                        *loader, *OPTS])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["count"] == 6.0 and np.isfinite(out["loss"])
+
+
+def test_predict_on_shards(trained, shard_dir, capsys):
+    model_dir, _ = trained
+    rc = predict_cli.main([f"--cfg={CONFIG}", f"--model_folder={model_dir}",
+                           f"--file_pattern={shard_dir / 'val-*'}",
+                           "--batch_videos=2", "--k=3", *OPTS])
+    assert rc == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["label"] for r in rows] == [0, 1, 2, 3]
+    assert all(len(r["top"]) == 3 for r in rows)
 
 
 def test_train_needs_data_or_synthetic(tmp_path, capsys):

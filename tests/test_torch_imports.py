@@ -210,7 +210,8 @@ def test_tools_run_with_optional_packages_blocked():
 @pytest.mark.parametrize("module", [
     "x3d_tpu_torch.ops.depthwise", "x3d_tpu_torch.ops.dw_fused",
     "x3d_tpu_torch.ops.pointwise", "x3d_tpu_torch.ops.pw_stats",
-    "x3d_tpu_torch.tools.fma_probe"])
+    "x3d_tpu_torch.tools.fma_probe", "x3d_tpu_torch.ops.jpeg",
+    "x3d_tpu_torch.ops.clip_prep"])
 def test_every_bound_c_function_is_defined(module):
     mod = importlib.import_module(module)
     with open(mod.__file__) as f:

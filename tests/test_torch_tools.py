@@ -5,6 +5,7 @@ its retakes of windows the profiler lost, on stand-in profilers; and, on
 the card, K7's per-case rows timed with CUDA events where the profiler
 loses them."""
 
+import json
 import types
 
 import pytest
@@ -59,6 +60,9 @@ from x3d_tpu_torch.tools.trace import LostTrace, family, summarize
     ("void at::native::vectorized_elementwise_kernel<4>(...)",
      "elementwise"),
     ("some_unknown_kernel", "other"),
+    ("void (anonymous namespace)::clip_prep_kernel<__nv_bfloat16>(...)",
+     "input"),
+    ("void nvjpeg::DecodeBatchedKernel<...>(...)", "input"),
 ])
 def test_family(name, want):
     assert family(name) == want
@@ -117,6 +121,9 @@ def test_family(name, want):
     ("sum_partials_kernel(float const*, float*, int, int)",
      "K2/K3/K5/K6 second passes"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "gemm"),
+    ("void (anonymous namespace)::clip_prep_kernel<unsigned char>(...)",
+     "input"),
+    ("void nvjpeg::DecodeBatchedKernel<...>(...)", "input"),
 ])
 def test_training_group(name, want):
     assert profile_training._group(name) == want
@@ -227,3 +234,30 @@ def test_case_row_times_with_events_where_the_profiler_loses(
     for key in keys:
         # the events also count the device's gaps between kernels
         assert 0.5 * got[key] < held[key] < 3 * got[key] + 5, key
+
+
+def test_bench_loader_prints_one_json_line(capsys):
+    """The loader benchmark on the CPU at a tiny size: one JSON line with
+    the loader's clips/s, a thread's, the reservoir's fill, a thread's
+    milliseconds a record by stage, the host's cores and the cores a step
+    rate needs."""
+    from x3d_tpu_torch.tools import bench_loader
+
+    assert bench_loader.main([
+        "--device=cpu", "--variant=XS", "--videos=3", "--frames=6",
+        "--height=32", "--width=144", "--videos_per_shard=2", "--batch=2",
+        "--batches=2", "--threads=2", "--step_rate=10", "--opts",
+        "DATA.TRAIN_CROP_SIZE", "32"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["clips_per_sec"] > 0 and out["clips_per_sec_per_thread"] > 0
+    assert out["cores_needed_for_step_rate"] == pytest.approx(
+        10 / out["clips_per_sec_per_thread"])
+    assert out["host_cores"] >= 1 and out["threads"] == 2
+    assert out["fill_s"] > 0 and out["reservoir_records"] == 32
+    split = out["thread_ms_per_record"]
+    assert split["records"] == 3 and split["inflate"] > 0
+    assert split["record"] == pytest.approx(
+        split["inflate"] + split["crc"] + split["plan"])

@@ -24,9 +24,14 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 SOURCES = ("depthwise.cu", "dw_fused.cu", "depthwise_bwd.cu", "dw_fused_bwd.cu",
-           "pw_stats.cu", "pointwise.cu", "depthwise_pbwd.cu", "fma_probe.cu")
+           "pw_stats.cu", "pointwise.cu", "depthwise_pbwd.cu", "fma_probe.cu",
+           "jpeg.cu", "clip_prep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source: the clip kernel rounds every product and sum as the
+# plain version does (no contracted multiply-adds); the codec links nvJPEG.
+COMPILE_FLAGS = {"clip_prep.cu": ("-fmad=false",)}
+LINK_FLAGS = {"jpeg.cu": ("-lnvjpeg",)}
 
 # nvcc's report per source (ptxas -v: registers, shared memory, spills)
 build_logs: Dict[str, str] = {}
@@ -49,8 +54,13 @@ def _nvcc() -> str:
         "are built from x3d_tpu_torch/kernels/csrc at first use")
 
 
+def _flags(source: str) -> tuple:
+    return (*NVCC_FLAGS, *COMPILE_FLAGS.get(source, ()))
+
+
 def _library_path(source: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(
+        (*_flags(source), *LINK_FLAGS.get(source, ()))).encode())
     for path in [os.path.join(CSRC, source)] + sorted(
             glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
@@ -73,7 +83,8 @@ def compile_source(source: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
+        [_nvcc(), *_flags(source), "-o", tmp, os.path.join(CSRC, source),
+         *LINK_FLAGS.get(source, ())],
         capture_output=True, text=True)
     build_logs[source] = proc.stdout + proc.stderr
     if proc.returncode != 0:

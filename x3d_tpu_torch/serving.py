@@ -119,10 +119,11 @@ class InferenceEngine:
             return self.model(x.to(self._dtype))
 
     def predict(self, clips_u8) -> np.ndarray:
-        """(videos*views, T, S, S, 3) uint8 -> (videos, classes) float32
-        probabilities.  Fewer than ``max_videos`` videos are padded to the
+        """(videos*views, T, S, S, 3) uint8 (numpy, or a tensor on any
+        device) -> (videos, classes) float32 probabilities.  Fewer than ``max_videos`` videos are padded to the
         capacity and un-padded on return."""
-        clips = torch.as_tensor(np.asarray(clips_u8))
+        clips = clips_u8 if isinstance(clips_u8, torch.Tensor) \
+            else torch.as_tensor(np.asarray(clips_u8))
         if clips.dtype != torch.uint8 or tuple(clips.shape[1:]) \
                 != self.clip_shape[1:]:
             raise ValueError(

@@ -10,9 +10,16 @@ native_threads, synthetic, max_batches, opts, profile_batch,
 allow_random_init.  Added: ``--device`` (cuda by default).  Prints one JSON
 line: loss, acc, top_5_acc, count.
 
+Real data: ``--tfrecord --test_file_pattern=...`` reads TFRecord shards
+of JPEG frames through ``data.InputReader`` (every batch unless
+``--max_batches``), views and crops as the config says.  The port has one
+loader where the JAX package has two; ``--native_loader`` selects it too,
+with ``--native_threads`` host threads (otherwise the host's cores, at
+most 8).
+
 Not ported yet, accepted and refused with the ROADMAP item that will bring
-them: a real ``--test_file_pattern`` and ``--native_loader`` (A8),
-``--gpus`` above 1 (A10).
+them: ``--test_file_pattern`` without ``--tfrecord`` (a text list of raw
+videos, A8), ``--gpus`` above 1 (A10).
 """
 
 from __future__ import annotations
@@ -41,9 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gpus", type=int, default=0,
                    help="Number of GPUs (0 or 1: one card).")
     add_bool_flag(p, "tfrecord", False, "Data is TFRecord shards.")
-    add_bool_flag(p, "native_loader", False, "Use the C++ clip loader.")
+    add_bool_flag(p, "native_loader", False,
+                  "The JAX package's C++ clip loader; the port has one "
+                  "loader, which this selects too.")
     p.add_argument("--native_threads", type=int, default=1,
-                   help="C++ loader decode threads for eval.")
+                   help="Host threads of the loader with --native_loader.")
     add_bool_flag(p, "synthetic", False, "Evaluate on synthetic data.")
     p.add_argument("--max_batches", type=int, default=None,
                    help="Cap evaluation batches.")
@@ -61,7 +70,7 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.data import InputReader, synthetic_batches
     from x3d_tpu_torch.tools.common import (flat_opts, load_config,
                                             setup_runtime)
     from x3d_tpu_torch.train import create_train_state, make_eval_step
@@ -79,10 +88,6 @@ def main(argv=None) -> int:
     if not have_ckpt and not args.allow_random_init:
         parser.error(f"No checkpoint found in {ckpt_dir}; pass "
                      "--allow_random_init to evaluate an untrained model.")
-    if args.native_loader:
-        raise NotImplementedError(
-            "--native_loader: the C++ clip loader is not ported yet "
-            "(ROADMAP A8)")
     if args.gpus > 1:
         raise NotImplementedError(
             f"--gpus={args.gpus}: multi-GPU evaluation is not ported yet "
@@ -90,16 +95,26 @@ def main(argv=None) -> int:
     if not args.synthetic:
         if not args.test_file_pattern:
             parser.error("--test_file_pattern required unless --synthetic")
-        raise NotImplementedError(
-            "--test_file_pattern: real input data is not ported yet "
-            "(ROADMAP A8); pass --synthetic")
+        if not args.tfrecord:
+            raise NotImplementedError(
+                "--test_file_pattern without --tfrecord: text lists of raw "
+                "videos are not ported yet (ROADMAP A8); write TFRecord "
+                "shards and pass --tfrecord")
 
     device, model, dtype = setup_runtime(cfg, args.gpus, True, False,
                                          device=args.device)
-    batches = itertools.islice(
-        synthetic_batches(cfg, cfg.TEST.BATCH_SIZE, is_training=False,
-                          dtype=dtype, device=device),
-        args.max_batches or 4)
+    if args.synthetic:
+        batches = itertools.islice(
+            synthetic_batches(cfg, cfg.TEST.BATCH_SIZE, is_training=False,
+                              dtype=dtype, device=device),
+            args.max_batches or 4)
+    else:
+        reader = InputReader(
+            cfg, is_training=False, device=device, dtype=dtype,
+            num_threads=args.native_threads if args.native_loader else None)
+        batches = reader(args.test_file_pattern, cfg.TEST.BATCH_SIZE)
+        if args.max_batches:
+            batches = itertools.islice(batches, args.max_batches)
     state = create_train_state(cfg, model, steps_per_epoch=1)
 
     if not have_ckpt:

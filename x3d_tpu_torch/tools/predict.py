@@ -1,18 +1,21 @@
-"""Prediction CLI: serve a trained checkpoint over synthetic clips.
+"""Prediction CLI: serve a trained checkpoint over TFRecord or synthetic
+clips.
 
     python -m x3d_tpu_torch.tools.predict --cfg=... \
-        --model_folder=/tmp/x3d_s --synthetic --max_batches=1
+        --model_folder=/tmp/x3d_s --file_pattern='/data/test-*'
 
 Emits one JSON line per video: {"label": ..., "top": [...], "probs": [...]}.
 Flags kept verbatim from the JAX package's ``tools/predict.py``: cfg,
 model_folder, file_pattern, synthetic, max_batches, batch_videos, k, opts.
-Added: ``--device`` (cuda by default).  A real ``--file_pattern`` waits for
-the input pipeline (ROADMAP A8).
+Added: ``--device`` (cuda by default).  ``--file_pattern`` names TFRecord
+shards, read with the eval protocol (``data.InputReader`` as uint8 clips,
+which the engine normalises), as the JAX tool reads them.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import logging
 
@@ -42,26 +45,36 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
     import numpy as np
+    import torch
 
+    from x3d_tpu_torch.data import InputReader
     from x3d_tpu_torch.serving import InferenceEngine
     from x3d_tpu_torch.tools.common import flat_opts, load_config
 
     cfg = load_config(args.cfg, flat_opts(args.opts))
-    if not args.synthetic:
-        raise NotImplementedError(
-            "--file_pattern: real input data is not ported yet (ROADMAP "
-            "A8); pass --synthetic")
+    if not args.synthetic and not args.file_pattern:
+        raise SystemExit("--file_pattern is required unless --synthetic")
     engine = InferenceEngine.from_checkpoint(
         cfg, args.model_folder, max_videos=args.batch_videos,
         device=args.device)
 
-    rng = np.random.RandomState(0)
-    for _ in range(args.max_batches or 2):
-        video = rng.randint(0, 255, engine.clip_shape).astype(np.uint8)
-        idx, p = engine.top_k(video, k=args.k)
-        for top, probs in zip(idx, p):
+    if args.synthetic:
+        rng = np.random.RandomState(0)
+        batches = ({"video": rng.randint(0, 255, engine.clip_shape
+                                         ).astype(np.uint8),
+                    "label": [-1] * args.batch_videos}
+                   for _ in range(args.max_batches or 2))
+    else:
+        reader = InputReader(cfg, is_training=False, device=engine.device,
+                             dtype=torch.uint8)
+        batches = reader(args.file_pattern, args.batch_videos)
+        if args.max_batches:
+            batches = itertools.islice(batches, args.max_batches)
+    for batch in batches:
+        idx, p = engine.top_k(batch["video"], k=args.k)
+        for label, top, probs in zip(batch["label"], idx, p):
             print(json.dumps({
-                "label": -1,
+                "label": int(label),
                 "top": [int(t) for t in top],
                 "probs": [round(float(x), 5) for x in probs],
             }), flush=True)

@@ -25,7 +25,7 @@ import torch
 from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.data import synthetic_batches
 from x3d_tpu_torch.models import create_model
-from x3d_tpu_torch.tools.trace import card, family, trace
+from x3d_tpu_torch.tools.trace import INPUT_KERNELS, card, family, trace
 from x3d_tpu_torch.train import create_train_state, make_train_step
 from x3d_tpu_torch.utils import use_deterministic_cudnn
 
@@ -56,6 +56,7 @@ _PORT = (
                                   "dw_conv3d_pbwd_temporal_kernel",
                                   "dw_conv3d_pbwd_sum_kernel")),
     ("K2/K3/K5/K6 second passes", ("sum_partials_kernel",)),
+    ("input", INPUT_KERNELS),
 )
 
 

@@ -17,7 +17,11 @@ from typing import Callable
 import torch
 from torch.autograd import DeviceType
 
+# the input pipeline's kernels: the clip kernel and nvJPEG's decode
+INPUT_KERNELS = ("clip_prep_kernel", "nvjpeg", "Nvjpeg", "NVJPEG")
+
 _FAMILIES = (
+    ("input", INPUT_KERNELS),
     ("port kernels", ("dw_conv3d", "dw_bn_act_conv", "sum_partials",
                       "sum_dk_partials", "sum_pbwd_partials",
                       "pw_stats_kernel", "pw_conv_", "pw_act_conv_stats",

@@ -15,9 +15,18 @@ Checkpoints go to ``<model_dir>/checkpoints``, keyed by the global step; a
 second run with the same ``--model_dir`` resumes from the latest one, in
 the middle of an epoch where the last save was there.
 
+Real data: ``--use_tfrecord --train_file_pattern=... [--val_file_pattern=
+...]`` reads TFRecord shards of JPEG frames through ``data.InputReader``
+(nvJPEG and the clip kernel on the card; Pillow and the plain version with
+``--device cpu``), validating at each epoch's end.  The port has one
+loader where the JAX package has two (tf.data and the C++ clip loader):
+``--native_loader`` selects it too, with ``--native_threads`` host threads
+(default: the host's cores, at most 8).
+
 Not ported yet, accepted and refused with the ROADMAP item that will bring
-them: ``--multigrid`` (A9), ``--native_loader`` and real input files (A8),
-``--multihost`` and ``--num_gpus`` above 1 (A10).
+them: file patterns without ``--use_tfrecord`` (text lists of raw videos,
+A8), ``--multigrid`` (A9), ``--multihost`` and ``--num_gpus`` above 1
+(A10).
 """
 
 from __future__ import annotations
@@ -61,7 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
     add_bool_flag(p, "multihost", False, "Multi-host training.")
     add_bool_flag(p, "synthetic", False,
                   "Train on synthetic data (no dataset needed).")
-    add_bool_flag(p, "native_loader", False, "Use the C++ clip loader.")
+    add_bool_flag(p, "native_loader", False,
+                  "The JAX package's C++ clip loader; the port has one "
+                  "loader, which this selects too.")
+    p.add_argument("--native_threads", type=int, default=None,
+                   help="Host threads of the loader (default: the host's "
+                        "cores, at most 8).")
     add_bool_flag(p, "multigrid", False, "Long-cycle multigrid training.")
     p.add_argument("--steps_per_epoch", type=int, default=None,
                    help="Override DATASET_SIZE // BATCH_SIZE.")
@@ -79,10 +93,6 @@ def refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             "--multigrid / MULTIGRID.ENABLE: multigrid training is not "
             "ported yet (ROADMAP A9)")
-    if args.native_loader:
-        raise NotImplementedError(
-            "--native_loader: the C++ clip loader is not ported yet "
-            "(ROADMAP A8)")
     if args.multihost:
         raise NotImplementedError(
             "--multihost: multi-host training is not ported yet "
@@ -91,14 +101,12 @@ def refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             f"--num_gpus={args.num_gpus}: multi-GPU training is not ported "
             "yet (ROADMAP A10)")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "--train_file_pattern: real input data is not ported yet "
-            "(ROADMAP A8); pass --synthetic")
-    if args.val_file_pattern:
-        raise NotImplementedError(
-            "--val_file_pattern: real input data is not ported yet "
-            "(ROADMAP A8)")
+    for flag in ("train_file_pattern", "val_file_pattern"):
+        if getattr(args, flag) and not args.use_tfrecord:
+            raise NotImplementedError(
+                f"--{flag} without --use_tfrecord: text lists of raw videos "
+                "are not ported yet (ROADMAP A8); write TFRecord shards and "
+                "pass --use_tfrecord")
 
 
 def main(argv=None, extra_hooks=()) -> int:
@@ -107,10 +115,11 @@ def main(argv=None, extra_hooks=()) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.data import InputReader, synthetic_batches
     from x3d_tpu_torch.tools.common import (flat_opts, load_config,
                                             setup_runtime)
-    from x3d_tpu_torch.train import create_train_state, make_train_step
+    from x3d_tpu_torch.train import (create_train_state, make_eval_step,
+                                     make_train_step)
     from x3d_tpu_torch.train.checkpoint import CheckpointManager
     from x3d_tpu_torch.train.hooks import (
         CheckpointHook, LoggingHook, ProfileHook, TensorBoardHook, WandbHook)
@@ -133,8 +142,23 @@ def main(argv=None, extra_hooks=()) -> int:
         1, cfg.TRAIN.DATASET_SIZE // batch)
     epochs = args.epochs or cfg.TRAIN.EPOCHS
 
-    train_iter = synthetic_batches(cfg, batch, is_training=True, dtype=dtype,
-                                   seed=seed, device=device)
+    val_fn = None
+    if args.synthetic:
+        train_iter = synthetic_batches(cfg, batch, is_training=True,
+                                       dtype=dtype, seed=seed, device=device)
+    else:
+        threads = args.native_threads if args.native_loader else None
+        reader = InputReader(cfg, is_training=True, seed=seed,
+                             num_threads=threads, device=device, dtype=dtype)
+        train_iter = reader(args.train_file_pattern, batch)
+        if args.val_file_pattern:
+            val_reader = InputReader(cfg, is_training=False,
+                                     num_threads=threads, device=device,
+                                     dtype=dtype)
+
+            def val_fn():
+                return val_reader(args.val_file_pattern,
+                                  cfg.TEST.BATCH_SIZE)
 
     # model state (+ resume / warm start)
     state = create_train_state(cfg, model, steps_per_epoch=steps_per_epoch)
@@ -188,6 +212,8 @@ def main(argv=None, extra_hooks=()) -> int:
         epochs=epochs,
         seed=seed,
         initial_epoch=initial_epoch,
+        eval_step=make_eval_step(model) if val_fn else None,
+        val_batches_fn=val_fn,
         hooks=hooks,
         metrics_every=cadence,
         initial_step_in_epoch=initial_step_in_epoch,
