@@ -115,7 +115,24 @@ its own, which fails on a spill where the body must not spill) and then:
   parameters, running statistics); and checks a float32 step through the
   kernels against the plain versions for XS (whose stem's 4 frames are
   fewer than its 5 taps, so K4 takes its backward) and XL (SCALE_RES2,
-  widths 2 mod 4).
+  widths 2 mod 4);
+* reads real input (phase 11b: TFRecord shards written on the card,
+  nvJPEG and the clip kernel);
+* trains X3D-M by long-cycle multigrid (phase 11c) through ``tools/train
+  --multigrid --synthetic`` at full width and depth: the default factors
+  over 5 epochs of 8 base steps (23 steps at 256 x 4x160², 128 x 8x160²,
+  64 x 8x224² and 32 x 16x224²), each step's batch at its phase's shape,
+  every loss finite, each epoch's launches by body (phase 0's 4 frames are
+  fewer than the stem's 5 taps: K4's gather and generic bodies take its
+  backward), a crash after the checkpoint inside phase 1 resumed to the
+  uninterrupted run's final state bit for bit; per phase the bare step's
+  median, clips/s, peak memory, the device's idle share and the stem
+  backward's route and time; a float32 step through the kernels against
+  the plain versions at each phase's full batch; one bfloat16 step at each
+  X3D-S and X3D-XS phase shape (XS: down to 1024 clips of 1x112²); the
+  tool on the phase-11b shards with validation and precise BN; and
+  ``tools/bench_multigrid --variant=M`` (its JSON line).
+  ``--multigrid-only`` runs the build, the shards and this phase alone.
 
 Every result line is a JSON object carrying the card's name and power
 limit; the ``kernels`` line comes second to last, and the last line is
@@ -131,6 +148,7 @@ import io
 import json
 import logging
 import math
+import os
 import re
 import subprocess
 import sys
@@ -194,6 +212,17 @@ TOL_STEP_LOSS, TOL_STEP_STATS = 1e-5, 1e-4
 TOL_STEP_L2, TOL_STEP_LEAF_L2, TOL_STEP_COS = 5e-2, 1e-1, 0.999
 
 
+# Multigrid phase: X3D-M's default long cycle over 5 epochs of 8 base steps
+# (23 steps: 1, 2, 4, 8 and 8 at batches 256, 128, 64, 32); bare steps
+# timed a phase after one warm-up step; bench_multigrid's chained steps a
+# round; the shard run at an eighth of the batches (the loader fills a
+# reservoir of 16 batches of records a phase).
+MG_BASE_STEPS, MG_EPOCHS = 8, 5
+MG_TIMED_STEPS = 3
+MG_BENCH_STEPS = 5
+MG_SHARD_BATCH = 4
+
+
 # Input phase: shard geometry (Kinetics frame sizes) and its thresholds.
 INPUT_VIDEOS = 16             # 4 shards of 4 videos, 300 frames each
 INPUT_FRAMES = 300            # 10 s at 30 fps: what the JAX writer keeps
@@ -207,7 +236,52 @@ TOL_JPEG_MAX = 32
 INPUT_TIMED_STEPS = 6         # step medians, after one warm-up step
 
 
-def input_phase(emit, check):
+def input_videos():
+    """The input phase's videos: their labels and (height, width)s."""
+    labels = [(37 * i + 5) % 400 for i in range(INPUT_VIDEOS)]
+    sizes = [INPUT_SIZES[i % 3] for i in range(INPUT_VIDEOS)]
+    return labels, sizes
+
+
+def write_input_shards(emit, check, d) -> str:
+    """Write the input phase's coded videos into 4 GZIP shards in ``d`` on
+    the card (nvJPEG); returns their file pattern."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from x3d_tpu_torch.data import tfrecords
+    from x3d_tpu_torch.data.synthetic import coded_video
+    from x3d_tpu_torch.ops import jpeg
+
+    dev = torch.device("cuda")
+    labels, sizes = input_videos()
+    t0 = time.perf_counter()
+
+    def write(s):
+        ids = range(4 * s, 4 * s + 4)
+        return tfrecords.write_shard(
+            os.path.join(d, f"train-{s:05d}.tfrecord"),
+            (tfrecords.frames_to_sequence_example(
+                coded_video(INPUT_FRAMES, *sizes[i], labels[i], seed=i),
+                labels[i]) for i in ids), device=dev)
+
+    with ThreadPoolExecutor(4) as pool:
+        written = sum(pool.map(write, range(INPUT_VIDEOS // 4)))
+    write_s = time.perf_counter() - t0
+    shard_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for f in os.listdir(d))
+    emit(phase="input: shards written on the card", videos=written,
+         frames=INPUT_FRAMES, sizes=[list(s) for s in INPUT_SIZES],
+         seconds=write_s, shard_mb=shard_bytes / 2**20,
+         nvjpeg_backend=jpeg.device_codec(dev).backend,
+         nvjpeg_refused=jpeg.device_codec(dev).refused)
+    check(written == INPUT_VIDEOS, f"wrote {written} videos")
+    return os.path.join(d, "train-*")
+
+
+def input_phase(emit, check, shard_dir=None):
     """Phase 11b: real input data.  Writes TFRecord shards of coded 300-frame
     videos on the card (nvJPEG, GZIP 9), checks nvJPEG's round trip, holds
     the clip kernel against its plain version bit for bit on the decoded
@@ -221,10 +295,11 @@ def input_phase(emit, check):
     work beside it, and the decode and clip kernel's device time.  Returns
     the clip kernel's entry of the ``kernels`` line.  The loader prepares a
     batch ahead, so its launches over the training run count one more batch
-    than the steps."""
+    than the steps.  The shards are written into ``shard_dir`` and left
+    there where it is given (the multigrid phase reads them), else into a
+    directory of its own that it removes."""
     import os
     import statistics
-    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     import torch
@@ -243,34 +318,12 @@ def input_phase(emit, check):
                                      make_train_step)
 
     dev = torch.device("cuda")
-    labels = [(37 * i + 5) % 400 for i in range(INPUT_VIDEOS)]
-    sizes = [INPUT_SIZES[i % 3] for i in range(INPUT_VIDEOS)]
-    work = tempfile.TemporaryDirectory(prefix="chip_smoke_input_")
-    d = work.name
+    labels, sizes = input_videos()
+    work = None if shard_dir else tempfile.TemporaryDirectory(
+        prefix="chip_smoke_input_")
+    d = shard_dir or work.name
     try:
-        # ------------------------------------------------ write the shards
-        t0 = time.perf_counter()
-
-        def write(s):
-            ids = range(4 * s, 4 * s + 4)
-            return tfrecords.write_shard(
-                os.path.join(d, f"train-{s:05d}.tfrecord"),
-                (tfrecords.frames_to_sequence_example(
-                    coded_video(INPUT_FRAMES, *sizes[i], labels[i], seed=i),
-                    labels[i]) for i in ids), device=dev)
-
-        with ThreadPoolExecutor(4) as pool:
-            written = sum(pool.map(write, range(INPUT_VIDEOS // 4)))
-        write_s = time.perf_counter() - t0
-        shard_bytes = sum(os.path.getsize(os.path.join(d, f))
-                          for f in os.listdir(d))
-        pattern = os.path.join(d, "train-*")
-        emit(phase="input: shards written on the card", videos=written,
-             frames=INPUT_FRAMES, sizes=[list(s) for s in INPUT_SIZES],
-             seconds=write_s, shard_mb=shard_bytes / 2**20,
-             nvjpeg_backend=jpeg.device_codec(dev).backend,
-             nvjpeg_refused=jpeg.device_codec(dev).refused)
-        check(written == INPUT_VIDEOS, f"wrote {written} videos")
+        pattern = write_input_shards(emit, check, d)
 
         # --------------------------------------------- nvJPEG's round trip
         recs = tfrecords.read_shard(os.path.join(d, "train-00000.tfrecord"),
@@ -604,7 +657,737 @@ def input_phase(emit, check):
                 "cases": cases, "decode": decode_rows,
                 "nvjpeg_decode_launches": launches["nvjpeg_decode"]}
     finally:
-        work.cleanup()
+        if work is not None:
+            work.cleanup()
+
+
+def kernel_counters() -> dict:
+    """{name: wrapper} of K1-K9: each wrapper adds one to its ``launches``
+    where it launches its kernel (and, with more than one body, to its
+    ``body_launches`` under the body)."""
+    from x3d_tpu_torch.ops import depthwise, dw_fused, pointwise, pw_stats
+    from x3d_tpu_torch.tools import fma_probe
+
+    return {"K1": depthwise.depthwise_conv3d,
+            "K2": dw_fused.dw_bn_act_conv,
+            "K3": dw_fused.dw_bn_act_conv_bwd,
+            "K4 dx": depthwise.depthwise_conv3d_dx,
+            "K4 dk": depthwise.depthwise_conv3d_dk,
+            "K5": pw_stats.pw_conv_stats,
+            "K6": pw_stats.pw_act_conv_stats,
+            "K7": pointwise.pw_conv,
+            "K8": depthwise.depthwise_conv3d_pbwd,
+            "K9": fma_probe.fma_chain}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+        bodies = getattr(fn, "body_launches", None)
+        if bodies is not None:
+            bodies.update(dict.fromkeys(bodies, 0))
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def read_bodies() -> dict:
+    """Launches by body of the kernels that have more than one."""
+    return {k: dict(fn.body_launches) for k, fn in kernel_counters().items()
+            if hasattr(fn, "body_launches")}
+
+
+def k7_want(vcfg, varch, train, times, remat=False):
+    """K7's launches by body over ``times`` forwards (training steps:
+    forward and dx, and with ``remat`` the blocks' forward calls once
+    more) of X3D-``vcfg``, each call by the body its plan names
+    (``pointwise.pw_body``)."""
+    from x3d_tpu_torch.ops import pointwise
+    from x3d_tpu_torch.tools import profile_pointwise
+
+    crop = vcfg.DATA.TRAIN_CROP_SIZE if train \
+        else vcfg.DATA.TEST_CROP_SIZE
+    found = profile_pointwise.cases(vcfg, varch, CLIPS, crop, train)
+    calls = profile_pointwise.with_dx(found) if train else found
+    if remat:
+        calls = calls + found[:-1]         # all but conv_5, in the head
+    want = dict.fromkeys(pointwise.pw_conv.body_launches, 0)
+    for _, shape, N, strides, n in calls:
+        M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
+            * -(-shape[3] // strides[2])
+        want[pointwise.pw_body(shape[-1], N, M, strides, width=shape[3],
+                               height=shape[2])] += n * times
+    return want
+
+
+def want_step_of(varch, stem_k8, remat):
+    """Launches per training step by kernel: the stem's backward by K8,
+    or by K4 dx and dk where K8 cannot take it (X3D-XS); with remat
+    every kernel of a block's forward runs once more in the backward
+    pass (the stem and the head are outside every region)."""
+    ns = len(varch.stages)
+    n2 = sum(len(b) - 1 for b in varch.stages)
+    again = 1 + (remat != "off")
+    k4 = ns + (not stem_k8)
+    return {"K1": 1 + ns * again, "K2": n2 * again, "K3": n2,
+            "K4 dx": k4, "K4 dk": k4, "K5": n2 * again, "K6": n2 * again,
+            "K7": 2 * (3 * ns + 1) + (again - 1) * 3 * ns,
+            "K8": int(stem_k8), "K9": 0}
+
+def bodies_of_steps(vcfg, varch, want, steps, stem_k8, remat):
+    """The bodies ``steps`` training steps launch: K1 the temporal body
+    at the stem and the ring body at the stage entries; K2, K3 and K4
+    dk's stage entries the ring bodies, K4 dx's the phase body; the
+    XS stem's backward K4's gather and generic bodies; K8 the temporal
+    body; K7 as its plan names."""
+    ns, xs = len(varch.stages), int(not stem_k8)
+    return {"K1": {"temporal": steps, "ring": steps * (want["K1"] - 1),
+                   "generic": 0},
+            "K2": {"ring": steps * want["K2"], "generic": 0},
+            "K3": {"ring": steps * want["K3"], "generic": 0},
+            "K4 dx": {"phase": steps * ns, "gather": steps * xs},
+            "K4 dk": {"ring": steps * ns, "generic": steps * xs},
+            "K7": k7_want(vcfg, varch, True, steps, remat != "off"),
+            "K8": {"temporal": steps * want["K8"], "generic": 0}}
+
+
+def snapshot(state):
+    """Copies of a train state's model, optimizer and step."""
+    return (copy.deepcopy(state.model.state_dict()),
+            copy.deepcopy(state.optimizer.state_dict()), state.step)
+
+def restore(state, snap):
+    """Put ``state`` back to a :func:`snapshot`."""
+    state.model.load_state_dict(snap[0])
+    # the optimizer adopts the tensors it is given (momentum buffers are
+    # updated in place), so it gets a copy of the snapshot's
+    state.optimizer.load_state_dict(copy.deepcopy(snap[1]))
+    state.step = snap[2]
+
+
+def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
+                   clips=PARITY_CLIPS, label=None):
+    """One float32 step at ``clips`` clips (PARITY_CLIPS unless given)
+    through the kernels
+    against the same step through the plain versions, from one state
+    and batch: the loss, every gradient, the updated parameters and the
+    BN running statistics; ``want``: the kernels' launches.  With
+    ``calibrate`` (the deeper variants) the plain step also runs on the
+    batch nudged by 1e-6 of each input value, and the gradient and
+    update bounds become what that nudge moves the plain step by where
+    it moves it by more than TOL_STEP_*: the step's own sensitivity.
+    ``label`` names the check in its row and failures (default: the
+    variant)."""
+    import torch
+    import torch.nn.functional as F
+
+    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.models import create_model
+    from x3d_tpu_torch.ops import plain_versions
+    from x3d_tpu_torch.train import create_train_state, make_train_step
+
+    dropout_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = create_model(vcfg, dtype=torch.float32, seed=SEED + 1)
+    state = create_train_state(vcfg, model)
+    train_step = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
+    batch = next(synthetic_batches(vcfg, clips,
+                                   dtype=torch.float32, seed=SEED + 1))
+    runs = [(False, batch), (True, batch)]
+    if calibrate:
+        nudge = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        runs.append((True, {**batch, "video": batch["video"] * (
+            1 + 1e-6 * torch.randn(batch["video"].shape, generator=nudge,
+                                   device="cuda"))}))
+    snap = snapshot(state)
+    results = []
+    for plain, data in runs:
+        restore(state, snap)
+        zero_counts()
+        if plain:
+            with plain_versions():
+                state, metrics = train_step(state, data, dropout_gen)
+        else:
+            state, metrics = train_step(state, data, dropout_gen)
+        torch.cuda.synchronize()
+        results.append((float(metrics["loss"]),
+                        {n: p.grad.clone()
+                         for n, p in model.named_parameters()},
+                        copy.deepcopy(model.state_dict()), read_counts()))
+
+    def grad_diff(got, want):
+        """(relative L2 over all leaves, worst leaf's relative L2, least
+        leaf cosine) of two gradient dicts."""
+        num = den = 0.0
+        worst, cos = 0.0, 1.0
+        for n, w in want.items():
+            g = got[n].double().flatten()
+            w = w.double().flatten()
+            num += (g - w).square().sum().item()
+            den += w.square().sum().item()
+            worst = max(worst, ((g - w).norm()
+                                / w.norm().clamp_min(1e-30)).item())
+            cos = min(cos, F.cosine_similarity(g, w, dim=0).item())
+        return (num / max(den, 1e-300)) ** 0.5, worst, cos
+
+    def update_diff(got, want):
+        """(relative L2 over all leaves, worst leaf's) of the updated
+        parameters against the plain step's update, after two float32
+        ulps of each parameter's norm."""
+        num = den = 0.0
+        worst = 0.0
+        for n, _ in model.named_parameters():
+            w = want[n].double()
+            u = (w - snap[0][n].double()).norm().item()
+            d = max((got[n].double() - w).norm().item()
+                    - 2.4e-7 * w.norm().item(), 0.0)
+            num, den = num + d * d, den + u * u
+            worst = max(worst, d / max(u, 1e-30))
+        return (num / max(den, 1e-300)) ** 0.5, worst
+
+    (loss_k, grads_k, after_k, n_k), (loss_p, grads_p, after_p, n_p) = \
+        results[:2]
+    g_l2, g_leaf, g_cos = grad_diff(grads_k, grads_p)
+    u_l2, u_leaf = update_diff(after_k, after_p)
+    tol_l2, tol_leaf, tol_cos = TOL_STEP_L2, TOL_STEP_LEAF_L2, TOL_STEP_COS
+    sensitivity = {}
+    if calibrate:
+        n_l2, n_leaf, n_cos = grad_diff(results[2][1], grads_p)
+        nu_l2, nu_leaf = update_diff(results[2][2], after_p)
+        sensitivity = dict(nudged_grad_rel_l2=n_l2,
+                           nudged_grad_worst_leaf_rel_l2=n_leaf,
+                           nudged_grad_least_leaf_cosine=n_cos,
+                           nudged_update_rel_l2=nu_l2,
+                           nudged_update_worst_leaf_rel_l2=nu_leaf)
+        tol_l2 = max(tol_l2, n_l2, nu_l2)
+        tol_leaf = max(tol_leaf, n_leaf, nu_leaf)
+        tol_cos = min(tol_cos, n_cos)
+    stats_err = max((after_k[n] - v).abs().max().item()
+                    / v.abs().max().item()
+                    for n, v in after_p.items()
+                    if n.endswith((".mean", ".var")))
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    where = label if label is not None \
+        else "" if variant == "M" else f"X3D-{variant} "
+    emit(phase=f"{where}train f32 kernels vs plain", clips=clips,
+         remat=model.remat, loss_kernels=loss_k, loss_plain=loss_p,
+         loss_rel_err=loss_err, grad_rel_l2=g_l2,
+         grad_worst_leaf_rel_l2=g_leaf, grad_least_leaf_cosine=g_cos,
+         update_rel_l2=u_l2, update_worst_leaf_rel_l2=u_leaf,
+         stats_err_of_leaf_max=stats_err, **sensitivity,
+         kernel_launches=n_k, plain_launches=n_p)
+    check(loss_err <= TOL_STEP_LOSS,
+          f"{where}f32 step loss err {loss_err}")
+    check(g_l2 <= tol_l2 and g_leaf <= tol_leaf and g_cos >= tol_cos,
+          f"{where}f32 step grads: rel L2 {g_l2}, worst leaf {g_leaf}, "
+          f"least cosine {g_cos}; {sensitivity}")
+    check(u_l2 <= tol_l2 and u_leaf <= tol_leaf,
+          f"{where}f32 step update: rel L2 {u_l2}, worst leaf {u_leaf}")
+    check(stats_err <= TOL_STEP_STATS,
+          f"{where}f32 step stats err {stats_err}")
+    check(n_k == want and set(n_p.values()) == {0},
+          f"{where}f32 step launches kernels {n_k} plain {n_p}")
+    del model, state, results
+    torch.cuda.empty_cache()
+
+
+def multigrid_phase(emit, check, pattern) -> dict:
+    """Phase 11c: long-cycle multigrid training.  X3D-M at full width and
+    depth through ``tools/train --multigrid --synthetic`` (default factors,
+    MG_EPOCHS epochs of MG_BASE_STEPS base steps): every step's batch at its
+    phase's shape, every loss finite, each epoch's launches by body; a
+    crash after the checkpoint inside phase 1 and the same command resuming
+    to the uninterrupted run's final state, bit for bit.  Per phase, bare
+    steps on one model: step median, clips/s, peak memory, the device's
+    idle share, and the stem backward's route and time; a float32 step
+    through the kernels against the plain versions at each phase's full
+    batch, and at phase 0's shape at PARITY_CLIPS clips with the nudge's
+    sensitivity.  X3D-XS's phases 0 and 1 (1 and 2 frames, fewer than the
+    temporal taps): K2 and K3 against their plain versions at each
+    segment and the float32 step, at the full phase batch.  One bfloat16
+    step at each phase shape of X3D-S and X3D-XS.
+    The tool on the shards at ``pattern`` with validation and 2 batches of
+    precise BN.  ``bench_multigrid --variant=M``.  Returns the tool run's
+    launches and bodies by phase for the ``kernels`` line."""
+    import statistics
+
+    import torch
+
+    import x3d_tpu_torch.data as data_mod
+    import x3d_tpu_torch.train.multigrid as mg
+    from x3d_tpu_torch import variant_config
+    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.models import build_arch, create_model
+    from x3d_tpu_torch.ops import depthwise, dw_fused
+    from x3d_tpu_torch.ops.timing import time_fn
+    from x3d_tpu_torch.tools import bench_multigrid
+    from x3d_tpu_torch.tools import train as train_cli
+    from x3d_tpu_torch.tools.trace import trace
+    from x3d_tpu_torch.train import create_train_state, make_train_step
+
+    m_config = "x3d_tpu_torch/configs/kinetics/X3D_M.yaml"
+    cfg = variant_config("M")
+    arch = build_arch(cfg)
+    sched = mg.MultigridSchedule(cfg, MG_BASE_STEPS, MG_EPOCHS)
+    kt = arch.temp_filter
+    stem_pads = ((kt // 2,) * 2, (0, 0), (0, 0))
+
+    def stem_shape(c, B):
+        S = c.DATA.TRAIN_CROP_SIZE // 2
+        return (B, c.DATA.TEMP_DURATION, S, S, arch.conv1_dim)
+
+    def stem_k8(c, B):
+        return depthwise.pbwd_eligible(stem_shape(c, B), (kt, 1, 1),
+                                       (1, 1, 1), stem_pads)
+
+    class Crash(Exception):
+        pass
+
+    class Walk:
+        """Each step's loss and LR, each epoch's launches and bodies; raises
+        Crash after step ``crash_at`` (after the checkpoint hook)."""
+
+        def __init__(self, crash_at=None):
+            self.state, self.losses, self.lrs, self.epochs = None, {}, {}, []
+            self.crash_at = crash_at
+
+        def on_epoch_start(self, epoch, lr):
+            self.epochs.append({"epoch": epoch, "lr": lr,
+                                "counts": read_counts(),
+                                "bodies": read_bodies()})
+
+        def on_step(self, step, metrics):
+            self.losses[step] = metrics["loss"]
+
+        def on_step_end(self, step, state):
+            self.state = state
+            self.lrs[step] = state.optimizer.param_groups[0]["lr"]
+            if step == self.crash_at:
+                raise Crash(step)
+
+        def on_epoch_end(self, epoch, state, train_metrics, val_metrics):
+            e = self.epochs[-1]
+            c, b = read_counts(), read_bodies()
+            start = e.pop("counts")
+            e["launches"] = {k: c[k] - start[k] for k in c}
+            e["bodies"] = {k: {n: b[k][n] - e["bodies"][k][n] for n in b[k]}
+                           for k in b}
+            e["val"] = val_metrics
+
+        def on_train_end(self): ...
+
+    shapes = []
+    real_batches = data_mod.synthetic_batches
+
+    def recording(*args, **kw):
+        for batch in real_batches(*args, **kw):
+            shapes.append(list(batch["video"].shape))
+            yield batch
+
+    def run_tool(model_dir, walk, *extra):
+        argv = [f"--config={m_config}", "--multigrid",
+                f"--model_dir={model_dir}",
+                f"--steps_per_epoch={MG_BASE_STEPS}",
+                f"--epochs={MG_EPOCHS}", "--save_checkpoints_step=1", *extra]
+        try:
+            rc = train_cli.main(argv, extra_hooks=[walk])
+        except Crash:
+            rc = "crashed"
+        torch.cuda.synchronize()
+        return rc
+
+    out = {"launches": {}, "bodies": {}}
+    data_mod.synthetic_batches = recording
+    try:
+        with tempfile.TemporaryDirectory() as run_dir, \
+                tempfile.TemporaryDirectory() as crash_dir:
+            # ------------------------- the tool, uninterrupted (counted)
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()                   # the multigrid path starts here
+            t0 = time.perf_counter()
+            walk = Walk()
+            rc = run_tool(run_dir, walk, "--synthetic")
+            wall_s = time.perf_counter() - t0
+            launches = read_counts()        # ... and ends here
+            peak = torch.cuda.max_memory_allocated()
+            want_shapes = [[p.batch_size, p.temp_duration, p.crop_size,
+                            p.crop_size, 3]
+                           for e in range(MG_EPOCHS)
+                           for p in [sched.phase_for_epoch(e)]
+                           for _ in range(p.steps_per_epoch)]
+            total = sched.total_steps()
+            emit(phase="multigrid: X3D-M train tool", schedule=sched.describe(),
+                 epoch_phase=sched.epoch_phase,
+                 first_step=sched.first_step.tolist(), rc=rc, seconds=wall_s,
+                 losses=walk.losses, lrs=walk.lrs, batch_shapes=shapes,
+                 launches=launches, peak_memory_bytes=peak)
+            check(rc == 0 and walk.state is not None
+                  and walk.state.step == total == 23,
+                  f"multigrid tool: rc {rc}, steps {total}")
+            check(shapes == want_shapes,
+                  f"multigrid batch shapes {shapes}, want {want_shapes}")
+            check(sorted(walk.losses) == list(range(1, total + 1))
+                  and all(math.isfinite(v) for v in walk.losses.values()),
+                  f"multigrid losses {walk.losses}")
+            lr_fn = sched.make_lr_schedule()
+            check(walk.lrs == {s + 1: lr_fn(s) for s in range(total)},
+                  f"multigrid LRs {walk.lrs}")
+            for e in walk.epochs:
+                p = sched.phase_for_epoch(e["epoch"])
+                pc = p.apply_to_config(cfg)
+                k8 = stem_k8(pc, p.batch_size)
+                want = want_step_of(arch, k8, "off")
+                n = p.steps_per_epoch
+                want_launches = {k: n * v for k, v in want.items()}
+                want_bodies = bodies_of_steps(pc, arch, want, n, k8, "off")
+                check(e["launches"] == want_launches,
+                      f"multigrid epoch {e['epoch']} launches "
+                      f"{e['launches']}, want {want_launches}")
+                for kname, w in want_bodies.items():
+                    check(e["bodies"][kname] == w,
+                          f"multigrid epoch {e['epoch']} {kname} bodies "
+                          f"{e['bodies'][kname]}, want {w}")
+                key = f"phase {p.index}"
+                got_l = out["launches"].setdefault(key, dict.fromkeys(
+                    e["launches"], 0))
+                for k, v in e["launches"].items():
+                    got_l[k] += v
+                got_b = out["bodies"].setdefault(key, {
+                    k: dict.fromkeys(v, 0) for k, v in e["bodies"].items()})
+                for k, v in e["bodies"].items():
+                    for body, m in v.items():
+                        got_b[k][body] += m
+            emit(phase="multigrid: X3D-M launches by phase",
+                 launches=out["launches"], bodies=out["bodies"])
+            final = (copy.deepcopy(walk.state.model.state_dict()),
+                     copy.deepcopy(walk.state.optimizer.state_dict()))
+            del walk
+
+            # ---------- crash after the step-2 checkpoint (phase 1), resume
+            crash_at = int(sched.first_step[1]) + 1
+            first = Walk(crash_at=crash_at)
+            rc_crash = run_tool(crash_dir, first, "--synthetic")
+            lines = []
+
+            class Lines(logging.Handler):
+                def emit(self, record):
+                    lines.append(record.getMessage())
+
+            handler = Lines()
+            logging.getLogger("x3d_tpu_torch").addHandler(handler)
+            try:
+                second = Walk()
+                rc_resume = run_tool(crash_dir, second, "--synthetic")
+            finally:
+                logging.getLogger("x3d_tpu_torch").removeHandler(handler)
+            named = [ln for ln in lines if ln.startswith("resumed at")]
+            model_sd = second.state.model.state_dict()
+            opt_sd = second.state.optimizer.state_dict()
+            same = (all(torch.equal(model_sd[k], v)
+                        for k, v in final[0].items())
+                    and opt_sd["param_groups"] == final[1]["param_groups"]
+                    and all(torch.equal(opt_sd["state"][i][n], v)
+                            for i, slots in final[1]["state"].items()
+                            for n, v in slots.items()))
+            epoch, in_epoch = sched.position_for_step(crash_at)
+            emit(phase="multigrid: X3D-M crash and resume", crash_at=crash_at,
+                 rc=[rc_crash, rc_resume], log=named,
+                 resumed_steps=sorted(second.lrs), bit_identical=same)
+            check(rc_crash == "crashed" and rc_resume == 0
+                  and named == [f"resumed at global step {crash_at} (epoch "
+                                f"{epoch}, step-in-epoch {in_epoch})"]
+                  and sorted(second.lrs) == list(range(crash_at + 1,
+                                                       total + 1)),
+                  f"multigrid resume: {rc_crash} {rc_resume} {named}")
+            check(same, "the resumed multigrid run differs from the "
+                        "uninterrupted one")
+            del first, second, final, model_sd, opt_sd
+    finally:
+        data_mod.synthetic_batches = real_batches
+    torch.cuda.empty_cache()
+
+    # ----------------------- per phase: bare steps, trace, the stem's route
+    def time_ms(fn):
+        return time_fn(fn, iters=10) * 1e3
+
+    model = create_model(cfg, seed=SEED)
+    state = create_train_state(cfg, model)
+    step_fn = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for p in sched.phases:
+        pc = p.apply_to_config(cfg)
+        B = p.batch_size
+        batch = next(synthetic_batches(pc, B, seed=SEED))
+        step_fn(state, batch, gen)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(MG_TIMED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step_fn(state, batch, gen)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        summary = trace(lambda: step_fn(state, batch, gen), n=2, unit="step",
+                        warmup=0)
+        shape = stem_shape(pc, B)
+        kd, one = (kt, 1, 1), (1, 1, 1)
+        u = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        gy = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        k = (0.3 * torch.randn((*kd, 1, shape[-1]), generator=gen,
+                               device="cuda")).bfloat16()
+        if stem_k8(pc, B):
+            route = f"K8 {depthwise.pbwd_body(kd, stem_pads)}"
+            stem = {"K8": time_ms(
+                lambda: depthwise.depthwise_conv3d_pbwd(u, gy, k))}
+        else:
+            route = (f"K4 dx {depthwise.dx_body(kd, one, stem_pads)} + dk "
+                     f"{depthwise.dk_body(kd, one, stem_pads)}")
+            stem = {"K4 dx": time_ms(lambda: depthwise.depthwise_conv3d_dx(
+                        gy, k, shape, one, stem_pads)),
+                    "K4 dk": time_ms(lambda: depthwise.depthwise_conv3d_dk(
+                        u, gy, kd, one, stem_pads))}
+        median = statistics.median(times)
+        row = {"phase_index": p.index, "clips": B,
+               "input": f"{p.temp_duration}x{p.crop_size}^2",
+               "step_ms": times, "step_ms_median": median,
+               "clips_per_s": B / median * 1e3,
+               "peak_memory_bytes": peak,
+               "idle_share": summary["idle_share"],
+               "device_busy_ms_per_step": summary["device_busy_ms_per_step"],
+               "family_ms_per_step": summary["family_ms_per_step"],
+               "stem_shape": list(shape), "stem_backward_route": route,
+               "stem_backward_ms": stem,
+               "stem_backward_total_ms": sum(stem.values())}
+        rows.append(row)
+        emit(phase="multigrid: X3D-M phase step", **row)
+        del batch, u, gy, k
+        torch.cuda.empty_cache()
+    out["rows"] = rows
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+
+    # ------------ float32 steps at each phase's full batch, kernels vs plain
+    for p in sched.phases:
+        pc = p.apply_to_config(cfg)
+        f32_step_check(
+            emit, check, pc, "M",
+            want_step_of(arch, stem_k8(pc, p.batch_size), "off"),
+            clips=p.batch_size,
+            label=f"multigrid X3D-M phase {p.index} ({p.batch_size} x "
+                  f"{p.temp_duration}x{p.crop_size}^2) ")
+
+    # The float32 step at phase 0's shape at PARITY_CLIPS clips, as phase 6
+    # takes it at the base shape, with the nudge's sensitivity beside it: at
+    # 4 clips of 4x160^2 the step is far worse conditioned than at the full
+    # batch (fewer values a BN channel, fewer clips a head unit).
+    p0 = sched.phases[0].apply_to_config(cfg)
+    f32_step_check(
+        emit, check, p0, "M", want_step_of(arch, stem_k8(p0, PARITY_CLIPS),
+                                           "off"),
+        calibrate=True, label=f"multigrid X3D-M phase 0 at {PARITY_CLIPS} "
+                              f"clips ")
+
+    # ---- X3D-XS's phases 0 and 1: 1 and 2 frames, under the stem's 5 taps
+    # and the fused segments' 3.  K2 and K3 against their plain versions at
+    # each stage's segment at the phase's full batch (phase 11's
+    # tolerances), then the float32 step at the full batch.
+    xs_cfg = variant_config("XS")
+    xs_arch = build_arch(xs_cfg)
+    seg_gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=seg_gen, device="cuda")
+
+    def rel_err(got, ref, scale):
+        return ((got.float() - ref.float()).abs()
+                / scale.float().clamp_min(1e-30)).max().item()
+
+    for p in mg.MultigridSchedule(xs_cfg, MG_BASE_STEPS,
+                                  MG_EPOCHS).phases[:2]:
+        pc = p.apply_to_config(xs_cfg)
+        B, T = p.batch_size, p.temp_duration
+        S = p.crop_size // 2
+        kdims = (xs_arch.temp_kernel, 3, 3)
+        for si, blocks in enumerate(xs_arch.stages):
+            S = -(-S // 2)
+            C = blocks[0].inner_channels
+            where = (f"X3D-XS multigrid phase {p.index} stage{si + 2} "
+                     f"segment ({B} x {T}x{S}^2 x {C})")
+            for dtype in (torch.float32, torch.bfloat16):
+                x = randn(B, T, S, S, C).to(dtype)
+                a = 0.5 + torch.rand((C, B), generator=seg_gen, device="cuda")
+                b = 0.3 * randn(C, B)
+                k = (0.3 * randn(*kdims, 1, C)).to(dtype)
+                zero_counts()
+                y, ps, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
+                gy = randn(B, T, S, S, C).to(dtype)
+                gp, gs2 = 0.1 * randn(C, B), 0.05 * randn(C, B)
+                got = dw_fused.dw_bn_act_conv_bwd(x, a, b, k, y, gy, gp, gs2)
+                torch.cuda.synchronize()
+                bodies = read_bodies()
+                yr, pr, s2r = dw_fused.reference(x.float(), a, b, k.float())
+                col = yr.abs().sum(dim=(1, 2, 3)).t()
+                e2 = ((y.float() - yr).abs().max().item(),
+                      rel_err(y, yr, yr.abs().max()),
+                      max(rel_err(ps, pr, col), rel_err(s2, s2r, s2r.abs())))
+                del yr, pr, s2r, col
+                want = dw_fused.bwd_reference(x, a, b, k, y, gy, gp, gs2)
+                scales = dw_fused.bwd_abs_sums(x, a, b, k, y, gy, gp, gs2)
+                e3 = ((got[0].float() - want[0].float()).abs().max().item(),
+                      rel_err(got[0], want[0], want[0].float().abs().max()),
+                      max(rel_err(g_, w_, s_) for g_, w_, s_ in
+                          zip(got[1:], want[1:], scales)))
+                emit(phase="multigrid: X3D-XS K2 and K3 vs plain",
+                     phase_index=p.index, stage=si + 2, shape=[B, T, S, S, C],
+                     dtype=str(dtype), k2_max_abs_err=e2[0],
+                     k2_rel_err=e2[1], k2_sums_err=e2[2],
+                     k3_max_abs_err=e3[0], k3_rel_err=e3[1],
+                     k3_sums_err=e3[2], k2_bodies=bodies["K2"],
+                     k3_bodies=bodies["K3"])
+                check(bodies["K2"] == {"ring": 1, "generic": 0}
+                      and bodies["K3"] == {"ring": 1, "generic": 0},
+                      f"{where}: K2/K3 bodies {bodies}")
+                if dtype == torch.float32:
+                    check(e2[0] <= TOL_F32 and e2[2] <= TOL_F32_SUMS,
+                          f"K2 {where} f32 err {e2}")
+                    check(e3[0] <= TOL_F32 and e3[2] <= TOL_TRAIN_SUMS,
+                          f"K3 {where} f32 err {e3}")
+                else:
+                    check(max(e2[1], e2[2]) <= TOL_BF16,
+                          f"K2 {where} bf16 err {e2}")
+                    check(e3[1] <= TOL_BF16 and e3[2] <= TOL_TRAIN_SUMS,
+                          f"K3 {where} bf16 err {e3}")
+                del x, a, b, k, y, ps, s2, gy, gp, gs2, got, want, scales
+                torch.cuda.empty_cache()
+        stem = (B, T, p.crop_size // 2, p.crop_size // 2,
+                xs_arch.conv1_dim)
+        f32_step_check(
+            emit, check, pc, "XS",
+            want_step_of(xs_arch, depthwise.pbwd_eligible(
+                stem, (xs_arch.temp_filter, 1, 1), (1, 1, 1),
+                ((xs_arch.temp_filter // 2,) * 2, (0, 0), (0, 0))), "off"),
+            calibrate=True, clips=B,
+            label=f"multigrid X3D-XS phase {p.index} ({B} x "
+                  f"{T}x{p.crop_size}^2) ")
+
+    # ------------- X3D-S and X3D-XS: one bfloat16 step at each phase shape
+    for v in ("S", "XS"):
+        vcfg = variant_config(v)
+        varch = build_arch(vcfg)
+        model = create_model(vcfg, seed=SEED)
+        state = create_train_state(vcfg, model)
+        step_fn = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
+        for p in mg.MultigridSchedule(vcfg, MG_BASE_STEPS, MG_EPOCHS).phases:
+            pc = p.apply_to_config(vcfg)
+            B = p.batch_size
+            batch = next(synthetic_batches(pc, B, seed=SEED))
+            S = pc.DATA.TRAIN_CROP_SIZE // 2
+            k8 = depthwise.pbwd_eligible(
+                (B, p.temp_duration, S, S, varch.conv1_dim),
+                (varch.temp_filter, 1, 1), (1, 1, 1),
+                ((varch.temp_filter // 2,) * 2, (0, 0), (0, 0)))
+            want = want_step_of(varch, k8, "off")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step_fn(state, batch, gen)
+            end.record()
+            end.synchronize()
+            got, bodies = read_counts(), read_bodies()
+            loss = float(metrics["loss"])
+            emit(phase=f"multigrid: X3D-{v} phase step", variant=v,
+                 phase_index=p.index, clips=B,
+                 input=f"{p.temp_duration}x{p.crop_size}^2", loss=loss,
+                 first_step_ms=start.elapsed_time(end),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 launches=got, bodies=bodies)
+            check(math.isfinite(loss), f"X3D-{v} multigrid phase {p.index} "
+                                       f"loss {loss}")
+            check(got == want, f"X3D-{v} multigrid phase {p.index} launches "
+                               f"{got}, want {want}")
+            for kname, w in bodies_of_steps(pc, varch, want, 1, k8,
+                                            "off").items():
+                check(bodies[kname] == w,
+                      f"X3D-{v} multigrid phase {p.index} {kname} bodies "
+                      f"{bodies[kname]}, want {w}")
+            del batch
+        del model, state, step_fn
+        torch.cuda.empty_cache()
+
+    # --------------------------- the tool on shards, with precise BN
+    recals = []
+    real_recal = mg.make_bn_recalibrator
+
+    def recording_recal(model, batches_fn, n, seed, momentum):
+        fn = real_recal(model, batches_fn, n, seed, momentum)
+
+        def recal(state):
+            def stats():
+                return {k: v.clone() for k, v in model.named_buffers()}
+            before = stats()
+            out_state = fn(state)
+            after = stats()
+            recals.append((all(bool(torch.isfinite(v).all())
+                               for v in after.values()),
+                           sum(not torch.equal(before[k], v)
+                               for k, v in after.items()), len(after)))
+            return out_state
+
+        return recal
+
+    mg.make_bn_recalibrator = recording_recal
+    try:
+        with tempfile.TemporaryDirectory() as shard_run:
+            walk = Walk()
+            t0 = time.perf_counter()
+            rc = train_cli.main(
+                [f"--config={m_config}", "--multigrid", "--use_tfrecord",
+                 f"--model_dir={shard_run}", f"--train_file_pattern={pattern}",
+                 f"--val_file_pattern={pattern}", "--steps_per_epoch=2",
+                 f"--epochs={MG_EPOCHS}", "--opts", "TRAIN.BATCH_SIZE",
+                 str(MG_SHARD_BATCH), "TEST.BATCH_SIZE", "2",
+                 "MULTIGRID.BN_RECALC_BATCHES", "2"], extra_hooks=[walk])
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t0
+    finally:
+        mg.make_bn_recalibrator = real_recal
+    vals = [e["val"] for e in walk.epochs]
+    emit(phase="multigrid: X3D-M train tool on shards", rc=rc,
+         seconds=shard_s, base_batch=MG_SHARD_BATCH, losses=walk.losses,
+         val=vals, recalibrations=[
+             {"finite": f, "changed_buffers": n, "buffers": m}
+             for f, n, m in recals])
+    check(rc == 0 and len(vals) == MG_EPOCHS
+          and all(v and v["count"] > 0 and math.isfinite(v["loss"])
+                  for v in vals)
+          and all(math.isfinite(v) for v in walk.losses.values()),
+          f"multigrid on shards: rc {rc}, val {vals}")
+    check(len(recals) == MG_EPOCHS
+          and all(f and n > 0 for f, n, _ in recals),
+          f"multigrid precise BN on shards: {recals}")
+    del walk
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- bench_multigrid --variant=M
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_multigrid.main(["--variant=M", f"--steps={MG_BENCH_STEPS}"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(line, flush=True)
+    bench = json.loads(line)
+    out["bench"] = bench
+    check(len(bench["phases"]) == 4
+          and all(math.isfinite(p["step_ms"]) for p in bench["phases"]),
+          f"bench_multigrid: {bench}")
+    return out
 
 
 def _wall_ms(fn) -> float:
@@ -855,6 +1638,20 @@ def main() -> int:
     check(len(entries) == 15 and all("registers" in e for e in entries)
           and len(main) == 2 and all(e["spill_bytes"] == 0 for e in main),
           f"K8 temporal body's ptxas report: {entries}")
+
+    if "--multigrid-only" in sys.argv[1:]:
+        # the multigrid phase alone, after the build and the shards it reads
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_input_") as d:
+            multigrid = multigrid_phase(emit, check,
+                                        write_input_shards(emit, check, d))
+        print(json.dumps({"card": card, "multigrid": {
+            k: multigrid[k] for k in ("launches", "bodies")}}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if "--input-only" in sys.argv[1:]:
         # the input phase alone, after the build (a quicker check of it)
@@ -1150,16 +1947,7 @@ def main() -> int:
     requests = [("1 video", engine1, clips8[:views]),
                 ("8 videos", engine8, clips8),
                 ("3 videos (ragged)", engine8, clips8[:3 * views])]
-    counters = {"K1": depthwise.depthwise_conv3d,
-                "K2": dw_fused.dw_bn_act_conv,
-                "K3": dw_fused.dw_bn_act_conv_bwd,
-                "K4 dx": depthwise.depthwise_conv3d_dx,
-                "K4 dk": depthwise.depthwise_conv3d_dk,
-                "K5": pw_stats.pw_conv_stats,
-                "K6": pw_stats.pw_act_conv_stats,
-                "K7": pointwise.pw_conv,
-                "K8": depthwise.depthwise_conv3d_pbwd,
-                "K9": fma_probe.fma_chain}
+    counters = kernel_counters()
 
     dx_bodies = depthwise.depthwise_conv3d_dx.body_launches
     dk_bodies = depthwise.depthwise_conv3d_dk.body_launches
@@ -1169,34 +1957,6 @@ def main() -> int:
     k7_bodies = pointwise.pw_conv.body_launches
     k8_bodies = depthwise.depthwise_conv3d_pbwd.body_launches
 
-    def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
-        for bodies in (k1_bodies, dx_bodies, dk_bodies, k2_bodies,
-                       k3_bodies, k7_bodies, k8_bodies):
-            bodies.update(dict.fromkeys(bodies, 0))
-
-    def k7_want(vcfg, varch, train, times, remat=False):
-        """K7's launches by body over ``times`` forwards (training steps:
-        forward and dx, and with ``remat`` the blocks' forward calls once
-        more) of X3D-``vcfg``, each call by the body its plan names
-        (``pointwise.pw_body``)."""
-        crop = vcfg.DATA.TRAIN_CROP_SIZE if train \
-            else vcfg.DATA.TEST_CROP_SIZE
-        found = profile_pointwise.cases(vcfg, varch, CLIPS, crop, train)
-        calls = profile_pointwise.with_dx(found) if train else found
-        if remat:
-            calls = calls + found[:-1]         # all but conv_5, in the head
-        want = dict.fromkeys(k7_bodies, 0)
-        for _, shape, N, strides, n in calls:
-            M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
-                * -(-shape[3] // strides[2])
-            want[pointwise.pw_body(shape[-1], N, M, strides, width=shape[3],
-                                   height=shape[2])] += n * times
-        return want
-
-    def read_counts():
-        return {k: fn.launches for k, fn in counters.items()}
 
     n_k1 = len(arch.stages) + 1
     n_k2 = sum(len(b) - 1 for b in arch.stages)
@@ -1613,17 +2373,6 @@ def main() -> int:
      k6_rows_s) = training_kernels("S", cfg_s, arch_s, S_TRAIN_CLIPS)
 
     # ----------------------------------------------- 6. X3D-M training
-    def snapshot(state):
-        return (copy.deepcopy(state.model.state_dict()),
-                copy.deepcopy(state.optimizer.state_dict()), state.step)
-
-    def restore(state, snap):
-        state.model.load_state_dict(snap[0])
-        # the optimizer adopts the tensors it is given (momentum buffers are
-        # updated in place), so it gets a copy of the snapshot's
-        state.optimizer.load_state_dict(copy.deepcopy(snap[1]))
-        state.step = snap[2]
-
     model = create_model(cfg, dtype=torch.bfloat16, seed=SEED)
     state = create_train_state(cfg, model)
     train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
@@ -1723,117 +2472,7 @@ def main() -> int:
     del model, state, train_step, batch, runs, snap
     torch.cuda.empty_cache()
 
-    def f32_step_check(vcfg, variant, want, calibrate=False):
-        """One float32 step at PARITY_CLIPS clips through the kernels
-        against the same step through the plain versions, from one state
-        and batch: the loss, every gradient, the updated parameters and the
-        BN running statistics; ``want``: the kernels' launches.  With
-        ``calibrate`` (the deeper variants) the plain step also runs on the
-        batch nudged by 1e-6 of each input value, and the gradient and
-        update bounds become what that nudge moves the plain step by where
-        it moves it by more than TOL_STEP_*: the step's own sensitivity."""
-        model = create_model(vcfg, dtype=torch.float32, seed=SEED + 1)
-        state = create_train_state(vcfg, model)
-        train_step = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
-        batch = next(synthetic_batches(vcfg, PARITY_CLIPS,
-                                       dtype=torch.float32, seed=SEED + 1))
-        runs = [(False, batch), (True, batch)]
-        if calibrate:
-            nudge = torch.Generator(device="cuda").manual_seed(SEED + 2)
-            runs.append((True, {**batch, "video": batch["video"] * (
-                1 + 1e-6 * torch.randn(batch["video"].shape, generator=nudge,
-                                       device="cuda"))}))
-        snap = snapshot(state)
-        results = []
-        for plain, clips in runs:
-            restore(state, snap)
-            zero_counts()
-            if plain:
-                with plain_versions():
-                    state, metrics = train_step(state, clips, dropout_gen)
-            else:
-                state, metrics = train_step(state, clips, dropout_gen)
-            torch.cuda.synchronize()
-            results.append((float(metrics["loss"]),
-                            {n: p.grad.clone()
-                             for n, p in model.named_parameters()},
-                            copy.deepcopy(model.state_dict()), read_counts()))
-
-        def grad_diff(got, want):
-            """(relative L2 over all leaves, worst leaf's relative L2, least
-            leaf cosine) of two gradient dicts."""
-            num = den = 0.0
-            worst, cos = 0.0, 1.0
-            for n, w in want.items():
-                g = got[n].double().flatten()
-                w = w.double().flatten()
-                num += (g - w).square().sum().item()
-                den += w.square().sum().item()
-                worst = max(worst, ((g - w).norm()
-                                    / w.norm().clamp_min(1e-30)).item())
-                cos = min(cos, F.cosine_similarity(g, w, dim=0).item())
-            return (num / max(den, 1e-300)) ** 0.5, worst, cos
-
-        def update_diff(got, want):
-            """(relative L2 over all leaves, worst leaf's) of the updated
-            parameters against the plain step's update, after two float32
-            ulps of each parameter's norm."""
-            num = den = 0.0
-            worst = 0.0
-            for n, _ in model.named_parameters():
-                w = want[n].double()
-                u = (w - snap[0][n].double()).norm().item()
-                d = max((got[n].double() - w).norm().item()
-                        - 2.4e-7 * w.norm().item(), 0.0)
-                num, den = num + d * d, den + u * u
-                worst = max(worst, d / max(u, 1e-30))
-            return (num / max(den, 1e-300)) ** 0.5, worst
-
-        (loss_k, grads_k, after_k, n_k), (loss_p, grads_p, after_p, n_p) = \
-            results[:2]
-        g_l2, g_leaf, g_cos = grad_diff(grads_k, grads_p)
-        u_l2, u_leaf = update_diff(after_k, after_p)
-        tol_l2, tol_leaf, tol_cos = TOL_STEP_L2, TOL_STEP_LEAF_L2, TOL_STEP_COS
-        sensitivity = {}
-        if calibrate:
-            n_l2, n_leaf, n_cos = grad_diff(results[2][1], grads_p)
-            nu_l2, nu_leaf = update_diff(results[2][2], after_p)
-            sensitivity = dict(nudged_grad_rel_l2=n_l2,
-                               nudged_grad_worst_leaf_rel_l2=n_leaf,
-                               nudged_grad_least_leaf_cosine=n_cos,
-                               nudged_update_rel_l2=nu_l2,
-                               nudged_update_worst_leaf_rel_l2=nu_leaf)
-            tol_l2 = max(tol_l2, n_l2, nu_l2)
-            tol_leaf = max(tol_leaf, n_leaf, nu_leaf)
-            tol_cos = min(tol_cos, n_cos)
-        stats_err = max((after_k[n] - v).abs().max().item()
-                        / v.abs().max().item()
-                        for n, v in after_p.items()
-                        if n.endswith((".mean", ".var")))
-        loss_err = abs(loss_k - loss_p) / abs(loss_p)
-        where = "" if variant == "M" else f"X3D-{variant} "
-        emit(phase=f"{where}train f32 kernels vs plain", clips=PARITY_CLIPS,
-             remat=model.remat, loss_kernels=loss_k, loss_plain=loss_p,
-             loss_rel_err=loss_err, grad_rel_l2=g_l2,
-             grad_worst_leaf_rel_l2=g_leaf, grad_least_leaf_cosine=g_cos,
-             update_rel_l2=u_l2, update_worst_leaf_rel_l2=u_leaf,
-             stats_err_of_leaf_max=stats_err, **sensitivity,
-             kernel_launches=n_k, plain_launches=n_p)
-        check(loss_err <= TOL_STEP_LOSS,
-              f"{where}f32 step loss err {loss_err}")
-        check(g_l2 <= tol_l2 and g_leaf <= tol_leaf and g_cos >= tol_cos,
-              f"{where}f32 step grads: rel L2 {g_l2}, worst leaf {g_leaf}, "
-              f"least cosine {g_cos}; {sensitivity}")
-        check(u_l2 <= tol_l2 and u_leaf <= tol_leaf,
-              f"{where}f32 step update: rel L2 {u_l2}, worst leaf {u_leaf}")
-        check(stats_err <= TOL_STEP_STATS,
-              f"{where}f32 step stats err {stats_err}")
-        check(n_k == want and set(n_p.values()) == {0},
-              f"{where}f32 step launches kernels {n_k} plain {n_p}")
-        del model, state, results
-        torch.cuda.empty_cache()
-
-    f32_step_check(cfg, "M", want_step)
+    f32_step_check(emit, check, cfg, "M", want_step)
 
     # ------------------------------ 7. K7 vs its plain version and F.linear
     k7_cases = profile_pointwise.cases
@@ -2404,36 +3043,6 @@ def main() -> int:
                 "K4 dk": dict(dk_bodies), "K7": dict(k7_bodies),
                 "K8": dict(k8_bodies)}
 
-    def want_step_of(varch, stem_k8, remat):
-        """Launches per training step by kernel: the stem's backward by K8,
-        or by K4 dx and dk where K8 cannot take it (X3D-XS); with remat
-        every kernel of a block's forward runs once more in the backward
-        pass (the stem and the head are outside every region)."""
-        ns = len(varch.stages)
-        n2 = sum(len(b) - 1 for b in varch.stages)
-        again = 1 + (remat != "off")
-        k4 = ns + (not stem_k8)
-        return {"K1": 1 + ns * again, "K2": n2 * again, "K3": n2,
-                "K4 dx": k4, "K4 dk": k4, "K5": n2 * again, "K6": n2 * again,
-                "K7": 2 * (3 * ns + 1) + (again - 1) * 3 * ns,
-                "K8": int(stem_k8), "K9": 0}
-
-    def bodies_of_steps(vcfg, varch, want, steps, stem_k8, remat):
-        """The bodies ``steps`` training steps launch: K1 the temporal body
-        at the stem and the ring body at the stage entries; K2, K3 and K4
-        dk's stage entries the ring bodies, K4 dx's the phase body; the
-        XS stem's backward K4's gather and generic bodies; K8 the temporal
-        body; K7 as its plan names."""
-        ns, xs = len(varch.stages), int(not stem_k8)
-        return {"K1": {"temporal": steps, "ring": steps * (want["K1"] - 1),
-                       "generic": 0},
-                "K2": {"ring": steps * want["K2"], "generic": 0},
-                "K3": {"ring": steps * want["K3"], "generic": 0},
-                "K4 dx": {"phase": steps * ns, "gather": steps * xs},
-                "K4 dk": {"ring": steps * ns, "generic": steps * xs},
-                "K7": k7_want(vcfg, varch, True, steps, remat != "off"),
-                "K8": {"temporal": steps * want["K8"], "generic": 0}}
-
     def check_new_row(kname, where, row):
         """A row at a new variant's shape fails where the kernel is behind
         its plain version, or behind the generic body on the same inputs
@@ -2640,7 +3249,7 @@ def main() -> int:
         del model, state, step_fn, batch, runs, snap0
         torch.cuda.empty_cache()
         if v in ("XS", "XL"):
-            f32_step_check(vcfg, v, want_step_of(
+            f32_step_check(emit, check, vcfg, v, want_step_of(
                 varch, stem_k8, create_model(vcfg, device="meta").remat),
                 calibrate=True)
         return out
@@ -2650,7 +3259,14 @@ def main() -> int:
     timing["iters"] = ITERS
 
     # ----------------------------------------------- 11b. real input data
-    input_entry = input_phase(emit, check)
+    shard_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_input_")
+    try:
+        input_entry = input_phase(emit, check, shard_dir.name)
+        # ------------------------------- 11c. long-cycle multigrid training
+        multigrid = multigrid_phase(emit, check,
+                                    os.path.join(shard_dir.name, "train-*"))
+    finally:
+        shard_dir.cleanup()
 
     # ----------------------------------------------- 12. the kernel line
     def worst(*row_lists):
@@ -2762,6 +3378,13 @@ def main() -> int:
             "training_step_ms": sum(r["n"] * r["ms"] for r in
                                     n["rows"].get((key, "train"), []))}
             for v, n in new.items()}
+        # X3D-M's multigrid tool run: launches and bodies over each phase's
+        # epochs (phase 0: 1 step, 1: 2, 2: 4, 3: 16)
+        entry["multigrid_x3d_m"] = {
+            "launches_by_phase": {ph: n[key] for ph, n in
+                                  multigrid["launches"].items()},
+            "bodies_by_phase": {ph: b.get(key) for ph, b in
+                                multigrid["bodies"].items()}}
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on its main path")
         kernels_line.append(entry)

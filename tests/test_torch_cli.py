@@ -231,14 +231,12 @@ def test_from_checkpoint_serves_the_trained_weights(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--synthetic", "--multigrid"], "A9"),
-    (["--synthetic", "--opts", "MULTIGRID.ENABLE", "True"], "A9"),
     (["--native_loader", "--train_file_pattern=/data/train.txt"], "A8"),
     (["--synthetic", "--multihost"], "A10"),
     (["--synthetic", "--num_gpus=2"], "A10"),
     (["--train_file_pattern=/data/train.txt"], "A8"),
     (["--synthetic", "--val_file_pattern=/data/val.txt"], "A8"),
-])
+], ids=["flags2-A8", "flags3-A10", "flags4-A10", "flags5-A8", "flags6-A8"])
 def test_train_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train_cli.main([f"--config={CONFIG}", f"--model_dir={tmp_path}",

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_dw_fused import multigrid_phases
 from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.models import build_arch
 from x3d_tpu_torch.ops import depthwise, ring
@@ -120,10 +121,11 @@ def test_non_cpu_tensor_never_falls_back():
 
 # --------------------------------------------------- K1's bodies and plans
 
-def _model_convs(variant, B, train=False):
+def _model_convs(variant, B, train=False, cfg=None):
     """(name, shape, kdims, strides, pads) of each K1 launch of a forward of
-    ``variant`` at B clips: the stem's conv_t and the four stage entries."""
-    cfg = variant_config(variant)
+    ``variant`` (at ``cfg``'s geometry where given) at B clips: the stem's
+    conv_t and the four stage entries."""
+    cfg = cfg or variant_config(variant)
     arch = build_arch(cfg)
     T = cfg.DATA.TEMP_DURATION
     S = (cfg.DATA.TRAIN_CROP_SIZE if train else cfg.DATA.TEST_CROP_SIZE) // 2
@@ -156,13 +158,27 @@ MODEL_CONVS = [(f"{v}-B{B}-{name}", shape, kdims, strides, pads)
                for name, shape, kdims, strides, pads in _model_convs(
                    v, B, train)]
 
+# every variant's K1 launches at its long-cycle multigrid phases (default
+# factors: batches 2 to 8 times the config's, X3D-XS down to 1 frame, the
+# stems of 1 to 4 frames under 5 taps) that MODEL_CONVS does not hold
+MULTIGRID_CONVS = list({
+    shape + (name[-5:],): (f"{v}-mg{i}-B{c.TRAIN.BATCH_SIZE}-{name}", shape,
+                           kdims, strides, pads)
+    for v in ("XS", "S", "M", "L", "XL") for i, c in multigrid_phases(v)
+    for name, shape, kdims, strides, pads in _model_convs(
+        v, c.TRAIN.BATCH_SIZE, True, c)
+    if shape not in {m[1] for m in MODEL_CONVS}}.values())
 
-@pytest.mark.parametrize("name,shape,kdims,strides,pads", MODEL_CONVS,
-                         ids=[c[0] for c in MODEL_CONVS])
+
+@pytest.mark.parametrize("name,shape,kdims,strides,pads",
+                         MODEL_CONVS + MULTIGRID_CONVS,
+                         ids=[c[0] for c in MODEL_CONVS + MULTIGRID_CONVS])
 def test_fwd_body_takes_new_bodies_at_every_model_conv(name, shape, kdims,
                                                        strides, pads):
-    """Every K1 launch of every variant takes a new body: the stem the
-    temporal body (X3D-XS's too, whose 4 frames are fewer than its 5 taps),
+    """Every K1 launch of every variant, at its config and its multigrid
+    phases, takes a new body: the stem the temporal body (X3D-XS's too,
+    whose 4 frames are fewer than its 5 taps, and every stem of 1 to 4
+    frames),
     the stage entries the ring body (at even planes, pads (0, 1), and odd
     ones, (1, 1))."""
     want = "temporal" if name.endswith("stem") else "ring"
@@ -204,8 +220,9 @@ PLAN_LAYOUTS = [(2, 16), (2, 2), (4, 16), (4, 4), (2, 8)]
 
 
 @pytest.mark.parametrize("elem,align", PLAN_LAYOUTS)
-@pytest.mark.parametrize("name,shape,kdims,strides,pads", MODEL_CONVS,
-                         ids=[c[0] for c in MODEL_CONVS])
+@pytest.mark.parametrize("name,shape,kdims,strides,pads",
+                         MODEL_CONVS + MULTIGRID_CONVS,
+                         ids=[c[0] for c in MODEL_CONVS + MULTIGRID_CONVS])
 def test_new_body_plans_cover_the_clip(name, shape, kdims, strides, pads,
                                        elem, align):
     """On cards that hold no, 396 and 528 blocks (of 256 threads for the

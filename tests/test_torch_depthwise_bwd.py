@@ -32,7 +32,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from test_torch_dw_fused import x3d_planes
+from test_torch_dw_fused import multigrid_phases, x3d_planes
 from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.ops import depthwise, ring
 
@@ -124,11 +124,21 @@ STAGE_IDS = ["M2", "M3", "M4", "M5", "S2", "S3", "S4", "S5", "odd39"]
 NEW_ENTRIES = [(f"{v}{st}", entry, variant_config(v).TRAIN.BATCH_SIZE)
                for v in ("XS", "L", "XL")
                for st, entry, _ in x3d_planes(v, True)]
+# every variant's stage entries at its long-cycle multigrid phases (default
+# factors; batches 2 to 8 times the config's, X3D-XS down to 1 frame) that
+# the lists above do not hold
+MULTIGRID_ENTRIES = list({
+    (entry, c.TRAIN.BATCH_SIZE): f"{v}{st}-mg{i}-B{c.TRAIN.BATCH_SIZE}"
+    for v in ("XS", "S", "M", "L", "XL") for i, c in multigrid_phases(v)
+    for st, entry, _ in x3d_planes(v, True, c)
+    if entry not in STAGE_ENTRIES + [e for _, e, _ in NEW_ENTRIES]}.items())
 
 
 @pytest.mark.parametrize(
-    "thwc", STAGE_ENTRIES + [e for _, e, _ in NEW_ENTRIES],
-    ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES])
+    "thwc", STAGE_ENTRIES + [e for _, e, _ in NEW_ENTRIES]
+    + [e for (e, _), _ in MULTIGRID_ENTRIES],
+    ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES]
+    + [i for _, i in MULTIGRID_ENTRIES])
 def test_dx_body_takes_phase_at_stage_entries(thwc):
     kdims, strides = (3, 3, 3), (1, 2, 2)
     pads = depthwise._resolve_pads((1, *thwc), kdims, strides, "SAME")
@@ -358,8 +368,10 @@ def test_phase_body_repeats_bit_for_bit(cuda, thwc):
 # ------------------------------------------------------------ dk's bodies
 
 @pytest.mark.parametrize(
-    "thwc", STAGE_ENTRIES + [e for _, e, _ in NEW_ENTRIES],
-    ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES])
+    "thwc", STAGE_ENTRIES + [e for _, e, _ in NEW_ENTRIES]
+    + [e for (e, _), _ in MULTIGRID_ENTRIES],
+    ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES]
+    + [i for _, i in MULTIGRID_ENTRIES])
 def test_dk_body_takes_ring_at_stage_entries(thwc):
     kdims, strides = (3, 3, 3), (1, 2, 2)
     pads = depthwise._resolve_pads((1, *thwc), kdims, strides, "SAME")
@@ -429,11 +441,14 @@ def test_dk_ring_plan_invariants(B, To, Ho, Wo, C, kt, stride, layout):
 @pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16)])
 @pytest.mark.parametrize("thwc,B", [(e, 32 if e[0] == 16 else 64)
                                     for e in STAGE_ENTRIES]
-                         + [(e, B) for _, e, B in NEW_ENTRIES],
-                         ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES])
+                         + [(e, B) for _, e, B in NEW_ENTRIES]
+                         + [eb for eb, _ in MULTIGRID_ENTRIES],
+                         ids=STAGE_IDS + [i for i, _, _ in NEW_ENTRIES]
+                         + [i for _, i in MULTIGRID_ENTRIES])
 def test_dk_ring_plan_at_stage_entries(thwc, B, elem, align):
     """The plan of every X3D-M (32 clips), X3D-S (64 clips), X3D-XS (128),
-    X3D-L and X3D-XL (16) stage entry
+    X3D-L and X3D-XL (16) stage entry, and of every variant's entries at
+    its multigrid phases (up to 1024 clips of 1 frame at X3D-XS),
     keeps the invariants above, in bfloat16 and float32, at aligned and
     unaligned addresses."""
     kdims, strides = (3, 3, 3), (1, 2, 2)

@@ -118,9 +118,18 @@ def test_border_is_zero_u_not_zero_x():
 
 
 def test_rejects_temporal_extent_below_kernel():
-    args = _inputs(1, (2, 3, 6, 5, 4), (5, 3, 3))
-    with pytest.raises(ValueError, match="T >= kt"):
-        _port(*args)
+    """Named for the guard it held until the segment took fewer frames
+    than temporal taps (the JAX Pallas kernel's limit, which the segment
+    once copied): multigrid's coarse phases give X3D-XS 1 and 2 frames
+    under 3 taps, so such clips are now taken, and taps past the clip see
+    zeros, as in the JAX package's reference."""
+    from x3d_tpu.ops import dw_fused as jax_dw_fused
+
+    for shape, kdims in (((2, 3, 6, 5, 4), (5, 3, 3)),
+                         ((2, 1, 6, 5, 4), (3, 3, 3)),
+                         ((2, 2, 6, 5, 4), (3, 3, 3))):
+        args = _inputs(1, shape, kdims)
+        _assert_matches(_port(*args), jax_dw_fused.reference(*args))
 
 
 def test_even_kernel_rejected():
@@ -150,12 +159,12 @@ SEGMENT_IDS = [f"{v}{i + 2}-B{B}" for v in "MS" for B in BATCHES[v]
                for i in range(4)]
 
 
-def x3d_planes(variant, train):
+def x3d_planes(variant, train, cfg=None):
     """(stage, entry, segment) of each stage of X3D-``variant`` from its
-    YAML's architecture plan at its training or test crop: the (T, H, W, C)
-    input of the stride-2 stage entry's depthwise conv, and the plane of
-    the stage's stride-1 blocks (the fused segments)."""
-    cfg = variant_config(variant)
+    YAML's architecture plan (or ``cfg``'s) at its training or test crop:
+    the (T, H, W, C) input of the stride-2 stage entry's depthwise conv,
+    and the plane of the stage's stride-1 blocks (the fused segments)."""
+    cfg = cfg or variant_config(variant)
     arch = build_arch(cfg)
     T = cfg.DATA.TEMP_DURATION
     S = (cfg.DATA.TRAIN_CROP_SIZE if train else cfg.DATA.TEST_CROP_SIZE) // 2
@@ -184,8 +193,35 @@ NEW_SEGMENTS = [(f"{v}{st}-B{B}", (B, *seg)) for v in ("XS", "L", "XL")
                 for st, _, seg in x3d_planes(v, train)]
 
 
-@pytest.mark.parametrize("shape", SEGMENTS + [s for _, s in NEW_SEGMENTS],
-                         ids=SEGMENT_IDS + [i for i, _ in NEW_SEGMENTS])
+
+
+def multigrid_phases(variant):
+    """(phase index, config) of X3D-``variant``'s long-cycle phases under
+    the default factors: batches of 2 to 8 times TRAIN.BATCH_SIZE at
+    fewer frames and smaller crops (X3D-XS 1 and 2 frames, fewer than
+    the 3 temporal taps)."""
+    from x3d_tpu_torch.train.multigrid import MultigridSchedule
+
+    cfg = variant_config(variant)
+    return [(p.index, p.apply_to_config(cfg))
+            for p in MultigridSchedule(cfg, 8, 5).phases]
+
+
+# the training shapes of every variant's multigrid phases that no case
+# above has
+MULTIGRID_SEGMENTS = list({
+    (B, *seg): f"{v}{st}-mg{i}-B{B}"
+    for v in ("XS", "S", "M", "L", "XL")
+    for i, c in multigrid_phases(v)
+    for B in (c.TRAIN.BATCH_SIZE,)
+    for st, _, seg in x3d_planes(v, True, c)
+    if (B, *seg) not in set(SEGMENTS) | {s for _, s in NEW_SEGMENTS}}.items())
+
+
+@pytest.mark.parametrize("shape", SEGMENTS + [s for _, s in NEW_SEGMENTS]
+                         + [s for s, _ in MULTIGRID_SEGMENTS],
+                         ids=SEGMENT_IDS + [i for i, _ in NEW_SEGMENTS]
+                         + [i for _, i in MULTIGRID_SEGMENTS])
 @pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16), (4, 4),
                                         (2, 8)])
 @pytest.mark.parametrize("slots", [0, 396, 528])
@@ -308,7 +344,11 @@ def test_failed_ring_launch_raises_without_fallback():
     ((3, 6, 9, 17, 70), (3, 3, 3)), ((2, 16, 7, 7, 432), (3, 3, 3)),
     ((2, 8, 10, 10, 7), (5, 3, 3)), ((2, 7, 9, 11, 70), (5, 3, 3)),
     ((2, 5, 8, 8, 6), (1, 3, 3)), ((2, 5, 8, 9, 7), (1, 3, 3)),
-    ((2, 5, 6, 7, 6), (3, 5, 5))] + [
+    ((2, 5, 6, 7, 6), (3, 5, 5)),
+    # fewer frames than temporal taps (multigrid's coarse phases)
+    ((2, 1, 6, 5, 7), (3, 3, 3)), ((2, 2, 4, 9, 3), (3, 3, 3)),
+    ((2, 1, 7, 7, 432), (3, 3, 3)), ((2, 2, 9, 11, 70), (5, 3, 3)),
+    ((2, 3, 8, 9, 70), (5, 3, 3)), ((2, 2, 6, 7, 6), (3, 5, 5))] + [
     ((2, *s[1:]), (3, 3, 3)) for s in SEGMENTS if s[0] == 10])
 def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims):
     """float32: y atol 1e-4, p and s2 within 1e-5 of each column's absolute

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_dw_fused import x3d_planes
+from test_torch_dw_fused import MULTIGRID_SEGMENTS, x3d_planes
 from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.ops import dw_fused, ring
 
@@ -103,7 +103,9 @@ def test_matches_jax_pallas_vjp(shape, kdims):
 
 
 @pytest.mark.parametrize("shape,kdims", [
-    ((3, 5, 6, 5, 7), (3, 3, 3)), ((2, 5, 4, 9, 3), (5, 3, 3))])
+    ((3, 5, 6, 5, 7), (3, 3, 3)), ((2, 5, 4, 9, 3), (5, 3, 3)),
+    # fewer frames than taps: multigrid's coarse phases (X3D-XS 1, 2)
+    ((2, 1, 6, 5, 7), (3, 3, 3)), ((2, 2, 4, 9, 3), (3, 3, 3))])
 def test_matches_autograd_of_the_composition(shape, kdims):
     """Against jax.vjp of the plain composition ``dw_fused.reference``: the
     true gradients, equal to the kernel rule's wherever a != 0."""
@@ -166,8 +168,10 @@ NEW_SEGMENTS = [(f"{v}{st}", (variant_config(v).TRAIN.BATCH_SIZE, *seg))
                 for st, _, seg in x3d_planes(v, True)]
 
 
-@pytest.mark.parametrize("shape", SEGMENTS + [s for _, s in NEW_SEGMENTS],
-                         ids=SEGMENT_IDS + [i for i, _ in NEW_SEGMENTS])
+@pytest.mark.parametrize("shape", SEGMENTS + [s for _, s in NEW_SEGMENTS]
+                         + [s for s, _ in MULTIGRID_SEGMENTS],
+                         ids=SEGMENT_IDS + [i for i, _ in NEW_SEGMENTS]
+                         + [i for _, i in MULTIGRID_SEGMENTS])
 @pytest.mark.parametrize("elem,align", [(2, 16), (2, 2), (4, 16), (4, 4),
                                         (2, 8)])
 @pytest.mark.parametrize("slots", [0, 132, 264])
@@ -333,7 +337,11 @@ def _assert_matches_plain(got, inputs, dtype):
     ((3, 5, 6, 5, 7), (3, 3, 3)), ((2, 5, 4, 9, 3), (5, 3, 3)),
     ((3, 6, 9, 17, 70), (3, 3, 3)), ((2, 16, 7, 7, 432), (3, 3, 3)),
     ((2, 8, 10, 10, 7), (5, 3, 3)), ((2, 7, 9, 11, 70), (5, 3, 3)),
-    ((2, 5, 8, 8, 6), (1, 3, 3)), ((2, 5, 6, 7, 6), (3, 5, 5))] + [
+    ((2, 5, 8, 8, 6), (1, 3, 3)), ((2, 5, 6, 7, 6), (3, 5, 5)),
+    # fewer frames than temporal taps (multigrid's coarse phases)
+    ((2, 1, 6, 5, 7), (3, 3, 3)), ((2, 2, 4, 9, 3), (3, 3, 3)),
+    ((2, 1, 7, 7, 432), (3, 3, 3)), ((2, 2, 9, 11, 70), (5, 3, 3)),
+    ((2, 3, 8, 9, 70), (5, 3, 3)), ((2, 2, 6, 7, 6), (3, 5, 5))] + [
     ((2, *s[1:]), (3, 3, 3)) for s in SEGMENTS])
 def test_kernel_matches_plain_on_card(cuda, dtype, shape, kdims):
     """The plain version on the same inputs rounds u and g to x's dtype as

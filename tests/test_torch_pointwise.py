@@ -355,7 +355,17 @@ def _plane(shape, strides):
     return (shape[0] * shape[1], *shape[2:4], *strides[1:])
 
 
-@pytest.mark.parametrize("path", ["serving", "eval", "training"])
+def _multigrid_phase(cfg, path):
+    """The config of the long-cycle phase a "multigrid-<i>" path names
+    (default factors; the phases do not depend on the epochs)."""
+    from x3d_tpu_torch.train.multigrid import MultigridSchedule
+
+    index = int(path.split("-")[1])
+    return MultigridSchedule(cfg, 8, 5).phases[index].apply_to_config(cfg)
+
+
+@pytest.mark.parametrize("path", ["serving", "eval", "training"]
+                         + [f"multigrid-{i}" for i in range(4)])
 @pytest.mark.parametrize("variant", ["XS", "S", "M", "L", "XL"])
 def test_plan_at_every_x3d_shape(variant, path):
     """Every K7 call of X3D-XS/S/M/L/XL takes the body the rule names: wg
@@ -366,10 +376,14 @@ def test_plan_at_every_x3d_shape(variant, path):
     whole lines (K >= 64) and its frames fill half a tile; pipe for the
     other even K; and each wg plan keeps its invariants.  At X3D-M, 43 of
     the 57 calls of a forward are wg; pipe takes the 8 at K = 54, 108,
-    stage 2's 3 convs a and the projections of stages 2 to 4."""
+    stage 2's 3 convs a and the projections of stages 2 to 4.  The
+    "multigrid-<i>" paths are training steps at the long-cycle phases'
+    (batch, T, S)."""
     cfg = variant_config(variant)
     arch = build_arch(cfg)
     views = cfg.TEST.NUM_TEMPORAL_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    if path.startswith("multigrid"):
+        cfg, path = _multigrid_phase(cfg, path), "training"
     train = path == "training"
     clips = {"serving": views, "eval": cfg.TEST.BATCH_SIZE * views,
              "training": cfg.TRAIN.BATCH_SIZE}[path]

@@ -261,3 +261,43 @@ def test_bench_loader_prints_one_json_line(capsys):
     assert split["records"] == 3 and split["inflate"] > 0
     assert split["record"] == pytest.approx(
         split["inflate"] + split["crc"] + split["plan"])
+
+
+def test_bench_multigrid_prints_one_json_line(capsys):
+    """The multigrid benchmark on the CPU at a tiny config: one JSON line
+    with the JAX package's ``tools/bench_multigrid.py`` keys, one row a
+    phase at its (batch, T, S), and the epoch times those rows give."""
+    from x3d_tpu_torch.tools import bench_multigrid
+
+    torch.set_num_threads(1)
+    assert bench_multigrid.main([
+        "--device=cpu", "--variant=XS", "--steps=1",
+        "--base_steps_per_epoch=8", "--mixed_precision=false", "--opts",
+        "NETWORK.C1_CHANNELS", "4", "NETWORK.DEPTH_FACTOR", "0.34",
+        "DATA.TEMP_DURATION", "4", "DATA.TRAIN_CROP_SIZE", "32",
+        "DATA.TRAIN_JITTER_SCALES", "[36,44]", "TRAIN.BATCH_SIZE", "1",
+        "MULTIGRID.SPATIAL_DIVISOR", "4"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert list(out) == ["variant", "base_steps_per_epoch", "phases",
+                         "base_epoch_s", "multigrid_mean_epoch_s",
+                         "epoch_time_speedup"]
+    assert out["variant"] == "XS" and out["base_steps_per_epoch"] == 8
+    assert [(p["phase"], p["batch"], p["input"], p["steps_per_epoch"])
+            for p in out["phases"]] == [
+        (0, 8, "1x24^2", 1), (1, 4, "2x24^2", 2), (2, 2, "2x32^2", 4),
+        (3, 1, "4x32^2", 8)]
+    for p in out["phases"]:
+        assert list(p) == ["phase", "batch", "input", "steps_per_epoch",
+                           "step_ms", "clips_per_s", "epoch_s"]
+        assert p["step_ms"] > 0
+        assert p["clips_per_s"] == pytest.approx(p["batch"] / p["step_ms"]
+                                                 * 1e3)
+        assert p["epoch_s"] == pytest.approx(p["steps_per_epoch"]
+                                             * p["step_ms"] / 1e3)
+    mean = sum(p["epoch_s"] for p in out["phases"]) / 4
+    assert out["base_epoch_s"] == out["phases"][-1]["epoch_s"]
+    assert out["multigrid_mean_epoch_s"] == pytest.approx(mean)
+    assert out["epoch_time_speedup"] == pytest.approx(
+        out["base_epoch_s"] / mean)

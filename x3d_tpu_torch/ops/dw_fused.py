@@ -21,8 +21,10 @@ backward, or the plain versions within ``ops.plain_versions()``).
   per-replica BN will need.
 * ``p``/``s2`` are per-(channel, sample) float32 sums over (T, H, W) of y
   as stored in x's dtype.  In serving, ``p`` gives the Squeeze-Excite pool.
-* Stride 1, SAME padding, odd kernel dims, T >= kt.  Out-of-image elements
-  of u = relu(a*x + b) are zero.
+* Stride 1, SAME padding, odd kernel dims, any T (fewer frames than
+  temporal taps too: multigrid's coarse phases give X3D-XS 1 and 2 frames
+  under 3 taps).  Out-of-image and out-of-clip elements of u = relu(a*x +
+  b) are zero.
 """
 
 from __future__ import annotations
@@ -67,8 +69,6 @@ def _dims(x, kernel):
     kt, kh, kw = kernel.shape[:3]
     if kt % 2 == 0 or kh % 2 == 0 or kw % 2 == 0:
         raise ValueError("dw_fused supports odd kernel dims only")
-    if T < kt:
-        raise ValueError(f"dw_fused requires T >= kt (got T={T}, kt={kt})")
     return B, T, H, W, C, kt, kh, kw
 
 

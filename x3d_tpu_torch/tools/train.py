@@ -23,15 +23,23 @@ loader where the JAX package has two (tf.data and the C++ clip loader):
 ``--native_loader`` selects it too, with ``--native_threads`` host threads
 (default: the host's cores, at most 8).
 
+Long-cycle multigrid training: ``--multigrid`` (or ``MULTIGRID.ENABLE``)
+trains each epoch at its phase's clip shape and batch
+(``train/multigrid.py``), on synthetic batches or the shards, with one
+iterator a phase; with ``--val_file_pattern`` and
+``MULTIGRID.BN_RECALC_BATCHES`` the BN statistics are re-estimated on
+base-shape batches before each validation.  As in the JAX tool it refuses
+``--native_loader`` (a usage error).
+
 Not ported yet, accepted and refused with the ROADMAP item that will bring
 them: file patterns without ``--use_tfrecord`` (text lists of raw videos,
-A8), ``--multigrid`` (A9), ``--multihost`` and ``--num_gpus`` above 1
-(A10).
+A8), ``--multihost`` and ``--num_gpus`` above 1 (A10).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 import os
 
@@ -89,10 +97,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args, cfg) -> None:
     """Raise for every flag whose module the port does not have yet."""
-    if args.multigrid or cfg.MULTIGRID.ENABLE:
-        raise NotImplementedError(
-            "--multigrid / MULTIGRID.ENABLE: multigrid training is not "
-            "ported yet (ROADMAP A9)")
     if args.multihost:
         raise NotImplementedError(
             "--multihost: multi-host training is not ported yet "
@@ -124,12 +128,21 @@ def main(argv=None, extra_hooks=()) -> int:
     from x3d_tpu_torch.train.hooks import (
         CheckpointHook, LoggingHook, ProfileHook, TensorBoardHook, WandbHook)
     from x3d_tpu_torch.train.loop import fit
+    from x3d_tpu_torch.train.multigrid import (MultigridSchedule,
+                                               fit_multigrid,
+                                               make_bn_recalibrator)
 
     if not args.synthetic and not args.train_file_pattern:
         parser.error(
             "--train_file_pattern is required unless --synthetic is set")
     cfg = load_config(args.config, flat_opts(args.opts))
     refuse_unported(args, cfg)
+    multigrid = args.multigrid or cfg.MULTIGRID.ENABLE
+    if multigrid and args.native_loader:
+        # the JAX tool's usage error: its C++ loader has one geometry
+        parser.error("--multigrid needs a reader per phase geometry, which "
+                     "the JAX package's --native_loader cannot give; drop "
+                     "--native_loader")
 
     os.makedirs(args.model_dir, exist_ok=True)
     seed = 1111 if args.debug else 0       # the reference's debug seed
@@ -142,26 +155,37 @@ def main(argv=None, extra_hooks=()) -> int:
         1, cfg.TRAIN.DATASET_SIZE // batch)
     epochs = args.epochs or cfg.TRAIN.EPOCHS
 
-    val_fn = None
-    if args.synthetic:
-        train_iter = synthetic_batches(cfg, batch, is_training=True,
-                                       dtype=dtype, seed=seed, device=device)
-    else:
-        threads = args.native_threads if args.native_loader else None
-        reader = InputReader(cfg, is_training=True, seed=seed,
-                             num_threads=threads, device=device, dtype=dtype)
-        train_iter = reader(args.train_file_pattern, batch)
-        if args.val_file_pattern:
-            val_reader = InputReader(cfg, is_training=False,
-                                     num_threads=threads, device=device,
-                                     dtype=dtype)
+    schedule = None
+    if multigrid:
+        schedule = MultigridSchedule(cfg, steps_per_epoch, epochs)
+        log.info("multigrid long-cycle schedule:\n%s", schedule.describe())
 
-            def val_fn():
-                return val_reader(args.val_file_pattern,
-                                  cfg.TEST.BATCH_SIZE)
+    threads = args.native_threads if args.native_loader else None
+
+    def train_batches(train_cfg, batch_size):
+        if args.synthetic:
+            return synthetic_batches(train_cfg, batch_size, is_training=True,
+                                     dtype=dtype, seed=seed, device=device)
+        reader = InputReader(train_cfg, is_training=True, seed=seed,
+                             num_threads=threads, device=device, dtype=dtype)
+        return reader(args.train_file_pattern, batch_size)
+
+    def batches_for_phase(phase):
+        """Multigrid: a train iterator at one phase's geometry."""
+        return train_batches(phase.apply_to_config(cfg), phase.batch_size)
+
+    val_fn = None
+    if not args.synthetic and args.val_file_pattern:
+        val_reader = InputReader(cfg, is_training=False, num_threads=threads,
+                                 device=device, dtype=dtype)
+
+        def val_fn():
+            return val_reader(args.val_file_pattern, cfg.TEST.BATCH_SIZE)
 
     # model state (+ resume / warm start)
-    state = create_train_state(cfg, model, steps_per_epoch=steps_per_epoch)
+    state = create_train_state(
+        cfg, model, steps_per_epoch=steps_per_epoch,
+        schedule=schedule.make_lr_schedule() if multigrid else None)
     ckpt_dir = os.path.join(args.model_dir, "checkpoints")
     ckpt = CheckpointManager(ckpt_dir)
     state, restored_key = ckpt.restore(state)
@@ -170,8 +194,12 @@ def main(argv=None, extra_hooks=()) -> int:
         # the restored optimizer step is authoritative; the LR schedule
         # resumes with it because it is a function of the step
         resume_step = int(state.step)
-        initial_epoch = resume_step // steps_per_epoch
-        initial_step_in_epoch = resume_step % steps_per_epoch
+        if multigrid:
+            initial_epoch, initial_step_in_epoch = (
+                schedule.position_for_step(resume_step))
+        else:
+            initial_epoch = resume_step // steps_per_epoch
+            initial_step_in_epoch = resume_step % steps_per_epoch
         log.info("resumed at global step %d (epoch %d, step-in-epoch %d)",
                  resume_step, initial_epoch, initial_step_in_epoch)
     elif args.pretrained_ckpt:
@@ -202,22 +230,48 @@ def main(argv=None, extra_hooks=()) -> int:
     if args.profile_batch:
         hooks.append(ProfileHook(args.model_dir, args.profile_batch))
     hooks.extend(extra_hooks)
+    eval_step = make_eval_step(model) if val_fn else None
 
-    fit(
-        cfg,
-        state,
-        train_step,
-        train_iter,
-        steps_per_epoch=steps_per_epoch,
-        epochs=epochs,
-        seed=seed,
-        initial_epoch=initial_epoch,
-        eval_step=make_eval_step(model) if val_fn else None,
-        val_batches_fn=val_fn,
-        hooks=hooks,
-        metrics_every=cadence,
-        initial_step_in_epoch=initial_step_in_epoch,
-    )
+    if multigrid:
+        bn_recal_fn = recal_iter = None
+        if cfg.MULTIGRID.BN_RECALC_BATCHES > 0 and val_fn is not None:
+            n = cfg.MULTIGRID.BN_RECALC_BATCHES
+            recal_iter = batches_for_phase(schedule.phases[-1])
+            bn_recal_fn = make_bn_recalibrator(
+                model, lambda: itertools.islice(recal_iter, n), n, seed,
+                momentum=cfg.NETWORK.BN.MOMENTUM)
+        try:
+            fit_multigrid(
+                cfg, state, train_step, schedule, batches_for_phase,
+                seed=seed, initial_epoch=initial_epoch,
+                initial_step_in_epoch=initial_step_in_epoch,
+                eval_step=eval_step, val_batches_fn=val_fn, hooks=hooks,
+                metrics_every=cadence, bn_recal_fn=bn_recal_fn)
+        finally:
+            if recal_iter is not None:
+                recal_iter.close()
+        ckpt.close()
+        return 0
+
+    train_iter = train_batches(cfg, batch)
+    try:
+        fit(
+            cfg,
+            state,
+            train_step,
+            train_iter,
+            steps_per_epoch=steps_per_epoch,
+            epochs=epochs,
+            seed=seed,
+            initial_epoch=initial_epoch,
+            eval_step=eval_step,
+            val_batches_fn=val_fn,
+            hooks=hooks,
+            metrics_every=cadence,
+            initial_step_in_epoch=initial_step_in_epoch,
+        )
+    finally:
+        train_iter.close()
     ckpt.close()
     return 0
 

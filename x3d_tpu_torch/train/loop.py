@@ -11,6 +11,7 @@ synchronises the host with the card).
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import torch
@@ -101,20 +102,52 @@ def fit(
     the logging cadence; steps in between leave their metrics on the
     device.
     """
-    device = next(state.model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(seed)
-    for epoch in range(initial_epoch, epochs):
-        lr = lr_for_epoch(cfg, epoch)
+    plan = (Epoch(epoch, lr_for_epoch(cfg, epoch), epoch * steps_per_epoch,
+                  steps_per_epoch,
+                  initial_step_in_epoch if epoch == initial_epoch else 0,
+                  lambda: train_batches)
+            for epoch in range(initial_epoch, epochs))
+    return run_epochs(state, train_step, plan, seed, eval_step=eval_step,
+                      val_batches_fn=val_batches_fn, hooks=hooks,
+                      metrics_every=metrics_every)
+
+
+@dataclass(frozen=True)
+class Epoch:
+    """One epoch as :func:`run_epochs` runs it."""
+    index: int                 # 0-based; ``on_epoch_end`` gets it 1-based
+    lr: float                  # handed to ``on_epoch_start``
+    first_step: int            # the global step before the epoch's first
+    steps: int                 # steps in the epoch
+    start: int                 # the step-in-epoch to start at (resume)
+    batches: Callable[[], Iterator[dict]]   # asked after on_epoch_start
+
+
+def run_epochs(state, train_step: Callable, epochs: Iterable[Epoch],
+               seed: int, eval_step: Optional[Callable] = None,
+               val_batches_fn: Optional[Callable[[], Iterable[dict]]] = None,
+               hooks: Sequence[Hook] = (), metrics_every: int = 1,
+               before_val: Optional[Callable] = None):
+    """The loop that :func:`fit` and ``multigrid.fit_multigrid`` share:
+    hooks, the dropout generator, the metric cadence and per-epoch
+    validation over ``epochs``, each epoch's step ``i`` being the global
+    step ``first_step + i + 1``.  ``before_val``: an optional ``state ->
+    state`` run before each validation pass.  Returns the final state."""
+    generator = None
+    for ep in epochs:
         for h in hooks:
-            h.on_epoch_start(epoch, lr)
+            h.on_epoch_start(ep.index, ep.lr)
+        batches = ep.batches()
+        if generator is None:
+            device = next(state.model.parameters()).device
+            generator = torch.Generator(device=device).manual_seed(seed)
 
         last_metrics: Dict[str, float] = {}
-        start_i = initial_step_in_epoch if epoch == initial_epoch else 0
-        for i in range(start_i, steps_per_epoch):
-            batch = next(train_batches)
+        for i in range(ep.start, ep.steps):
+            batch = next(batches)
             state, metrics = train_step(state, batch, generator)
-            step = epoch * steps_per_epoch + i + 1
-            if step % metrics_every == 0 or i == steps_per_epoch - 1:
+            step = ep.first_step + i + 1
+            if step % metrics_every == 0 or i == ep.steps - 1:
                 host_metrics = _to_host(metrics)
                 last_metrics = host_metrics
                 for h in hooks:
@@ -126,11 +159,13 @@ def fit(
 
         val_metrics = None
         if eval_step is not None and val_batches_fn is not None:
+            if before_val is not None:
+                state = before_val(state)
             val_metrics = evaluate(eval_step, state, val_batches_fn())
 
         for h in hooks:
             # epochs are reported 1-based, matching the reference's ckpt-N
-            h.on_epoch_end(epoch + 1, state, last_metrics, val_metrics)
+            h.on_epoch_end(ep.index + 1, state, last_metrics, val_metrics)
 
     for h in hooks:
         h.on_train_end()

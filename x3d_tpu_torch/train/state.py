@@ -45,14 +45,19 @@ def make_optimizer(cfg, params: Iterable[torch.Tensor]
 
 
 def create_train_state(cfg, model: nn.Module,
-                       steps_per_epoch: Optional[int] = None) -> TrainState:
+                       steps_per_epoch: Optional[int] = None,
+                       schedule: Optional[Callable[[int], float]] = None
+                       ) -> TrainState:
     """Wrap an initialised model (``models.create_model``) in a TrainState
     at step 0, with the config's optimizer and LR schedule.  An epoch of the
     schedule is ``steps_per_epoch`` steps, by default TRAIN.DATASET_SIZE //
-    TRAIN.BATCH_SIZE."""
-    if steps_per_epoch is None:
-        steps_per_epoch = max(
-            1, cfg.TRAIN.DATASET_SIZE // cfg.TRAIN.BATCH_SIZE)
+    TRAIN.BATCH_SIZE; ``schedule`` (step -> LR, e.g. a multigrid
+    schedule's ``make_lr_schedule()``) replaces it."""
+    if schedule is None:
+        if steps_per_epoch is None:
+            steps_per_epoch = max(
+                1, cfg.TRAIN.DATASET_SIZE // cfg.TRAIN.BATCH_SIZE)
+        schedule = make_lr_schedule(cfg, steps_per_epoch)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(cfg, model.parameters()),
-                      schedule=make_lr_schedule(cfg, steps_per_epoch))
+                      schedule=schedule)
