@@ -132,7 +132,19 @@ its own, which fails on a spill where the body must not spill) and then:
   X3D-S and X3D-XS phase shape (XS: down to 1024 clips of 1x112²); the
   tool on the phase-11b shards with validation and precise BN; and
   ``tools/bench_multigrid --variant=M`` (its JSON line).
-  ``--multigrid-only`` runs the build, the shards and this phase alone.
+  ``--multigrid-only`` runs the build, the shards and this phase alone;
+* imports the reference's TF checkpoint format (phase 11d): every variable
+  of X3D-M at full width and depth (random float32 from the seed) written
+  with numpy in the reference's variable paths and TF's tensor-bundle
+  format, with momentum slots, a save counter and the object graph; the
+  import tool (``--verify_only``, then into a model folder) and
+  ``tools/predict`` on that folder, each as a process of its own; every
+  restored leaf bit for bit the array written, a bfloat16 1-video request
+  (K1 5, K2 22, K7 57 launches), a float32 forward through the kernels
+  against the plain versions on the imported weights, and ``tools/summary
+  --variant M`` against ``model_summaries/X3D_M.txt`` byte for byte; the
+  import tool's wall time and the bundle's size.  ``--import-only`` runs
+  the build and this phase alone.
 
 Every result line is a JSON object carrying the card's name and power
 limit; the ``kernels`` line comes second to last, and the last line is
@@ -1390,6 +1402,337 @@ def multigrid_phase(emit, check, pattern) -> dict:
     return out
 
 
+# Import phase (phase 11d): the reference's TF checkpoint format, written
+# here with numpy (no TensorFlow), imported by the port's tool.  Bundle
+# layout as TensorFlow writes it: LevelDB-style table blocks of about 4 KiB
+# with a restart point every 16 keys, uncompressed, each block followed by
+# its compression byte and masked CRC-32C.
+REF_SUFFIX = "/.ATTRIBUTES/VARIABLE_VALUE"
+REF_BN_LEAF = {"scale": "gamma", "bias": "beta", "mean": "moving_mean",
+               "var": "moving_variance"}
+BUNDLE_BLOCK_BYTES = 4096
+BUNDLE_RESTART_EVERY = 16
+BUNDLE_MAGIC = 0xDB4775248B80FB57
+
+
+def _pb(num: int, wire: int, payload) -> bytes:
+    """One proto field: a varint (wire 0) of an int, a fixed32 (wire 5) of
+    an int, or a length-delimited (wire 2) payload."""
+    from x3d_tpu_torch.data.tfrecords import _varint
+
+    tag = _varint(num << 3 | wire)
+    if wire == 0:
+        return tag + _varint(payload & (1 << 64) - 1)
+    if wire == 5:
+        return tag + payload.to_bytes(4, "little")
+    return tag + _varint(len(payload)) + payload
+
+
+def _masked_crc32c(data: bytes) -> int:
+    from x3d_tpu_torch.data.tfrecords import crc32c_python, masked_crc
+
+    return masked_crc(crc32c_python(data))
+
+
+def reference_name(path) -> str:
+    """The reference's TF variable path of a Flax tree leaf ``(collection,
+    module, ..., leaf)``: the inverse of the import tool's
+    ``map_variable``."""
+    keys = path[1:]
+    top = keys[0]
+    if top == "conv_1":
+        name = f"conv1/bn/{REF_BN_LEAF[keys[3]]}" if keys[1] == "bn" \
+            else f"conv1/{keys[1]}/{keys[2]}"
+    elif top.startswith("stage"):
+        stage, block = re.fullmatch(r"stage(\d+)_block(\d+)", top).groups()
+        base = f"stages/{int(stage) - 2}/stage/layer_with_weights-{block}"
+        rest = keys[1:]
+        if rest[0] == "bn_r":
+            name = f"{base}/bn_r/{REF_BN_LEAF[rest[2]]}"
+        elif rest[0] == "residual":
+            name = f"{base}/residual/{rest[1]}"
+        elif rest[1].startswith("bn_"):
+            name = f"{base}/bottleneck/{rest[1]}/{REF_BN_LEAF[rest[3]]}"
+        elif rest[1] == "se":
+            name = f"{base}/bottleneck/{rest[2]}/{rest[3]}"
+        else:
+            name = f"{base}/bottleneck/{rest[1]}/{rest[2]}"
+    elif top == "conv_5":
+        name = f"conv5/layer_with_weights-0/{keys[1]}"
+    elif top == "bn_5":
+        name = f"conv5/layer_with_weights-1/{REF_BN_LEAF[keys[2]]}"
+    elif top in ("fc_1", "fc_2"):
+        name = f"fc{top[-1]}/{keys[1]}"
+    else:
+        raise KeyError(f"no reference path for {path}")
+    return name + REF_SUFFIX
+
+
+def _table_block(entries, restart_every: int) -> bytes:
+    """A table block of (key, value) pairs: prefix-compressed entries, the
+    restart offsets, their count."""
+    from x3d_tpu_torch.data.tfrecords import _varint
+
+    out, restarts, last = bytearray(), [], b""
+    for i, (key, value) in enumerate(entries):
+        shared = 0
+        if i % restart_every:
+            while shared < min(len(key), len(last)) \
+                    and key[shared] == last[shared]:
+                shared += 1
+        else:
+            restarts.append(len(out))
+        out += _varint(shared) + _varint(len(key) - shared) \
+            + _varint(len(value)) + key[shared:] + value
+        last = key
+    for r in restarts or [0]:
+        out += r.to_bytes(4, "little")
+    return bytes(out + len(restarts or [0]).to_bytes(4, "little"))
+
+
+def write_reference_checkpoint(prefix: str, tree, seed: int = SEED) -> dict:
+    """Write a Flax tree ``{params, batch_stats}`` of numpy arrays as a
+    TensorFlow checkpoint in the reference's variable paths and TF's
+    tensor-bundle format, with numpy alone: every leaf as float32 (fc_1's
+    kernel as the reference's 1x1x1 conv kernel), a momentum slot
+    (``.OPTIMIZER_SLOT/optimizer/momentum``) of random values from ``seed``
+    per parameter, an int64 ``save_counter`` and a string
+    ``_CHECKPOINTABLE_OBJECT_GRAPH``.  Returns ``{name: array}`` of the
+    numeric tensors written."""
+    import numpy as np
+
+    from x3d_tpu_torch.convert import _flatten
+    from x3d_tpu_torch.data.tfrecords import _varint
+
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for path, leaf in _flatten(tree):
+        name = reference_name(path)
+        value = np.asarray(leaf, dtype=np.float32)
+        if path[1] == "fc_1" and path[-1] == "kernel":
+            value = value.reshape((1, 1, 1) + value.shape)
+        tensors[name] = value
+        if path[0] == "params":
+            slot = name[:-len(REF_SUFFIX)] + "/.OPTIMIZER_SLOT/optimizer/" \
+                "momentum" + REF_SUFFIX
+            tensors[slot] = rng.normal(0, 1e-3, value.shape).astype(
+                np.float32)
+    tensors["save_counter" + REF_SUFFIX] = np.array(1, dtype=np.int64)
+    graph = b"\n\x00"                     # the object graph, as a string
+    dtypes = {np.dtype(np.float32): 1, np.dtype(np.int64): 9}
+    entries, data, offset = [], bytearray(), 0
+    for name in sorted(tensors, key=str.encode) + [
+            "_CHECKPOINTABLE_OBJECT_GRAPH"]:
+        if name in tensors:
+            value = tensors[name]
+            raw = value.astype(value.dtype.newbyteorder("<")).tobytes()
+            dtype, crc = dtypes[value.dtype], _masked_crc32c(raw)
+            shape = value.shape
+        else:
+            # DT_STRING: the lengths as varints, the masked CRC-32C of the
+            # lengths as uint32s, the bytes; the entry's CRC runs over the
+            # uint32 lengths, that CRC and the bytes
+            size = len(graph).to_bytes(4, "little")
+            length_crc = _masked_crc32c(size).to_bytes(4, "little")
+            raw = _varint(len(graph)) + length_crc + graph
+            crc = _masked_crc32c(size + length_crc + graph)
+            dtype, shape = 7, ()
+        dims = b"".join(_pb(2, 2, _pb(1, 0, d)) for d in shape)
+        proto = _pb(1, 0, dtype) + _pb(2, 2, dims) + \
+            (_pb(4, 0, offset) if offset else b"") + _pb(5, 0, len(raw)) + \
+            _pb(6, 5, crc)
+        entries.append((name.encode(), proto))
+        data += raw
+        offset += len(raw)
+    entries.sort()
+    header = _pb(1, 0, 1) + _pb(3, 2, _pb(1, 0, 1))   # 1 shard, producer 1
+    entries.insert(0, (b"", header))
+    # data blocks of about BUNDLE_BLOCK_BYTES, an index of their last keys
+    index, blocks, run, size = bytearray(), [], [], 0
+    for key, value in entries:
+        run.append((key, value))
+        size += len(key) + len(value) + 3
+        if size >= BUNDLE_BLOCK_BYTES:
+            blocks.append(run)
+            run, size = [], 0
+    if run:
+        blocks.append(run)
+
+    def put(block: bytes) -> bytes:
+        handle = _varint(len(index)) + _varint(len(block))
+        index.extend(block + b"\x00" + _masked_crc32c(block + b"\x00")
+                     .to_bytes(4, "little"))
+        return handle
+
+    tops = [(run[-1][0], put(_table_block(run, BUNDLE_RESTART_EVERY)))
+            for run in blocks]
+    meta = put(_table_block([], 1))
+    top = put(_table_block(tops, 1))
+    footer = (meta + top).ljust(40, b"\x00") + \
+        BUNDLE_MAGIC.to_bytes(8, "little")
+    with open(prefix + ".data-00000-of-00001", "wb") as f:
+        f.write(data)
+    with open(prefix + ".index", "wb") as f:
+        f.write(bytes(index) + footer)
+    return tensors
+
+
+def _tool(module: str, *args: str):
+    """Run ``python -m x3d_tpu_torch.tools.<module> args`` from the
+    repository root: (return code, stdout, stderr, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"x3d_tpu_torch.tools.{module}", *args],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc.returncode, proc.stdout, proc.stderr, \
+        time.perf_counter() - t0
+
+
+def import_phase(emit, check) -> dict:
+    """Phase 11d: the reference's TF checkpoints into the port.  Writes
+    X3D-M's every variable (random float32 from the seed, full width and
+    depth) in the reference's variable paths and TF's bundle format, with
+    momentum slots, a save counter and the object graph
+    (:func:`write_reference_checkpoint`); runs the import tool with
+    ``--verify_only`` and then into a model folder, and ``tools/predict
+    --synthetic`` on that folder, each as a process of its own; checks that
+    every leaf the engine restores from the folder equals the array written
+    bit for bit, that a bfloat16 1-video request through the kernels gives
+    probabilities (K1 5, K2 22, K7 57 launches) and that a float32 forward
+    through the kernels equals the plain one on the imported weights; and
+    that ``tools/summary --variant M`` writes ``model_summaries/X3D_M.txt``
+    byte for byte.  Returns the phase's row (the request's launches under
+    ``request_launches``)."""
+    import numpy as np
+    import torch
+
+    from x3d_tpu_torch import convert, variant_config
+    from x3d_tpu_torch.models import build_arch, create_model
+    from x3d_tpu_torch.ops import plain_versions
+    from x3d_tpu_torch.serving import InferenceEngine
+    from x3d_tpu_torch.tools import tf_bundle
+
+    config = "x3d_tpu_torch/configs/kinetics/X3D_M.yaml"
+    cfg = variant_config("M")
+    arch = build_arch(cfg)
+    rng = np.random.default_rng(SEED)
+    tree = convert.state_dict_to_flax(create_model(
+        cfg, dtype=torch.float32, device="cpu", init=False).state_dict())
+    draw = {"scale": lambda s: rng.uniform(0.5, 1.5, s),
+            "var": lambda s: rng.uniform(0.5, 1.5, s),
+            "mean": lambda s: rng.normal(0, 0.1, s),
+            "bias": lambda s: rng.normal(0, 0.1, s)}
+    for path, leaf in convert._flatten(tree):
+        fill = draw.get(path[-1], lambda s: rng.normal(0, 0.05, s))
+        node = tree
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = fill(leaf.shape).astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as d:
+        prefix = os.path.join(d, "model")
+        t0 = time.perf_counter()
+        written = write_reference_checkpoint(prefix, tree)
+        write_s = time.perf_counter() - t0
+        bundle_bytes = {ext: os.path.getsize(prefix + ext) for ext in
+                        (".index", ".data-00000-of-00001")}
+        with tf_bundle.load_checkpoint(prefix, "cuda") as reader:
+            index_blocks = reader.num_blocks
+        n_model = sum(1 for _ in convert._flatten(tree))
+        n_other = len(written) - n_model + 1          # + the object graph
+
+        rc_v, out_v, err_v, verify_s = _tool(
+            "import_tf_checkpoint", f"--ckpt={prefix}", f"--config={config}",
+            "--verify_only")
+        verify = json.loads(out_v.splitlines()[-1]) if rc_v == 0 else None
+        check(verify == {"mapped": n_model, "skipped": n_other, "errors": 0},
+              f"import --verify_only: rc {rc_v}, {verify}, want "
+              f"{n_model} mapped, {n_other} skipped: {err_v[-2000:]}")
+        folder = os.path.join(d, "imported")
+        rc_i, out_i, err_i, import_s = _tool(
+            "import_tf_checkpoint", f"--ckpt={prefix}", f"--config={config}",
+            f"--output={folder}")
+        imported = json.loads(out_i.splitlines()[-1]) if rc_i == 0 else None
+        check(rc_i == 0 and imported["leaves"] == n_model
+              and os.path.exists(os.path.join(folder, "checkpoints",
+                                              "ckpt-0.pt")),
+              f"import: rc {rc_i}, {imported}: {err_i[-2000:]}")
+        rc_p, out_p, err_p, predict_s = _tool(
+            "predict", f"--cfg={config}", f"--model_folder={folder}",
+            "--synthetic", "--max_batches=1", "--batch_videos=1")
+        rows = [json.loads(ln) for ln in out_p.splitlines()
+                if ln.startswith("{")]
+        check(rc_p == 0 and len(rows) == 1 and all(
+            np.isfinite(r["probs"]).all() for r in rows),
+            f"predict on the imported folder: rc {rc_p}, {rows}: "
+            f"{err_p[-2000:]}")
+
+        # every leaf the engine restores equals the array written
+        engine = InferenceEngine.from_checkpoint(cfg, folder, max_videos=1)
+        got = convert.state_dict_to_flax(engine.model.state_dict())
+        differ = [reference_name(path)
+                  for path, leaf in convert._flatten(got)
+                  if not np.array_equal(leaf, written[reference_name(
+                      path)].reshape(leaf.shape))]
+        check(not differ and engine.model.dtype == torch.bfloat16,
+              f"imported leaves differ from the checkpoint: {differ[:5]}")
+
+        # a bfloat16 1-video request through the kernels
+        clips = np.random.RandomState(SEED).randint(
+            0, 255, engine.clip_shape, dtype=np.uint8)
+        zero_counts()
+        probs = engine.predict(clips)
+        launches = read_counts()
+        row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        n_k2 = sum(len(b) - 1 for b in arch.stages)
+        want = dict.fromkeys(launches, 0) | {
+            "K1": len(arch.stages) + 1, "K2": n_k2,
+            "K7": 2 * (len(arch.stages) + n_k2) + len(arch.stages) + 1}
+        check(probs.shape == (1, cfg.NETWORK.NUM_CLASSES)
+              and bool(np.isfinite(probs).all()) and row_err <= TOL_ROW_SUM,
+              f"imported X3D-M probabilities: row error {row_err}")
+        check(launches == want, f"imported X3D-M request launches "
+                                f"{launches}, want {want}")
+
+        # float32 forward through the kernels against the plain versions
+        engine32 = InferenceEngine(cfg, engine.model.state_dict(),
+                                   max_videos=1, dtype=torch.float32)
+        p_kernels = engine32.predict(clips)
+        with plain_versions():
+            p_plain = engine32.predict(clips)
+        err = float(np.abs(p_kernels - p_plain).max())
+        check(err <= TOL_PROBS_F32,
+              f"imported X3D-M f32 probs kernels vs plain err {err}")
+        del engine, engine32
+        torch.cuda.empty_cache()
+
+        # the summary tool's golden file
+        golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "model_summaries", "X3D_M.txt")
+        rc_s, _, err_s, _ = _tool("summary", "--variant=M",
+                                  f"--output_dir={d}")
+        with open(golden, "rb") as f:
+            want_text = f.read()
+        summary_path = os.path.join(d, "X3D_M.txt")
+        same = rc_s == 0 and os.path.exists(summary_path) and \
+            open(summary_path, "rb").read() == want_text
+        check(same, f"tools/summary --variant M differs from {golden}: "
+                    f"{err_s[-2000:]}")
+
+    row = dict(variant="M", tensors_written=len(written) + 1,
+               model_variables=n_model, bundle_bytes=bundle_bytes,
+               bundle_total_bytes=sum(bundle_bytes.values()),
+               index_blocks=index_blocks,
+               write_s=write_s, verify=verify, verify_wall_s=verify_s,
+               import_wall_s=import_s, imported=imported,
+               predict_wall_s=predict_s, predict_top=rows[0]["top"][:5]
+               if rows else None, leaves_differing=len(differ),
+               request_launches=launches, max_row_sum_err=row_err,
+               f32_kernels_vs_plain=err, summary_equal=same)
+    emit(phase="import: reference TF checkpoint into X3D-M", **row)
+    return row
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -1646,6 +1989,19 @@ def main() -> int:
                                         write_input_shards(emit, check, d))
         print(json.dumps({"card": card, "multigrid": {
             k: multigrid[k] for k in ("launches", "bodies")}}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--import-only" in sys.argv[1:]:
+        # the import phase alone, after the build
+        imported = import_phase(emit, check)
+        print(json.dumps({"card": card, "import": {
+            k: imported[k] for k in ("request_launches", "import_wall_s",
+                                     "bundle_total_bytes")}}))
         if failures:
             fail(f"{len(failures)} check(s) failed: {failures}")
         print(json.dumps({"ok": True, "device": {
@@ -3268,6 +3624,9 @@ def main() -> int:
     finally:
         shard_dir.cleanup()
 
+    # ------------------------- 11d. the reference's TF checkpoint imported
+    imported = import_phase(emit, check)
+
     # ----------------------------------------------- 12. the kernel line
     def worst(*row_lists):
         return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
@@ -3385,6 +3744,8 @@ def main() -> int:
                                   multigrid["launches"].items()},
             "bodies_by_phase": {ph: b.get(key) for ph, b in
                                 multigrid["bodies"].items()}}
+        # the 1-video request on the imported X3D-M weights
+        entry["launches_imported_x3d_m"] = imported["request_launches"][key]
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on its main path")
         kernels_line.append(entry)

@@ -224,3 +224,29 @@ def test_every_bound_c_function_is_defined(module):
             defined = set(re.findall(r'extern "C" int (\w+)\(', f.read()))
         missing = set(getattr(mod, table)) - defined
         assert not missing, f"{source} does not define {sorted(missing)}"
+
+
+_TF_FREE = ("x3d_tpu_torch/tools/tf_bundle.py",
+            "x3d_tpu_torch/tools/import_tf_checkpoint.py",
+            "x3d_tpu_torch/tools/summary.py")
+
+
+@pytest.mark.parametrize("path", _TF_FREE)
+def test_checkpoint_tools_import_no_tensorflow(path):
+    """The TF checkpoint reader, the import tool and the summary tool read
+    TensorFlow's format without TensorFlow (the card machine has none)."""
+    roots = set(_imported_roots(os.path.join(ROOT, path)))
+    bad = sorted(roots & set(FORBIDDEN + ("tensorflow",)))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_checkpoint_tools_leave_tensorflow_unloaded():
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, x3d_tpu_torch.tools.import_tf_checkpoint, "
+         "x3d_tpu_torch.tools.summary; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('tensorflow', 'jax')))"],
+        capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]"

@@ -243,7 +243,7 @@ def _read_varint(buf, pos: int, end: int) -> Tuple[int, int]:
         if not b & 0x80:
             return v, pos
         shift += 7
-    raise ValueError("malformed SequenceExample: truncated varint")
+    raise ValueError("malformed proto: truncated varint")
 
 
 def _fields(buf, pos: int, end: int) -> Iterator[Tuple[int, int, int, int]]:
@@ -263,9 +263,9 @@ def _fields(buf, pos: int, end: int) -> Iterator[Tuple[int, int, int, int]]:
         elif wire == 5:
             start, pos = pos, pos + 4
         else:
-            raise ValueError(f"malformed SequenceExample: wire type {wire}")
+            raise ValueError(f"malformed proto: wire type {wire}")
         if pos > end:
-            raise ValueError("malformed SequenceExample: field overruns")
+            raise ValueError("malformed proto: field overruns")
         yield num, wire, start, pos
 
 
