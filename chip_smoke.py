@@ -144,6 +144,17 @@ its own, which fails on a spill where the body must not spill) and then:
   against the plain versions on the imported weights, and ``tools/summary
   --variant M`` against ``model_summaries/X3D_M.txt`` byte for byte; the
   import tool's wall time and the bundle's size.  ``--import-only`` runs
+  the build and this phase alone;
+* trains across processes (phase 12): X3D-M's float32 step with per-replica
+  BN statistics (``bn_groups`` 2, per-sample coefficient columns through
+  K2, K3, K5 and K6) against the plain versions; the bfloat16 step at 32
+  clips with ``bn_groups`` 1 (synced), 2 and 4 -- launches and bodies per
+  step, bit for bit repeated, step ms, peak memory and idle share side by
+  side; two gloo ranks sharing the card (spawned processes) with
+  ``SYNC_BN`` on and off and with the head split over a model axis of 2,
+  each against the one-process step, every rank's parameters bit for bit
+  alike; and ``tools/train`` at X3D-S in a one-rank NCCL group against the
+  same run without a process group, bit for bit.  ``--parallel-only`` runs
   the build and this phase alone.
 
 Every result line is a JSON object carrying the card's name and power
@@ -233,6 +244,18 @@ MG_BASE_STEPS, MG_EPOCHS = 8, 5
 MG_TIMED_STEPS = 3
 MG_BENCH_STEPS = 5
 MG_SHARD_BATCH = 4
+
+
+# Phase 12: the bfloat16 X3D-M step by bn_groups (1 = synced, first and
+# last), timed steps after one warm-up; two gloo ranks sharing the card:
+# (name, data, model, SYNC_BN, dropout on, the one-process step's
+# bn_groups they are held against).
+PAR_GROUPS = (1, 2, 4, 1)
+PAR_TIMED_STEPS = 5
+PAR_RUNS = (("sync", 2, 1, True, False, 1),
+            ("grouped", 2, 1, False, False, 2),
+            ("head split", 1, 2, True, True, 1))
+PAR_RANK_TIMEOUT_S = 300
 
 
 # Input phase: shard geometry (Kinetics frame sizes) and its thresholds.
@@ -778,8 +801,49 @@ def restore(state, snap):
     state.step = snap[2]
 
 
+def grad_diff(got, want):
+    """(relative L2 over all leaves, worst leaf's relative L2, least leaf
+    cosine) of two gradient dicts."""
+    import torch.nn.functional as F
+
+    num = den = 0.0
+    worst, cos = 0.0, 1.0
+    for n, w in want.items():
+        g = got[n].double().flatten()
+        w = w.double().flatten()
+        num += (g - w).square().sum().item()
+        den += w.square().sum().item()
+        worst = max(worst, ((g - w).norm()
+                            / w.norm().clamp_min(1e-30)).item())
+        cos = min(cos, F.cosine_similarity(g, w, dim=0).item())
+    return (num / max(den, 1e-300)) ** 0.5, worst, cos
+
+
+def update_diff(got, want, before, names):
+    """(relative L2 over all leaves, worst leaf's) of the updated
+    parameters ``names`` against another step's update from ``before``,
+    after two float32 ulps of each parameter's norm."""
+    num = den = 0.0
+    worst = 0.0
+    for n in names:
+        w = want[n].double()
+        u = (w - before[n].double()).norm().item()
+        d = max((got[n].double() - w).norm().item()
+                - 2.4e-7 * w.norm().item(), 0.0)
+        num, den = num + d * d, den + u * u
+        worst = max(worst, d / max(u, 1e-30))
+    return (num / max(den, 1e-300)) ** 0.5, worst
+
+
+def stats_err(got, want):
+    """The running statistics' largest difference over their leaf's
+    largest value."""
+    return max((got[n] - v).abs().max().item() / v.abs().max().item()
+               for n, v in want.items() if n.endswith((".mean", ".var")))
+
+
 def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
-                   clips=PARITY_CLIPS, label=None):
+                   clips=PARITY_CLIPS, label=None, bn_groups=1):
     """One float32 step at ``clips`` clips (PARITY_CLIPS unless given)
     through the kernels
     against the same step through the plain versions, from one state
@@ -790,9 +854,9 @@ def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
     update bounds become what that nudge moves the plain step by where
     it moves it by more than TOL_STEP_*: the step's own sensitivity.
     ``label`` names the check in its row and failures (default: the
-    variant)."""
+    variant); ``bn_groups`` > 1 takes per-replica BN statistics over that
+    many groups of the batch."""
     import torch
-    import torch.nn.functional as F
 
     from x3d_tpu_torch.data import synthetic_batches
     from x3d_tpu_torch.models import create_model
@@ -800,7 +864,8 @@ def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
     from x3d_tpu_torch.train import create_train_state, make_train_step
 
     dropout_gen = torch.Generator(device="cuda").manual_seed(SEED)
-    model = create_model(vcfg, dtype=torch.float32, seed=SEED + 1)
+    model = create_model(vcfg, dtype=torch.float32, seed=SEED + 1,
+                         bn_groups=bn_groups)
     state = create_train_state(vcfg, model)
     train_step = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
     batch = next(synthetic_batches(vcfg, clips,
@@ -827,45 +892,16 @@ def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
                          for n, p in model.named_parameters()},
                         copy.deepcopy(model.state_dict()), read_counts()))
 
-    def grad_diff(got, want):
-        """(relative L2 over all leaves, worst leaf's relative L2, least
-        leaf cosine) of two gradient dicts."""
-        num = den = 0.0
-        worst, cos = 0.0, 1.0
-        for n, w in want.items():
-            g = got[n].double().flatten()
-            w = w.double().flatten()
-            num += (g - w).square().sum().item()
-            den += w.square().sum().item()
-            worst = max(worst, ((g - w).norm()
-                                / w.norm().clamp_min(1e-30)).item())
-            cos = min(cos, F.cosine_similarity(g, w, dim=0).item())
-        return (num / max(den, 1e-300)) ** 0.5, worst, cos
-
-    def update_diff(got, want):
-        """(relative L2 over all leaves, worst leaf's) of the updated
-        parameters against the plain step's update, after two float32
-        ulps of each parameter's norm."""
-        num = den = 0.0
-        worst = 0.0
-        for n, _ in model.named_parameters():
-            w = want[n].double()
-            u = (w - snap[0][n].double()).norm().item()
-            d = max((got[n].double() - w).norm().item()
-                    - 2.4e-7 * w.norm().item(), 0.0)
-            num, den = num + d * d, den + u * u
-            worst = max(worst, d / max(u, 1e-30))
-        return (num / max(den, 1e-300)) ** 0.5, worst
-
     (loss_k, grads_k, after_k, n_k), (loss_p, grads_p, after_p, n_p) = \
         results[:2]
     g_l2, g_leaf, g_cos = grad_diff(grads_k, grads_p)
-    u_l2, u_leaf = update_diff(after_k, after_p)
+    u_l2, u_leaf = update_diff(after_k, after_p, snap[0], grads_p)
     tol_l2, tol_leaf, tol_cos = TOL_STEP_L2, TOL_STEP_LEAF_L2, TOL_STEP_COS
     sensitivity = {}
     if calibrate:
         n_l2, n_leaf, n_cos = grad_diff(results[2][1], grads_p)
-        nu_l2, nu_leaf = update_diff(results[2][2], after_p)
+        nu_l2, nu_leaf = update_diff(results[2][2], after_p, snap[0],
+                                     grads_p)
         sensitivity = dict(nudged_grad_rel_l2=n_l2,
                            nudged_grad_worst_leaf_rel_l2=n_leaf,
                            nudged_grad_least_leaf_cosine=n_cos,
@@ -874,10 +910,7 @@ def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
         tol_l2 = max(tol_l2, n_l2, nu_l2)
         tol_leaf = max(tol_leaf, n_leaf, nu_leaf)
         tol_cos = min(tol_cos, n_cos)
-    stats_err = max((after_k[n] - v).abs().max().item()
-                    / v.abs().max().item()
-                    for n, v in after_p.items()
-                    if n.endswith((".mean", ".var")))
+    s_err = stats_err(after_k, after_p)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     where = label if label is not None \
         else "" if variant == "M" else f"X3D-{variant} "
@@ -886,7 +919,7 @@ def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
          loss_rel_err=loss_err, grad_rel_l2=g_l2,
          grad_worst_leaf_rel_l2=g_leaf, grad_least_leaf_cosine=g_cos,
          update_rel_l2=u_l2, update_worst_leaf_rel_l2=u_leaf,
-         stats_err_of_leaf_max=stats_err, **sensitivity,
+         stats_err_of_leaf_max=s_err, bn_groups=bn_groups, **sensitivity,
          kernel_launches=n_k, plain_launches=n_p)
     check(loss_err <= TOL_STEP_LOSS,
           f"{where}f32 step loss err {loss_err}")
@@ -895,8 +928,8 @@ def f32_step_check(emit, check, vcfg, variant, want, calibrate=False,
           f"least cosine {g_cos}; {sensitivity}")
     check(u_l2 <= tol_l2 and u_leaf <= tol_leaf,
           f"{where}f32 step update: rel L2 {u_l2}, worst leaf {u_leaf}")
-    check(stats_err <= TOL_STEP_STATS,
-          f"{where}f32 step stats err {stats_err}")
+    check(s_err <= TOL_STEP_STATS,
+          f"{where}f32 step stats err {s_err}")
     check(n_k == want and set(n_p.values()) == {0},
           f"{where}f32 step launches kernels {n_k} plain {n_p}")
     del model, state, results
@@ -1733,6 +1766,332 @@ def import_phase(emit, check) -> dict:
     return row
 
 
+def _parallel_rank(rank, world, data, model_ax, sync_bn, dropout, init,
+                   out_dir):
+    """One rank of phase 12(b), in a spawned process: gloo on cuda:0 beside
+    the other rank, the float32 X3D-M step (seeded weights, the seeded
+    PARITY_CLIPS batch, its share of it) through the kernels; writes the
+    loss, the gradients and the state after the step (the head's shards
+    joined) and the kernels' launches to ``out_dir/rank<R>.pt``."""
+    import torch
+
+    from x3d_tpu_torch import parallel, variant_config
+    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.models import create_model
+    from x3d_tpu_torch.parallel import mesh as pmesh
+    from x3d_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = parallel.init_mesh(data, model_ax, rank=rank, world_size=world,
+                              init_method=init, backend="gloo",
+                              device="cuda:0")
+    cfg = variant_config("M")
+    cfg.TPU.SYNC_BN = sync_bn
+    if not dropout:
+        cfg.NETWORK.DROPOUT_RATE = 0.0
+    model = create_model(cfg, dtype=torch.float32, seed=SEED + 1, mesh=mesh)
+    state = create_train_state(cfg, model)
+    step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
+    batch = next(synthetic_batches(cfg, PARITY_CLIPS, dtype=torch.float32,
+                                   seed=SEED + 1, device=mesh.device))
+    zero_counts()
+    state, metrics = step(state, parallel.shard_batch(batch, mesh),
+                          torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for n, dim in model.head_split.items():
+        grads[n] = pmesh.gather_split(grads[n], dim, mesh)
+    out = {"loss": float(metrics["loss"]), "launches": launches,
+           "grads": {n: g.cpu() for n, g in grads.items()},
+           "state": {n: t.cpu() for n, t in
+                     parallel.full_model_state(model).items()}}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    parallel.barrier(mesh)
+    parallel.shutdown()
+
+
+def _one_process_step(vcfg, bn_groups):
+    """The float32 X3D-M step of :func:`_parallel_rank` in this process on
+    the whole batch, through the kernels: (loss, gradients, state before,
+    state after)."""
+    import torch
+
+    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.models import create_model
+    from x3d_tpu_torch.train import create_train_state, make_train_step
+
+    model = create_model(vcfg, dtype=torch.float32, seed=SEED + 1,
+                         bn_groups=bn_groups)
+    state = create_train_state(vcfg, model)
+    before = copy.deepcopy(model.state_dict())
+    batch = next(synthetic_batches(vcfg, PARITY_CLIPS, dtype=torch.float32,
+                                   seed=SEED + 1))
+    _, metrics = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)(
+        state, batch, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    out = (float(metrics["loss"]),
+           {n: p.grad.clone() for n, p in model.named_parameters()},
+           before, copy.deepcopy(model.state_dict()))
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(emit, check) -> dict:
+    """Phase 12: data parallelism, per-replica (grouped) BN and the split
+    head on the one card.
+
+    (a) Grouped statistics in one process: the float32 X3D-M step at
+    PARITY_CLIPS with ``bn_groups = 2`` through the kernels against the
+    plain versions (``f32_step_check``); the bfloat16 step at the config's
+    batch with ``bn_groups`` 1 (synced), 2 and 4 (and 1 again, last): the
+    launches and bodies of every step (the ungrouped plan), the step
+    repeated bit for bit, finite losses, the median step's device ms, peak
+    memory and the device's idle share in the same call.
+    (b) Two ranks sharing the card over gloo (spawned processes, each on
+    cuda:0 by an explicit device): ``SYNC_BN: True`` (2 x PARITY_CLIPS/2
+    clips) against the one-process step on the whole batch, ``SYNC_BN:
+    False`` against the one-process ``bn_groups = 2`` step, and the head
+    split (data 1 x model 2, dropout on) against the one-process step, at
+    ``f32_step_check``'s tolerances; every rank's parameters and
+    statistics bit for bit equal across the ranks.
+    (c) A one-rank NCCL group: ``tools/train --synthetic`` at X3D-S for 2
+    steps under torchrun's environment (RANK 0 of WORLD_SIZE 1, a
+    ``file://`` rendezvous) against the same tool run without a process
+    group: the checkpoints' parameters, statistics and optimizer slots bit
+    for bit.
+
+    Returns the launches and bodies per bfloat16 step by ``bn_groups``
+    for the ``kernels`` line."""
+    import statistics
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from x3d_tpu_torch import variant_config
+    from x3d_tpu_torch.data import synthetic_batches
+    from x3d_tpu_torch.models import build_arch, create_model
+    from x3d_tpu_torch.tools.trace import trace
+    from x3d_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = variant_config("M")
+    arch = build_arch(cfg)
+    want = want_step_of(arch, True, "off")
+
+    # ----------------------------------- (a) grouped statistics, one process
+    f32_step_check(emit, check, cfg, "M", want, bn_groups=2,
+                   label="grouped BN (bn_groups 2) X3D-M ")
+    batch = next(synthetic_batches(cfg, TRAIN_CLIPS, seed=SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, by_groups = [], {}
+    for g in PAR_GROUPS:
+        model = create_model(cfg, dtype=torch.bfloat16, seed=SEED,
+                             bn_groups=g)
+        state = create_train_state(cfg, model)
+        step_fn = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
+        snap = snapshot(state)
+        step_fn(state, batch, gen)                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times, losses, per_step = [], [], []
+        for _ in range(PAR_TIMED_STEPS):
+            before = read_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step_fn(state, batch, gen)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(metrics["loss"]))
+            after = read_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+        launches, bodies = read_counts(), read_bodies()
+        peak = torch.cuda.max_memory_allocated()
+        summary = trace(lambda: step_fn(state, batch, gen), n=2,
+                        unit="step", warmup=0)
+        runs = []
+        for _ in range(2):
+            restore(state, snap)
+            state, metrics = step_fn(state, batch, gen)
+            runs.append((float(metrics["loss"]),
+                         [p.grad.clone() for p in model.parameters()],
+                         copy.deepcopy(model.state_dict())))
+        repeat = (runs[0][0] == runs[1][0]
+                  and all(torch.equal(a, b)
+                          for a, b in zip(runs[0][1], runs[1][1]))
+                  and all(torch.equal(runs[0][2][k], v)
+                          for k, v in runs[1][2].items()))
+        row = {"bn_groups": g, "clips": TRAIN_CLIPS, "step_ms": times,
+               "step_ms_median": statistics.median(times),
+               "peak_memory_bytes": peak,
+               "idle_share": summary["idle_share"],
+               "device_busy_ms_per_step":
+                   summary["device_busy_ms_per_step"],
+               "family_ms_per_step": summary["family_ms_per_step"],
+               "losses": losses, "repeat_bit_identical": repeat,
+               "launches_per_step": want, "bodies": bodies}
+        rows.append(row)
+        by_groups.setdefault(g, {"launches": launches, "bodies": bodies})
+        emit(phase="parallel: X3D-M bf16 step by bn_groups", **row)
+        check(all(math.isfinite(v) for v in losses),
+              f"bn_groups {g}: losses {losses}")
+        check(all(n == want for n in per_step),
+              f"bn_groups {g}: launches {per_step}, want {want}")
+        want_b = bodies_of_steps(cfg, arch, want, PAR_TIMED_STEPS, True,
+                                 "off")
+        for k, w in want_b.items():
+            check(bodies[k] == w, f"bn_groups {g}: {k} bodies {bodies[k]}, "
+                                  f"want {w}")
+        check(repeat, f"bn_groups {g}: two runs of one step differ")
+        del model, state, step_fn, snap, runs
+        torch.cuda.empty_cache()
+    synced = [r["step_ms_median"] for r in rows if r["bn_groups"] == 1]
+    sync_ms = statistics.mean(synced)
+    ratios = {r["bn_groups"]: r["step_ms_median"] / sync_ms
+              for r in rows if r["bn_groups"] != 1}
+    peaks = {r["bn_groups"]: r["peak_memory_bytes"] - max(
+        q["peak_memory_bytes"] for q in rows if q["bn_groups"] == 1)
+        for r in rows if r["bn_groups"] != 1}
+    emit(phase="parallel: grouped vs synced X3D-M bf16 step",
+         synced_step_ms=synced, step_ms_ratio_to_synced=ratios,
+         peak_bytes_over_synced=peaks,
+         prediction_ratio_range=[0.95, 1.10], prediction_peak_bytes=2e8,
+         prediction_met={g: 0.95 <= ratios[g] <= 1.10 and peaks[g] <= 2e8
+                         for g in ratios})
+    del batch
+    torch.cuda.empty_cache()
+
+    # ----------------------------- (b) two ranks sharing the card, gloo
+    ctx = mp.get_context("spawn")
+    refs = {}
+    for *_, dropout, groups in PAR_RUNS:
+        vcfg = variant_config("M")
+        if not dropout:
+            vcfg.NETWORK.DROPOUT_RATE = 0.0
+        key = (dropout, groups)
+        if key not in refs:
+            refs[key] = _one_process_step(vcfg, groups)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as d:
+        started = {}
+        for name, dp, mp_, sync, dropout, _ in PAR_RUNS:
+            out_dir = os.path.join(d, name)
+            os.makedirs(out_dir)
+            init = "file://" + os.path.join(out_dir, "rendezvous")
+            started[name] = [ctx.Process(
+                target=_parallel_rank,
+                args=(r, dp * mp_, dp, mp_, sync, dropout, init, out_dir))
+                for r in range(dp * mp_)]
+            for p in started[name]:
+                p.start()
+        for procs in started.values():
+            for p in procs:
+                p.join(PAR_RANK_TIMEOUT_S)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        for name, dp, mp_, sync, dropout, groups in PAR_RUNS:
+            codes = [p.exitcode for p in started[name]]
+            check(codes == [0] * len(codes),
+                  f"two ranks {name}: exit codes {codes}")
+            if codes != [0] * len(codes):
+                continue
+            outs = [torch.load(os.path.join(d, name, f"rank{r}.pt"),
+                               weights_only=True)
+                    for r in range(len(codes))]
+            loss_w, grads_w, before, after_w = refs[dropout, groups]
+            grads_w = {n: g.cpu() for n, g in grads_w.items()}
+            before = {n: t.cpu() for n, t in before.items()}
+            after_w = {n: t.cpu() for n, t in after_w.items()}
+            got = outs[0]
+            loss_err = abs(got["loss"] - loss_w) / abs(loss_w)
+            g_l2, g_leaf, g_cos = grad_diff(got["grads"], grads_w)
+            u_l2, u_leaf = update_diff(got["state"], after_w, before,
+                                       grads_w)
+            s_err = stats_err(got["state"], after_w)
+            same = all(torch.equal(o["state"][k], v) for o in outs[1:]
+                       for k, v in got["state"].items())
+            emit(phase=f"parallel: two gloo ranks on one card, {name}",
+                 data=dp, model=mp_, sync_bn=sync, dropout=dropout,
+                 against=f"one process, bn_groups {groups}, "
+                         f"{PARITY_CLIPS} clips",
+                 loss_ranks=got["loss"], loss_one_process=loss_w,
+                 loss_rel_err=loss_err, grad_rel_l2=g_l2,
+                 grad_worst_leaf_rel_l2=g_leaf, grad_least_leaf_cosine=g_cos,
+                 update_rel_l2=u_l2, update_worst_leaf_rel_l2=u_leaf,
+                 stats_err_of_leaf_max=s_err, ranks_bit_identical=same,
+                 launches_by_rank=[o["launches"] for o in outs])
+            what = f"two ranks {name}"
+            check(loss_err <= TOL_STEP_LOSS, f"{what}: loss err {loss_err}")
+            check(g_l2 <= TOL_STEP_L2 and g_leaf <= TOL_STEP_LEAF_L2
+                  and g_cos >= TOL_STEP_COS,
+                  f"{what}: grads rel L2 {g_l2}, worst leaf {g_leaf}, "
+                  f"least cosine {g_cos}")
+            check(u_l2 <= TOL_STEP_L2 and u_leaf <= TOL_STEP_LEAF_L2,
+                  f"{what}: update rel L2 {u_l2}, worst leaf {u_leaf}")
+            check(s_err <= TOL_STEP_STATS, f"{what}: stats err {s_err}")
+            check(same, f"{what}: the ranks' parameters differ")
+            check(all(o["launches"][k] > 0 for o in outs
+                      for k in ("K2", "K3", "K5", "K6")),
+                  f"{what}: launches {[o['launches'] for o in outs]}")
+    del refs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- (c) a one-rank NCCL group
+    # the two runs at once (a step is deterministic whatever shares the
+    # card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        runs = {}
+        for name, env in (("without a process group", {}),
+                          ("one-rank NCCL group", {
+                              "RANK": "0", "WORLD_SIZE": "1",
+                              "LOCAL_RANK": "0"})):
+            model_dir = os.path.join(d, "group" if env else "none")
+            extra = [f"--init_method=file://{d}/rendezvous",
+                     "--num_gpus=1"] if env else []
+            runs[name] = (model_dir, bool(env), time.perf_counter(),
+                          subprocess.Popen(
+                [sys.executable, "-m", "x3d_tpu_torch.tools.train",
+                 "--config=x3d_tpu_torch/configs/kinetics/X3D_S.yaml",
+                 "--synthetic", f"--model_dir={model_dir}",
+                 "--steps_per_epoch=2", "--epochs=1", *extra],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+                env={**os.environ, **env}))
+        states, walls = [], {}
+        for name, (model_dir, grouped, t0, proc) in runs.items():
+            try:
+                _, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+            walls[name] = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"tools.train {name}: rc {proc.returncode}, {err[-2000:]}")
+            path = os.path.join(model_dir, "checkpoints", "ckpt-2.pt")
+            states.append(torch.load(path, map_location="cpu",
+                                     weights_only=True)
+                          if os.path.exists(path) else None)
+            if grouped:
+                check("nccl" in err,
+                      f"tools.train {name}: no NCCL group in its log")
+        same = None not in states and states[0]["step"] == \
+            states[1]["step"] == 2 and all(
+                torch.equal(states[0]["model"][k], v)
+                for k, v in states[1]["model"].items()) and all(
+                torch.equal(states[0]["optimizer"]["state"][i][k], v)
+                for i, slots in states[1]["optimizer"]["state"].items()
+                for k, v in slots.items())
+        emit(phase="parallel: X3D-S tool, one-rank NCCL group vs none",
+             steps=2, bit_identical=same, wall_s=walls)
+        check(same, "tools.train in a one-rank NCCL group differs from the "
+                    "run without a process group")
+    return by_groups
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -1989,6 +2348,17 @@ def main() -> int:
                                         write_input_shards(emit, check, d))
         print(json.dumps({"card": card, "multigrid": {
             k: multigrid[k] for k in ("launches", "bodies")}}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--parallel-only" in sys.argv[1:]:
+        # the data-parallel phase alone, after the build
+        grouped = parallel_phase(emit, check)
+        print(json.dumps({"card": card, "grouped_bn_x3d_m": grouped}))
         if failures:
             fail(f"{len(failures)} check(s) failed: {failures}")
         print(json.dumps({"ok": True, "device": {
@@ -3627,7 +3997,10 @@ def main() -> int:
     # ------------------------- 11d. the reference's TF checkpoint imported
     imported = import_phase(emit, check)
 
-    # ----------------------------------------------- 12. the kernel line
+    # ------------- 12. data parallelism, grouped BN and the split head
+    grouped = parallel_phase(emit, check)
+
+    # ----------------------------------------------- 13. the kernel line
     def worst(*row_lists):
         return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
 
@@ -3746,6 +4119,12 @@ def main() -> int:
                                 multigrid["bodies"].items()}}
         # the 1-video request on the imported X3D-M weights
         entry["launches_imported_x3d_m"] = imported["request_launches"][key]
+        # phase 12's bfloat16 X3D-M steps by bn_groups (1 = synced):
+        # launches and bodies over PAR_TIMED_STEPS steps
+        entry["grouped_bn_x3d_m"] = {
+            g: {"launches": n["launches"][key],
+                "bodies": n["bodies"].get(key)}
+            for g, n in grouped.items()}
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on its main path")
         kernels_line.append(entry)

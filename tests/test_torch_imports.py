@@ -171,7 +171,7 @@ for wanted in ("ops.timing", "ops.pointwise", "train.checkpoint",
                "train.hooks", "train.loop", "train.debug", "tools.common",
                "tools.train", "tools.eval", "tools.predict",
                "tools.bench_serving", "tools.fma_probe", "train.multigrid",
-               "tools.bench_multigrid"):
+               "tools.bench_multigrid", "parallel.mesh", "tools.dryrun"):
     assert "x3d_tpu_torch." + wanted in names, wanted
 
 from x3d_tpu_torch.tools import eval as eval_cli, predict, train

@@ -111,6 +111,11 @@ class InputReader:
       replicate_flip_bug: flip every training clip, as the reference did.
       dtype: bfloat16 (default) or float32 normalised clips, or uint8
         (the truncated samples before normalisation).
+      host_id, host_count: this host's share of the files where several
+        hosts (data ranks) read one pattern: the matching files, shuffled
+        alike on every host in training (sorted in evaluation), then every
+        ``host_count``-th from ``host_id``, as ``files.shard(host_count,
+        host_id)`` (``x3d_tpu/data/pipeline.py:250-251``).
     """
 
     keep_last = False
@@ -118,7 +123,11 @@ class InputReader:
     def __init__(self, cfg, is_training: bool, seed: int = 0,
                  num_threads: Optional[int] = None, device=None,
                  replicate_flip_bug: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, host_id: int = 0,
+                 host_count: int = 1):
+        if not 0 <= host_id < host_count:
+            raise ValueError(f"host {host_id} of {host_count}")
+        self.host_id, self.host_count = int(host_id), int(host_count)
         self.cfg = cfg
         self.is_training = bool(is_training)
         self.seed = int(seed)
@@ -302,13 +311,24 @@ class InputReader:
         return {"video": video,
                 "label": label.to(self.device, non_blocking=True)}, plan
 
+    def files(self, file_pattern: str) -> List[str]:
+        """This host's shards of the files matching ``file_pattern``."""
+        paths = sorted(glob.glob(file_pattern))
+        if self.host_count > 1:
+            if self.is_training:
+                np.random.default_rng([self.seed, 0x51ED27]).shuffle(paths)
+            paths = paths[self.host_id::self.host_count]
+        if not paths:
+            raise FileNotFoundError(
+                f"no files match {file_pattern!r} for host {self.host_id} "
+                f"of {self.host_count}")
+        return paths
+
     def plan_batches(self, file_pattern: str,
                      batch_size: int) -> Iterator[List[RecordPlan]]:
         """The planned records of each batch, before anything is decoded;
         :meth:`batch` makes a batch of them."""
-        paths = sorted(glob.glob(file_pattern))
-        if not paths:
-            raise FileNotFoundError(f"no files match {file_pattern!r}")
+        paths = self.files(file_pattern)
         pool = ThreadPoolExecutor(self.threads,
                                   thread_name_prefix="x3d-input")
         try:

@@ -27,7 +27,22 @@ updates its running statistics in place as ``m·running + (1 − m)·batch``
 with the biased variance, as the JAX package does; dropout draws from the
 ``generator`` passed to :meth:`X3D.forward`.  BatchNorm applies its affine
 in float32 and rounds once to the compute dtype, as Flax's ``nn.BatchNorm``
-does.  Per-replica (grouped) BN is not ported yet.
+does.
+
+Per-replica (grouped) BN, ``TPU.SYNC_BN: False`` (``create_model(cfg,
+bn_groups=g)``): the batch is split into ``g`` contiguous groups (sample b
+in group ``b // (B/g)``), each normalised with its own statistics, and the
+running statistics take the mean over the groups, as the JAX package's
+``GroupedBatchNorm`` does; a grouped affine outside the kernels rounds its
+coefficients to the compute dtype and computes in it, as that module does,
+while the fused segments take per-sample float32 coefficient columns.
+Across processes (``parallel.Mesh``): with ``SYNC_BN: True`` each
+training-mode BatchNorm all-reduces its per-channel moments over the data
+group (global statistics; the backward all-reduces their cotangents), and
+with ``SYNC_BN: False`` each rank's batch is one group and the train step
+averages the running statistics over the ranks.  With a model axis the
+head's fc_1 is split by output columns and fc_2 by input rows over the
+model group (``split_head``).
 
 Rematerialisation (``remat``, the JAX package's modes): in a training step
 with gradients, "block" recomputes each ResBlock's forward in the backward
@@ -53,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from x3d_tpu_torch import utils
 from x3d_tpu_torch.ops import depthwise, dw_fused, pw_stats
 from x3d_tpu_torch.ops.pointwise import pointwise_conv3d
+from x3d_tpu_torch.parallel import mesh as parallel
 
 
 @dataclass(frozen=True)
@@ -234,18 +250,67 @@ def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, var) of x over every axis but the last, in float32
     and in one pass: var = E[x²] − E[x]², the form the kernels' sums reduce
     to (``x3d_tpu/models/x3d.py:198-204``)."""
+    mean, msq = moments(x)
+    return mean, msq - mean * mean
+
+
+def moments(x: torch.Tensor, groups: int = 1
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel float32 (E[x], E[x²]) of x over every axis but the last:
+    (C,) each, or (groups, C) over ``groups`` contiguous slices of the
+    batch."""
     x32 = x.to(torch.float32)
+    if groups > 1:
+        x32 = x32.reshape(groups, _group_size(x.shape[0], groups), -1,
+                          x.shape[-1])
+        return x32.mean(dim=(1, 2)), (x32 * x32).mean(dim=(1, 2))
     dims = tuple(range(x.dim() - 1))
-    mean = x32.mean(dim=dims)
-    return mean, (x32 * x32).mean(dim=dims) - mean * mean
+    return x32.mean(dim=dims), (x32 * x32).mean(dim=dims)
 
 
-def stats_from_sums(p: torch.Tensor, s2: torch.Tensor,
-                    n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """BN (mean, var) from a kernel's (C, B) per-sample sums of y and y²;
-    ``n`` is the element count per channel (one BN group)."""
-    mean = p.sum(dim=1) / n
-    return mean, s2.sum(dim=1) / n - mean * mean
+def moments_from_sums(p: torch.Tensor, s2: torch.Tensor, n: int,
+                      groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[y], E[y²]) from a kernel's (C, B) per-sample sums of y and y²;
+    ``n`` is the element count per channel over the batch.  (C,) each, or
+    (groups, C) from the groups' columns, as ``_stats_from_sums`` takes
+    them (``x3d_tpu/models/x3d.py:433-455``)."""
+    if groups > 1:
+        C, B = p.shape
+        b = _group_size(B, groups)
+        pg = p.reshape(C, groups, b).sum(-1).t()
+        sg = s2.reshape(C, groups, b).sum(-1).t()
+        return pg / (n // groups), sg / (n // groups)
+    return p.sum(dim=1) / n, s2.sum(dim=1) / n
+
+
+def _group_size(batch: int, groups: int) -> int:
+    if batch % groups:
+        raise ValueError(f"batch {batch} not divisible by {groups} BN "
+                         "groups")
+    return batch // groups
+
+
+def columns(v: torch.Tensor, batch: int) -> torch.Tensor:
+    """(C, B) float32 per-sample coefficient columns from a (C,) vector
+    (every column the same) or from (groups, C) rows (a group's samples
+    take its row), as ``cb_cols`` builds them
+    (``x3d_tpu/models/x3d.py:510-527``)."""
+    if v.dim() == 1:
+        return v[:, None].expand(v.shape[0], batch)
+    return v.t().repeat_interleave(_group_size(batch, v.shape[0]), dim=1)
+
+
+def grouped_affine(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """x·mul + add with (groups, C) coefficients over contiguous slices of
+    the batch, rounded as ``GroupedBatchNorm`` applies them
+    (``x3d_tpu/models/x3d.py:211-214``): x, mul and add each in ``dtype``,
+    the product and the sum in it."""
+    g = mul.shape[0]
+    xg = x.reshape(g, _group_size(x.shape[0], g), *x.shape[1:]).to(dtype)
+    shape = (g,) + (1,) * (x.dim() - 1) + (x.shape[-1],)
+    y = xg * mul.to(dtype).view(shape) + add.to(dtype).view(shape)
+    return y.reshape(x.shape)
 
 
 class _Affine(torch.autograd.Function):
@@ -289,12 +354,20 @@ class BatchNorm(nn.Module):
     to the compute dtype (:func:`affine`).  Eval
     mode uses the running statistics; training mode the batch's, and it
     updates the running statistics in place.  Its variables live under
-    ``<name>.norm``, as Flax's ``nn.BatchNorm`` child is named."""
+    ``<name>.norm``, as Flax's ``nn.BatchNorm`` child is named.
+
+    ``groups`` > 1: per-replica statistics over contiguous slices of the
+    batch, the running statistics updated with their mean, applied by
+    :func:`grouped_affine`.  ``sync`` (a ``parallel.Mesh``): the moments
+    are averaged over its data group before they are used (every rank
+    holds an equal batch), so the statistics are the global batch's."""
 
     def __init__(self, c: int, eps: float, momentum: float,
                  dtype: torch.dtype, device=None):
         super().__init__()
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
+        self.groups = 1
+        self.sync: Optional[parallel.Mesh] = None
         self.norm = _NormVars(c, device)
         # set while a remat region recomputes its forward (_recomputing):
         # the batch statistics were folded in by the first forward
@@ -305,23 +378,50 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(n.var + self.eps) * n.scale
         return mul, n.bias - n.mean * mul
 
+    def stats(self, mean: torch.Tensor, msq: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, var) from this rank's moments (E[x], E[x²]), averaged
+        over the data group first where the statistics are synced: one
+        all-reduce of both, whose backward all-reduces their
+        cotangents."""
+        if self.sync is not None:
+            both = parallel.all_reduce_sum(torch.stack([mean, msq]),
+                                           self.sync.data_group)
+            both = both / self.sync.data
+            mean, msq = both[0], both[1]
+        return mean, msq - mean * mean
+
+    def stats_from_sums(self, p: torch.Tensor, s2: torch.Tensor, n: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batch (mean, var) from a kernel's (C, B) per-sample sums."""
+        return self.stats(*moments_from_sums(p, s2, n, self.groups))
+
     def batch_coefs(self, mean: torch.Tensor, var: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Training: coefficients from batch statistics, after folding them
-        into the running ones (running = m·running + (1 − m)·batch) unless
-        a remat region is recomputing its forward."""
+        """Training: coefficients from batch statistics ((C,) or (groups,
+        C)), after folding them -- their mean over the groups -- into the
+        running ones (running = m·running + (1 − m)·batch) unless a remat
+        region is recomputing its forward."""
         n, m = self.norm, self.momentum
         if not self.recomputing:
             with torch.no_grad():
-                n.mean.copy_(m * n.mean + (1 - m) * mean)
-                n.var.copy_(m * n.var + (1 - m) * var)
+                bm, bv = (mean, var) if mean.dim() == 1 \
+                    else (mean.mean(0), var.mean(0))
+                n.mean.copy_(m * n.mean + (1 - m) * bm)
+                n.var.copy_(m * n.var + (1 - m) * bv)
         mul = torch.rsqrt(var + self.eps) * n.scale
         return mul, n.bias - mean * mul
 
+    def apply_coefs(self, x: torch.Tensor, mul: torch.Tensor,
+                    add: torch.Tensor) -> torch.Tensor:
+        if mul.dim() == 1:
+            return affine(x, mul, add, self.dtype)
+        return grouped_affine(x, mul, add, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul, add = self.batch_coefs(*batch_stats(x)) if self.training \
-            else self.coefs()
-        return affine(x, mul, add, self.dtype)
+        mul, add = self.batch_coefs(*self.stats(*moments(x, self.groups))) \
+            if self.training else self.coefs()
+        return self.apply_coefs(x, mul, add)
 
 
 class Stem(nn.Module):
@@ -422,22 +522,27 @@ class Bottleneck(nn.Module):
         "pallas" with the pointwise "mxu_seg" convs): K5 gives conv ``a``
         and bn_a's sums, K2/K3 the segment and bn_b's sums, the SE gate
         comes from ``p`` and is folded into bn_b's coefficient columns, and
-        K6 runs swish and conv ``c`` and gives bn_c's sums."""
+        K6 runs swish and conv ``c`` and gives bn_c's sums.  With grouped
+        statistics every BN's coefficients are (groups, C) rows, and the
+        kernels take them as per-sample columns."""
         out, p_a, s2_a = pw_stats.conv_stats(x.to(self.dtype), self.a.weight)
         B, T, H, W, C = out.shape
         n = B * T * H * W
-        mul_a, add_a = self.bn_a.batch_coefs(*stats_from_sums(p_a, s2_a, n))
-        y, p, s2 = dw_fused.segment(out, mul_a[:, None].expand(C, B),
-                                    add_a[:, None].expand(C, B), self.b.kernel)
-        mul_b, add_b = self.bn_b.batch_coefs(*stats_from_sums(p, s2, n))
-        a_cb, o_cb = mul_b[:, None].expand(C, B), add_b[:, None].expand(C, B)
+        mul_a, add_a = self.bn_a.batch_coefs(
+            *self.bn_a.stats_from_sums(p_a, s2_a, n))
+        y, p, s2 = dw_fused.segment(out, columns(mul_a, B),
+                                    columns(add_a, B), self.b.kernel)
+        mul_b, add_b = self.bn_b.batch_coefs(
+            *self.bn_b.stats_from_sums(p, s2, n))
+        a_cb, o_cb = columns(mul_b, B), columns(add_b, B)
         if self.se is not None:
             # (y*m + o)*s == y*(m*s) + o*s: the gate rides the columns
             gate = self.se.gate((a_cb * (p / (T * H * W)) + o_cb).t()).t()
             a_cb, o_cb = a_cb * gate, o_cb * gate
         z, p_c, s2_c = pw_stats.act_conv_stats(y, a_cb, o_cb, self.c.weight)
-        mul_c, add_c = self.bn_c.batch_coefs(*stats_from_sums(p_c, s2_c, n))
-        return affine(z, mul_c, add_c, self.dtype)
+        mul_c, add_c = self.bn_c.batch_coefs(
+            *self.bn_c.stats_from_sums(p_c, s2_c, n))
+        return self.bn_c.apply_coefs(z, mul_c, add_c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.spec.stride == 1:
@@ -561,6 +666,51 @@ class X3D(nn.Module):
                               device=device)
         self.fc_2 = Pointwise(arch.head_dim, arch.num_classes, torch.float32,
                               bias=True, device=device)
+        self.mesh: Optional[parallel.Mesh] = None
+        self.sync_bn = True
+        # name -> dim of the parameters split over the model group
+        self.head_split = {}
+
+    def set_parallel(self, mesh: Optional[parallel.Mesh], bn_groups: int = 1,
+                     sync_bn: bool = True) -> None:
+        """Per-replica BN groups in this process, and the mesh: with
+        ``sync_bn`` every BatchNorm averages its moments over the data
+        group (where the mesh has a process group); without it each rank's
+        batch is its own group.  A model axis splits the head
+        (:meth:`split_head`)."""
+        self.mesh, self.sync_bn = mesh, sync_bn
+        sync = mesh if mesh is not None and mesh.distributed and sync_bn \
+            else None
+        for bn in self.modules():
+            if isinstance(bn, BatchNorm):
+                bn.groups, bn.sync = bn_groups, sync
+        if mesh is not None and mesh.model > 1:
+            self.split_head(mesh)
+
+    def split_head(self, mesh: parallel.Mesh) -> None:
+        """Keep this model rank's shard of the head: fc_1's output columns
+        (rows of its (2048, C) weight) and fc_2's input rows (columns of
+        its (classes, 2048) weight), ``_param_spec``'s split
+        (``x3d_tpu/parallel/mesh.py:66-72``).  A state dict holding the
+        full tensors loads into the shards (:meth:`_cut_full_head`), so
+        checkpoints hold full tensors on every mesh."""
+        if self.arch.head_dim % mesh.model:
+            raise ValueError(f"head width {self.arch.head_dim} not divisible "
+                             f"by the model axis {mesh.model}")
+        self.head_split = {"fc_1.weight": 0, "fc_2.weight": 1}
+        with torch.no_grad():
+            for name, dim in self.head_split.items():
+                layer = getattr(self, name.split(".")[0])
+                layer.weight = nn.Parameter(
+                    parallel.cut_split(layer.weight, dim, mesh))
+        self._register_load_state_dict_pre_hook(self._cut_full_head)
+
+    def _cut_full_head(self, state_dict, prefix, *args) -> None:
+        for name, dim in self.head_split.items():
+            t = state_dict.get(prefix + name)
+            if t is not None and t.shape[dim] == self.arch.head_dim:
+                state_dict[prefix + name] = parallel.cut_split(t, dim,
+                                                               self.mesh)
 
     def forward(self, x: torch.Tensor, return_logits: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -585,13 +735,27 @@ class X3D(nn.Module):
                     x = _remat([block], x)
         x = torch.relu(self.bn_5(self.conv_5(x.to(self.dtype))))
         x = x.to(torch.float32).mean(dim=(1, 2, 3)).to(self.dtype)
-        x = torch.relu(self.fc_1(x))
+        group = self.mesh.model_group if self.head_split else None
+        x = torch.relu(self.fc_1(parallel.copy_to_model(x, group)))
         if drop:
+            # the mask over the full width from one seed on every model
+            # rank, then this rank's columns: a split head draws the same
+            # mask as the whole one
             keep = 1.0 - arch.dropout_rate
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+            mask = torch.rand((x.shape[0], arch.head_dim),
+                              generator=generator, device=x.device) < keep
+            if group is not None:
+                w = x.shape[1]
+                mask = mask.narrow(1, self.mesh.model_rank * w, w)
             x = torch.where(mask, x / keep, torch.zeros_like(x))
-        logits = self.fc_2(x.to(torch.float32))
+        if group is None:
+            logits = self.fc_2(x.to(torch.float32))
+        else:
+            # the partial logits of this rank's rows, summed over the model
+            # group in one all-reduce; the bias added once, after it
+            fc = self.fc_2
+            logits = parallel.reduce_from_model(pointwise_conv3d(
+                x.to(torch.float32), fc.weight, fc.strides), group) + fc.bias
         if return_logits:
             return logits
         probs = torch.softmax(logits, dim=-1)
@@ -611,9 +775,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
-                 seed: int = 0, init: bool = True, remat=None) -> X3D:
+                 seed: int = 0, init: bool = True, remat=None,
+                 bn_groups: int = 1,
+                 mesh: Optional[parallel.Mesh] = None) -> X3D:
     """Build an eval-mode :class:`X3D` from a config (``.train()`` switches
     it to training mode).
+
+    ``bn_groups``: per-replica BN statistics over that many contiguous
+    slices of this process's batch (the JAX package's ``create_model(cfg,
+    bn_groups=g)``); 1 = one group.  ``mesh`` (``parallel.init_mesh``):
+    the process's place in a multi-process run, on its device unless
+    ``device`` is given; ``cfg.TPU.SYNC_BN`` says whether BN statistics are
+    averaged over the data group, and a model axis splits the head.
 
     ``remat`` defaults to ``cfg.TPU.REMAT``; "auto" is per-block remat for
     the 312² variants (``DATA.TRAIN_CROP_SIZE >= 312``: X3D-L and -XL) and
@@ -624,6 +797,8 @@ def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
     then moved to ``device``: CUDA unless the caller asks for another.  On
     the ``meta`` device nothing is allocated or drawn.
     """
+    if device is None and mesh is not None:
+        device = mesh.device
     device = utils.resolve_device(device)
     dtype = dtype or getattr(torch, cfg.TPU.COMPUTE_DTYPE)
     if remat is None:
@@ -636,4 +811,7 @@ def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
                 remat=remat)
     if init and build_on.type != "meta":
         init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    if bn_groups != 1 or mesh is not None:
+        model.set_parallel(mesh, bn_groups, bool(cfg.TPU.SYNC_BN))
+    return model

@@ -4,11 +4,12 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import Optional, Sequence
 
 import torch
 
-from x3d_tpu_torch import get_default_config
+from x3d_tpu_torch import get_default_config, parallel
 from x3d_tpu_torch.models import create_model
 from x3d_tpu_torch.utils import (resolve_device, use_deterministic_cudnn,
                                  use_full_float32)
@@ -34,22 +35,50 @@ def load_config(config_path: str, opts: Optional[Sequence[str]] = None):
 
 
 def setup_runtime(cfg, num_gpus: int, mixed_precision: bool, debug: bool,
-                  device=None, seed: int = 0):
+                  device=None, seed: int = 0, multihost: bool = False,
+                  init_method: Optional[str] = None):
     """Device, model and compute dtype for a run: ``(device, model,
-    dtype)``.
+    dtype)``; the model's ``mesh`` is the run's place among its processes
+    (None in a run of one process without a process group).
+
+    One process per GPU: ``num_gpus`` above 1 (one node) and ``multihost``
+    run under torchrun, whose environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``, or ``init_method``)
+    the process group is formed from; a process started by torchrun joins
+    its group whatever ``num_gpus`` says.  The mesh is ``TPU.MESH_DATA`` x
+    ``TPU.MESH_MODEL`` over the processes, on ``cuda:LOCAL_RANK`` with
+    NCCL unless ``device`` is given (``cpu``: gloo); BN statistics are the
+    global batch's with ``TPU.SYNC_BN`` and each rank's own batch's
+    without it (one group a rank: the JAX package's ``bn_groups = data``).
+    A group that cannot be formed raises; nothing falls back to fewer
+    processes or to another backend.
 
     CUDA unless the caller passes another ``device``; raises when there is
-    no card.  ``num_gpus`` above 1 is not ported yet.  Debug
-    mode turns on autograd's anomaly detection (a NaN in the backward
-    raises where it was made) and debug logging.  The model's weights are
-    drawn from ``seed``.  cuDNN runs its deterministic algorithms, and
-    without ``mixed_precision`` no float32 conv or product runs in TF32
-    (process-wide flags).
+    no card.  Debug mode turns on autograd's anomaly detection (a NaN in
+    the backward raises where it was made) and debug logging.  The model's
+    weights are drawn from ``seed``.  cuDNN runs its deterministic
+    algorithms, and without ``mixed_precision`` no float32 conv or product
+    runs in TF32 (process-wide flags).
     """
-    if num_gpus and num_gpus > 1:
-        raise NotImplementedError(
-            f"{num_gpus} GPUs: multi-GPU training is not ported yet "
-            "(ROADMAP A10)")
+    mesh = None
+    if num_gpus and num_gpus > 1 or multihost or parallel.in_torchrun():
+        flag = "--multihost" if multihost else f"{num_gpus} GPUs"
+        if not parallel.in_torchrun():
+            raise RuntimeError(
+                f"{flag}: one process per GPU, started by torchrun (no "
+                "RANK / WORLD_SIZE in the environment): torchrun "
+                f"--nproc_per_node={max(num_gpus or 1, 1)} -m "
+                "x3d_tpu_torch.tools.train ... --num_gpus N")
+        world = int(os.environ["WORLD_SIZE"])
+        if num_gpus and num_gpus > 1 and not multihost \
+                and num_gpus != world:
+            raise ValueError(f"--num_gpus={num_gpus} but torchrun started "
+                             f"{world} processes")
+        mesh = parallel.mesh_from_config(cfg, device=device,
+                                         init_method=init_method)
+        device = mesh.device
+        log.info("process %d of %d: mesh %s, %s on %s", mesh.rank,
+                 mesh.world, mesh.shape, mesh.backend, device)
     if debug:
         torch.autograd.set_detect_anomaly(True)
         logging.getLogger().setLevel(logging.DEBUG)
@@ -58,7 +87,8 @@ def setup_runtime(cfg, num_gpus: int, mixed_precision: bool, debug: bool,
     use_deterministic_cudnn()
     if dtype == torch.float32:
         use_full_float32()
-    model = create_model(cfg, dtype=dtype, device=device, seed=seed)
+    model = create_model(cfg, dtype=dtype, device=device, seed=seed,
+                         mesh=mesh)
     log.info("device=%s dtype=%s%s", device, dtype,
              f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
@@ -90,6 +120,14 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
                         help="Config overrides: KEY VALUE pairs.")
     parser.add_argument("--device", default=None,
                         help="cuda (the default) or cpu.")
+
+
+def add_parallel_flags(parser: argparse.ArgumentParser) -> None:
+    """``--init_method``: the process group's rendezvous."""
+    parser.add_argument("--init_method", default=None,
+                        help="The process group's rendezvous for torchrun's "
+                             "ranks: env:// (the default: MASTER_ADDR, "
+                             "MASTER_PORT) or file:///path.")
 
 
 def flat_opts(opts) -> list:

@@ -17,9 +17,15 @@ loader where the JAX package has two; ``--native_loader`` selects it too,
 with ``--native_threads`` host threads (otherwise the host's cores, at
 most 8).
 
+Several GPUs: ``--gpus N`` under ``torchrun --nproc_per_node=N`` (the
+train tool's docstring says how); each data rank evaluates its share of
+the shards (or its own synthetic batches) at ``TEST.BATCH_SIZE // data``
+videos a batch, the four sums are added over the ranks once at the end,
+and rank 0 prints the line.
+
 Not ported yet, accepted and refused with the ROADMAP item that will bring
 them: ``--test_file_pattern`` without ``--tfrecord`` (a text list of raw
-videos, A8), ``--gpus`` above 1 (A10).
+videos, A8).
 """
 
 from __future__ import annotations
@@ -34,11 +40,13 @@ log = logging.getLogger(__name__)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from x3d_tpu_torch.tools.common import add_bool_flag, add_common_flags
+    from x3d_tpu_torch.tools.common import (add_bool_flag, add_common_flags,
+                                            add_parallel_flags)
 
     p = argparse.ArgumentParser(
         prog="x3d_tpu_torch.tools.eval",
-        description="Evaluate an X3D checkpoint on one CUDA card.")
+        description="Evaluate an X3D checkpoint on CUDA cards, one process "
+                    "a card.")
     p.add_argument("--cfg", required=True,
                    help="(Relative) path to config (.yaml) file.")
     p.add_argument("--test_file_pattern", default=None,
@@ -46,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_folder", required=True,
                    help="Directory holding checkpoints (from the train CLI).")
     p.add_argument("--gpus", type=int, default=0,
-                   help="Number of GPUs (0 or 1: one card).")
+                   help="Number of GPUs (processes under torchrun); 0 or 1: "
+                        "one card.")
     add_bool_flag(p, "tfrecord", False, "Data is TFRecord shards.")
     add_bool_flag(p, "native_loader", False,
                   "The JAX package's C++ clip loader; the port has one "
@@ -63,6 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                   "Evaluate a randomly initialised model when no checkpoint "
                   "exists (smoke tests only).")
     add_common_flags(p)
+    add_parallel_flags(p)
     return p
 
 
@@ -71,6 +81,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     from x3d_tpu_torch.data import InputReader, synthetic_batches
+    from x3d_tpu_torch.parallel import local_batch
     from x3d_tpu_torch.tools.common import (flat_opts, load_config,
                                             setup_runtime)
     from x3d_tpu_torch.train import create_train_state, make_eval_step
@@ -88,10 +99,6 @@ def main(argv=None) -> int:
     if not have_ckpt and not args.allow_random_init:
         parser.error(f"No checkpoint found in {ckpt_dir}; pass "
                      "--allow_random_init to evaluate an untrained model.")
-    if args.gpus > 1:
-        raise NotImplementedError(
-            f"--gpus={args.gpus}: multi-GPU evaluation is not ported yet "
-            "(ROADMAP A10)")
     if not args.synthetic:
         if not args.test_file_pattern:
             parser.error("--test_file_pattern required unless --synthetic")
@@ -102,17 +109,24 @@ def main(argv=None) -> int:
                 "shards and pass --tfrecord")
 
     device, model, dtype = setup_runtime(cfg, args.gpus, True, False,
-                                         device=args.device)
+                                         device=args.device,
+                                         init_method=args.init_method)
+    mesh = model.mesh
+    main_rank = mesh is None or mesh.is_main
+    batch = local_batch(cfg.TEST.BATCH_SIZE, mesh)
     if args.synthetic:
         batches = itertools.islice(
-            synthetic_batches(cfg, cfg.TEST.BATCH_SIZE, is_training=False,
-                              dtype=dtype, device=device),
+            synthetic_batches(cfg, batch, is_training=False, dtype=dtype,
+                              device=device,
+                              seed=mesh.data_rank if mesh else 0),
             args.max_batches or 4)
     else:
         reader = InputReader(
             cfg, is_training=False, device=device, dtype=dtype,
-            num_threads=args.native_threads if args.native_loader else None)
-        batches = reader(args.test_file_pattern, cfg.TEST.BATCH_SIZE)
+            num_threads=args.native_threads if args.native_loader else None,
+            **(dict(host_id=mesh.data_rank, host_count=mesh.data)
+               if mesh else {}))
+        batches = reader(args.test_file_pattern, batch)
         if args.max_batches:
             batches = itertools.islice(batches, args.max_batches)
     state = create_train_state(cfg, model, steps_per_epoch=1)
@@ -126,16 +140,18 @@ def main(argv=None) -> int:
         log.info("restored weights from key %d", mgr.latest_epoch())
         mgr.close()
 
-    wandb_hook = WandbHook(cfg, job_type="eval", log_dir=args.model_folder)
     metrics = evaluate(
         make_eval_step(model), state, batches,
-        profile_batch=args.profile_batch,
+        profile_batch=args.profile_batch if main_rank else 0,
         profile_dir=os.path.join(args.model_folder, "eval_profile"))
     log.info("eval: %s", metrics)
-    print(json.dumps({k: round(float(v), 6) for k, v in metrics.items()}),
-          flush=True)
-    wandb_hook.log_metrics(metrics)
-    wandb_hook.on_train_end()
+    if main_rank:
+        print(json.dumps({k: round(float(v), 6)
+                          for k, v in metrics.items()}), flush=True)
+        wandb_hook = WandbHook(cfg, job_type="eval",
+                               log_dir=args.model_folder)
+        wandb_hook.log_metrics(metrics)
+        wandb_hook.on_train_end()
     return 0
 
 

@@ -31,9 +31,28 @@ iterator a phase; with ``--val_file_pattern`` and
 base-shape batches before each validation.  As in the JAX tool it refuses
 ``--native_loader`` (a usage error).
 
+Several GPUs: one process per GPU under torchrun, which sets each
+process's ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``::
+
+    torchrun --nproc_per_node=4 -m x3d_tpu_torch.tools.train \
+        --config=... --model_dir=... --num_gpus=4
+
+and ``--multihost`` with torchrun's ``--nnodes``/``--node_rank``/
+``--master_addr`` on every node (the tool does not start processes
+itself; ``--num_gpus`` above 1 without torchrun's environment raises).
+Each process trains on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the
+CPU) over the ``TPU.MESH_DATA`` x ``TPU.MESH_MODEL`` mesh: a data rank
+takes ``TRAIN.BATCH_SIZE // data`` clips a step (synthetic batches drawn
+from its own seed, or its share of the shards), the gradients are averaged
+over the data group, ``TPU.SYNC_BN`` chooses global or per-rank BN
+statistics, and a model axis splits the head.  Rank 0 logs and writes the
+checkpoints (full tensors, whatever the mesh) and every rank resumes from
+them.  ``--init_method`` replaces torchrun's ``env://`` rendezvous (e.g.
+``file://``).
+
 Not ported yet, accepted and refused with the ROADMAP item that will bring
 them: file patterns without ``--use_tfrecord`` (text lists of raw videos,
-A8), ``--multihost`` and ``--num_gpus`` above 1 (A10).
+A8).
 """
 
 from __future__ import annotations
@@ -47,11 +66,12 @@ log = logging.getLogger(__name__)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from x3d_tpu_torch.tools.common import add_bool_flag, add_common_flags
+    from x3d_tpu_torch.tools.common import (add_bool_flag, add_common_flags,
+                                            add_parallel_flags)
 
     p = argparse.ArgumentParser(
         prog="x3d_tpu_torch.tools.train",
-        description="Train X3D on one CUDA card.")
+        description="Train X3D on CUDA cards, one process a card.")
     p.add_argument("--config", required=True,
                    help="(Relative) path to config (.yaml) file.")
     p.add_argument("--train_file_pattern", default=None,
@@ -65,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained_ckpt", default=None,
                    help="Checkpoint directory for warm-starting weights.")
     p.add_argument("--num_gpus", type=int, default=0,
-                   help="Number of GPUs to use (0 or 1: one card).")
+                   help="Number of GPUs (processes under torchrun) on this "
+                        "node; 0 or 1: one card.")
     p.add_argument("--save_checkpoints_step", type=int, default=None,
                    help="Checkpoint, logging and TensorBoard cadence in "
                         "steps.")
@@ -92,19 +113,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_batch", type=int, default=0,
                    help="Capture a device trace around this global step.")
     add_common_flags(p)
+    add_parallel_flags(p)
     return p
 
 
 def refuse_unported(args, cfg) -> None:
     """Raise for every flag whose module the port does not have yet."""
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-host training is not ported yet "
-            "(ROADMAP A10)")
-    if args.num_gpus > 1:
-        raise NotImplementedError(
-            f"--num_gpus={args.num_gpus}: multi-GPU training is not ported "
-            "yet (ROADMAP A10)")
     for flag in ("train_file_pattern", "val_file_pattern"):
         if getattr(args, flag) and not args.use_tfrecord:
             raise NotImplementedError(
@@ -120,6 +134,7 @@ def main(argv=None, extra_hooks=()) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     from x3d_tpu_torch.data import InputReader, synthetic_batches
+    from x3d_tpu_torch.parallel import local_batch
     from x3d_tpu_torch.tools.common import (flat_opts, load_config,
                                             setup_runtime)
     from x3d_tpu_torch.train import (create_train_state, make_eval_step,
@@ -148,7 +163,15 @@ def main(argv=None, extra_hooks=()) -> int:
     seed = 1111 if args.debug else 0       # the reference's debug seed
     device, model, dtype = setup_runtime(
         cfg, args.num_gpus, args.mixed_precision, args.debug,
-        device=args.device, seed=seed)
+        device=args.device, seed=seed, multihost=args.multihost,
+        init_method=args.init_method)
+    mesh = model.mesh
+    main_rank = mesh is None or mesh.is_main
+    # a data rank's batches: its share of the global batch, synthetic ones
+    # drawn from its own seed, the shards split between the data ranks
+    data_seed = seed + (mesh.data_rank if mesh is not None else 0)
+    hosts = dict(host_id=mesh.data_rank, host_count=mesh.data) \
+        if mesh is not None else {}
 
     batch = cfg.TRAIN.BATCH_SIZE
     steps_per_epoch = args.steps_per_epoch or max(
@@ -162,25 +185,30 @@ def main(argv=None, extra_hooks=()) -> int:
 
     threads = args.native_threads if args.native_loader else None
 
-    def train_batches(train_cfg, batch_size):
+    def train_batches(train_cfg, global_batch):
+        batch_size = local_batch(global_batch, mesh)
         if args.synthetic:
             return synthetic_batches(train_cfg, batch_size, is_training=True,
-                                     dtype=dtype, seed=seed, device=device)
+                                     dtype=dtype, seed=data_seed,
+                                     device=device)
         reader = InputReader(train_cfg, is_training=True, seed=seed,
-                             num_threads=threads, device=device, dtype=dtype)
+                             num_threads=threads, device=device, dtype=dtype,
+                             **hosts)
         return reader(args.train_file_pattern, batch_size)
 
     def batches_for_phase(phase):
-        """Multigrid: a train iterator at one phase's geometry."""
+        """Multigrid: a train iterator at one phase's geometry (a data
+        rank's share of the phase's batch)."""
         return train_batches(phase.apply_to_config(cfg), phase.batch_size)
 
     val_fn = None
     if not args.synthetic and args.val_file_pattern:
         val_reader = InputReader(cfg, is_training=False, num_threads=threads,
-                                 device=device, dtype=dtype)
+                                 device=device, dtype=dtype, **hosts)
 
         def val_fn():
-            return val_reader(args.val_file_pattern, cfg.TEST.BATCH_SIZE)
+            return val_reader(args.val_file_pattern,
+                              local_batch(cfg.TEST.BATCH_SIZE, mesh))
 
     # model state (+ resume / warm start)
     state = create_train_state(
@@ -208,26 +236,31 @@ def main(argv=None, extra_hooks=()) -> int:
 
     if args.debug:
         # per-module output health of the first batch, next to the
-        # checkpoints
+        # checkpoints (every rank runs the forward, rank 0 writes)
         from x3d_tpu_torch.train.debug import dump_tensor_health
 
-        sample = next(synthetic_batches(cfg, batch, is_training=True,
-                                        dtype=dtype, seed=seed, device=device))
+        sample = next(synthetic_batches(
+            cfg, local_batch(batch, mesh), is_training=True, dtype=dtype,
+            seed=data_seed, device=device))
         dump_tensor_health(model, state, sample["video"],
-                           os.path.join(args.model_dir, "debug_health.json"))
+                           os.path.join(args.model_dir, "debug_health.json")
+                           if main_rank else None)
 
     train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
     cadence = args.save_checkpoints_step or 50
-    # WandbHook first: WANDB.TENSORBOARD patches the TensorBoard sync before
-    # the TensorBoardHook creates its writer
+    # every rank saves (the head's shards are joined there; rank 0 writes);
+    # the other hooks act on rank 0 only.  WandbHook first:
+    # WANDB.TENSORBOARD patches the TensorBoard sync before the
+    # TensorBoardHook creates its writer
     hooks = [
         WandbHook(cfg, job_type="train", log_dir=args.model_dir,
                   checkpoint_dir=ckpt_dir),
         LoggingHook(log_every=cadence),
         TensorBoardHook(args.model_dir, update_freq=cadence),
-        CheckpointHook(ckpt, every_n_steps=args.save_checkpoints_step),
-    ]
-    if args.profile_batch:
+    ] if main_rank else []
+    hooks.append(CheckpointHook(ckpt,
+                                every_n_steps=args.save_checkpoints_step))
+    if args.profile_batch and main_rank:
         hooks.append(ProfileHook(args.model_dir, args.profile_batch))
     hooks.extend(extra_hooks)
     eval_step = make_eval_step(model) if val_fn else None

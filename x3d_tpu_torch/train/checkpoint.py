@@ -13,6 +13,12 @@ learning rate needs no slot: the schedule is a function of ``state.step``.
 
 The port's :class:`~x3d_tpu_torch.train.state.TrainState` is mutable, so a
 restore loads into the given state in place and returns it.
+
+On a mesh of processes (the model's ``mesh``) every rank calls ``save``:
+the head's shards are joined into full tensors (a collective over the
+model group), rank 0 alone writes, and every rank waits at a barrier until
+the file is in place; every rank restores from the file, cutting its head
+shards from the full tensors.  The ranks share the checkpoint directory.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import re
 from typing import List, Optional
 
 import torch
+
+from x3d_tpu_torch import parallel
 
 log = logging.getLogger(__name__)
 
@@ -52,16 +60,21 @@ class CheckpointManager:
     def save(self, key: int, state) -> None:
         """Persist the full train state under an integer save id, then drop
         the oldest checkpoints beyond ``max_to_keep``."""
+        model = state.model
         payload = {"step": int(state.step),
-                   "model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict()}
-        path = self._path(key)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        if self._keep:
-            for old in self.keys()[:-self._keep]:
-                os.remove(self._path(old))
+                   "model": parallel.full_model_state(model),
+                   "optimizer": parallel.full_optimizer_state(
+                       state.optimizer, model)}
+        mesh = getattr(model, "mesh", None)
+        if mesh is None or mesh.is_main:
+            path = self._path(key)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            if self._keep:
+                for old in self.keys()[:-self._keep]:
+                    os.remove(self._path(old))
+        parallel.barrier(mesh)
 
     def latest_epoch(self) -> Optional[int]:
         """Latest save key (named for the historical epoch-keyed layout)."""
@@ -86,7 +99,8 @@ class CheckpointManager:
             return state, 0
         payload = self._load(epoch, state)
         state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        state.optimizer.load_state_dict(parallel.cut_optimizer_state(
+            payload["optimizer"], state.optimizer, state.model))
         state.step = int(payload["step"])
         return state, int(epoch)
 

@@ -38,6 +38,11 @@ def evaluate(eval_step: Callable, state, batches: Iterable[dict],
     ``profile_batch``/``profile_dir``: capture a ``torch.profiler`` device
     trace around batch N (1-based) into ``profile_dir``; the profiled batch
     is synchronised so its device work lands inside the trace.
+
+    On a mesh of processes (the model's ``mesh``) each data rank sums its
+    own batches and the four sums are all-reduced over the data group once,
+    after the last batch: ranks may hold unequal numbers of batches, so no
+    collective runs per batch.
     """
     totals = None
     for i, batch in enumerate(batches, start=1):
@@ -60,6 +65,9 @@ def evaluate(eval_step: Callable, state, batches: Iterable[dict],
                      i, profile_dir)
         totals = out if totals is None else {
             k: totals[k] + v for k, v in out.items()}
+    mesh = getattr(state.model, "mesh", None)
+    if mesh is not None and mesh.distributed:
+        totals = _all_reduce_sums(totals, mesh)
     host = _to_host(totals) if totals is not None else {}
     n = max(host.get("count", 0.0), 1.0)
     return {
@@ -68,6 +76,18 @@ def evaluate(eval_step: Callable, state, batches: Iterable[dict],
         "top_5_acc": host.get("top_5_sum", 0.0) / n,
         "count": n,
     }
+
+
+def _all_reduce_sums(totals, mesh) -> Dict[str, torch.Tensor]:
+    """The eval sums over the data group, in float64 (a rank with no batch
+    adds zeros)."""
+    keys = ("count", "loss_sum", "acc_sum", "top_5_sum")
+    vec = torch.zeros(len(keys), dtype=torch.float64, device=mesh.device)
+    if totals is not None:
+        vec = torch.stack([totals[k].to(mesh.device, torch.float64)
+                           for k in keys])
+    torch.distributed.all_reduce(vec, group=mesh.data_group)
+    return dict(zip(keys, vec))
 
 
 def fit(

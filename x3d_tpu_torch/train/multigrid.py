@@ -28,6 +28,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from x3d_tpu_torch import parallel
 from x3d_tpu_torch.train.hooks import Hook
 from x3d_tpu_torch.train.loop import Epoch, run_epochs
 from x3d_tpu_torch.train.schedule import lr_for_epoch
@@ -208,7 +209,10 @@ def make_bn_recalibrator(model: torch.nn.Module,
     is put back after the batch is read; the average then replaces them.
     No remat region recomputes without gradients.  The model's mode is
     restored afterwards.  ``seed`` seeds the head's dropout mask, which no
-    statistic depends on.
+    statistic depends on.  On a mesh of processes with per-replica BN
+    (``TPU.SYNC_BN: False``) the ranks' averages are averaged over the data
+    group; with synced BN every rank's statistics are the global batch's
+    already.  Every rank runs the same number of batches.
     """
     from x3d_tpu_torch.models.x3d import BatchNorm
 
@@ -251,6 +255,8 @@ def make_bn_recalibrator(model: torch.nn.Module,
                 for n, (m, v) in zip(norms, acc):
                     n.mean.copy_(m / count)
                     n.var.copy_(v / count)
+        if not getattr(model, "sync_bn", True):
+            parallel.average_running_stats_(model)
         return state
 
     return recalibrate

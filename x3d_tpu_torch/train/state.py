@@ -18,6 +18,7 @@ from typing import Callable, Iterable, Optional
 import torch
 import torch.nn as nn
 
+from x3d_tpu_torch import parallel
 from x3d_tpu_torch.train.schedule import make_lr_schedule
 
 
@@ -52,12 +53,18 @@ def create_train_state(cfg, model: nn.Module,
     at step 0, with the config's optimizer and LR schedule.  An epoch of the
     schedule is ``steps_per_epoch`` steps, by default TRAIN.DATASET_SIZE //
     TRAIN.BATCH_SIZE; ``schedule`` (step -> LR, e.g. a multigrid
-    schedule's ``make_lr_schedule()``) replaces it."""
+    schedule's ``make_lr_schedule()``) replaces it.
+
+    On a mesh of processes (the model's ``mesh``) every data rank starts
+    from data rank 0's parameters and buffers (one broadcast over the data
+    group): ranks that drew their weights from one seed hold them
+    already."""
     if schedule is None:
         if steps_per_epoch is None:
             steps_per_epoch = max(
                 1, cfg.TRAIN.DATASET_SIZE // cfg.TRAIN.BATCH_SIZE)
         schedule = make_lr_schedule(cfg, steps_per_epoch)
+    parallel.sync_state_(model, getattr(model, "mesh", None))
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(cfg, model.parameters()),
                       schedule=schedule)

@@ -5,8 +5,16 @@ cross-entropy of the float32 logits plus ``weight_decay * sum(w^2)`` over
 every conv and dense kernel except the Squeeze-Excite block's first layer
 (``se_fc1``), biases and BN variables excluded; the metrics are top-1 and
 top-5 accuracy.  The dropout mask of step n is drawn from a generator
-seeded from (the caller's generator's seed, n), so a step is a function of
-its arguments, as the JAX step folds the step into its key.
+seeded from (the caller's generator's seed, n, the data rank), so a step
+is a function of its arguments, as the JAX step folds the step into its
+key, and data ranks do not repeat one mask.
+
+On a mesh of processes (the model's ``mesh``, ``parallel.init_mesh``) the
+train step averages the gradients over the data group after the backward
+pass, in one coalesced all-reduce that also averages the metrics and, with
+per-replica BN (``TPU.SYNC_BN: False``), the BN running statistics; so W
+data ranks take the step the JAX package takes on their global batch.  The
+eval step's sums stay local: ``loop.evaluate`` reduces them once.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from x3d_tpu_torch import parallel
 from x3d_tpu_torch.train.state import TrainState
 
 _MASK64 = (1 << 64) - 1
@@ -24,13 +33,18 @@ _MASK64 = (1 << 64) - 1
 
 def l2_penalty(model: nn.Module) -> torch.Tensor:
     """``sum(w^2)`` in float32 over the regularised kernels: every conv and
-    dense ``weight`` and every depthwise ``kernel``, except ``se_fc1``'s."""
+    dense ``weight`` and every depthwise ``kernel``, except ``se_fc1``'s.
+    A head split over the model group adds its shards' sums over the group
+    (each shard's gradient stays its own)."""
     total = None
+    split = getattr(model, "head_split", {})
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[-1] not in ("weight", "kernel") or "se_fc1" in parts:
             continue
         sq = p.to(torch.float32).square().sum()
+        if name in split:
+            sq = parallel.reduce_from_model(sq, model.mesh.model_group)
         total = sq if total is None else total + sq
     return total
 
@@ -42,9 +56,11 @@ def _topk_correct(logits_or_probs: torch.Tensor, labels: torch.Tensor,
     return (top == labels[:, None]).any(dim=-1)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """A 63-bit seed from (seed, step): splitmix64 of their combination."""
-    z = (seed + (step + 1) * 0x9E3779B97F4A7C15) & _MASK64
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """A 63-bit seed from (seed, step, data rank): splitmix64 of their
+    combination (rank 0's is one process's)."""
+    z = (seed + (step + 1) * 0x9E3779B97F4A7C15
+         + rank * 0xD1B54A32D192ED03) & _MASK64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> 1
@@ -61,6 +77,10 @@ def make_train_step(model: nn.Module, weight_decay: float):
     place and advances ``state.step``; the metrics stay on the device.
     """
 
+    mesh = getattr(model, "mesh", None)
+    reduce = mesh is not None and mesh.distributed
+    data_rank = mesh.data_rank if mesh is not None else 0
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -71,16 +91,13 @@ def make_train_step(model: nn.Module, weight_decay: float):
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         dropout = torch.Generator(device=generator.device)
-        dropout.manual_seed(step_seed(generator.initial_seed(), state.step))
+        dropout.manual_seed(step_seed(generator.initial_seed(), state.step,
+                                      data_rank))
         label = batch["label"]
         logits = model(batch["video"], return_logits=True,
                        generator=dropout)
         ce = F.cross_entropy(logits.to(torch.float32), label)
         loss = ce + weight_decay * l2_penalty(model)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
         with torch.no_grad():
             metrics = {
                 "loss": loss.detach(),
@@ -88,6 +105,20 @@ def make_train_step(model: nn.Module, weight_decay: float):
                 "top_5_acc": _topk_correct(logits, label, 5)
                 .to(torch.float32).mean(),
             }
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if reduce:
+            grads = []
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            stats = [] if model.sync_bn else parallel.running_stats(model)
+            parallel.all_reduce_mean_(
+                grads + list(metrics.values()) + stats, mesh.data_group,
+                mesh.data)
+        state.optimizer.step()
+        state.step += 1
         return state, metrics
 
     return train_step
