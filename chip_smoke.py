@@ -155,10 +155,23 @@ its own, which fails on a spill where the body must not spill) and then:
   each against the one-process step, every rank's parameters bit for bit
   alike; and ``tools/train`` at X3D-S in a one-rank NCCL group against the
   same run without a process group, bit for bit.  ``--parallel-only`` runs
-  the build and this phase alone.
+  the build and this phase alone;
+* exports the serving forward (phase 13): ``tools/export`` writes X3D-M
+  (full width and depth, random weights from the seed) in float32 and
+  bfloat16, with the ``x3d::`` kernel ops and ``--portable``, each as a
+  process of its own; each ``serve_videos`` program is loaded in a fresh
+  process and serves 1 and 8 videos: the default programs bit for bit the
+  engine's probabilities at the same batch, K1 5, K2 22 and K7 57
+  launches a forward by the planned bodies, the portable ones no launch
+  and within 1e-4 (float32) of the plain forward; device and wall ms
+  beside the engine's, the export's and the load's wall seconds, the
+  files' bytes; a tiny program traced on the CPU moved onto the card; the
+  host's microseconds a call of each op against a direct call.
+  ``--export-only`` runs the build and this phase alone.
 
 Every result line is a JSON object carrying the card's name and power
-limit; the ``kernels`` line comes second to last, and the last line is
+limit (a phase's rows also ``t_s``, the seconds since the script found
+the card); the ``kernels`` line comes second to last, and the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -733,17 +746,17 @@ def read_bodies() -> dict:
             if hasattr(fn, "body_launches")}
 
 
-def k7_want(vcfg, varch, train, times, remat=False):
+def k7_want(vcfg, varch, train, times, remat=False, clips=CLIPS, elem=2):
     """K7's launches by body over ``times`` forwards (training steps:
     forward and dx, and with ``remat`` the blocks' forward calls once
-    more) of X3D-``vcfg``, each call by the body its plan names
-    (``pointwise.pw_body``)."""
+    more) of X3D-``vcfg`` on ``clips`` clips of ``elem``-byte elements,
+    each call by the body its plan names (``pointwise.pw_body``)."""
     from x3d_tpu_torch.ops import pointwise
     from x3d_tpu_torch.tools import profile_pointwise
 
     crop = vcfg.DATA.TRAIN_CROP_SIZE if train \
         else vcfg.DATA.TEST_CROP_SIZE
-    found = profile_pointwise.cases(vcfg, varch, CLIPS, crop, train)
+    found = profile_pointwise.cases(vcfg, varch, clips, crop, train)
     calls = profile_pointwise.with_dx(found) if train else found
     if remat:
         calls = calls + found[:-1]         # all but conv_5, in the head
@@ -751,8 +764,8 @@ def k7_want(vcfg, varch, train, times, remat=False):
     for _, shape, N, strides, n in calls:
         M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
             * -(-shape[3] // strides[2])
-        want[pointwise.pw_body(shape[-1], N, M, strides, width=shape[3],
-                               height=shape[2])] += n * times
+        want[pointwise.pw_body(shape[-1], N, M, strides, elem=elem,
+                               width=shape[3], height=shape[2])] += n * times
     return want
 
 
@@ -2092,6 +2105,387 @@ def parallel_phase(emit, check) -> dict:
     return by_groups
 
 
+# Phase 13: the exported X3D-M programs.  Requests of 1 and 8 videos (10
+# views each); the default programs and the engine timed by EXPORT_ITERS
+# requests between CUDA events and by the median of EXPORT_WALL_SAMPLES
+# requests' wall time; the portable ones (the plain versions: a check, not
+# a speed figure) untimed; the host's cost of
+# an x3d:: op against a direct call of its launch function over
+# EXPORT_OP_CALLS calls enqueued without a synchronise (fewer than the
+# launch queue holds).
+EXPORT_VIDEOS = (1, 8)
+EXPORT_RUNS = (("float32", False), ("bfloat16", False), ("float32", True),
+               ("bfloat16", True))
+EXPORT_ITERS = 10
+EXPORT_WALL_SAMPLES = 5
+EXPORT_OP_CALLS = 200
+EXPORT_TIMEOUT_S = 600
+# the portable program against the engine's plain forward: the same ATen
+# ops, but cuDNN may pick another algorithm in another process
+TOL_PORTABLE = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def serve_want(vcfg, varch, clips, dtype_name):
+    """K1's, K2's and K7's launches by body in one serving forward of
+    ``clips`` clips of X3D-``vcfg`` in ``dtype_name``: K1 the temporal
+    body at the stem and the ring body at the stage entries, K2 the ring
+    body at every stride-1 block, K7 as its plan names."""
+    elem = 4 if dtype_name == "float32" else 2
+    return {"K1": {"temporal": 1, "ring": len(varch.stages), "generic": 0},
+            "K2": {"ring": sum(len(b) - 1 for b in varch.stages),
+                   "generic": 0},
+            "K7": k7_want(vcfg, varch, False, 1, clips=clips, elem=elem)}
+
+
+def _export_worker(export_dir, out_path, card_lock):
+    """Phase 13, in a spawned process: load ``serve_videos`` of the export
+    in ``export_dir`` (``export.load``, onto the card) and, holding
+    ``card_lock`` (the processes load at once and take the card in turns),
+    serve the requests of EXPORT_VIDEOS videos: launches and bodies a
+    forward, probabilities against the engine's at the same batch (the
+    default program bit for bit, the portable one against the plain
+    forward), the device and wall ms of both (default programs), the
+    graph's x3d:: ops.  Writes a JSON row to ``out_path``."""
+    import collections
+
+    import torch
+
+    from x3d_tpu_torch import export, variant_config
+    from x3d_tpu_torch.models import build_arch, create_model
+
+    t0 = time.perf_counter()
+    program = export.load(export_dir)
+    load_s = time.perf_counter() - t0
+    meta = program.meta
+    dtype = getattr(torch, meta["dtype"])
+    cfg = variant_config("M")
+    arch = build_arch(cfg)
+    graph_ops = collections.Counter(
+        str(n.target) for n in program.module.graph.nodes
+        if n.op == "call_function" and str(n.target).startswith("x3d."))
+    aten_only = all(str(n.target).startswith(("aten.", "<built-in"))
+                    for n in program.module.graph.nodes
+                    if n.op == "call_function")
+    model = create_model(cfg, dtype=dtype, seed=SEED)
+    with card_lock:
+        rows = _export_requests(program, model, cfg, arch, meta, dtype)
+    with open(out_path, "w") as f:
+        json.dump({"meta": meta, "load_wall_s": load_s,
+                   "graph_ops": dict(graph_ops), "aten_only": aten_only,
+                   "rows": rows}, f)
+
+
+def _export_requests(program, model, cfg, arch, meta, dtype):
+    """:func:`_export_worker`'s requests, one row each."""
+    import numpy as np
+    import torch
+
+    from x3d_tpu_torch.ops import plain_versions
+    from x3d_tpu_torch.ops.timing import time_fn
+    from x3d_tpu_torch.serving import InferenceEngine
+
+    plain = plain_versions if meta["portable"] else contextlib.nullcontext
+
+    def wall_ms(fn, clips):
+        fn(clips)
+        times = []
+        for _ in range(EXPORT_WALL_SAMPLES):
+            t = time.perf_counter()
+            fn(clips)
+            times.append(time.perf_counter() - t)
+        return float(np.median(times)) * 1e3
+
+    rows = []
+    for videos in EXPORT_VIDEOS:
+        clips = np.random.RandomState(SEED + videos).randint(
+            0, 255, (videos * meta["views"], *meta["clip"]), dtype=np.uint8)
+        x = torch.from_numpy(clips).cuda()
+        program(x)
+        torch.cuda.synchronize()
+        zero_counts()
+        probs = program(x)
+        torch.cuda.synchronize()
+        launches, bodies = read_counts(), read_bodies()
+        engine = InferenceEngine(cfg, model, max_videos=videos, dtype=dtype)
+        with plain():
+            want = engine.predict(clips)
+        got = probs.cpu().numpy()
+        timed = {}
+        if not meta["portable"]:
+            timed = {
+                "device_ms": time_fn(program, x, iters=EXPORT_ITERS) * 1e3,
+                "engine_device_ms": engine.device_latency_s(
+                    iters=EXPORT_ITERS) * 1e3,
+                "wall_ms": wall_ms(lambda c: program(
+                    torch.from_numpy(c).cuda()).cpu(), clips),
+                "engine_wall_ms": wall_ms(engine.predict, clips)}
+        rows.append({
+            "videos": videos, "clips": len(clips),
+            "shape": list(got.shape), "finite": bool(np.isfinite(got).all()),
+            "max_row_sum_err": float(np.abs(got.sum(-1) - 1).max()),
+            "equal_engine": bool(np.array_equal(got, want)),
+            "max_abs_err_engine": float(np.abs(got - want).max()),
+            "launches": {k: launches[k] for k in ("K1", "K2", "K7")},
+            "other_launches": sum(v for k, v in launches.items()
+                                  if k not in ("K1", "K2", "K7")),
+            "bodies": {k: bodies[k] for k in ("K1", "K2", "K7")},
+            "want_bodies": serve_want(cfg, arch, len(clips), meta["dtype"]),
+            **timed})
+        del engine
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _op_host_us(emit, check):
+    """At X3D-M's 1-video bfloat16 shapes (the stem's conv_t, a stage-2
+    fused segment, stage 2's conv a): each x3d:: op through
+    ``torch.library.opcheck`` (its schema, and its fake version against
+    the kernel's output), its output against a direct call of its launch
+    function, and the host's microseconds a call of each."""
+    import torch
+
+    from x3d_tpu_torch import variant_config
+    from x3d_tpu_torch.models import build_arch
+    from x3d_tpu_torch.ops import depthwise, dw_fused, library, pointwise
+
+    cfg = variant_config("M")
+    arch = build_arch(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    T, S = cfg.DATA.TEMP_DURATION, cfg.DATA.TEST_CROP_SIZE // 2
+    b0 = arch.stages[0][0]
+    kt = arch.temp_filter
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    x1 = rand(CLIPS, T, S, S, arch.conv1_dim)
+    k1 = torch.randn((kt, 1, 1, 1, arch.conv1_dim), generator=g,
+                     device="cuda")
+    pads1 = ((kt // 2, kt // 2), (0, 0), (0, 0))
+    S2 = S // 2
+    C = b0.inner_channels
+    x2 = rand(CLIPS, T, S2, S2, C)
+    cols = torch.rand((C, CLIPS), generator=g, device="cuda")
+    k2 = torch.randn((arch.temp_kernel, 3, 3, 1, C), generator=g,
+                     device="cuda")
+    x7 = rand(CLIPS, T, S, S, b0.in_channels)
+    w7 = rand(C, b0.in_channels)
+    pads = [v for p in pads1 for v in p]
+    # name: (the op's arguments, its launch function and that's arguments)
+    calls = {"depthwise_conv3d": ((x1, k1, [1, 1, 1], pads),
+                                  depthwise.depthwise_conv3d,
+                                  (x1, k1, (1, 1, 1), pads1)),
+             "dw_bn_act_conv": ((x2, cols, cols, k2),
+                                dw_fused.dw_bn_act_conv, (x2, cols, cols, k2)),
+             "pw_conv": ((x7, w7, [1, 1, 1]), pointwise.pw_conv,
+                         (x7, w7, (1, 1, 1)))}
+
+    def outputs(t):
+        return t if isinstance(t, tuple) else (t,)
+
+    out, opcheck = {}, {}
+    for name, (args, launch, launch_args) in calls.items():
+        op = getattr(library, name)
+        try:
+            torch.library.opcheck(op, args, test_utils=("test_schema",
+                                                        "test_faketensor"))
+            opcheck[name] = "passed"
+        except Exception as e:              # reported, and failed below
+            opcheck[name] = f"{type(e).__name__}: {e}"[:500]
+        check(opcheck[name] == "passed",
+              f"opcheck x3d::{name} on the card: {opcheck[name]}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            outputs(op(*args)), outputs(launch(*launch_args))))
+        check(same, f"x3d::{name}: the op's output differs from a direct "
+                    "call's")
+        us = {}
+        for label, fn, fn_args in (("op", op, args),
+                                   ("direct", launch, launch_args)) * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EXPORT_OP_CALLS):
+                fn(*fn_args)
+            us.setdefault(label, []).append(
+                (time.perf_counter() - t0) / EXPORT_OP_CALLS * 1e6)
+            torch.cuda.synchronize()
+        out[name] = {"op_us": min(us["op"]), "direct_us": min(us["direct"]),
+                     "extra_us": min(us["op"]) - min(us["direct"]),
+                     "same_output": same}
+    emit(phase="export: host us a call, x3d:: op vs direct", calls=out,
+         calls_timed=EXPORT_OP_CALLS, opcheck=opcheck)
+    return out
+
+
+def export_phase(emit, check) -> dict:
+    """Phase 13: the serving forward exported (A11b).  ``tools/export``
+    writes X3D-M (full width and depth, 16x224², 10 views, random weights
+    from the seed) in float32 and bfloat16, default and ``--portable``,
+    each as a process of its own (the four at once); each export's
+    ``serve_videos`` is loaded in a fresh process (:func:`_export_worker`;
+    the four load at once and take the card in turns) and serves 1 and 8
+    videos: the default program's probabilities equal the engine's at the
+    same batch bit for bit, with K1 5, K2 22 and K7 57 launches a forward
+    by the bodies the plan names, timed beside the engine; the portable
+    program launches none and is within TOL_PORTABLE of the plain forward.
+    Also: a tiny program traced on the CPU (while the tool runs), moved
+    onto the card by ``export.load`` and run through the kernels against
+    the engine; and the ops on the card (:func:`_op_host_us`).  Returns
+    {"launches": the default programs' K1/K2/K7 launches a 1-video forward
+    by dtype, "op_host_us": the ops' host cost, "phase_wall_s"}."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from x3d_tpu_torch import export, variant_config
+    from x3d_tpu_torch.models import build_arch, create_model
+    from x3d_tpu_torch.serving import InferenceEngine
+
+    config = "x3d_tpu_torch/configs/kinetics/X3D_M.yaml"
+    cfg = variant_config("M")
+    arch = build_arch(cfg)
+    n_k2 = sum(len(b) - 1 for b in arch.stages)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as d:
+        # ------------------------------ the four exports, processes at once
+        procs = {}
+        t_all = time.perf_counter()
+        for dtype, portable in EXPORT_RUNS:
+            name = f"{dtype}{'_portable' if portable else ''}"
+            argv = [sys.executable, "-m", "x3d_tpu_torch.tools.export",
+                    f"--cfg={config}", f"--model_folder={d}/no_run",
+                    f"--export_dir={d}/{name}", f"--dtype={dtype}",
+                    "--allow_random_init"] + (["--portable"] if portable
+                                              else [])
+            procs[name] = (subprocess.Popen(
+                argv, cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), time.perf_counter())
+        # meanwhile, a tiny program traced on the CPU (served below)
+        tiny = variant_config("XS")
+        tiny.NETWORK.C1_CHANNELS = 8
+        tiny.NETWORK.DEPTH_FACTOR = 0.34
+        tiny.DATA.TEMP_DURATION = 4
+        tiny.DATA.TEST_CROP_SIZE = 32
+        tiny.TEST.NUM_TEMPORAL_VIEWS = 2
+        tiny_state = create_model(tiny, dtype=torch.float32, device="cpu",
+                                  seed=SEED).state_dict()
+        tiny_dir = os.path.join(d, "tiny_cpu")
+        export.export_program(tiny, tiny_state, tiny_dir, device="cpu")
+        exported = {}
+        for name, (proc, t0) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=EXPORT_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            wall = time.perf_counter() - t0
+            path = os.path.join(d, name)
+            ok = proc.returncode == 0 and stdout.strip().endswith(path)
+            check(ok, f"tools/export {name}: rc {proc.returncode}: "
+                      f"{stderr[-2000:]}")
+            exported[name] = {
+                "rc": proc.returncode, "wall_s": wall,
+                "bytes": {f: os.path.getsize(os.path.join(path, f))
+                          for f in sorted(os.listdir(path))} if ok else None}
+        emit(phase="export: X3D-M by tools/export", exports=exported,
+             all_four_wall_s=time.perf_counter() - t_all)
+
+        # ------------------------- each loaded in a fresh process, served
+        ctx = mp.get_context("spawn")
+        card_lock = ctx.Lock()
+        started = {n: ctx.Process(target=_export_worker, args=(
+            os.path.join(d, n), os.path.join(d, n + ".json"), card_lock))
+            for n in exported if exported[n]["rc"] == 0}
+        for p in started.values():
+            p.start()
+        codes = {}
+        for n, p in started.items():
+            p.join(EXPORT_TIMEOUT_S)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+            codes[n] = p.exitcode
+        for name in exported:
+            code = codes.get(name)
+            check(code == 0, f"exported {name}: the loading process exited "
+                             f"{code}")
+            if code != 0:
+                continue
+            with open(os.path.join(d, name + ".json")) as f:
+                got = json.load(f)
+            meta = got["meta"]
+            for row in got["rows"]:
+                where = f"exported X3D-M {name}, {row['videos']} video(s)"
+                check(row["finite"] and row["max_row_sum_err"] <= TOL_ROW_SUM
+                      and row["shape"] == [row["videos"],
+                                           cfg.NETWORK.NUM_CLASSES],
+                      f"{where}: probabilities {row['shape']}, row error "
+                      f"{row['max_row_sum_err']}")
+                if meta["portable"]:
+                    check(not any(row["launches"].values())
+                          and row["other_launches"] == 0,
+                          f"{where}: the portable program launched "
+                          f"{row['launches']}")
+                    check(row["max_abs_err_engine"]
+                          <= TOL_PORTABLE[meta["dtype"]],
+                          f"{where}: vs the plain forward "
+                          f"{row['max_abs_err_engine']}")
+                else:
+                    want = {k: sum(v.values())
+                            for k, v in row["want_bodies"].items()}
+                    check(row["launches"] == want
+                          and want == {"K1": len(arch.stages) + 1,
+                                       "K2": n_k2,
+                                       "K7": 3 * len(arch.stages)
+                                       + 2 * n_k2 + 1},
+                          f"{where}: launches {row['launches']}, want {want}")
+                    check(row["bodies"] == row["want_bodies"],
+                          f"{where}: bodies {row['bodies']}, want "
+                          f"{row['want_bodies']}")
+                    check(row["equal_engine"], f"{where}: differs from the "
+                          f"engine by {row['max_abs_err_engine']}")
+                    if row["videos"] == 1:
+                        out["launches"][meta["dtype"]] = row["launches"]
+            if meta["portable"]:
+                check(got["aten_only"] and not got["graph_ops"],
+                      f"exported {name}: the portable graph holds "
+                      f"{got['graph_ops']}")
+            else:
+                check(got["graph_ops"] == {
+                    "x3d.depthwise_conv3d.default": len(arch.stages) + 1,
+                    "x3d.dw_bn_act_conv.default": n_k2,
+                    "x3d.pw_conv.default": 3 * len(arch.stages) + 2 * n_k2
+                    + 1}, f"exported {name}: graph ops {got['graph_ops']}")
+            emit(phase="export: X3D-M served from the program", export=name,
+                 **got)
+
+        # ---------- traced on the CPU, moved onto the card, through kernels
+        program = export.load(tiny_dir)
+        clips = np.random.RandomState(SEED).randint(
+            0, 255, (4, 4, 32, 32, 3), dtype=np.uint8)
+        zero_counts()
+        got = program(torch.from_numpy(clips).cuda())
+        moved_launches = read_counts()
+        engine = InferenceEngine(tiny, tiny_state, max_videos=2,
+                                 dtype=torch.float32)
+        want = engine.predict(clips)
+        moved = {"device": str(got.device),
+                 "launches": {k: moved_launches[k]
+                              for k in ("K1", "K2", "K7")},
+                 "equal_engine": bool(np.array_equal(got.cpu().numpy(),
+                                                     want))}
+        check(got.is_cuda and moved["equal_engine"]
+              and all(moved["launches"].values()),
+              f"a program traced on the CPU, moved onto the card: {moved}")
+        emit(phase="export: traced on the CPU, served on the card", **moved)
+    out["op_host_us"] = _op_host_us(emit, check)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(phase="export: phase 13's wall seconds", seconds=out["phase_wall_s"])
+    return out
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -2152,8 +2546,13 @@ def main() -> int:
     print(card)
     failures = []
 
+    t_start = time.perf_counter()
+
     def emit(**kw):
-        print(json.dumps({"card": card, **kw}), flush=True)
+        # t_s: seconds since the card was found, to place each phase in the
+        # script's time limit
+        print(json.dumps({"card": card, "t_s": time.perf_counter() - t_start,
+                          **kw}), flush=True)
 
     def check(ok: bool, what: str) -> None:
         if not ok:
@@ -2372,6 +2771,17 @@ def main() -> int:
         print(json.dumps({"card": card, "import": {
             k: imported[k] for k in ("request_launches", "import_wall_s",
                                      "bundle_total_bytes")}}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--export-only" in sys.argv[1:]:
+        # the export phase alone, after the build
+        exported = export_phase(emit, check)
+        print(json.dumps({"card": card, "export": exported}))
         if failures:
             fail(f"{len(failures)} check(s) failed: {failures}")
         print(json.dumps({"ok": True, "device": {
@@ -4000,7 +4410,10 @@ def main() -> int:
     # ------------- 12. data parallelism, grouped BN and the split head
     grouped = parallel_phase(emit, check)
 
-    # ----------------------------------------------- 13. the kernel line
+    # ---------------------------------- 13. the serving forward exported
+    exported = export_phase(emit, check)
+
+    # ----------------------------------------------- 14. the kernel line
     def worst(*row_lists):
         return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
 
@@ -4119,6 +4532,11 @@ def main() -> int:
                                 multigrid["bodies"].items()}}
         # the 1-video request on the imported X3D-M weights
         entry["launches_imported_x3d_m"] = imported["request_launches"][key]
+        # phase 13's exported X3D-M programs (default, not portable): a
+        # 1-video forward's launches by dtype
+        if key in ("K1", "K2", "K7"):
+            entry["launches_exported_x3d_m"] = {
+                dt: n[key] for dt, n in exported["launches"].items()}
         # phase 12's bfloat16 X3D-M steps by bn_groups (1 = synced):
         # launches and bodies over PAR_TIMED_STEPS steps
         entry["grouped_bn_x3d_m"] = {

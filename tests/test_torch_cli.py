@@ -27,6 +27,7 @@ import torch
 
 from x3d_tpu_torch.tools import bench_serving, common, fma_probe
 from x3d_tpu_torch.tools import eval as eval_cli
+from x3d_tpu_torch.tools import export as export_cli
 from x3d_tpu_torch.tools import predict as predict_cli
 from x3d_tpu_torch.tools import train as train_cli
 
@@ -228,6 +229,61 @@ def test_from_checkpoint_serves_the_trained_weights(tmp_path):
     want = InferenceEngine(cfg, keep.state.model, max_videos=1,
                            device="cpu").predict(clips)
     assert np.array_equal(engine.predict(clips), want)
+
+
+def _x3d_ops(export_dir):
+    """The x3d:: ops in an export's serve_videos graph, by name."""
+    from x3d_tpu_torch import export
+
+    graph = export.load(export_dir, device="cpu").module.graph
+    return sorted({str(n.target) for n in graph.nodes
+                   if str(n.target).startswith("x3d.")})
+
+
+def test_export_serves_the_checkpoint(trained, tmp_path, capsys):
+    """tools.export on the train tool's checkpoint: serve_videos gives the
+    probabilities of the engine built on the same folder, bit for bit."""
+    from x3d_tpu_torch import export
+    from x3d_tpu_torch.serving import InferenceEngine
+
+    model_dir, _ = trained
+    out = str(tmp_path / "export")
+    assert export_cli.main([f"--cfg={CONFIG}", f"--model_folder={model_dir}",
+                            f"--export_dir={out}", *OPTS]) == 0
+    assert capsys.readouterr().out.strip() == out
+    cfg = common.load_config(CONFIG, OPTS[1:-2])
+    engine = InferenceEngine.from_checkpoint(cfg, model_dir, max_videos=2,
+                                             device="cpu")
+    clips = np.random.default_rng(3).integers(
+        0, 256, engine.clip_shape, dtype=np.uint8)
+    program = export.load(out, device="cpu")
+    assert program.meta["dtype"] == "float32"
+    assert np.array_equal(program(torch.from_numpy(clips)).numpy(),
+                          engine.predict(clips))
+    assert _x3d_ops(out) == ["x3d.depthwise_conv3d.default",
+                             "x3d.dw_bn_act_conv.default",
+                             "x3d.pw_conv.default"]
+
+
+@pytest.mark.parametrize("portable", [False, True],
+                         ids=["default", "portable"])
+def test_export_without_a_checkpoint(tmp_path, capsys, portable):
+    """Exit 2 without a checkpoint unless --allow_random_init; --portable
+    writes a graph of ATen ops only; the JAX tool's --tflite is refused."""
+    out = str(tmp_path / "export")
+    argv = [f"--cfg={CONFIG}", f"--model_folder={tmp_path}",
+            f"--export_dir={out}", *OPTS] + (["--portable"] if portable
+                                             else [])
+    with pytest.raises(SystemExit) as e:
+        export_cli.main(argv)
+    assert e.value.code == 2
+    assert "No checkpoint found" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        export_cli.main(argv + ["--allow_random_init", f"--tflite={out}.tfl"])
+    assert e.value.code == 2
+    assert export_cli.main(argv + ["--allow_random_init"]) == 0
+    assert capsys.readouterr().out.strip() == out
+    assert bool(_x3d_ops(out)) != portable
 
 
 # Unported flags raise NotImplementedError naming their ROADMAP item; the

@@ -223,8 +223,8 @@ def test_ring_partials_rebuild_the_sums():
     c = [torch.from_numpy(v) for v in cots]
     want = dw_fused.bwd_reference(*t, y, *c)
     scales = dw_fused.bwd_abs_sums(*t, y, *c)
-    u = dw_fused._relu_affine(t[0], t[1], t[2], B, C).numpy()
-    g = dw_fused._g_eff(c[0], c[1], c[2], y, B, C).numpy()
+    u = dw_fused._relu_affine(t[0], t[1], t[2]).numpy()
+    g = dw_fused._g_eff(c[0], c[1], c[2], y).numpy()
     du = dw_fused.depthwise_conv3d_reference(
         torch.from_numpy(g), t[3].flip(0, 1, 2), (1, 1, 1),
         dw_fused._same(T, H, W, kt, 3, 3)).numpy()

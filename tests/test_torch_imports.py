@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``x3d_tpu_torch`` nor
 ``chip_smoke.py`` imports jax, flax, orbax, absl or the JAX package, and the
 port imports, serves and trains a tiny model with those imports blocked;
-every module imports and the train / eval / predict tools run with
-tensorboard blocked as well (its hook then does nothing).  Every C function
+every module imports and the train / eval / predict / export tools run
+with tensorboard and tensorflow blocked as well (the TensorBoard hook then
+does nothing).  Every C function
 a wrapper binds with ``ctypes`` is defined ``extern "C"`` in the CUDA
 source it loads (a missing one shows only when the library loads on a
 card)."""
@@ -155,6 +156,9 @@ _BLOCKED_TOOLS = _BLOCK.replace(
     'BLOCKED = ("jax", "jaxlib", "flax", "x3d_tpu")',
     'BLOCKED = ("jax", "jaxlib", "flax", "x3d_tpu", "orbax", "absl", '
     '"tensorboard")') + r"""
+# tensorflow absent, as on the card machine: importing it fails and
+# importlib.util.find_spec, which torch's compiler asks, answers None
+sys.modules["tensorflow"] = None
 import importlib
 import os
 import pkgutil
@@ -171,10 +175,11 @@ for wanted in ("ops.timing", "ops.pointwise", "train.checkpoint",
                "train.hooks", "train.loop", "train.debug", "tools.common",
                "tools.train", "tools.eval", "tools.predict",
                "tools.bench_serving", "tools.fma_probe", "train.multigrid",
-               "tools.bench_multigrid", "parallel.mesh", "tools.dryrun"):
+               "tools.bench_multigrid", "parallel.mesh", "tools.dryrun",
+               "tools.export", "export", "ops.library"):
     assert "x3d_tpu_torch." + wanted in names, wanted
 
-from x3d_tpu_torch.tools import eval as eval_cli, predict, train
+from x3d_tpu_torch.tools import eval as eval_cli, export, predict, train
 config = os.path.join(sys.argv[1], "x3d_tpu_torch", "configs", "kinetics",
                       "X3D_S.yaml")
 opts = ["--device", "cpu", "--opts", "NETWORK.C1_CHANNELS", "4",
@@ -195,6 +200,13 @@ with tempfile.TemporaryDirectory() as d:
     assert predict.main(["--cfg=" + config, "--model_folder=" + d,
                          "--synthetic", "--max_batches=1",
                          "--batch_videos=1", *opts]) == 0
+    out = os.path.join(d, "export")
+    assert export.main(["--cfg=" + config, "--model_folder=" + d,
+                        "--export_dir=" + out, *opts]) == 0
+    assert sorted(os.listdir(out)) == ["export.json", "serve_clips.pt2",
+                                       "serve_videos.pt2"]
+assert sys.modules["tensorflow"] is None and not any(
+    n.startswith("tensorflow.") for n in sys.modules)
 assert not any(n.split(".")[0] in BLOCKED for n in sys.modules)
 print("OK")
 """

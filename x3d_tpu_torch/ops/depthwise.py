@@ -719,7 +719,8 @@ depthwise_conv3d_pbwd.body_launches = {"temporal": 0, "generic": 0}
 class _Depthwise(torch.autograd.Function):
     """K1 forward; backward K8 (both gradients wanted, stride 1, SAME, odd
     taps) or K4; within ``ops.plain_versions()`` all run their plain
-    versions."""
+    versions.  While the model is exported the forward is the op
+    ``x3d::depthwise_conv3d`` (``ops/library.py``)."""
 
     @staticmethod
     def forward(ctx, x, kernel, strides, pads):
@@ -728,6 +729,10 @@ class _Depthwise(torch.autograd.Function):
         ctx.conf = (strides, pads, kernel.dtype)
         if ops.plain_versions_enabled():
             return depthwise_conv3d_reference(x, k, strides, pads)
+        if torch.compiler.is_exporting():
+            from x3d_tpu_torch.ops import library
+            return library.depthwise_conv3d(x, k, strides,
+                                            [v for p in pads for v in p])
         return depthwise_conv3d(x, k, strides, pads)
 
     @staticmethod

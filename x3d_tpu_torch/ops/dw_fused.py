@@ -89,12 +89,15 @@ def _check(x, a_cb, b_cb, kernel):
 def reference(x, a_cb, b_cb, kernel):
     """Plain version with the kernel's semantics."""
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
-    u = _relu_affine(x, a_cb, b_cb, B, C)
+    u = _relu_affine(x, a_cb, b_cb)
     y = depthwise_conv3d_reference(u, kernel.to(u.dtype), (1, 1, 1),
                                    _same(T, H, W, kt, kh, kw))
     y32 = y.to(torch.float32)
-    p = y32.sum(dim=(1, 2, 3)).t().contiguous()
-    s2 = (y32 * y32).sum(dim=(1, 2, 3)).t().contiguous()
+    # (C, B) laid out as the kernel's; clone, where contiguous() would
+    # guard an exported batch against 1
+    p = y32.sum(dim=(1, 2, 3)).t().clone(memory_format=torch.contiguous_format)
+    s2 = (y32 * y32).sum(dim=(1, 2, 3)).t().clone(
+        memory_format=torch.contiguous_format)
     return y, p, s2
 
 
@@ -168,14 +171,15 @@ dw_bn_act_conv.body_launches = {"ring": 0, "generic": 0}
 # ---------------------------------------------------------- K3: backward
 
 
-def _columns(cb, B, C):
-    """(C, B) float32 columns -> (B, 1, 1, 1, C), broadcastable over x."""
-    return cb.t().reshape(B, 1, 1, 1, C).to(torch.float32)
+def _columns(cb):
+    """(C, B) float32 columns -> (B, 1, 1, 1, C), broadcastable over x (a
+    view: no reshape, which would guard an exported batch against 1)."""
+    return cb.t().to(torch.float32)[:, None, None, None, :]
 
 
-def _relu_affine(x, a_cb, b_cb, B, C):
+def _relu_affine(x, a_cb, b_cb):
     """u = relu(a*x + b) in float32, rounded to x's dtype."""
-    u = x.to(torch.float32) * _columns(a_cb, B, C) + _columns(b_cb, B, C)
+    u = x.to(torch.float32) * _columns(a_cb) + _columns(b_cb)
     return torch.relu(u).to(x.dtype)
 
 
@@ -183,11 +187,11 @@ def _same(T, H, W, kt, kh, kw):
     return tuple(same_pads(n, k, 1) for n, k in zip((T, H, W), (kt, kh, kw)))
 
 
-def _g_eff(gy, gp, gs2, y, B, C):
+def _g_eff(gy, gp, gs2, y):
     """g = (gy + gp) + 2 gs2 * y in float32, rounded to y's dtype: the
     cotangent of y once the sums' cotangents are folded in."""
-    g = gy.to(torch.float32) + _columns(gp, B, C)
-    return (g + _columns(2.0 * gs2, B, C) * y.to(torch.float32)).to(y.dtype)
+    g = gy.to(torch.float32) + _columns(gp)
+    return (g + _columns(2.0 * gs2) * y.to(torch.float32)).to(y.dtype)
 
 
 def bwd_reference(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
@@ -198,9 +202,9 @@ def bwd_reference(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     relu(a*x + b) and dz = conv(g, flip(k)) where u > 0.
     """
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
-    a = _columns(a_cb, B, C)
-    u = _relu_affine(x, a_cb, b_cb, B, C)
-    g = _g_eff(gy, gp, gs2, y, B, C)
+    a = _columns(a_cb)
+    u = _relu_affine(x, a_cb, b_cb)
+    g = _g_eff(gy, gp, gs2, y)
     pads = _same(T, H, W, kt, kh, kw)
     flipped = kernel.to(x.dtype).to(torch.float32).flip(0, 1, 2)
     du = depthwise_conv3d_reference(g.to(torch.float32), flipped, (1, 1, 1),
@@ -219,8 +223,8 @@ def bwd_abs_sums(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     values -- |u| |g| per tap, and |du| = conv(|g|, |k|) with |du| |u| --
     the scale against which the rounding of those sums is judged."""
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
-    u = _relu_affine(x, a_cb, b_cb, B, C).to(torch.float32)
-    g = _g_eff(gy, gp, gs2, y, B, C).to(torch.float32).abs()
+    u = _relu_affine(x, a_cb, b_cb).to(torch.float32)
+    g = _g_eff(gy, gp, gs2, y).to(torch.float32).abs()
     pads = _same(T, H, W, kt, kh, kw)
     du = depthwise_conv3d_reference(
         g, kernel.to(torch.float32).abs().flip(0, 1, 2), (1, 1, 1), pads)
@@ -423,14 +427,21 @@ dw_bn_act_conv_bwd.body_launches = {"ring": 0, "generic": 0}
 
 class _Segment(torch.autograd.Function):
     """K2 forward, K3 backward; within ``ops.plain_versions()`` both run
-    their plain versions.  Unused outputs' cotangents arrive as None (in
-    training s2 feeds BN only and the SE pool reads p alone) and count as
-    zeros."""
+    their plain versions.  While the model is exported the forward is the
+    op ``x3d::dw_bn_act_conv`` (``ops/library.py``).  Unused outputs'
+    cotangents arrive as None (in training s2 feeds BN only and the SE
+    pool reads p alone) and count as zeros."""
 
     @staticmethod
     def forward(ctx, x, a_cb, b_cb, kernel):
         ctx.set_materialize_grads(False)
-        fwd = reference if ops.plain_versions_enabled() else dw_bn_act_conv
+        if ops.plain_versions_enabled():
+            fwd = reference
+        elif torch.compiler.is_exporting():
+            from x3d_tpu_torch.ops import library
+            fwd = library.dw_bn_act_conv
+        else:
+            fwd = dw_bn_act_conv
         y, p, s2 = fwd(x, a_cb, b_cb, kernel)
         ctx.save_for_backward(x, a_cb, b_cb, kernel, y)
         return y, p, s2
@@ -456,5 +467,8 @@ def segment(x, a_cb, b_cb, kernel):
     """The differentiable fused segment: (y, p, s2) as
     :func:`dw_bn_act_conv`, with gradients for x, both coefficient columns
     and the taps (float32 parameters)."""
-    return _Segment.apply(x.contiguous(), a_cb.contiguous(),
-                          b_cb.contiguous(), kernel)
+    if not torch.compiler.is_exporting():
+        # once here, not in K2's and again in K3's wrapper; an exported
+        # batch leaves it to the op (contiguous() would guard it against 1)
+        a_cb, b_cb = a_cb.contiguous(), b_cb.contiguous()
+    return _Segment.apply(x.contiguous(), a_cb, b_cb, kernel)

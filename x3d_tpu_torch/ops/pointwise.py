@@ -371,14 +371,18 @@ def plan(x_shape: Sequence[int], N: int, strides: Sequence[int] = (1, 1, 1),
 
 
 class _Pointwise(torch.autograd.Function):
-    """K7 forward; backward: dx = K7 on the cotangent and the transposed
-    weight (scattered back onto the strided positions), dW = g^T x in
-    float32."""
+    """K7 forward (while the model is exported, the op ``x3d::pw_conv``,
+    ``ops/library.py``); backward: dx = K7 on the cotangent and the
+    transposed weight (scattered back onto the strided positions), dW =
+    g^T x in float32."""
 
     @staticmethod
     def forward(ctx, x, weight, strides):
         ctx.save_for_backward(x, weight)
         ctx.strides = strides
+        if torch.compiler.is_exporting():
+            from x3d_tpu_torch.ops import library
+            return library.pw_conv(x, weight, strides)
         return pw_conv(x, weight, strides)
 
     @staticmethod

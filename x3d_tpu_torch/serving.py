@@ -17,7 +17,7 @@ Typical use::
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +29,36 @@ from x3d_tpu_torch.utils import normalize, resolve_device, use_full_float32
 
 def _default_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def serve_forward(model: nn.Module, clips_u8: torch.Tensor,
+                  mean: Sequence[float], std: Sequence[float],
+                  return_logits: bool = False) -> torch.Tensor:
+    """The eval forward on raw uint8 clips: normalise, cast to the model's
+    compute dtype, run the model -- per-video probabilities averaged over
+    the views, or with ``return_logits`` the per-clip logits.  The engine
+    and the exported programs (``x3d_tpu_torch.export``) both run this."""
+    x = normalize(clips_u8, mean, std)
+    return model(x.to(model.dtype), return_logits=return_logits)
+
+
+def restore_model(cfg, model_dir: str, dtype: torch.dtype,
+                  device: torch.device) -> nn.Module:
+    """An eval-mode model with the latest checkpoint written by the train
+    CLI under ``model_dir/checkpoints`` (weights only; optimizer slots
+    ignored).  Raises ``FileNotFoundError`` when there is none."""
+    import os
+
+    from x3d_tpu_torch.train import create_train_state
+    from x3d_tpu_torch.train.checkpoint import CheckpointManager
+
+    model = create_model(cfg, dtype=dtype, device=device, init=False)
+    state = create_train_state(cfg, model, steps_per_epoch=1)
+    mgr = CheckpointManager(os.path.join(model_dir, "checkpoints"),
+                            max_to_keep=0)
+    mgr.restore_weights_only(state)
+    mgr.close()
+    return model
 
 
 class InferenceEngine:
@@ -63,7 +93,6 @@ class InferenceEngine:
                                  init=False)
             model.load_state_dict(module_or_state_dict)
         self.model = model
-        self._dtype = dtype
         self._views = cfg.TEST.NUM_TEMPORAL_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
         self._max_videos = max_videos
         self._mean, self._std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
@@ -93,19 +122,9 @@ class InferenceEngine:
         """Engine on the latest checkpoint written by the train CLI under
         ``model_dir/checkpoints`` (weights only; optimizer slots ignored).
         Raises ``FileNotFoundError`` when there is none."""
-        import os
-
-        from x3d_tpu_torch.train import create_train_state
-        from x3d_tpu_torch.train.checkpoint import CheckpointManager
-
         device = resolve_device(device)
         dtype = dtype or _default_dtype(device)
-        model = create_model(cfg, dtype=dtype, device=device, init=False)
-        state = create_train_state(cfg, model, steps_per_epoch=1)
-        mgr = CheckpointManager(os.path.join(model_dir, "checkpoints"),
-                                max_to_keep=0)
-        mgr.restore_weights_only(state)
-        mgr.close()
+        model = restore_model(cfg, model_dir, dtype, device)
         return cls(cfg, model, max_videos=max_videos, dtype=dtype,
                    device=device)
 
@@ -115,8 +134,7 @@ class InferenceEngine:
 
     def _forward(self, clips_u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            x = normalize(clips_u8, self._mean, self._std)
-            return self.model(x.to(self._dtype))
+            return serve_forward(self.model, clips_u8, self._mean, self._std)
 
     def predict(self, clips_u8) -> np.ndarray:
         """(videos*views, T, S, S, 3) uint8 (numpy, or a tensor on any
