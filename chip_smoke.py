@@ -167,7 +167,21 @@ its own, which fails on a spill where the body must not spill) and then:
   beside the engine's, the export's and the load's wall seconds, the
   files' bytes; a tiny program traced on the CPU moved onto the card; the
   host's microseconds a call of each op against a direct call.
-  ``--export-only`` runs the build and this phase alone.
+  ``--export-only`` runs the build and this phase alone;
+* reads raw videos (phase 14): 16 coded videos written as Motion-JPEG AVIs
+  on the card (nvJPEG; 4 classes in a class-per-folder tree, 30 fps, 12 s
+  and 10 s in turn, one with an OpenDML continuation, one without Huffman
+  tables), ``tools/create_label`` (the tree; a flat directory through an
+  annotations JSON and the Kinetics-400 map), ``tools/create_tfrecords``
+  (the first 10 s of each) and ``tools/inspect_tfrecords`` as processes;
+  X3D-M trained at 32 clips and evaluated at 10 views from the text list
+  (nvJPEG and the clip kernel, launches counted), the clips against the
+  plain clip prep bit for bit and the sampled frames' codes against the
+  sampler's indices, the list's eval against the shards' in labels and
+  order (and the probabilities' gap); ``tools/train --nouse_tfrecord`` and
+  ``tools/eval --notfrecord``; the loader on the list against the shards
+  and a thread's record by stage; no video given as zeros.
+  ``--videos-only`` runs the build and this phase alone.
 
 Every result line is a JSON object carrying the card's name and power
 limit (a phase's rows also ``t_s``, the seconds since the script found
@@ -329,6 +343,41 @@ def write_input_shards(emit, check, d) -> str:
     return os.path.join(d, "train-*")
 
 
+def read_back(plan, cfg, training: bool, frames_of) -> bool:
+    """Codes of every clip frame's decoded frame (``data.synthetic
+    .read_code``) against its record's sampled index and label, and each
+    record's indices against the sampler's formula over ``frames_of(
+    record)`` frames."""
+    import numpy as np
+
+    from x3d_tpu_torch.data.synthetic import read_code
+
+    T = cfg.DATA.TEMP_DURATION
+    views = 1 if training else cfg.TEST.NUM_TEMPORAL_VIEWS
+    ok = True
+    clip = 0
+    for r in plan.records:
+        crops = len(r.maps)
+        size = frames_of(r)
+        if training:
+            k = np.arange(T)
+            ok &= bool(np.array_equal(
+                r.indices, (r.indices[0] + k * cfg.DATA.FRAME_RATE) % size))
+        else:
+            rate = max(1, size // T)
+            ok &= bool(np.array_equal(
+                r.indices, (np.arange(views * T) * rate) % size))
+        for c in range(crops):
+            for m in range(views * T):
+                off = int(plan.table[clip]["src"])
+                img = plan.arena[off:off + r.height * r.width * 3] \
+                    .view(r.height, r.width, 3)
+                idx, lab = read_code(img).tolist()
+                ok &= idx == int(r.indices[m]) and lab == r.label
+                clip += 1
+    return ok
+
+
 def input_phase(emit, check, shard_dir=None):
     """Phase 11b: real input data.  Writes TFRecord shards of coded 300-frame
     videos on the card (nvJPEG, GZIP 9), checks nvJPEG's round trip, holds
@@ -413,37 +462,6 @@ def input_phase(emit, check, shard_dir=None):
             it.close()
             return out, reader.last, cfg
 
-        def read_back(plan, cfg, training):
-            """Codes of every clip frame's decoded frame against its
-            record's sampled index and label, and the sampler's formula."""
-            T = cfg.DATA.TEMP_DURATION
-            views = 1 if training else cfg.TEST.NUM_TEMPORAL_VIEWS
-            ok = True
-            clip = 0
-            for r in plan.records:
-                crops = len(r.maps)
-                size = INPUT_FRAMES
-                if training:
-                    k = np.arange(T)
-                    ok &= bool(np.array_equal(
-                        r.indices, (r.indices[0] + k * cfg.DATA.FRAME_RATE)
-                        % size))
-                else:
-                    rate = max(1, size // T)
-                    ok &= bool(np.array_equal(
-                        r.indices, (np.arange(views * T) * rate) % size))
-                for c in range(crops):
-                    for m in range(views * T):
-                        row = plan.table[clip]
-                        off = int(row["src"])
-                        img = plan.arena[off:off + r.height * r.width * 3] \
-                            .view(r.height, r.width, 3)
-                        idx, lab = read_code(img).tolist()
-                        ok &= idx == int(r.indices[m]) and lab == r.label
-                        clip += 1
-            ok &= {r.label for r in plan.records} <= set(labels)
-            return ok
-
         cases = []
         worst_err = 0.0
         for name, v, training, batch, crops in (
@@ -466,7 +484,9 @@ def input_phase(emit, check, shard_dir=None):
             err = float((out["video"].float() - ref.float()).abs().max())
             worst_err = max(worst_err, err)
             flips = sorted({int(f) for f in plan.table["flip"]})
-            codes = read_back(plan, cfg, training)
+            codes = read_back(plan, cfg, training,
+                              lambda r: INPUT_FRAMES) \
+                and {r.label for r in plan.records} <= set(labels)
             plain_ms = statistics.median(
                 _wall_ms(lambda: clip_prep.clip_prep_reference(
                     *args, torch.bfloat16, *norm)) for _ in range(3))
@@ -694,9 +714,7 @@ def input_phase(emit, check, shard_dir=None):
         m = cases[0]
         return {"name": "clip_prep", "route": "cuda",
                 "source": "x3d_tpu_torch/kernels/csrc/clip_prep.cu",
-                "replaces": "no TPU kernel: x3d_tpu/data/pipeline.py:142 "
-                            "(tf.data resize and crop, on the host) and "
-                            "x3d_tpu/data/device.py:17 (XLA normalise)",
+                "replaces": CLIP_REPLACES,
                 "launches": launches["clip_prep"],
                 "path": f"X3D-M training from shards, {TRAIN_STEPS} steps",
                 "max_abs_err": worst_err, "ms": m["ms"],
@@ -2486,6 +2504,417 @@ def export_phase(emit, check) -> dict:
     return out
 
 
+# Phase 14: raw videos and the dataset tools.  MJPEG AVIs (the format the
+# card machine can decode: it has no video library) in a class-per-folder
+# tree of 4 classes at INPUT_SIZES, 30 fps, every other video 12 s (the
+# writer's 10-s trim) and the rest 10 s; one of them split into an OpenDML
+# RIFF 'AVIX' continuation.
+RAW_VIDEOS = 16
+RAW_CLASSES = 4
+RAW_FPS = 30
+RAW_FRAMES = (360, 300)       # 12 s and 10 s at RAW_FPS, alternating
+RAW_AVIX = 5                  # this video's second half in a RIFF 'AVIX'
+RAW_BARE = 6                  # this one's frames without Huffman tables
+RAW_STEPS = 2                 # X3D-M training steps from the text list
+RAW_RATE_BATCHES = 8          # loader batches timed, text list and shards
+M_CONFIG = "x3d_tpu_torch/configs/kinetics/X3D_M.yaml"
+CLIP_REPLACES = ("no TPU kernel: x3d_tpu/data/pipeline.py:142 (tf.data "
+                 "resize and crop, on the host) and x3d_tpu/data/device.py:17 "
+                 "(XLA normalise)")
+
+
+def _riff(fourcc: bytes, data: bytes) -> bytes:
+    """One RIFF chunk, padded to an even size."""
+    import struct
+
+    return fourcc + struct.pack("<I", len(data)) + data \
+        + (b"\0" if len(data) & 1 else b"")
+
+
+def write_mjpeg_avi(path: str, jpegs, width: int, height: int,
+                    rate: int = RAW_FPS, scale: int = 1,
+                    avix_at=None) -> None:
+    """Write JPEG frames as a Motion-JPEG AVI: ``RIFF 'AVI '`` with the
+    stream header (``dwRate / dwScale`` frames a second, ``dwLength`` the
+    frames given), ``LIST 'movi'`` of ``00dc`` chunks (an empty bytes
+    object is a zero-length chunk, a dropped frame) and ``idx1``; frames
+    from ``avix_at`` on go into an OpenDML ``RIFF 'AVIX'`` part."""
+    import struct
+
+    n = len(jpegs)
+    first = list(jpegs if avix_at is None else jpegs[:avix_at])
+    avih = struct.pack("<14I", int(1e6 * scale / rate), 0, 0, 0x10, n, 0, 1,
+                       0, width, height, 0, 0, 0, 0)
+    strh = b"vids" + b"MJPG" + struct.pack(
+        "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, scale, rate, 0, n, 0, 0xFFFFFFFF, 0,
+        0, 0, width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+                       width * height * 3, 0, 0, 0, 0)
+    hdrl = _riff(b"LIST", b"hdrl" + _riff(b"avih", avih) + _riff(
+        b"LIST", b"strl" + _riff(b"strh", strh) + _riff(b"strf", strf)))
+    movi = _riff(b"LIST", b"movi" + b"".join(_riff(b"00dc", j)
+                                             for j in first))
+    index, off = [], 4
+    for j in first:
+        index.append(b"00dc" + struct.pack("<III", 0x10, off, len(j)))
+        off += 8 + len(j) + (len(j) & 1)
+    with open(path, "wb") as f:
+        f.write(_riff(b"RIFF", b"AVI " + hdrl + movi
+                      + _riff(b"idx1", b"".join(index))))
+        if avix_at is not None:
+            f.write(_riff(b"RIFF", b"AVIX" + _riff(
+                b"LIST", b"movi" + b"".join(_riff(b"00dc", j)
+                                            for j in jpegs[avix_at:]))))
+
+
+def _strip_huffman(blob: bytes) -> bytes:
+    """A JPEG without its DHT segments, as camera MJPEG (``AVI1``) stores
+    frames coded with the standard tables."""
+    out, pos = bytearray(blob[:2]), 2
+    while blob[pos + 1] != 0xDA:
+        n = blob[pos + 2] << 8 | blob[pos + 3]
+        if blob[pos + 1] != 0xC4:
+            out += blob[pos:pos + 2 + n]
+        pos += 2 + n
+    return bytes(out + blob[pos:])
+
+
+def raw_video_phase(emit, check) -> dict:
+    """Phase 14: raw videos and the dataset tools.  Writes RAW_VIDEOS
+    coded videos (``data.synthetic.coded_video``) as MJPEG AVIs on the card
+    (nvJPEG; one with an OpenDML continuation, one Pillow-coded without
+    Huffman tables) in a class-per-folder tree, runs ``tools/
+    create_label`` (the tree, and a flat directory through an annotations
+    JSON and the Kinetics-400 map), ``create_tfrecords`` and
+    ``inspect_tfrecords`` as processes, trains X3D-M RAW_STEPS steps at 32
+    clips from the text list (the clip kernel's and nvJPEG's launches
+    counted over that run) and evaluates 10 views at 4 videos a batch from
+    the list and from the shards; holds the text path's clips to the plain
+    clip prep on nvJPEG's frames bit for bit and the sampled frames' codes
+    to the sampler's indices; runs ``tools/train --nouse_tfrecord`` and
+    ``tools/eval --notfrecord``; and times the loader on the list against
+    the shards and a thread's record by stage.  Returns the clip kernel's
+    raw-video row for the ``kernels`` line."""
+    import os
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from x3d_tpu_torch import variant_config
+    from x3d_tpu_torch.data import InputReader, avi, tfrecords
+    from x3d_tpu_torch.data.synthetic import coded_video, read_code
+    from x3d_tpu_torch.models import create_model
+    from x3d_tpu_torch.ops import clip_prep, jpeg
+    from x3d_tpu_torch.tools import bench_loader
+    from x3d_tpu_torch.tools import eval as eval_cli
+    from x3d_tpu_torch.ops.timing import time_fn
+    from x3d_tpu_torch.tools import train as train_cli
+    from x3d_tpu_torch.tools.trace import LostTrace, family, trace
+    from x3d_tpu_torch.train import create_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg_m = variant_config("M")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as d:
+        # ------------------------------------- the corpus, on the card
+        corpus = os.path.join(d, "corpus")
+        videos = [(os.path.join(corpus, f"class_{i % RAW_CLASSES}",
+                                f"video_{i:02d}.avi"), i % RAW_CLASSES,
+                   RAW_FRAMES[i % 2], INPUT_SIZES[i % 3])
+                  for i in range(RAW_VIDEOS)]
+        frames_of = {p: n for p, _, n, _ in videos}
+
+        def write(i):
+            path, label, n, (h, w) = videos[i]
+            frames = coded_video(n, h, w, label, seed=i, device=dev)
+            if i == RAW_BARE:
+                jpegs = [_strip_huffman(j) for j in
+                         jpeg.encode(frames.cpu().numpy(), 90, device="cpu")]
+            else:
+                jpegs = jpeg.encode(frames, 90, device=dev)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_mjpeg_avi(path, jpegs, w, h, rate=RAW_FPS,
+                            avix_at=n // 2 if i == RAW_AVIX else None)
+            return sum(len(j) for j in jpegs)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            nbytes = sum(pool.map(write, range(RAW_VIDEOS)))
+        write_s = time.perf_counter() - t0
+        headers = []
+        for path, _, n, _ in videos:
+            a = avi.open_mjpeg(path)
+            headers.append(a is not None and (a.count, len(a), a.fps)
+                           == (n, n, float(RAW_FPS)))
+        emit(phase="raw videos: MJPEG AVIs written on the card",
+             videos=RAW_VIDEOS, classes=RAW_CLASSES, frames=list(RAW_FRAMES),
+             fps=RAW_FPS, sizes=[list(s) for s in INPUT_SIZES],
+             seconds=write_s, mb=nbytes / 2**20, avix_video=RAW_AVIX,
+             no_huffman_tables_video=RAW_BARE, headers_as_written=headers)
+        check(all(headers), f"raw videos: AVI headers read back {headers}")
+
+        # ------------------------------- the dataset tools, as processes
+        train_txt = os.path.join(d, "train.txt")
+        listed = sorted(videos, key=lambda v: (v[1], v[0]))
+        rc, _, err, label_s = _tool("create_label", f"--video_root={corpus}",
+                                    f"--output={train_txt}")
+        lines = [ln.rsplit(" ", 1) for ln in open(train_txt).read()
+                 .splitlines()] if rc == 0 else []
+        tree_ok = [(p, int(l)) for p, l in lines] \
+            == [(p, l) for p, l, *_ in listed]
+        k400 = tfrecords.kinetics400_label_map()
+        names = sorted(k400, key=k400.get)
+        flat = os.path.join(d, "test")
+        os.makedirs(flat)
+        ann, want_test = {}, []
+        for k, (path, *_) in enumerate(videos[:4]):
+            yid = f"yt{k:08d}"
+            os.symlink(path, os.path.join(flat, f"{yid}.avi"))
+            cls = names[(97 * k + 11) % len(names)]
+            ann[yid] = {"annotations": {"label": cls.replace("_", " ")}}
+            want_test.append((os.path.join(flat, f"{yid}.avi"), k400[cls]))
+        ann_path = os.path.join(d, "test.json")
+        with open(ann_path, "w") as f:
+            json.dump(ann, f)
+        test_txt = os.path.join(d, "test.txt")
+        rc2, _, err2, _ = _tool("create_label", f"--video_root={flat}",
+                                f"--output={test_txt}",
+                                f"--test_json_file={ann_path}")
+        test_ok = rc2 == 0 and [
+            (p, int(l)) for p, l in (ln.rsplit(" ", 1) for ln in
+                                     open(test_txt).read().splitlines())
+        ] == want_test
+        shards = os.path.join(d, "shards")
+        rc3, _, err3, tf_s = _tool(
+            "create_tfrecords", f"--label_file={train_txt}",
+            f"--output_dir={shards}", "--prefix=train",
+            "--videos_per_record=4", "--num_workers=4")
+        names_ok = rc3 == 0 and sorted(os.listdir(shards)) == [
+            f"train-{k:05d}.tfrecord" for k in range(RAW_VIDEOS // 4)]
+        recs = []
+        for name in sorted(os.listdir(shards)) if rc3 == 0 else []:
+            for rec in tfrecords.read_shard(os.path.join(shards, name),
+                                            jpeg.crc32c):
+                v = tfrecords.SequenceExampleView(rec)
+                recs.append((v.label, v.num_frames, v.stored_frames(),
+                             bytes(v.frame(0)),
+                             bytes(v.frame(v.stored_frames() - 1))))
+        kept = [min(n, int(10 * RAW_FPS)) for _, _, n, _ in listed]
+        frames_ok = [(l, n, m) for l, n, m, *_ in recs] \
+            == [(l, k, k) for (_, l, *_), k in zip(listed, kept)]
+        # the first and last kept frame of each record, by their codes
+        ends = []
+        for (l, n, _, first, last), (_, _, _, (h, w)) in zip(recs, listed):
+            arena, offs = jpeg.decode_batch([first, last], [(h, w)] * 2, dev)
+            got = torch.stack([arena[o:o + h * w * 3].view(h, w, 3)
+                               for o in offs])
+            ends.append(read_code(got).tolist() == [[0, l], [n - 1, l]])
+        gifs = os.path.join(d, "gifs")
+        rc4, _, err4, inspect_s = _tool(
+            "inspect_tfrecords", f"--cfg={M_CONFIG}",
+            f"--file_pattern={os.path.join(shards, 'train-*')}",
+            f"--output_dir={gifs}")
+        gif_rows = []
+        for name in sorted(os.listdir(gifs)) if rc4 == 0 else []:
+            img = Image.open(os.path.join(gifs, name))
+            gif_rows.append([name, img.n_frames, list(img.size)])
+        crop = cfg_m.DATA.TRAIN_CROP_SIZE
+        gifs_ok = len(gif_rows) == 4 and all(
+            r[0].startswith(f"sample{k}_label")
+            and r[1:] == [cfg_m.DATA.TEMP_DURATION, [crop, crop]]
+            for k, r in enumerate(gif_rows))
+        emit(phase="raw videos: create_label, create_tfrecords, "
+                   "inspect_tfrecords", rc=[rc, rc2, rc3, rc4],
+             tree_labels_ok=tree_ok, test_labels_ok=test_ok,
+             shards_named_ok=names_ok, frames_per_record=[r[1] for r in recs],
+             records_ok=frames_ok, first_last_codes_ok=all(ends),
+             gifs=gif_rows, create_tfrecords_wall_s=tf_s,
+             inspect_wall_s=inspect_s, create_label_wall_s=label_s,
+             stderr_tail=[e[-400:] for e, r in ((err, rc), (err2, rc2),
+                                                (err3, rc3), (err4, rc4))
+                          if r])
+        check(rc == rc2 == rc3 == rc4 == 0 and tree_ok and test_ok
+              and names_ok and frames_ok and all(ends) and gifs_ok,
+              f"raw videos: the dataset tools: rc {[rc, rc2, rc3, rc4]}, "
+              f"labels {tree_ok} {test_ok}, shards {names_ok} {frames_ok} "
+              f"{ends}, gifs {gif_rows}")
+
+        # -------------- X3D-M trained from the text list (counted launches)
+        model = create_model(cfg_m, seed=SEED, device=dev)
+        state = create_train_state(cfg_m, model)
+        step_fn = make_train_step(model, cfg_m.NETWORK.WEIGHT_DECAY)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        readers = [InputReader(cfg_m, True, seed=SEED, device=dev,
+                               use_tfrecord=False)]
+        readers[0].keep_last = True
+        it = readers[0](train_txt, cfg_m.TRAIN.BATCH_SIZE)
+        clip_prep.clip_prep.launches = 0
+        jpeg.decode_batch.launches = 0
+        losses = []
+        for s in range(RAW_STEPS):
+            batch = next(it)
+            if s == 0:
+                first, first_plan = batch["video"], readers[0].last
+            state, metrics = step_fn(state, batch, gen)
+            losses.append(float(metrics["loss"]))
+        it.close()
+        torch.cuda.synchronize()
+        launches = {"clip_prep": clip_prep.clip_prep.launches,
+                    "nvjpeg_decode": jpeg.decode_batch.launches}
+        emit(phase="raw videos: X3D-M trained from the text list",
+             clips=cfg_m.TRAIN.BATCH_SIZE, steps=RAW_STEPS, losses=losses,
+             launches=launches)
+        check(all(math.isfinite(x) for x in losses)
+              and launches == {"clip_prep": RAW_STEPS + 1,
+                               "nvjpeg_decode": RAW_STEPS + 1},
+              f"raw videos: X3D-M from the text list: {losses} {launches}")
+
+        # ---------- 10 views from the text list and from the shards
+        model.eval()
+        readers.append(InputReader(cfg_m, False, device=dev,
+                                   use_tfrecord=False))
+        readers[1].keep_last = True
+        runs = {}
+        for kind, reader, pattern in (
+                ("text", readers[1], train_txt),
+                ("shards", InputReader(cfg_m, False, device=dev),
+                 os.path.join(shards, "train-*"))):
+            labels, probs = [], []
+            for b in reader(pattern, cfg_m.TEST.BATCH_SIZE):
+                if kind == "text" and not labels:
+                    eval_first, eval_plan = b["video"], reader.last
+                with torch.no_grad():
+                    probs.append(model(b["video"]).float())
+                labels += b["label"].tolist()
+            runs[kind] = (labels, torch.cat(probs))
+        gap = (runs["text"][1] - runs["shards"][1]).abs().amax(dim=1)
+        long = torch.tensor([n > int(10 * RAW_FPS) for _, _, n, _ in listed],
+                            device=dev)
+        same_order = runs["text"][0] == runs["shards"][0] \
+            == [l for _, l, *_ in listed]
+        emit(phase="raw videos: X3D-M 10-view eval, text list vs shards",
+             videos=len(runs["text"][0]), same_labels_in_order=same_order,
+             max_prob_gap_10s=float(gap[~long].max()),
+             max_prob_gap_12s_trimmed=float(gap[long].max()),
+             note="10-s videos: the same frames, the shards' q90 re-encode "
+                  "apart; 12-s videos: the shards hold 10 s, so the views "
+                  "sample other frames")
+        check(same_order and bool(torch.isfinite(gap).all()),
+              f"raw videos: eval labels {runs['text'][0]} vs "
+              f"{runs['shards'][0]}")
+
+        # --- the text path's clips: the plain clip prep, bit for bit; codes
+        cases, worst = [], 0.0
+        for name, training, video, plan in (
+                ("X3D-M training, text list", True, first, first_plan),
+                ("X3D-M eval 10 views, text list", False, eval_first,
+                 eval_plan)):
+            T = cfg_m.DATA.TEMP_DURATION
+            S = video.shape[2]
+            shape = (len(plan.table) // T, T, S, S, 3)
+            args = (plan.arena, plan.table, shape)
+            norm = (cfg_m.DATA.MEAN, cfg_m.DATA.STD)
+            ref = clip_prep.clip_prep_reference(*args, torch.bfloat16, *norm)
+            same = torch.equal(video, ref)
+            same_u8 = torch.equal(clip_prep.clip_prep(*args, torch.uint8),
+                                  clip_prep.clip_prep_reference(
+                                      *args, torch.uint8))
+            err = float((video.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            codes = read_back(plan, cfg_m, training,
+                              lambda r: frames_of[r.key[0][0]])
+            flips = sorted({int(f) for f in plan.table["flip"]})
+            plain_ms = statistics.median(
+                _wall_ms(lambda: clip_prep.clip_prep_reference(
+                    *args, torch.bfloat16, *norm)) for _ in range(3))
+            def kernel():
+                return clip_prep.clip_prep(*args, torch.bfloat16, *norm)
+
+            try:
+                ms = trace(kernel, n=5, unit="call",
+                           group=lambda n: "clip" if "clip_prep_kernel" in n
+                           else family(n))["group_ms_per_call"].get("clip",
+                                                                     0.0)
+                timer = "profiler"
+            except LostTrace:
+                # late in a long process the profiler can lose every window
+                # (tools/trace.py); CUDA events then time the call, its
+                # synchronous upload of the map table included
+                ms, timer = time_fn(kernel) * 1e3, "events"
+            nbytes = clip_prep.bound_bytes(plan.table, shape, torch.bfloat16)
+            flops = 12 * int(np.prod(shape))
+            t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / F32_FLOP_PER_S
+            row = {"case": name, "clips": shape[0], "shape": list(shape),
+                   "decoded_frames": len(plan.offsets),
+                   "bit_for_bit_uint8": same_u8, "bit_for_bit_bf16": same,
+                   "max_abs_err": err, "flips": flips,
+                   "codes_read_back": codes, "ms": ms, "timer": timer,
+                   "plain_ms": plain_ms,
+                   "bound_ms": max(t_mem, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_mem >= t_ops else "operations",
+                   "bound_bytes": nbytes}
+            cases.append(row)
+            emit(phase="raw videos: clip kernel vs plain", **row)
+            check(same and same_u8, f"raw videos: clip kernel differs from "
+                                    f"its plain version: {name}")
+            check(codes, f"raw videos: sampled frames' codes wrong: {name}")
+            if training:
+                check(flips == [0, 1], f"raw videos: training flips {flips}")
+        del first, first_plan, eval_first, eval_plan, runs
+
+        # ------------------------------------- the tools' text-list paths
+        with tempfile.TemporaryDirectory() as run_dir:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc_train = train_cli.main(
+                    [f"--config={M_CONFIG}", f"--model_dir={run_dir}",
+                     "--nouse_tfrecord", f"--train_file_pattern={train_txt}",
+                     "--steps_per_epoch=2", "--epochs=1"])
+                rc_eval = eval_cli.main(
+                    [f"--cfg={M_CONFIG}", f"--model_folder={run_dir}",
+                     "--notfrecord", f"--test_file_pattern={test_txt}",
+                     "--max_batches=1"])
+            evals = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                     if ln.startswith("{")]
+        emit(phase="raw videos: tools/train --nouse_tfrecord, tools/eval "
+                   "--notfrecord", rc=[rc_train, rc_eval], eval=evals)
+        check(rc_train == rc_eval == 0 and len(evals) == 1
+              and evals[0]["count"] == 4.0,
+              f"raw videos: the tools on text lists: {rc_train} {rc_eval} "
+              f"{evals}")
+
+        # ------------- the loader alone: text list against shards, in turns
+        rates = {"text list": [], "shards": []}
+        for kind in ("text list", "shards", "shards", "text list"):
+            text = kind == "text list"
+            rates[kind].append(bench_loader.loader_rate(
+                cfg_m, train_txt if text else os.path.join(shards, "train-*"),
+                32, RAW_RATE_BATCHES, None, dev, use_tfrecord=not text))
+        split = bench_loader.video_thread_split(cfg_m, train_txt, dev)
+        emit(phase="raw videos: loader alone, text list vs shards",
+             host_cores=os.cpu_count(), batches=RAW_RATE_BATCHES,
+             rates=rates, thread_ms_per_record=split)
+        substituted = sum(r.substituted for r in readers)
+        check(substituted == 0, f"raw videos: {substituted} videos given "
+                                "as zeros")
+    wall = time.perf_counter() - t_phase
+    emit(phase="raw videos: phase 14's wall seconds", seconds=wall)
+    m = cases[0]
+    return {"launches": launches["clip_prep"],
+            "nvjpeg_decode_launches": launches["nvjpeg_decode"],
+            "path": f"X3D-M training from a text list of MJPEG AVIs, "
+                    f"{RAW_STEPS} steps",
+            "max_abs_err": worst, "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "cases": cases, "substituted": substituted,
+            "loader_clips_per_s": {k: [r["clips_per_s"] for r in v]
+                                   for k, v in rates.items()},
+            "phase_wall_s": wall}
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -2782,6 +3211,24 @@ def main() -> int:
         # the export phase alone, after the build
         exported = export_phase(emit, check)
         print(json.dumps({"card": card, "export": exported}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--videos-only" in sys.argv[1:]:
+        # the raw-video phase alone, after the build
+        raw = raw_video_phase(emit, check)
+        entry = {"name": "clip_prep", "route": "cuda",
+                 "source": "x3d_tpu_torch/kernels/csrc/clip_prep.cu",
+                 "replaces": CLIP_REPLACES, "library_ms": None,
+                 **{k: raw[k] for k in ("launches", "path", "max_abs_err",
+                                        "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "cases",
+                                        "nvjpeg_decode_launches")}}
+        print(json.dumps({"card": card, "kernels": [entry]}))
         if failures:
             fail(f"{len(failures)} check(s) failed: {failures}")
         print(json.dumps({"ok": True, "device": {
@@ -4413,7 +4860,10 @@ def main() -> int:
     # ---------------------------------- 13. the serving forward exported
     exported = export_phase(emit, check)
 
-    # ----------------------------------------------- 14. the kernel line
+    # ---------------------------- 14. raw videos and the dataset tools
+    raw = raw_video_phase(emit, check)
+
+    # ----------------------------------------------- 15. the kernel line
     def worst(*row_lists):
         return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
 
@@ -4548,6 +4998,16 @@ def main() -> int:
         kernels_line.append(entry)
     check(input_entry["launches"] > 0,
           "clip_prep never launched on its main path")
+    # phase 14: the clip kernel on the raw-video path (a text list of
+    # MJPEG AVIs, X3D-M training and eval)
+    input_entry["launches_raw_video"] = raw["launches"]
+    input_entry["raw_video"] = {k: raw[k] for k in (
+        "path", "cases", "nvjpeg_decode_launches", "max_abs_err",
+        "loader_clips_per_s")}
+    input_entry["max_abs_err"] = max(input_entry["max_abs_err"],
+                                     raw["max_abs_err"])
+    check(raw["launches"] > 0,
+          "clip_prep never launched on the raw-video path")
     kernels_line.append(input_entry)
     print(json.dumps({"card": card, "kernels": kernels_line}))
     if failures:

@@ -286,20 +286,15 @@ def test_export_without_a_checkpoint(tmp_path, capsys, portable):
     assert bool(_x3d_ops(out)) != portable
 
 
-# Unported flags raise NotImplementedError naming their ROADMAP item; the
-# multi-GPU flags (A10, ported) run one process a GPU under torchrun, and
+# The multi-GPU flags (A10) run one process a GPU under torchrun, and
 # without torchrun's environment they raise saying so.
-_A8 = (NotImplementedError, "ROADMAP A8")
 _TORCHRUN = (RuntimeError, "started by torchrun")
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--native_loader", "--train_file_pattern=/data/train.txt"], _A8),
     (["--synthetic", "--multihost"], _TORCHRUN),
     (["--synthetic", "--num_gpus=2"], _TORCHRUN),
-    (["--train_file_pattern=/data/train.txt"], _A8),
-    (["--synthetic", "--val_file_pattern=/data/val.txt"], _A8),
-], ids=["flags2-A8", "flags3-A10", "flags4-A10", "flags5-A8", "flags6-A8"])
+], ids=["flags3-A10", "flags4-A10"])
 def test_train_refuses_unported_flags(tmp_path, monkeypatch, flags, error):
     for name in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(name, raising=False)
@@ -310,31 +305,35 @@ def test_train_refuses_unported_flags(tmp_path, monkeypatch, flags, error):
 
 
 @pytest.mark.parametrize("cli,flags,error", [
-    (eval_cli, ["--native_loader", "--test_file_pattern=/data/test.txt"],
-     _A8),
     (eval_cli, ["--synthetic", "--gpus=2"], _TORCHRUN),
-    (eval_cli, ["--test_file_pattern=/data/test.txt"], _A8),
-    (train_cli, ["--val_file_pattern=/data/val.txt", "--use_tfrecord=false",
-                 "--train_file_pattern=/data/train-*"], _A8),
-], ids=["x3d_tpu_torch.tools.eval-flags0-A8",
-        "x3d_tpu_torch.tools.eval-flags1-A10",
-        "x3d_tpu_torch.tools.eval-flags2-A8",
-        "x3d_tpu_torch.tools.train-flags3-A8"])
+], ids=["x3d_tpu_torch.tools.eval-flags1-A10"])
 def test_eval_and_predict_refuse_unported_flags(tmp_path, monkeypatch, cli,
                                                 flags, error):
-    """Text lists of raw videos (no --tfrecord / --use_tfrecord) still
-    raise; TFRecord shards run (the tests below).  ``--gpus=2`` without
-    torchrun's environment raises saying how to start it."""
+    """``--gpus=2`` without torchrun's environment raises saying how to
+    start it."""
     for name in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(name, raising=False)
     with pytest.raises(error[0], match=error[1]):
+        cli.main([f"--cfg={CONFIG}", f"--model_folder={tmp_path}",
+                  "--device=cpu", *flags, "--allow_random_init"])
+
+
+@pytest.mark.parametrize("cli", [train_cli, eval_cli],
+                         ids=["train", "eval"])
+def test_native_loader_needs_tfrecords(tmp_path, capsys, cli):
+    """The JAX tools' usage error: their C++ loader reads shards only."""
+    with pytest.raises(SystemExit) as e:
         if cli is train_cli:
             cli.main([f"--config={CONFIG}", f"--model_dir={tmp_path}",
-                      "--device=cpu", *flags])
+                      "--native_loader", "--train_file_pattern=/d/t.txt",
+                      *OPTS])
         else:
             cli.main([f"--cfg={CONFIG}", f"--model_folder={tmp_path}",
-                      "--device=cpu", *flags]
-                     + (["--allow_random_init"] if cli is eval_cli else []))
+                      "--native_loader", "--test_file_pattern=/d/t.txt",
+                      "--allow_random_init", *OPTS])
+    assert e.value.code == 2
+    assert "--native_loader requires --" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "checkpoints")
 
 
 def _frames(n, base):
@@ -399,6 +398,107 @@ def test_predict_on_shards(trained, shard_dir, capsys):
     rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [r["label"] for r in rows] == [0, 1, 2, 3]
     assert all(len(r["top"]) == 3 for r in rows)
+
+
+@pytest.fixture(scope="module")
+def video_list(tmp_path_factory):
+    """The six videos as files, mp4v and MJPEG AVIs in turn (OpenCV), their
+    text list, and one shard of them by the port's ``create_tfrecords``."""
+    import cv2
+
+    from x3d_tpu_torch.data import tfrecords
+
+    d = tmp_path_factory.mktemp("videos")
+    pairs = []
+    for i in range(6):
+        ext, fourcc = ("avi", "MJPG") if i % 2 else ("mp4", "mp4v")
+        path = str(d / f"v{i}.{ext}")
+        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 30.0,
+                              (48, 36))
+        for f in _frames(12 + i, i):
+            out.write(f)
+        out.release()
+        pairs.append((path, i))
+    (d / "list.txt").write_text("".join(f"{p} {l}\n" for p, l in pairs))
+    tfrecords.create_tfrecords(pairs, str(d), prefix="shard",
+                               videos_per_record=6, num_workers=1,
+                               device="cpu")
+    return d
+
+
+def _eval_batches(monkeypatch):
+    """Record the labels and sampled indices of every eval batch that
+    ``InputReader`` makes, with the kind of input it read."""
+    from x3d_tpu_torch.data import InputReader
+
+    seen = []
+    real = InputReader.batch
+
+    def batch(self, plans):
+        if not self.is_training:
+            seen.append((self.use_tfrecord, [p.label for p in plans],
+                         [p.indices.tolist() for p in plans]))
+        return real(self, plans)
+
+    monkeypatch.setattr(InputReader, "batch", batch)
+    return seen
+
+
+def _by_kind(seen, kind):
+    return [b[1:] for b in seen if b[0] == kind]
+
+
+def test_train_on_a_text_list_with_validation(tmp_path, video_list,
+                                              monkeypatch):
+    """``--nouse_tfrecord`` (the default): the patterns are text lists of
+    videos; validation reads the list's videos in the order and at the
+    frames that validation on their shard reads them."""
+    seen = _eval_batches(monkeypatch)
+    runs = {}
+    for kind, flags in (("text", [f"--train_file_pattern="
+                                  f"{video_list / 'list.txt'}",
+                                  f"--val_file_pattern="
+                                  f"{video_list / 'list.txt'}",
+                                  "--nouse_tfrecord"]),
+                        ("shards", [f"--train_file_pattern="
+                                    f"{video_list / 'shard-*'}",
+                                    f"--val_file_pattern="
+                                    f"{video_list / 'shard-*'}",
+                                    "--use_tfrecord"])):
+        keep = _Keep()
+        rc = train_cli.main(
+            [f"--config={CONFIG}", f"--model_dir={tmp_path / kind}", *flags,
+             "--steps_per_epoch=2", "--epochs=2", "--mixed_precision=false",
+             *OPTS], extra_hooks=[keep])
+        assert rc == 0
+        assert all(np.isfinite(v) for v in keep.losses.values())
+        assert [v["count"] for v in keep.val] == [6.0, 6.0]
+        runs[kind] = keep
+    assert os.listdir(tmp_path / "text" / "checkpoints")
+    text, shards = _by_kind(seen, False), _by_kind(seen, True)
+    assert len(text) == len(shards) == 6 and text == shards
+    assert [l for labels, _ in text[:3] for l in labels] == list(range(6))
+
+
+def test_eval_on_a_text_list_equals_the_shards(trained, video_list, capsys,
+                                               monkeypatch):
+    model_dir, _ = trained
+    seen = _eval_batches(monkeypatch)
+    out = {}
+    for kind, flags in (("text", ["--notfrecord", "--test_file_pattern="
+                                  f"{video_list / 'list.txt'}"]),
+                        ("shards", ["--tfrecord", "--test_file_pattern="
+                                    f"{video_list / 'shard-*'}"])):
+        rc = eval_cli.main([f"--cfg={CONFIG}", f"--model_folder={model_dir}",
+                            *flags, *OPTS])
+        assert rc == 0
+        out[kind] = json.loads(capsys.readouterr().out.strip()
+                               .splitlines()[-1])
+    assert out["text"]["count"] == out["shards"]["count"] == 6.0
+    assert np.isfinite(out["text"]["loss"])
+    text, shards = _by_kind(seen, False), _by_kind(seen, True)
+    assert text == shards and len(text) == 3
+    assert [l for labels, _ in text for l in labels] == list(range(6))
 
 
 def test_train_needs_data_or_synthetic(tmp_path, capsys):

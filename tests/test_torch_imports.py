@@ -155,7 +155,7 @@ def test_trains_with_jax_blocked():
 _BLOCKED_TOOLS = _BLOCK.replace(
     'BLOCKED = ("jax", "jaxlib", "flax", "x3d_tpu")',
     'BLOCKED = ("jax", "jaxlib", "flax", "x3d_tpu", "orbax", "absl", '
-    '"tensorboard")') + r"""
+    '"tensorboard", "cv2", "decord", "imageio")') + r"""
 # tensorflow absent, as on the card machine: importing it fails and
 # importlib.util.find_spec, which torch's compiler asks, answers None
 sys.modules["tensorflow"] = None
@@ -176,7 +176,9 @@ for wanted in ("ops.timing", "ops.pointwise", "train.checkpoint",
                "tools.train", "tools.eval", "tools.predict",
                "tools.bench_serving", "tools.fma_probe", "train.multigrid",
                "tools.bench_multigrid", "parallel.mesh", "tools.dryrun",
-               "tools.export", "export", "ops.library"):
+               "tools.export", "export", "ops.library", "data.avi",
+               "data.video", "tools.create_label", "tools.create_tfrecords",
+               "tools.inspect_tfrecords", "tools.make_synthetic_videos"):
     assert "x3d_tpu_torch." + wanted in names, wanted
 
 from x3d_tpu_torch.tools import eval as eval_cli, export, predict, train
@@ -205,6 +207,31 @@ with tempfile.TemporaryDirectory() as d:
                         "--export_dir=" + out, *opts]) == 0
     assert sorted(os.listdir(out)) == ["export.json", "serve_clips.pt2",
                                        "serve_videos.pt2"]
+    # raw videos with no video library, as on the card machine: MJPEG AVIs
+    # (chip_smoke's writer) through the text-list path of train and eval
+    import importlib.util
+    import numpy as np
+    from x3d_tpu_torch.ops import jpeg
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(sys.argv[1], "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rows = []
+    for k in range(2):
+        frames = np.random.default_rng(k).integers(0, 255, (9, 36, 48, 3),
+                                                   dtype=np.uint8)
+        path = os.path.join(d, f"v{k}.avi")
+        cs.write_mjpeg_avi(path, jpeg.encode(frames, device="cpu"), 48, 36)
+        rows.append(f"{path} {k}")
+    listing = os.path.join(d, "list.txt")
+    with open(listing, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    assert train.main(["--config=" + config, "--model_dir=" + d,
+                       "--train_file_pattern=" + listing,
+                       "--steps_per_epoch=1", "--epochs=3",
+                       "--mixed_precision=false", *opts]) == 0
+    assert eval_cli.main(["--cfg=" + config, "--model_folder=" + d,
+                          "--test_file_pattern=" + listing, *opts]) == 0
 assert sys.modules["tensorflow"] is None and not any(
     n.startswith("tensorflow.") for n in sys.modules)
 assert not any(n.split(".")[0] in BLOCKED for n in sys.modules)
@@ -262,3 +289,50 @@ def test_checkpoint_tools_leave_tensorflow_unloaded():
         capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "[]"
+
+
+_VIDEO_FILES = ("x3d_tpu_torch/data/avi.py", "x3d_tpu_torch/data/video.py",
+                "x3d_tpu_torch/data/tfrecords.py",
+                "x3d_tpu_torch/data/pipeline.py",
+                "x3d_tpu_torch/tools/create_label.py",
+                "x3d_tpu_torch/tools/create_tfrecords.py",
+                "x3d_tpu_torch/tools/inspect_tfrecords.py",
+                "x3d_tpu_torch/tools/make_synthetic_videos.py")
+
+
+@pytest.mark.parametrize("path", _VIDEO_FILES)
+def test_video_modules_import_no_tensorflow(path):
+    """The raw-video reader and the dataset tools import neither
+    TensorFlow nor the JAX package (the card machine has neither)."""
+    roots = set(_imported_roots(os.path.join(ROOT, path)))
+    bad = sorted(roots & set(FORBIDDEN + ("tensorflow",)))
+    assert not bad, f"{path} imports {bad}"
+
+
+def _module_level_imports(path):
+    """Roots of the imports that run when ``path`` is imported (outside
+    every function body)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name.split(".")[0] for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module.split(".")[0]
+            yield from walk(child)
+
+    return set(walk(tree))
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_video_libraries_are_imported_inside_functions(path):
+    """OpenCV, decord and imageio are optional (the card machine has none):
+    no module imports them when it is imported."""
+    bad = sorted(_module_level_imports(path) & {"cv2", "decord", "imageio"})
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"

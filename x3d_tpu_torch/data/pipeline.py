@@ -1,4 +1,5 @@
-"""InputReader: TFRecord shards of JPEG frames -> device batches.
+"""InputReader: TFRecord shards of JPEG frames, or text lists of raw
+videos, -> device batches.
 
 The port's one loader, in place of the JAX package's two (the tf.data
 ``InputReader``, ``x3d_tpu/data/pipeline.py:45-322``, and the C++
@@ -32,6 +33,22 @@ How a batch is made:
    its decoded frame by its bilinear map, truncates to uint8 and
    normalises into the batch (bfloat16 by default).
 
+Text lists of raw videos (``use_tfrecord=False``, JAX
+``pipeline.py:203-220,268-276``): the pattern is a file of ``<path>
+<label>`` lines, the path its first space-separated token and the label
+its second.  A host takes every ``host_count``-th line from ``host_id``,
+in the file's order; training shuffles that list every epoch and repeats
+it (JAX's shuffle buffer of ``max(DATASET_SIZE, 1024)`` lines holds the
+whole list), evaluation reads it once in order.  A Motion-JPEG AVI
+(``data/avi.py``) is planned as a record is: its sampled frames' JPEGs
+go to step 3 as they are.  Any other video is decoded on the host
+(``data/video.py``: decord, OpenCV or imageio) at its sampled frames,
+which reach the device in one upload per batch, into an arena laid out
+as step 3's.  Training there takes the exact geometry
+(``transforms.train_exact_map``: jitter resize, crop, flip), as JAX does
+without TFRecords.  An undecodable video becomes zeros of JAX's fallback
+shape with a warning, as in the reference, counted in ``substituted``.
+
 The order of records and every random draw depend on the seed only, not
 on the number of threads.  On a CUDA device nvJPEG and the clip kernel run
 or raise; on the CPU (``device="cpu"``) Pillow and the plain version do
@@ -49,8 +66,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import glob
+import logging
 import os
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterator, List, Optional
@@ -58,10 +77,11 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
-from x3d_tpu_torch.data import tfrecords, transforms
+from x3d_tpu_torch.data import tfrecords, transforms, video
 from x3d_tpu_torch.ops import clip_prep, jpeg
 from x3d_tpu_torch.utils import resolve_device
 
+log = logging.getLogger(__name__)
 INTERLEAVE = 8            # shards open at once in training
 # the training reservoir holds 16 batches of records, at most as many as
 # this many bytes of decoded clips would fill (the C++ loader's binding:
@@ -69,11 +89,21 @@ INTERLEAVE = 8            # shards open at once in training
 RESERVOIR_BYTES = 1 << 30
 
 
+def _frame_size(blobs) -> tuple:
+    """(height, width) that every JPEG of a video has, from its headers."""
+    h, w = jpeg.image_size(blobs[0])
+    for b in blobs[1:]:
+        if jpeg.image_size(b) != (h, w):
+            raise ValueError("frames of one video differ in size")
+    return h, w
+
+
 @dataclass
 class RecordPlan:
     """One record, planned: its label, the JPEG bitstreams of its distinct
-    sampled frames, each clip frame's slot among them, its maps (one a
-    crop) and where it came from."""
+    sampled frames (or, for a video decoded on the host, the frames), each
+    clip frame's slot among them, its maps (one a crop) and where it came
+    from."""
     label: int
     indices: np.ndarray        # (V*T,) sampled frame indices
     slots: np.ndarray          # (V*T,) position of each in ``blobs``
@@ -82,6 +112,8 @@ class RecordPlan:
     width: int
     maps: np.ndarray           # (crops,) MAP_DTYPE, ``src`` unset
     where: str
+    frames: Optional[np.ndarray] = None   # (K, H, W, 3) uint8, host decode
+    key: Optional[tuple] = None   # a text list's (line, where, epoch, index)
 
 
 @dataclass
@@ -96,15 +128,19 @@ class BatchPlan:
 
 
 class InputReader:
-    """Iterate device batches from TFRecord shards of JPEG frames.
+    """Iterate device batches from TFRecord shards of JPEG frames or a
+    text list of raw videos.
 
     Args:
       cfg: the experiment config.
-      is_training: training (one random clip a video, fast crop, flips)
-        or multi-view eval (``TEST.NUM_TEMPORAL_VIEWS`` x
-        ``TEST.NUM_SPATIAL_CROPS`` clips a video).
-      seed: seeds shard order, interleave, reservoir and every record's
-        draws.
+      is_training: training (one random clip a video, flips; the fast
+        crop on shards, the exact geometry on a text list) or multi-view
+        eval (``TEST.NUM_TEMPORAL_VIEWS`` x ``TEST.NUM_SPATIAL_CROPS``
+        clips a video).
+      use_tfrecord: TFRecord shards (a file pattern) or a text file of
+        ``<video path> <label>`` lines (the exact training geometry).
+      seed: seeds shard order, interleave, reservoir, a text list's
+        shuffles and every record's draws.
       num_threads: host threads that inflate and plan (default: the
         host's cores, at most 8).
       device: CUDA unless the caller asks for the CPU.
@@ -115,7 +151,8 @@ class InputReader:
         hosts (data ranks) read one pattern: the matching files, shuffled
         alike on every host in training (sorted in evaluation), then every
         ``host_count``-th from ``host_id``, as ``files.shard(host_count,
-        host_id)`` (``x3d_tpu/data/pipeline.py:250-251``).
+        host_id)`` (``x3d_tpu/data/pipeline.py:250-251``); of a text list,
+        every ``host_count``-th line from ``host_id`` (``:268-270``).
     """
 
     keep_last = False
@@ -124,12 +161,13 @@ class InputReader:
                  num_threads: Optional[int] = None, device=None,
                  replicate_flip_bug: bool = False,
                  dtype: torch.dtype = torch.bfloat16, host_id: int = 0,
-                 host_count: int = 1):
+                 host_count: int = 1, use_tfrecord: bool = True):
         if not 0 <= host_id < host_count:
             raise ValueError(f"host {host_id} of {host_count}")
         self.host_id, self.host_count = int(host_id), int(host_count)
         self.cfg = cfg
         self.is_training = bool(is_training)
+        self.use_tfrecord = bool(use_tfrecord)
         self.seed = int(seed)
         self.threads = int(num_threads or min(8, os.cpu_count() or 1))
         self.device = resolve_device(device)
@@ -146,6 +184,8 @@ class InputReader:
         self.flip_mode = 2 if replicate_flip_bug else int(is_training)
         self.crc = tfrecords.crc_function(self.device.type)
         self.last: Optional[BatchPlan] = None
+        self.substituted = 0          # undecodable videos given as zeros
+        self._count_lock = threading.Lock()
 
     @property
     def clips_per_video(self) -> int:
@@ -167,21 +207,67 @@ class InputReader:
             idx = self.sampler.indices(view.size(), rng)
             distinct, slots = np.unique(idx, return_inverse=True)
             blobs = [bytes(view.frame(int(i))) for i in distinct]
-            h, w = jpeg.image_size(blobs[0])
-            for b in blobs[1:]:
-                if jpeg.image_size(b) != (h, w):
-                    raise ValueError("frames of one video differ in size")
-            cfg = self.cfg
-            if self.is_training:
-                maps = transforms.train_map(
-                    h, w, self.crop, cfg.DATA.TRAIN_JITTER_SCALES[0],
-                    cfg.DATA.TRAIN_JITTER_SCALES[1], rng, self.flip_mode)
-            else:
-                maps = transforms.eval_maps(h, w, self.crop, self.crops)
+            h, w = _frame_size(blobs)
+            maps = self._maps(h, w, rng)
         except ValueError as e:
             raise ValueError(f"{where}: {e}") from e
         return RecordPlan(int(view.label), idx, slots.reshape(-1), blobs, h,
                           w, maps, where)
+
+    def _maps(self, h: int, w: int, rng) -> np.ndarray:
+        cfg = self.cfg
+        if not self.is_training:
+            return transforms.eval_maps(h, w, self.crop, self.crops)
+        jitter = (cfg.DATA.TRAIN_JITTER_SCALES[0],
+                  cfg.DATA.TRAIN_JITTER_SCALES[1])
+        # JAX's fast crop needs TFRecords; raw videos take the exact one
+        fn = transforms.train_map if self.use_tfrecord \
+            else transforms.train_exact_map
+        return fn(h, w, self.crop, *jitter, rng, self.flip_mode)
+
+    def _plan_video(self, line, where: str, epoch: int, index: int,
+                    zeros: bool = False) -> RecordPlan:
+        """Plan a text list's video: an MJPEG AVI's sampled JPEGs, else its
+        sampled frames decoded on the host; zeros of JAX's fallback shape
+        (counted in ``substituted``) where it does not decode or where
+        ``zeros``."""
+        path, label = line
+        rng = transforms.record_rng(self.seed, epoch, index) \
+            if self.is_training else None
+        blobs, frames = [], None
+        mjpeg = None if zeros else video.open_mjpeg(path)
+        if mjpeg is not None:
+            try:
+                idx = video.sample_mjpeg(mjpeg, self.sampler, rng)
+                if idx is None:
+                    raise ValueError("no frame holds data")
+                distinct, slots = np.unique(idx, return_inverse=True)
+                blobs = [mjpeg.jpeg(int(i)) for i in distinct]
+                h, w = _frame_size(blobs)
+            except ValueError as e:
+                log.warning("%s: %s; substituting zeros.", where, e)
+                zeros = True
+        elif not zeros:
+            got = video.host_frames_sampled(path, self.sampler, rng)
+            idx, zeros = got.indices, got.substituted
+            distinct, first, slots = np.unique(
+                idx, return_index=True, return_inverse=True)
+            frames = got.frames[first]
+        if zeros:
+            with self._count_lock:
+                self.substituted += 1
+            idx = np.asarray(self.sampler.indices(100, rng))
+            slots = np.zeros(idx.size, np.int64)
+            blobs, frames = [], np.zeros((1,) + video._FALLBACK_SHAPE[1:],
+                                         np.uint8)
+        if frames is not None:
+            h, w = frames.shape[1:3]
+        try:
+            maps = self._maps(h, w, rng)
+        except ValueError as e:
+            raise ValueError(f"{where}: {e}") from e
+        return RecordPlan(int(label), idx, slots.reshape(-1), blobs, h, w,
+                          maps, where, frames, (line, where, epoch, index))
 
     def _records(self, paths: List[str], pool: ThreadPoolExecutor):
         """(record, where, epoch, index) in the reader's order."""
@@ -234,12 +320,32 @@ class InputReader:
             s[3] += 1
             index += 1
 
-    def _plans(self, paths, pool, batch_size) -> Iterator[RecordPlan]:
+    def _video_records(self, lines):
+        """(line, where, epoch, index) of a text list in the reader's
+        order: reshuffled every epoch and repeated in training, once in
+        order in evaluation."""
+        rng = np.random.default_rng([self.seed, 0x2545F491])
+        epoch = index = 0
+        while True:
+            order = rng.permutation(len(lines)) if self.is_training \
+                else range(len(lines))
+            for k in order:
+                yield (*lines[k], epoch, index)
+                index += 1
+            if not self.is_training:
+                return
+            epoch += 1
+
+    def _plans(self, source, pool, batch_size) -> Iterator[RecordPlan]:
         """Planned records in order, prepared ``ahead`` at a time on the
-        pool, through the training reservoir."""
+        pool, through the training reservoir (shards only: a text list is
+        shuffled whole)."""
         window: collections.deque = collections.deque()
         ahead = 2 * self.threads + batch_size
-        records = self._records(paths, pool)
+        if self.use_tfrecord:
+            records, plan = self._records(source, pool), self._plan
+        else:
+            records, plan = self._video_records(source), self._plan_video
 
         def ordered():
             while True:
@@ -247,13 +353,13 @@ class InputReader:
                     nxt = next(records, None)
                     if nxt is None:
                         break
-                    window.append(pool.submit(self._plan, *nxt))
+                    window.append(pool.submit(plan, *nxt))
                 if not window:
                     return
                 yield window.popleft().result()
 
         stream = ordered()
-        if not self.is_training:
+        if not self.is_training or not self.use_tfrecord:
             yield from stream
             return
         depth = self.reservoir_depth(batch_size)
@@ -277,28 +383,64 @@ class InputReader:
             self.last = plan
         return out
 
-    def _batch(self, plans: List[RecordPlan]):
+    def _decode(self, plans: List[RecordPlan]):
+        """The batch's distinct sampled frames in one arena on the device:
+        the JPEGs decoded (nvJPEG, or Pillow on the CPU), then the frames
+        decoded on the host, uploaded at once; returns the arena and each
+        plan's offsets of its distinct frames."""
         blobs, sizes, base = [], [], []
         for p in plans:
             base.append(len(blobs))
             blobs.extend(p.blobs)
             sizes.extend([(p.height, p.width)] * len(p.blobs))
         try:
-            arena, offsets = jpeg.decode_batch(blobs, sizes, self.device)
+            arena, offsets = jpeg.decode_batch(blobs, sizes, self.device) \
+                if blobs else (None, np.zeros(0, np.int64))
         except jpeg.DecodeError as e:
-            if e.index >= 0:
-                k = int(np.searchsorted(base, e.index, side="right")) - 1
+            k = int(np.searchsorted(base, e.index, side="right")) - 1 \
+                if e.index >= 0 else -1
+            if k >= 0 and plans[k].key is not None:
+                # a raw video's frame does not decode: zeros, as the
+                # reference gives for an undecodable video
+                log.warning("%s: %s; substituting zeros.", plans[k].where, e)
+                plans[k] = self._plan_video(*plans[k].key, zeros=True)
+                return self._decode(plans)
+            if k >= 0:
                 raise ValueError(f"{plans[k].where}: frame "
                                  f"{e.index - base[k]} of the sampled: {e}"
                                  ) from e
             raise ValueError(f"{', '.join(p.where for p in plans)}: {e}"
                              ) from e
+        starts = [offsets[b:b + len(p.blobs)] for b, p in zip(base, plans)]
+        hosted = [k for k, p in enumerate(plans) if p.frames is not None]
+        if hosted:
+            frames = [f for k in hosted for f in plans[k].frames]
+            local, total = jpeg.arena_layout([f.shape[:2] for f in frames])
+            pinned = self.device.type == "cuda"
+            host = torch.empty(total, dtype=torch.uint8, pin_memory=pinned)
+            view = host.numpy()
+            for f, o in zip(frames, local):
+                view[o:o + f.size] = f.reshape(-1)
+            host = host.to(self.device, non_blocking=pinned)
+            shift = 0 if arena is None else arena.numel()
+            arena = host if arena is None else torch.cat([arena, host])
+            n = 0
+            for k in hosted:
+                m = len(plans[k].frames)
+                starts[k] = local[n:n + m] + shift
+                n += m
+        return arena, starts
+
+    def _batch(self, plans: List[RecordPlan]):
+        plans = list(plans)
+        arena, starts = self._decode(plans)
+        offsets = np.concatenate(starts)
         VT = len(plans[0].indices)
         table = np.zeros(len(plans) * self.crops * VT, clip_prep.MAP_DTYPE)
         step = self.crops * VT
         for b, p in enumerate(plans):
             rows = np.repeat(p.maps, VT)
-            rows["src"] = np.tile(offsets[base[b] + p.slots], self.crops)
+            rows["src"] = np.tile(starts[b][p.slots], self.crops)
             rows["pitch"] = p.width * 3
             table[b * step:(b + 1) * step] = rows
         T = self.cfg.DATA.TEMP_DURATION
@@ -310,6 +452,31 @@ class InputReader:
             if self.keep_last else None
         return {"video": video,
                 "label": label.to(self.device, non_blocking=True)}, plan
+
+    def lines(self, list_file: str) -> List[tuple]:
+        """This host's ``((path, label), where)`` of a text list: the
+        path is a line's first space-separated token and the label its
+        second, as JAX parses them (``pipeline.py:203-220``)."""
+        with open(list_file) as f:
+            text = f.read()
+        rows = text.split("\n")
+        if rows and rows[-1] == "":
+            rows.pop()
+        out = []
+        for k, row in enumerate(rows):
+            parts = row.strip().split(" ")
+            where = f"{list_file}:{k + 1}"
+            try:
+                out.append(((parts[0], int(parts[1])),
+                            f"{where}: {parts[0]}"))
+            except (IndexError, ValueError):
+                raise ValueError(f"{where}: not '<path> <label>': {row!r}"
+                                 ) from None
+        out = out[self.host_id::self.host_count]
+        if not out:
+            raise ValueError(f"{list_file}: no lines for host "
+                             f"{self.host_id} of {self.host_count}")
+        return out
 
     def files(self, file_pattern: str) -> List[str]:
         """This host's shards of the files matching ``file_pattern``."""
@@ -328,11 +495,12 @@ class InputReader:
                      batch_size: int) -> Iterator[List[RecordPlan]]:
         """The planned records of each batch, before anything is decoded;
         :meth:`batch` makes a batch of them."""
-        paths = self.files(file_pattern)
+        source = self.files(file_pattern) if self.use_tfrecord \
+            else self.lines(file_pattern)
         pool = ThreadPoolExecutor(self.threads,
                                   thread_name_prefix="x3d-input")
         try:
-            plans = self._plans(paths, pool, batch_size)
+            plans = self._plans(source, pool, batch_size)
             while True:
                 chunk = []
                 for p in plans:

@@ -21,19 +21,34 @@ tests' shards and not for real ones.  The SequenceExample walk is Python's
 on both.
 
 JPEG encoding goes through ``ops/jpeg.encode``: nvJPEG for frames on a
-CUDA device, Pillow for frames on the CPU.
+CUDA device, Pillow for frames on the CPU (with TensorFlow's JFIF
+density, so its bytes are the JAX writer's).
+
+The offline tools of the JAX module (``x3d_tpu/data/tfrecords.py:96-292``)
+are here too: :func:`create_tfrecords` (videos of a label file into shards,
+each trimmed to its first TRIM_SECONDS), the label-file makers
+(:func:`create_label_file`, :func:`create_test_label_file`,
+:func:`build_label_map`, :func:`resolve_test_labels`), the Kinetics-400
+metadata (``x3d_tpu_torch/datasets/kinetics400/``, byte-identical copies
+of the JAX package's) and :func:`inspect_tfrecords`.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
 import struct
 import zlib
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
+log = logging.getLogger(__name__)
+
 JPEG_QUALITY = 90          # the JAX writer's (tfrecords.py:29)
+TRIM_SECONDS = 10          # the JAX writer's (tfrecords.py:30)
 GZIP_LEVEL = 9
 FRAMES_KEY = b"video"
 LABEL_KEY = b"video/class/label"
@@ -362,3 +377,219 @@ class SequenceExampleView:
                              "frames")
         s, e = spans[i]
         return self.buf[s:e]
+
+
+# ------------------------------------------------------------- the writer
+
+def _process_chunk(args) -> Tuple[str, int]:
+    """Decode a shard's videos, trim each to TRIM_SECONDS at its
+    container's frame rate (``fps_default`` where it has none), re-encode
+    the frames at quality 90 and write the shard (JAX
+    ``tfrecords.py:96-118``)."""
+    chunk, out_path, fps_default, device = args
+    from x3d_tpu_torch.data import video
+
+    def gen():
+        for path, label in chunk:
+            frames = video.decode_all_frames(path, device=device)
+            if frames.shape[0] == 0:
+                log.warning("Skipping empty video %s", path)
+                continue
+            fps = video.video_fps(path) or fps_default
+            frames = frames[: int(TRIM_SECONDS * fps)]
+            yield frames_to_sequence_example(frames, label, device=device)
+
+    return out_path, write_shard(out_path, gen(), device=device)
+
+
+def create_tfrecords(video_label_pairs: Sequence[Tuple[str, int]],
+                     out_dir: str, prefix: str = "train",
+                     videos_per_record: int = 32,
+                     num_workers: Optional[int] = None,
+                     fps_default: int = 25, device=None) -> List[str]:
+    """Write ``(video path, label)`` pairs into GZIP shards of
+    ``videos_per_record`` videos, named as the JAX writer names them
+    (``<prefix>-00000.tfrecord``, ...), each shard one worker's.
+
+    Videos decode and frames encode on ``device`` (CUDA unless the caller
+    asks for the CPU; MJPEG AVIs and JPEG encoding there, other videos on
+    the host).  The JAX writer forks a process pool, which CUDA does not
+    survive: here the workers are threads on a CUDA device (nvJPEG and the
+    host decoders release the interpreter) and spawned processes on the
+    CPU.  The shards do not depend on which, nor on how many."""
+    from multiprocessing import cpu_count
+    from x3d_tpu_torch.utils import resolve_device
+
+    device = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    chunks = [
+        video_label_pairs[i:i + videos_per_record]
+        for i in range(0, len(video_label_pairs), videos_per_record)
+    ]
+    tasks = [
+        (chunk, os.path.join(out_dir, f"{prefix}-{i:05d}.tfrecord"),
+         fps_default, str(device))
+        for i, chunk in enumerate(chunks)
+    ]
+    num_workers = num_workers or max(1, cpu_count() - 1)
+    if num_workers == 1 or len(tasks) <= 1:
+        results = [_process_chunk(t) for t in tasks]
+    elif device.type == "cuda":
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(num_workers) as pool:
+            results = list(pool.map(_process_chunk, tasks))
+    else:
+        import multiprocessing
+
+        with multiprocessing.get_context("spawn").Pool(num_workers) as pool:
+            results = pool.map(_process_chunk, tasks)
+    for path, n in results:
+        log.info("wrote %s (%d videos)", path, n)
+    return [p for p, _ in results]
+
+
+# ------------------------------------------------------------------- labels
+
+def build_label_map(class_dir: str) -> Dict[str, int]:
+    """class-per-folder tree -> {class_name: id} (sorted, 0-based)."""
+    classes = sorted(
+        d for d in os.listdir(class_dir)
+        if os.path.isdir(os.path.join(class_dir, d))
+    )
+    return {c: i for i, c in enumerate(classes)}
+
+
+def create_label_file(video_root: str, out_path: str,
+                      label_map: Optional[Dict[str, int]] = None,
+                      sample_size: Optional[int] = None,
+                      extensions: Tuple[str, ...] = (".mp4", ".avi", ".mkv",
+                                                     ".webm")) -> int:
+    """Walk ``video_root/<class>/<video>`` and emit "path label" lines.
+
+    ``sample_size`` caps videos per class (reference
+    kinetics400/create_label.py:42-75).  Returns the line count.
+    """
+    label_map = label_map or build_label_map(video_root)
+    lines = []
+    for cls, idx in sorted(label_map.items(), key=lambda kv: kv[1]):
+        cdir = os.path.join(video_root, cls)
+        if not os.path.isdir(cdir):
+            continue
+        vids = sorted(
+            f for f in os.listdir(cdir)
+            if f.lower().endswith(extensions)
+        )
+        if sample_size:
+            vids = vids[:sample_size]
+        lines.extend(f"{os.path.join(cdir, v)} {idx}" for v in vids)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write("\n".join(lines) + ("\n" if lines else ""))
+    return len(lines)
+
+
+def resolve_test_labels(annotations_json: str) -> Dict[str, str]:
+    """youtube_id -> label from a Kinetics annotations JSON
+    (reference create_tfrecords.py:109-116)."""
+    with open(annotations_json) as f:
+        ann = json.load(f)
+    out = {}
+    for vid, meta in ann.items():
+        label = meta.get("annotations", {}).get("label")
+        if label is not None:
+            out[vid] = label
+    return out
+
+
+# ------------------------------------------------- Kinetics-400 metadata
+
+# The reference's ``datasets/kinetics400/`` files, as the JAX package
+# ships them: label_map.json (400 classes -> ids, underscores for spaces),
+# validate.csv and test.csv (youtube_id and time range a row).
+K400_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "datasets", "kinetics400")
+
+
+def kinetics400_label_map() -> Dict[str, int]:
+    """The Kinetics-400 class -> id map (400 entries)."""
+    with open(os.path.join(K400_DIR, "label_map.json")) as f:
+        return json.load(f)
+
+
+def kinetics400_split(split: str) -> List[Dict[str, str]]:
+    """Rows of the ``validate`` or ``test`` split CSV: dicts with label,
+    youtube_id, time_start, time_end, split."""
+    import csv
+
+    if split not in ("validate", "test"):
+        raise ValueError(f"split must be 'validate' or 'test', got {split!r}")
+    with open(os.path.join(K400_DIR, f"{split}.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def create_test_label_file(video_dir: str, out_path: str,
+                           annotations_json: str,
+                           label_map: Optional[Dict[str, int]] = None,
+                           extensions: Tuple[str, ...] = (".mp4", ".mkv",
+                                                          ".avi", ".webm"),
+                           ) -> int:
+    """Label a FLAT directory of K400 test videos via an annotations JSON
+    (reference ``datasets/kinetics400/create_label.py:42-61``): each
+    ``<youtube_id>.<ext>`` resolves through the JSON's label string
+    (spaces -> underscores) into the label map; unknown ids are warned and
+    skipped, as in the reference.  Returns the line count."""
+    label_map = label_map or kinetics400_label_map()
+    test_labels = resolve_test_labels(annotations_json)
+    lines = []
+    for fname in sorted(os.listdir(video_dir)):
+        if not fname.lower().endswith(extensions):
+            continue
+        video_key = fname.split(".")[0]
+        label_str = test_labels.get(video_key)
+        if label_str is None:
+            log.warning("%s not found in annotations", fname)
+            continue
+        idx = label_map.get(label_str.replace(" ", "_"))
+        if idx is None:
+            log.warning("label %r of %s not in label map", label_str, fname)
+            continue
+        lines.append(f"{os.path.join(video_dir, fname)} {idx}")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write("\n".join(lines) + ("\n" if lines else ""))
+    return len(lines)
+
+
+# ---------------------------------------------------------------- inspector
+
+def inspect_tfrecords(cfg, file_pattern: str, out_dir: str,
+                      num_samples: int = 4, is_training: bool = True,
+                      device=None) -> List[str]:
+    """Round-trip samples through the port's reader (uint8 clips, one video
+    a batch, on ``device``: CUDA unless the caller asks for the CPU) and
+    write each sample's first clip as an animated GIF named by its label
+    (JAX ``tfrecords.py:270-292``)."""
+    import torch
+    from PIL import Image
+
+    from x3d_tpu_torch.data.pipeline import InputReader
+
+    os.makedirs(out_dir, exist_ok=True)
+    reader = InputReader(cfg, is_training=is_training, dtype=torch.uint8,
+                         device=device)
+    written = []
+    it = reader(file_pattern, 1)
+    try:
+        for i, batch in zip(range(num_samples), it):
+            clip = batch["video"][0].cpu().numpy()
+            label = int(batch["label"][0])
+            frames = [Image.fromarray(f) for f in clip]
+            path = os.path.join(out_dir, f"sample{i}_label{label}.gif")
+            frames[0].save(path, save_all=True, append_images=frames[1:],
+                           duration=100, loop=0)
+            written.append(path)
+    finally:
+        it.close()
+    return written

@@ -63,18 +63,28 @@ def _f32(v) -> np.float32:
     return np.float32(v)
 
 
-def short_side_size(height: int, width: int, size: int
+def short_side_size(height: int, width: int, size
                     ) -> Tuple[int, int, bool]:
     """(new height, new width, unchanged) of the short-side resize to
-    ``size``: the long side floored in float32 as JAX
+    ``size`` (an int, or training's float32 jitter size): the long side
+    floored in float32 and both sides truncated to int, as JAX
     ``transforms.py:108-129``; unchanged where the short side already is
     ``size`` (no resize at all there)."""
     h, w, s = _f32(height), _f32(width), _f32(size)
     if (w <= h and w == s) or (h <= w and h == s):
         return height, width, True
     if w < h:
-        return int(np.floor(h / w * s)), int(size), False
-    return int(size), int(np.floor(w / h * s)), False
+        return int(np.floor(h / w * s)), int(s), False
+    return int(s), int(np.floor(w / h * s)), False
+
+
+def _resize_scales(height: int, width: int, new_h: int, new_w: int,
+                   same: bool):
+    """tf.image.resize's scale in each axis, in_size / float(out_size)
+    (1 where the frame is not resized)."""
+    if same:
+        return _f32(1), _f32(1)
+    return _f32(height) / _f32(new_h), _f32(width) / _f32(new_w)
 
 
 def uniform_crop_offsets(height: int, width: int, crop: int,
@@ -114,11 +124,7 @@ def eval_maps(height: int, width: int, crop: int,
     to ``crop`` and the uniform crops of JAX ``SpatialTransforms
     .eval_views``, as windows of the whole decoded frame."""
     new_h, new_w, same = short_side_size(height, width, crop)
-    if same:
-        sy = sx = _f32(1)
-    else:
-        # tf.image.resize's scale: in_size / float(out_size)
-        sy, sx = _f32(height) / _f32(new_h), _f32(width) / _f32(new_w)
+    sy, sx = _resize_scales(height, width, new_h, new_w, same)
     maps = [_map(0, 0, height, width, y, x, sy, sx, False)
             for y, x in uniform_crop_offsets(new_h, new_w, crop, num_crops)]
     if new_h < crop or new_w < crop:
@@ -156,3 +162,36 @@ def train_map(height: int, width: int, crop: int, jitter_min: float,
     flip = flip_mode == 2 or (flip_mode == 1 and rng.random() < 0.5)
     scale = _f32(side) / _f32(crop)
     return _map(y, x, side, side, 0, 0, scale, scale, flip)[None]
+
+
+def exact_map(height: int, width: int, crop: int, size, y: int, x: int,
+              flip: bool) -> np.ndarray:
+    """The map of JAX ``SpatialTransforms.train_clip``'s geometry for given
+    draws (``transforms.py:149-168``): the whole frame resized so its short
+    side is ``size`` (:func:`short_side_size`), the ``crop`` square at
+    (y, x) of the resized frame, mirrored where ``flip``."""
+    new_h, new_w, same = short_side_size(height, width, size)
+    if not (0 <= y <= new_h - crop and 0 <= x <= new_w - crop):
+        raise ValueError(f"crop {crop} at {(y, x)} outside the resized "
+                         f"frame {(new_h, new_w)}")
+    sy, sx = _resize_scales(height, width, new_h, new_w, same)
+    return _map(0, 0, height, width, y, x, sy, sx, flip)[None]
+
+
+def train_exact_map(height: int, width: int, crop: int, jitter_min: float,
+                    jitter_max: float, rng: np.random.Generator,
+                    flip_mode: int = 1) -> np.ndarray:
+    """Training's exact geometry, which the raw-video path takes (JAX's
+    fast crop needs TFRecords, ``pipeline.py:85-86``): a float32 jitter
+    size in [min, max), a uniform crop of the frame resized to it, and the
+    flip of :func:`train_map`'s ``flip_mode``; the draws from ``rng``, in
+    that order."""
+    size = _f32(rng.uniform(jitter_min, jitter_max))
+    new_h, new_w, _ = short_side_size(height, width, size)
+    if new_h < crop or new_w < crop:
+        raise ValueError(f"crop {crop} larger than the resized frame "
+                         f"{(new_h, new_w)}")
+    y = int(rng.integers(0, new_h - crop + 1))
+    x = int(rng.integers(0, new_w - crop + 1))
+    flip = flip_mode == 2 or (flip_mode == 1 and rng.random() < 0.5)
+    return exact_map(height, width, crop, size, y, x, flip)

@@ -215,10 +215,14 @@ def decode_batch_reference(blobs: Sequence, sizes: Sequence[Tuple[int, int]]
     offsets, total = arena_layout(sizes)
     arena = torch.empty(total, dtype=torch.uint8)
     host = arena.numpy()
-    for b, (h, w), off in zip(blobs, sizes, offsets):
-        img = np.asarray(Image.open(io.BytesIO(bytes(b))).convert("RGB"))
+    for i, (b, (h, w), off) in enumerate(zip(blobs, sizes, offsets)):
+        try:
+            img = np.asarray(Image.open(io.BytesIO(bytes(b))).convert("RGB"))
+        except (OSError, ValueError) as e:
+            raise DecodeError(i, f"JPEG decode failed: {e}") from e
         if img.shape != (h, w, 3):
-            raise ValueError(f"decoded {img.shape[:2]}, planned {(h, w)}")
+            raise DecodeError(i, f"decoded {img.shape[:2]}, planned "
+                                 f"{(h, w)}")
         host[off:off + h * w * 3] = img.reshape(-1)
     return arena, offsets
 
@@ -242,12 +246,15 @@ def decode_batch(blobs: Sequence, sizes: Sequence[Tuple[int, int]],
     :class:`DecodeError` (its ``index`` names the bitstream at fault, -1
     for the batch), through ``codec`` (default: the device's, on the first
     backend of :data:`BACKENDS` that nvJPEG accepts); on the CPU Pillow
-    decodes.
+    decodes, and a bitstream it cannot decode raises :class:`DecodeError`
+    with its index.
     """
     device = torch.device("cuda" if device is None else device)
     if device.type == "cpu":
         try:
             return decode_batch_reference(blobs, sizes)
+        except DecodeError:
+            raise
         except Exception as e:
             raise DecodeError(-1, f"JPEG decode failed: {e}") from e
     codec = codec or device_codec(device)
@@ -278,14 +285,16 @@ decode_batch.launches = 0
 
 
 def encode_reference(frames: np.ndarray, quality: int) -> List[bytes]:
-    """Plain version of :func:`encode`: Pillow (libjpeg, 4:2:0)."""
+    """Plain version of :func:`encode`: Pillow (libjpeg, 4:2:0), with the
+    300-dpi JFIF density that ``tf.io.encode_jpeg`` writes, so that the
+    bytes are the JAX writer's."""
     from PIL import Image
 
     out = []
     for f in frames:
         buf = io.BytesIO()
         Image.fromarray(np.ascontiguousarray(f)).save(
-            buf, format="JPEG", quality=quality)
+            buf, format="JPEG", quality=quality, dpi=(300, 300))
         out.append(buf.getvalue())
     return out
 

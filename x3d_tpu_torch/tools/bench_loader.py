@@ -18,6 +18,9 @@ clips/s) the cores the loader would need to keep up, step_rate / (clips/s
 a thread).  On the card the line carries its name and power limit; on the
 CPU (``--device cpu``) the numbers are the plain versions' and say nothing
 about the card.
+
+``loader_rate(..., use_tfrecord=False)`` and :func:`video_thread_split`
+time a text list of raw videos the same way (``chip_smoke.py`` phase 14).
 """
 
 from __future__ import annotations
@@ -74,16 +77,17 @@ def write_synthetic_shards(out_dir: str, videos: int, frames: int,
 
 
 def loader_rate(cfg, pattern: str, batch: int, batches: int, threads,
-                device) -> dict:
+                device, use_tfrecord: bool = True) -> dict:
     """Training clips/s of the loader over ``batches`` batches, after the
     first batch, whose seconds (``fill_s``: it fills the reservoir of
-    ``reservoir`` records) are set-up and timed apart."""
+    ``reservoir`` records; a text list has none) are set-up and timed
+    apart."""
     import torch
 
     from x3d_tpu_torch.data import InputReader
 
     reader = InputReader(cfg, is_training=True, num_threads=threads,
-                         device=device)
+                         device=device, use_tfrecord=use_tfrecord)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
     t0 = time.perf_counter()
     it = reader(pattern, batch)
@@ -96,7 +100,8 @@ def loader_rate(cfg, pattern: str, batch: int, batches: int, threads,
     dt = time.perf_counter() - t1
     it.close()
     return {"clips_per_s": batch * batches / dt, "fill_s": t1 - t0,
-            "reservoir": reader.reservoir_depth(batch)}
+            "reservoir": reader.reservoir_depth(batch) if use_tfrecord
+            else 0}
 
 
 def thread_split(cfg, pattern: str, device, records: int = 16) -> dict:
@@ -141,6 +146,40 @@ def thread_split(cfg, pattern: str, device, records: int = 16) -> dict:
     out["record"] = out["inflate"] + out["crc"] + out["plan"]
     out["records"] = n
     out["inflated_mb_per_record"] = inflated / n / 2**20
+    return out
+
+
+def video_thread_split(cfg, label_file: str, device,
+                       records: int = 16) -> dict:
+    """One thread's work on the first ``records`` videos of a text list,
+    in milliseconds a record: ``read`` (the file's bytes), ``walk`` (the
+    RIFF walk of an MJPEG AVI to its frames) and ``plan`` (the reader's
+    whole plan of a record: the read and walk again, the sampling, the
+    sampled JPEGs' headers and the crop, or for other videos the host
+    decode), and the MB read a record.  Run on the calling thread alone."""
+    from x3d_tpu_torch.data import InputReader, avi
+
+    reader = InputReader(cfg, is_training=True, device=device,
+                         use_tfrecord=False)
+    lines = reader.lines(label_file)[:records]
+    ms = {"read": 0.0, "walk": 0.0, "plan": 0.0}
+    nbytes = 0
+    for n, (line, where) in enumerate(lines):
+        t0 = time.perf_counter()
+        data = avi.read_header(line[0])
+        t1 = time.perf_counter()
+        if data is not None:
+            avi.parse(line[0], data)
+            nbytes += len(data)
+        t2 = time.perf_counter()
+        reader._plan_video(line, where, 0, n)
+        t3 = time.perf_counter()
+        ms["read"] += (t1 - t0) * 1e3
+        ms["walk"] += (t2 - t1) * 1e3
+        ms["plan"] += (t3 - t2) * 1e3
+    out = {k: v / len(lines) for k, v in ms.items()}
+    out["records"] = len(lines)
+    out["mb_per_record"] = nbytes / len(lines) / 2**20
     return out
 
 

@@ -12,20 +12,21 @@ line: loss, acc, top_5_acc, count.
 
 Real data: ``--tfrecord --test_file_pattern=...`` reads TFRecord shards
 of JPEG frames through ``data.InputReader`` (every batch unless
-``--max_batches``), views and crops as the config says.  The port has one
+``--max_batches``), views and crops as the config says.  Without
+``--tfrecord`` (the JAX tool's default) the pattern is a text file of
+``<video path> <label>`` lines, read by the same reader (Motion-JPEG AVIs
+through nvJPEG on the card, other videos decoded on the host where a video
+library is installed).  The port has one
 loader where the JAX package has two; ``--native_loader`` selects it too,
 with ``--native_threads`` host threads (otherwise the host's cores, at
-most 8).
+most 8), and needs ``--tfrecord`` (a usage error otherwise, as in the JAX
+tool).
 
 Several GPUs: ``--gpus N`` under ``torchrun --nproc_per_node=N`` (the
 train tool's docstring says how); each data rank evaluates its share of
 the shards (or its own synthetic batches) at ``TEST.BATCH_SIZE // data``
 videos a batch, the four sums are added over the ranks once at the end,
 and rank 0 prints the line.
-
-Not ported yet, accepted and refused with the ROADMAP item that will bring
-them: ``--test_file_pattern`` without ``--tfrecord`` (a text list of raw
-videos, A8).
 """
 
 from __future__ import annotations
@@ -102,11 +103,8 @@ def main(argv=None) -> int:
     if not args.synthetic:
         if not args.test_file_pattern:
             parser.error("--test_file_pattern required unless --synthetic")
-        if not args.tfrecord:
-            raise NotImplementedError(
-                "--test_file_pattern without --tfrecord: text lists of raw "
-                "videos are not ported yet (ROADMAP A8); write TFRecord "
-                "shards and pass --tfrecord")
+        if args.native_loader and not args.tfrecord:
+            parser.error("--native_loader requires --tfrecord")
 
     device, model, dtype = setup_runtime(cfg, args.gpus, True, False,
                                          device=args.device,
@@ -123,6 +121,7 @@ def main(argv=None) -> int:
     else:
         reader = InputReader(
             cfg, is_training=False, device=device, dtype=dtype,
+            use_tfrecord=args.tfrecord,
             num_threads=args.native_threads if args.native_loader else None,
             **(dict(host_id=mesh.data_rank, host_count=mesh.data)
                if mesh else {}))

@@ -18,10 +18,16 @@ the middle of an epoch where the last save was there.
 Real data: ``--use_tfrecord --train_file_pattern=... [--val_file_pattern=
 ...]`` reads TFRecord shards of JPEG frames through ``data.InputReader``
 (nvJPEG and the clip kernel on the card; Pillow and the plain version with
-``--device cpu``), validating at each epoch's end.  The port has one
+``--device cpu``), validating at each epoch's end.  Without
+``--use_tfrecord`` (the JAX tool's default) the patterns are text files of
+``<video path> <label>`` lines (``tools/create_label`` writes them), read
+by the same reader: Motion-JPEG AVIs through nvJPEG on the card, other
+videos decoded on the host by OpenCV (or decord, imageio) where one is
+installed, training at the exact geometry.  The port has one
 loader where the JAX package has two (tf.data and the C++ clip loader):
 ``--native_loader`` selects it too, with ``--native_threads`` host threads
-(default: the host's cores, at most 8).
+(default: the host's cores, at most 8); as in the JAX tool it needs
+``--use_tfrecord`` (a usage error otherwise).
 
 Long-cycle multigrid training: ``--multigrid`` (or ``MULTIGRID.ENABLE``)
 trains each epoch at its phase's clip shape and batch
@@ -49,10 +55,6 @@ statistics, and a model axis splits the head.  Rank 0 logs and writes the
 checkpoints (full tensors, whatever the mesh) and every rank resumes from
 them.  ``--init_method`` replaces torchrun's ``env://`` rendezvous (e.g.
 ``file://``).
-
-Not ported yet, accepted and refused with the ROADMAP item that will bring
-them: file patterns without ``--use_tfrecord`` (text lists of raw videos,
-A8).
 """
 
 from __future__ import annotations
@@ -117,16 +119,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args, cfg) -> None:
-    """Raise for every flag whose module the port does not have yet."""
-    for flag in ("train_file_pattern", "val_file_pattern"):
-        if getattr(args, flag) and not args.use_tfrecord:
-            raise NotImplementedError(
-                f"--{flag} without --use_tfrecord: text lists of raw videos "
-                "are not ported yet (ROADMAP A8); write TFRecord shards and "
-                "pass --use_tfrecord")
-
-
 def main(argv=None, extra_hooks=()) -> int:
     """Run the CLI; ``extra_hooks`` (for callers in the same process) are
     appended to the loop's hooks."""
@@ -151,13 +143,16 @@ def main(argv=None, extra_hooks=()) -> int:
         parser.error(
             "--train_file_pattern is required unless --synthetic is set")
     cfg = load_config(args.config, flat_opts(args.opts))
-    refuse_unported(args, cfg)
     multigrid = args.multigrid or cfg.MULTIGRID.ENABLE
     if multigrid and args.native_loader:
         # the JAX tool's usage error: its C++ loader has one geometry
         parser.error("--multigrid needs a reader per phase geometry, which "
                      "the JAX package's --native_loader cannot give; drop "
                      "--native_loader")
+    if args.native_loader and not args.use_tfrecord and not args.synthetic:
+        # the JAX tool's usage error: its C++ loader reads shards only
+        parser.error("--native_loader requires --use_tfrecord (it reads "
+                     "TFRecord shards, not raw videos)")
 
     os.makedirs(args.model_dir, exist_ok=True)
     seed = 1111 if args.debug else 0       # the reference's debug seed
@@ -193,7 +188,7 @@ def main(argv=None, extra_hooks=()) -> int:
                                      device=device)
         reader = InputReader(train_cfg, is_training=True, seed=seed,
                              num_threads=threads, device=device, dtype=dtype,
-                             **hosts)
+                             use_tfrecord=args.use_tfrecord, **hosts)
         return reader(args.train_file_pattern, batch_size)
 
     def batches_for_phase(phase):
@@ -204,7 +199,8 @@ def main(argv=None, extra_hooks=()) -> int:
     val_fn = None
     if not args.synthetic and args.val_file_pattern:
         val_reader = InputReader(cfg, is_training=False, num_threads=threads,
-                                 device=device, dtype=dtype, **hosts)
+                                 device=device, dtype=dtype,
+                                 use_tfrecord=args.use_tfrecord, **hosts)
 
         def val_fn():
             return val_reader(args.val_file_pattern,
