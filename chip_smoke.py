@@ -109,15 +109,22 @@ its own, which fails on a spill where the body must not spill) and then:
   forward); trains
   the bare step for a few steps at the config's batch (first and median
   ms, clips/s, peak memory, launches and bodies per step), L and XL with
-  remat as ``create_model`` resolves it from the YAML ("auto": per block)
-  and without, and checks that one step repeats bit for bit and that the
-  step with remat equals the step without, bit for bit (loss, gradients,
+  remat as ``create_model`` resolves it from the YAML ("auto": per block),
+  without, and with "convs" (the conv outputs kept: K1, K2, K5, K6 and K7
+  launch as without remat, no conv again in the backward), and checks
+  that one step repeats bit for bit and that the steps with remat "block"
+  and "convs" equal the step without, bit for bit (loss, gradients,
   parameters, running statistics); and checks a float32 step through the
   kernels against the plain versions for XS (whose stem's 4 frames are
   fewer than its 5 taps, so K4 takes its backward) and XL (SCALE_RES2,
   widths 2 mod 4);
 * reads real input (phase 11b: TFRecord shards written on the card,
   nvJPEG and the clip kernel);
+* checks the time-folded layout's surface (phase 11e, ``time_fold``; the
+  port runs one body for every layout): K1 through
+  ``depthwise_conv3d_folded`` at X3D-M's 1-video request, and the engine's
+  five settings, each serving that request bit for bit with the same
+  launches.  ``--fold-only`` runs the build and this phase alone;
 * trains X3D-M by long-cycle multigrid (phase 11c) through ``tools/train
   --multigrid --synthetic`` at full width and depth: the default factors
   over 5 epochs of 8 base steps (23 steps at 256 x 4x160², 128 x 8x160²,
@@ -787,14 +794,21 @@ def k7_want(vcfg, varch, train, times, remat=False, clips=CLIPS, elem=2):
     return want
 
 
+def recomputes_convs(remat) -> bool:
+    """Whether a remat mode runs the blocks' conv kernels again in the
+    backward pass: "block" and "stage" do, "convs" keeps their outputs."""
+    return remat in ("block", "stage")
+
+
 def want_step_of(varch, stem_k8, remat):
     """Launches per training step by kernel: the stem's backward by K8,
     or by K4 dx and dk where K8 cannot take it (X3D-XS); with remat
-    every kernel of a block's forward runs once more in the backward
-    pass (the stem and the head are outside every region)."""
+    "block" or "stage" every kernel of a block's forward runs once more in
+    the backward pass (the stem and the head are outside every region),
+    with "convs" none does."""
     ns = len(varch.stages)
     n2 = sum(len(b) - 1 for b in varch.stages)
-    again = 1 + (remat != "off")
+    again = 1 + recomputes_convs(remat)
     k4 = ns + (not stem_k8)
     return {"K1": 1 + ns * again, "K2": n2 * again, "K3": n2,
             "K4 dx": k4, "K4 dk": k4, "K5": n2 * again, "K6": n2 * again,
@@ -814,7 +828,7 @@ def bodies_of_steps(vcfg, varch, want, steps, stem_k8, remat):
             "K3": {"ring": steps * want["K3"], "generic": 0},
             "K4 dx": {"phase": steps * ns, "gather": steps * xs},
             "K4 dk": {"ring": steps * ns, "generic": steps * xs},
-            "K7": k7_want(vcfg, varch, True, steps, remat != "off"),
+            "K7": k7_want(vcfg, varch, True, steps, recomputes_convs(remat)),
             "K8": {"temporal": steps * want["K8"], "generic": 0}}
 
 
@@ -2915,6 +2929,84 @@ def raw_video_phase(emit, check) -> dict:
             "phase_wall_s": wall}
 
 
+def fold_phase(emit, check) -> dict:
+    """Phase 11e: the time-folded layout on the card, at X3D-M's 1-video
+    request (10 clips of 16x224², bfloat16, random weights from the seed).
+    The port runs one body for every layout (a folded (B·T, 1, H, W, C)
+    tensor is the NDHWC one's memory), so the phase checks what can
+    differ: ``depthwise_conv3d_folded`` launches K1 on the folded view of
+    stage 2's depthwise input (160 x 1 x 56² x 54), bit for bit K1 on the
+    NDHWC tensor and within TOL_BF16 of the plain version; and the
+    engine's five settings (None, True, False, "mixed", "measure") resolve
+    to JAX's layouts (None folds a 10-clip request; "measure" keeps the
+    unfolded one, the layouts tying) and each serves a request bit for bit
+    the unfolded engine's, with the same launches and bodies.  Returns
+    the layouts and K1's launches and error."""
+    import numpy as np
+    import torch
+
+    from x3d_tpu_torch import variant_config
+    from x3d_tpu_torch.ops import depthwise
+    from x3d_tpu_torch.serving import InferenceEngine
+
+    cfg = variant_config("M")
+    views = cfg.TEST.NUM_TEMPORAL_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    base = InferenceEngine.random_init(cfg, max_videos=1, seed=SEED,
+                                       time_fold=False)
+    kernel = base.model.stage2_block1.bottleneck.b.kernel.detach()
+    T, S, C = cfg.DATA.TEMP_DURATION, cfg.DATA.TEST_CROP_SIZE // 4, \
+        kernel.shape[-1]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((views * T, 1, S, S, C), generator=g,
+                    device="cuda").bfloat16()
+    with torch.no_grad():
+        zero_counts()
+        got = depthwise.depthwise_conv3d_folded(x, kernel, T)
+        k1 = read_counts()["K1"]
+        logical = x.view(views, T, S, S, C)
+        want = depthwise.depthwise(logical, kernel)
+        pads = depthwise._resolve_pads(logical.shape, kernel.shape[:3],
+                                       (1, 1, 1), "SAME")
+        ref = depthwise.depthwise_conv3d_reference(
+            logical.float(), kernel.bfloat16().float(), (1, 1, 1), pads)
+    same = got.shape == (views * T, 1, S, S, C) and torch.equal(
+        got, want.view(got.shape))
+    rel = ((got.view(ref.shape).float() - ref).abs().max()
+           / ref.abs().max()).item()
+    out = {"k1_launches": k1, "k1_bit_for_bit_unfolded": same,
+           "k1_rel_err_bf16": rel}
+    emit(phase="fold: K1 on a folded view", shape=list(x.shape), **out)
+    check(k1 == 1, f"fold: the folded conv launched K1 {k1} times")
+    check(same, "fold: the folded conv differs from K1 on NDHWC")
+    check(rel <= TOL_BF16, f"fold: the folded conv's error {rel}")
+
+    clips = np.random.default_rng(SEED).integers(
+        0, 256, (views,) + base.clip_shape[1:], dtype=np.uint8)
+    zero_counts()
+    want_probs = base.predict(clips)
+    want_runs = (read_counts(), read_bodies())
+    expect = {None: True, True: True, False: False, "mixed": "mixed",
+              "measure": False}
+    out["layouts"] = {}
+    for setting, layout in expect.items():
+        engine = InferenceEngine(cfg, base.model, max_videos=1,
+                                 time_fold=setting)
+        zero_counts()
+        probs = engine.predict(clips)
+        runs = (read_counts(), read_bodies())
+        out["layouts"][str(setting)] = engine.layout
+        check(engine.layout == layout, f"fold: time_fold {setting!r} "
+                                       f"gave layout {engine.layout!r}")
+        check(np.array_equal(probs, want_probs) and runs == want_runs,
+              f"fold: the request with time_fold {setting!r} differs")
+    check(want_runs[0]["K2"] > 0, "fold: no K2 launch in the request")
+    emit(phase="fold: X3D-M engine layouts", clips=views,
+         layouts=out["layouts"], launches=want_runs[0])
+    del base, x, got, want, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -3176,6 +3268,17 @@ def main() -> int:
                                         write_input_shards(emit, check, d))
         print(json.dumps({"card": card, "multigrid": {
             k: multigrid[k] for k in ("launches", "bodies")}}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--fold-only" in sys.argv[1:]:
+        # the time-folded layout alone, after the build
+        folded = fold_phase(emit, check)
+        print(json.dumps({"card": card, "fold": folded}))
         if failures:
             fail(f"{len(failures)} check(s) failed: {failures}")
         print(json.dumps({"ok": True, "device": {
@@ -4750,14 +4853,15 @@ def main() -> int:
 
         # training: the bare step at the config's batch, with remat as
         # create_model resolves it from the YAML and, where that is on,
-        # without
+        # without and with "convs"
         model = create_model(vcfg, dtype=torch.bfloat16, seed=SEED)
         state = create_train_state(vcfg, model)
         step_fn = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
         batch = next(synthetic_batches(vcfg, clips, seed=SEED))
         gen_v = torch.Generator(device="cuda").manual_seed(SEED)
         snap0 = snapshot(state)
-        modes = [model.remat] + (["off"] if model.remat != "off" else [])
+        modes = [model.remat] + (["off", "convs"] if model.remat != "off"
+                                 else [])
         out["train"] = {}
         for mode in modes:
             model.remat = mode
@@ -4807,10 +4911,11 @@ def main() -> int:
                 check(got[kname] == w, f"X3D-{v} remat {mode} {kname} "
                                        f"bodies {got[kname]}, want {w}")
 
-        # one step from one state, twice with the resolved remat and once
-        # without: bit for bit the same loss, gradients, parameters and
-        # running statistics (deterministic kernels; the recompute repeats
-        # the same launches)
+        # one step from one state, twice with the resolved remat, once
+        # without and once with "convs": bit for bit the same loss,
+        # gradients, parameters and running statistics (deterministic
+        # kernels; the recompute repeats the same launches or takes the
+        # kept outputs)
         torch.backends.cudnn.deterministic = True
         runs = []
         for mode in [modes[0]] + modes:
@@ -4823,12 +4928,17 @@ def main() -> int:
         torch.backends.cudnn.deterministic = False
         repeat = same_step(runs[0], runs[1])
         vs_off = same_step(runs[0], runs[2]) if len(modes) > 1 else None
+        convs_vs_off = same_step(runs[3], runs[2]) if len(modes) > 2 \
+            else None
         emit(phase=f"X3D-{v} train determinism", remat=modes,
              losses=[r[0] for r in runs], repeat_bit_identical=repeat,
-             remat_vs_off_bit_identical=vs_off)
+             remat_vs_off_bit_identical=vs_off,
+             convs_vs_off_bit_identical=convs_vs_off)
         check(repeat, f"X3D-{v}: two runs of one training step differ")
         check(vs_off is not False, f"X3D-{v}: the step with remat "
                                    f"{modes[0]} differs from the step without")
+        check(convs_vs_off is not False, f"X3D-{v}: the step with remat "
+                                         "convs differs from the step without")
         del model, state, step_fn, batch, runs, snap0
         torch.cuda.empty_cache()
         if v in ("XS", "XL"):
@@ -4853,6 +4963,9 @@ def main() -> int:
 
     # ------------------------- 11d. the reference's TF checkpoint imported
     imported = import_phase(emit, check)
+
+    # ----------------------------------- 11e. the time-folded layout
+    fold_phase(emit, check)
 
     # ------------- 12. data parallelism, grouped BN and the split head
     grouped = parallel_phase(emit, check)

@@ -21,6 +21,9 @@ module and the leaf comparisons are parametrised over its result:
   ``bn_groups=2`` (and the one-process port with ``bn_groups=2``);
 * ``head_2x2``: data 2 x model 2, the head split, against JAX and against
   ``data_4`` (4 data ranks x model 1, itself against JAX);
+* ``sync_2_convs``: ``sync_2`` with remat "convs" (the synced BN's
+  all-reduce runs again in each block's recompute), against JAX and bit for
+  bit against ``sync_2``;
 * each group's eval sums (every rank evaluates its share of the videos
   before the step) against JAX's eval step on the whole batch.
 
@@ -71,7 +74,10 @@ RUN_TIMEOUT = 300
 RUNS = {"sync_2": (2, 2, 1, True, 1),
         "grouped_2": (2, 2, 1, False, 2),
         "head_2x2": (4, 2, 2, True, 1),
-        "data_4": (4, 4, 1, True, 1)}
+        "data_4": (4, 4, 1, True, 1),
+        "sync_2_convs": (2, 2, 1, True, 1)}
+# the runs with remat (the others: none, as the tiny config resolves it)
+REMAT = {"sync_2_convs": "convs"}
 KINDS = ("loss", "grads", "params", "stats")
 
 
@@ -409,7 +415,7 @@ def runs(tmp_path_factory, data):
     for name, (world, dp, mp, sync, _) in RUNS.items():
         started[name] = _start(os.path.join(base, name), {
             "mode": "step", "world": world, "data": dp, "model": mp,
-            "sync_bn": sync, "inputs": inputs})
+            "sync_bn": sync, "inputs": inputs, "remat": REMAT.get(name)})
     return {name: _join(os.path.join(base, name), procs)
             for name, procs in started.items()}
 
@@ -442,6 +448,18 @@ def test_head_split_matches_data_only(runs, kind):
     ranks: the same loss, gradients, update and statistics."""
     _compare(_rank_result(runs["head_2x2"][0]),
              _rank_result(runs["data_4"][0]), kind, "2x2 vs 4x1")
+
+
+def test_convs_ranks_equal_the_ranks_without_remat(runs):
+    """Two synced ranks under remat "convs" take the step of two synced
+    ranks without remat, bit for bit on every rank."""
+    for got, want in zip(runs["sync_2_convs"], runs["sync_2"]):
+        assert got["loss"] == want["loss"]
+        assert got["metrics"] == want["metrics"]
+        for kind in ("grads", "state"):
+            assert sorted(got[kind]) == sorted(want[kind])
+            for k, v in want[kind].items():
+                assert torch.equal(got[kind][k], v), f"{kind} {k}"
 
 
 @pytest.mark.parametrize("name", list(RUNS))

@@ -129,6 +129,25 @@ def test_training_group(name, want):
     assert profile_training._group(name) == want
 
 
+@pytest.mark.parametrize("remat", ["off", "block", "stage", "convs"])
+def test_profile_training_takes_the_remat_mode(monkeypatch, capsys, remat):
+    """``--remat`` reaches ``create_model``; an unknown mode is a usage
+    error."""
+    seen = {}
+
+    def fake_profile(cfg, clips, steps, seed, trace_path=None, remat=None):
+        seen["remat"] = remat
+        return {}
+
+    monkeypatch.setattr(profile_training, "profile", fake_profile)
+    monkeypatch.setattr(profile_training, "card", lambda: "card")
+    profile_training.main(["--variant", "L", "--remat", remat])
+    assert seen["remat"] == remat
+    assert json.loads(capsys.readouterr().out)["remat"] == remat
+    with pytest.raises(SystemExit):
+        profile_training.main(["--remat", "layer"])
+
+
 def _prof(*kernels):
     """A stand-in for a finished profiler: (name, start us, end us) device
     kernels and one host event, which the summary leaves out."""

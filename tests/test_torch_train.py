@@ -98,10 +98,12 @@ def _leaves(tree):
             for p, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-def _setup(scale_res2):
+def _setup(scale_res2, remat=None):
+    """JAX's side of a step: the model (``remat`` None: the config's), its
+    state with random BN, the batch, the loss and gradients."""
     torch.set_num_threads(1)
     cfg = _tiny(jax_variant_config("XS"), scale_res2=scale_res2)
-    model = jax_create_model(cfg, dtype=jnp.float32)
+    model = jax_create_model(cfg, dtype=jnp.float32, remat=remat)
     rng = np.random.default_rng(0)
     x = rng.normal(size=(B, T, S, S, 3)).astype(np.float32)
     label = np.array([3, 7])
@@ -124,7 +126,7 @@ def _setup(scale_res2):
     return dict(cfg=cfg, model=model, state=state, params=params,
                 stats=stats, x=x, label=label, batch=batch,
                 loss=float(loss), grads=_leaves(grads),
-                scale_res2=scale_res2)
+                scale_res2=scale_res2, remat=remat)
 
 
 @pytest.fixture(scope="module")
@@ -140,7 +142,8 @@ def setup_scale_res2():
 def _port(setup, optimizer="sgd", dropout=0.0):
     cfg = _tiny(variant_config("XS"), optimizer, dropout,
                 setup["scale_res2"])
-    model = create_model(cfg, dtype=torch.float32, device="cpu", init=False)
+    model = create_model(cfg, dtype=torch.float32, device="cpu", init=False,
+                         remat=setup["remat"])
     model.load_state_dict(convert.flax_to_state_dict(
         {"params": setup["params"], "batch_stats": setup["stats"]}))
     return cfg, model, create_train_state(cfg, model)

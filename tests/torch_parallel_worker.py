@@ -4,8 +4,9 @@
     python tests/torch_parallel_worker.py SPEC.json RANK
 
 SPEC holds the mesh (``world``, ``data``, ``model``, ``sync_bn``), the
-rendezvous (``init``: a ``file://`` path), the ``mode`` and the paths of
-its inputs and outputs:
+rendezvous (``init``: a ``file://`` path), the ``mode``, the train step's
+``remat`` (optional; None: the config's) and the paths of its inputs and
+outputs:
 
 * ``step``: load the tiny model's weights and batches (``inputs``, a
   ``torch.save`` file), evaluate the rank's share of the eval batch, then
@@ -83,7 +84,7 @@ def _step(spec, rank):
     dtype = getattr(torch, spec.get("dtype", "float32"))
     cfg = tiny_cfg(spec["sync_bn"], inputs["views"], len(inputs["label"]))
     model = create_model(cfg, dtype=dtype, device="cpu", init=False,
-                         mesh=mesh)
+                         mesh=mesh, remat=spec.get("remat"))
     model.load_state_dict(inputs["state"])
     state = create_train_state(cfg, model)
 

@@ -47,10 +47,24 @@ model group (``split_head``).
 Rematerialisation (``remat``, the JAX package's modes): in a training step
 with gradients, "block" recomputes each ResBlock's forward in the backward
 pass and keeps only the block boundaries, "stage" each stage's
-(``torch.utils.checkpoint``, non-reentrant).  A recompute takes the same
-batch statistics (the kernels and plain versions are deterministic) and
-does not fold them into the running statistics a second time; dropout sits
-in the head, outside every recomputed region.
+(``torch.utils.checkpoint``, non-reentrant), and "convs" keeps each
+ResBlock's conv outputs and recomputes only its BN / ReLU / SE / swish
+chains (a selective checkpoint whose policy saves the outputs of the
+``x3d::`` ops, through which the kernels' forwards launch inside such a
+region: K5, K2, K6 on the stride-1 blocks, K7 and K1 on the stage
+entries).  A recompute takes the same batch statistics (the kernels and
+plain versions are deterministic) and does not fold them into the running
+statistics a second time; dropout sits in the head, outside every
+recomputed region.
+
+Time-folded layout (``time_fold``, ``fold_stages``: the JAX package's
+options): the model takes them, resolves them and makes the JAX package's
+two refusals, and then runs its one body for every layout.  On a TPU the
+folded (B·T, 1, H, W, C) layout fills the batch-minor lanes at small
+batches; on a GPU that tensor is the same memory as the NDHWC
+(B, T, H, W, C) one, and each module would run on the (B, T, H, W, C)
+view of it, so a folded body would launch the same kernels on the same
+memory.
 """
 
 from __future__ import annotations
@@ -63,10 +77,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from x3d_tpu_torch import utils
-from x3d_tpu_torch.ops import depthwise, dw_fused, pw_stats
+from x3d_tpu_torch import ops, utils
+from x3d_tpu_torch.ops import depthwise, dw_fused, library, pw_stats
 from x3d_tpu_torch.ops.pointwise import pointwise_conv3d
 from x3d_tpu_torch.parallel import mesh as parallel
 
@@ -582,21 +597,27 @@ class ResBlock(nn.Module):
 
 
 def remat_mode(remat) -> str:
-    """The remat setting as one of "off", "block", "stage": False/None and
-    True are aliases of "off" and "block"; "convs" (the JAX package's
-    policy that keeps conv outputs) is not ported and raises
-    NotImplementedError; any other value raises ValueError, as
-    ``x3d_tpu/models/x3d.py:800-804`` does."""
+    """The remat setting as one of "off", "block", "stage", "convs":
+    False/None and True are aliases of "off" and "block"; any other value
+    raises ValueError, as ``x3d_tpu/models/x3d.py:800-804`` does."""
     mode = {False: "off", True: "block", None: "off"}.get(remat, remat)
-    if mode == "convs":
-        raise NotImplementedError(
-            "remat mode 'convs' (recompute only the BN/ReLU/SE/swish chains, "
-            "keep the conv outputs) is not ported: the kernels launch inside "
-            "autograd Functions that a checkpoint policy cannot name "
-            "(ROADMAP A16); use 'block' or 'stage'")
-    if mode not in ("off", "block", "stage"):
+    if mode not in ("off", "block", "stage", "convs"):
         raise ValueError(f"remat mode {remat!r}")
     return mode
+
+
+def resolve_time_fold(time_fold, batch: int, temp: int,
+                      train: bool = False) -> bool:
+    """Whether a call on a (batch, temp, ...) input runs time-folded
+    (``x3d_tpu/models/x3d.py:411-430``): False/True pass through; an int N
+    folds training-mode calls with batch <= N; "auto" folds nothing here,
+    as the JAX package resolves it on any backend but a TPU (it folds
+    training calls whose batch underfills a TPU's 128 lanes)."""
+    if time_fold == "auto":
+        return False
+    if isinstance(time_fold, int) and not isinstance(time_fold, bool):
+        return train and batch <= time_fold
+    return bool(time_fold)
 
 
 @contextlib.contextmanager
@@ -631,6 +652,40 @@ def _remat(blocks: Sequence[nn.Module], x: torch.Tensor) -> torch.Tensor:
                                           _recomputing(blocks)))
 
 
+def _keep_convs(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """The "convs" policy: keep the kernels' outputs (the ``x3d::`` ops),
+    recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if func in library.OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _remat_convs(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Run ``block`` keeping its input and its kernels' outputs for the
+    backward pass, which recomputes the rest of its forward and takes the
+    kept outputs where the recompute calls the same ops again (a selective
+    checkpoint; the JAX package's ``save_only_these_names("x3d_conv")``).
+    The kernels launch through their ``x3d::`` ops in both passes
+    (``ops.library_calls``), in the same order, which the checkpoint's
+    cache is keyed by; the recompute folds no BN statistics.  Within
+    ``ops.plain_versions()`` no op is called, so nothing is kept and the
+    convs are recomputed: that path decides values, not memory."""
+    def contexts():
+        save, again = create_selective_checkpoint_contexts(_keep_convs)
+        return (_entered(save, ops.library_calls()),
+                _entered(again, ops.library_calls(), _recomputing([block])))
+
+    return checkpoint(block, x, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=contexts)
+
+
 class X3D(nn.Module):
     """The full X3D network.
 
@@ -638,14 +693,20 @@ class X3D(nn.Module):
     over each video's views (the batch is videos × views clips), or with
     ``return_logits=True`` the per-clip logits.  ``remat`` (see
     :func:`remat_mode`) sets what a training step with gradients recomputes
-    in its backward pass.
+    in its backward pass.  ``time_fold`` (False, True, "auto" or an int
+    threshold, :func:`resolve_time_fold`) and ``fold_stages`` (0..4) are
+    the JAX package's layout options: checked as it checks them, and
+    computed by the one body (module docstring).  ``remat``, ``time_fold``
+    and ``fold_stages`` may be reassigned between calls.
     """
 
     def __init__(self, arch: X3DArch, dtype: torch.dtype = torch.bfloat16,
-                 in_channels: int = 3, device=None, remat=False):
+                 in_channels: int = 3, device=None, remat=False,
+                 time_fold=False, fold_stages: int = 4):
         super().__init__()
         self.arch, self.dtype = arch, dtype
         self.remat = remat_mode(remat)
+        self.time_fold, self.fold_stages = time_fold, fold_stages
         eps, m = arch.bn_eps, arch.bn_momentum
         self.conv_1 = Stem(in_channels, arch.conv1_dim, arch.temp_filter, eps,
                            m, dtype, device)
@@ -712,6 +773,19 @@ class X3D(nn.Module):
                 state_dict[prefix + name] = parallel.cut_split(t, dim,
                                                                self.mesh)
 
+    def _check_fold(self, x: torch.Tensor) -> None:
+        """The JAX package's two refusals of the layout options
+        (``x3d_tpu/models/x3d.py:790-794``, ``:813-814``)."""
+        B, T = x.shape[0], x.shape[1]
+        fold = resolve_time_fold(self.time_fold, B, T, self.training)
+        groups = self.conv_1.bn.groups
+        if fold and T > 1 and groups > 1 and B % groups:
+            raise ValueError(
+                f"time_fold needs batch {B} divisible by bn_groups "
+                f"{groups} (grouped statistics must not split clips)")
+        if not 0 <= self.fold_stages <= 4:
+            raise ValueError(f"fold_stages {self.fold_stages!r} not in 0..4")
+
     def forward(self, x: torch.Tensor, return_logits: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator`` (on x's device) draws the head's dropout mask in
@@ -721,6 +795,7 @@ class X3D(nn.Module):
         if drop and generator is None:
             raise ValueError("training with dropout needs a torch.Generator "
                              "for the dropout mask")
+        self._check_fold(x)
         x = self.conv_1(x)
         remat = self.remat if self.training and torch.is_grad_enabled() \
             else "off"
@@ -731,8 +806,10 @@ class X3D(nn.Module):
             elif remat == "stage":
                 x = _remat(blocks, x)
             else:
+                run = _remat_convs if remat == "convs" \
+                    else lambda b, v: _remat([b], v)
                 for block in blocks:
-                    x = _remat([block], x)
+                    x = run(block, x)
         x = torch.relu(self.bn_5(self.conv_5(x.to(self.dtype))))
         x = x.to(torch.float32).mean(dim=(1, 2, 3)).to(self.dtype)
         group = self.mesh.model_group if self.head_split else None
@@ -777,7 +854,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
                  seed: int = 0, init: bool = True, remat=None,
                  bn_groups: int = 1,
-                 mesh: Optional[parallel.Mesh] = None) -> X3D:
+                 mesh: Optional[parallel.Mesh] = None, time_fold=None,
+                 fold_stages: int = 4) -> X3D:
     """Build an eval-mode :class:`X3D` from a config (``.train()`` switches
     it to training mode).
 
@@ -791,6 +869,7 @@ def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
     ``remat`` defaults to ``cfg.TPU.REMAT``; "auto" is per-block remat for
     the 312² variants (``DATA.TRAIN_CROP_SIZE >= 312``: X3D-L and -XL) and
     none otherwise, as ``x3d_tpu.models.create_model`` resolves it.
+    ``time_fold`` defaults to ``cfg.TPU.TIME_FOLD`` (see :class:`X3D`).
 
     Weights are drawn on the CPU from a ``torch.Generator`` seeded with
     ``seed`` (``init=False`` leaves them to a later ``load_state_dict``),
@@ -805,10 +884,12 @@ def create_model(cfg, dtype: Optional[torch.dtype] = None, device=None,
         remat = cfg.TPU.REMAT
     if remat == "auto":
         remat = cfg.DATA.TRAIN_CROP_SIZE >= 312
+    if time_fold is None:
+        time_fold = cfg.TPU.TIME_FOLD
     arch = build_arch(cfg)
     build_on = device if device.type == "meta" else torch.device("cpu")
     model = X3D(arch, dtype, cfg.DATA.NUM_INPUT_CHANNELS, device=build_on,
-                remat=remat)
+                remat=remat, time_fold=time_fold, fold_stages=fold_stages)
     if init and build_on.type != "meta":
         init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()

@@ -719,8 +719,9 @@ depthwise_conv3d_pbwd.body_launches = {"temporal": 0, "generic": 0}
 class _Depthwise(torch.autograd.Function):
     """K1 forward; backward K8 (both gradients wanted, stride 1, SAME, odd
     taps) or K4; within ``ops.plain_versions()`` all run their plain
-    versions.  While the model is exported the forward is the op
-    ``x3d::depthwise_conv3d`` (``ops/library.py``)."""
+    versions.  Where ``ops.via_library()`` holds (export, a remat "convs"
+    region) the forward is the op ``x3d::depthwise_conv3d``
+    (``ops/library.py``)."""
 
     @staticmethod
     def forward(ctx, x, kernel, strides, pads):
@@ -729,7 +730,7 @@ class _Depthwise(torch.autograd.Function):
         ctx.conf = (strides, pads, kernel.dtype)
         if ops.plain_versions_enabled():
             return depthwise_conv3d_reference(x, k, strides, pads)
-        if torch.compiler.is_exporting():
+        if ops.via_library():
             from x3d_tpu_torch.ops import library
             return library.depthwise_conv3d(x, k, strides,
                                             [v for p in pads for v in p])
@@ -766,3 +767,32 @@ def depthwise(x: torch.Tensor, kernel: torch.Tensor,
     strides = tuple(int(s) for s in strides)
     pads = _resolve_pads(x.shape, kernel.shape[:3], strides, padding)
     return _Depthwise.apply(x.contiguous(), kernel, strides, pads)
+
+
+def depthwise_conv3d_folded(x: torch.Tensor, kernel: torch.Tensor,
+                            fold_T: int, strides: Sequence[int] = (1, 1, 1),
+                            padding="SAME") -> torch.Tensor:
+    """The depthwise conv on a time-folded (B·T, 1, H, W, C) input, the
+    JAX package's ``depthwise_conv3d_folded``
+    (``x3d_tpu/ops/depthwise.py:189-265``), with its checks: temporal
+    stride 1, a folded input, SAME temporal pads (or k // 2 each side).
+
+    The folded tensor is the same memory as the NDHWC (B, T, H, W, C) one,
+    so the conv runs on that view (:func:`depthwise`: K1 on a CUDA tensor,
+    its plain version on the CPU, differentiable) and its output is viewed
+    as (B·T, 1, Ho, Wo, C) again: no copy and no kernel of its own.
+    ``kernel`` (kt, kh, kw, 1, C) is the unfolded conv's parameter;
+    ``padding`` "SAME" or explicit pads over the logical (T, H, W)."""
+    kt = kernel.shape[0]
+    T, N = fold_T, x.shape[0]
+    if strides[0] != 1:
+        raise ValueError("folded depthwise requires temporal stride 1")
+    if x.dim() != 5 or x.shape[1] != 1 or N % T:
+        raise ValueError(f"expected folded (B*{T},1,H,W,C) input, "
+                         f"got {tuple(x.shape)}")
+    logical = x.view(N // T, T, *x.shape[2:])
+    pads = _resolve_pads(logical.shape, kernel.shape[:3], strides, padding)
+    if pads[0] != same_pads(T, kt, 1) and pads[0] != (kt // 2, kt // 2):
+        raise ValueError(f"unsupported temporal padding {pads[0]}")
+    y = depthwise(logical, kernel, strides, pads)
+    return y.view(N, 1, *y.shape[2:])

@@ -427,8 +427,9 @@ dw_bn_act_conv_bwd.body_launches = {"ring": 0, "generic": 0}
 
 class _Segment(torch.autograd.Function):
     """K2 forward, K3 backward; within ``ops.plain_versions()`` both run
-    their plain versions.  While the model is exported the forward is the
-    op ``x3d::dw_bn_act_conv`` (``ops/library.py``).  Unused outputs'
+    their plain versions.  Where ``ops.via_library()`` holds (export, a
+    remat "convs" region) the forward is the op ``x3d::dw_bn_act_conv``
+    (``ops/library.py``).  Unused outputs'
     cotangents arrive as None (in training s2 feeds BN only and the SE
     pool reads p alone) and count as zeros."""
 
@@ -437,7 +438,7 @@ class _Segment(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         if ops.plain_versions_enabled():
             fwd = reference
-        elif torch.compiler.is_exporting():
+        elif ops.via_library():
             from x3d_tpu_torch.ops import library
             fwd = library.dw_bn_act_conv
         else:

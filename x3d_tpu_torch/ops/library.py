@@ -1,4 +1,4 @@
-"""The serving forward's hand-written kernels as ``torch.library`` ops.
+"""The model's forward kernels as ``torch.library`` ops.
 
 ``torch.export`` traces with fake tensors, which have no data pointers, so
 it cannot trace the wrappers, which launch their kernels through ``ctypes``
@@ -10,13 +10,17 @@ the launch function when it runs:
 
 * ``x3d::depthwise_conv3d`` -- K1, :func:`depthwise.depthwise_conv3d`;
 * ``x3d::dw_bn_act_conv`` -- K2, :func:`dw_fused.dw_bn_act_conv`;
-* ``x3d::pw_conv`` -- K7, :func:`pointwise.pw_conv`.
+* ``x3d::pw_conv`` -- K7, :func:`pointwise.pw_conv`;
+* ``x3d::pw_conv_stats`` -- K5, :func:`pw_stats.pw_conv_stats`;
+* ``x3d::pw_act_conv_stats`` -- K6, :func:`pw_stats.pw_act_conv_stats`.
 
 The launch functions keep their device branch (the plain version on a CPU
 tensor, the kernel or an error on a CUDA tensor) and their ``launches``
 and ``body_launches`` counters, so one op serves both devices.  The model
-calls the ops only while it is being exported
-(``torch.compiler.is_exporting()``); eager calls go to the launch
+calls the ops only where ``ops.via_library()`` holds: while it is being
+exported, and inside a remat "convs" region, whose selective checkpoint
+keeps these ops' outputs for the backward pass instead of running them
+again (``models/x3d.py``); eager calls elsewhere go to the launch
 functions directly, without the op's dispatch.  A process that loads an
 exported program holding these ops imports this module first
 (``x3d_tpu_torch.export.load`` does).
@@ -28,7 +32,7 @@ from typing import List, Tuple
 
 import torch
 
-from x3d_tpu_torch.ops import depthwise, dw_fused, pointwise
+from x3d_tpu_torch.ops import depthwise, dw_fused, pointwise, pw_stats
 
 
 def _pairs(pads: List[int]):
@@ -78,3 +82,44 @@ def _(x, weight, strides):
     B, T, H, W, _ = x.shape
     _, sh, sw = strides
     return x.new_empty((B, T, -(-H // sh), -(-W // sw), weight.shape[0]))
+
+
+def _stats_fake(x, weight):
+    """y (B, ..., Cout) in x's dtype, contiguous; p, s2 (Cout, B) float32."""
+    N, B = weight.shape[0], x.shape[0]
+    p = x.new_empty((N, B), dtype=torch.float32)
+    return x.new_empty((*x.shape[:-1], N)), p, torch.empty_like(p)
+
+
+@torch.library.custom_op("x3d::pw_conv_stats", mutates_args=())
+def pw_conv_stats(x: torch.Tensor, weight: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5: y = x @ weight^T in x's dtype; p, s2 (Cout, B) float32."""
+    return pw_stats.pw_conv_stats(x, weight)
+
+
+@pw_conv_stats.register_fake
+def _(x, weight):
+    return _stats_fake(x, weight)
+
+
+@torch.library.custom_op("x3d::pw_act_conv_stats", mutates_args=())
+def pw_act_conv_stats(x: torch.Tensor, a_cb: torch.Tensor,
+                      b_cb: torch.Tensor, weight: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6: y = swish(x * a + b) @ weight^T in x's dtype; p, s2 (Cout, B)
+    float32."""
+    return pw_stats.pw_act_conv_stats(x, a_cb, b_cb, weight)
+
+
+@pw_act_conv_stats.register_fake
+def _(x, a_cb, b_cb, weight):
+    return _stats_fake(x, weight)
+
+
+# the overloads a remat "convs" region keeps (models/x3d.py)
+OPS = (torch.ops.x3d.depthwise_conv3d.default,
+       torch.ops.x3d.dw_bn_act_conv.default,
+       torch.ops.x3d.pw_conv.default,
+       torch.ops.x3d.pw_conv_stats.default,
+       torch.ops.x3d.pw_act_conv_stats.default)

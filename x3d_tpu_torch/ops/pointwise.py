@@ -100,8 +100,15 @@ def pointwise_conv3d_reference(x: torch.Tensor, weight: torch.Tensor,
                                strides: Sequence[int] = (1, 1, 1),
                                bias: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
-    """Plain version: subsample, then ``F.linear`` in x's dtype."""
-    return F.linear(_subsample(x, strides), weight.to(x.dtype),
+    """Plain version: subsample, then ``F.linear`` in x's dtype.  A
+    subsampled x is copied first: on a strided view ``torch.matmul`` takes
+    one GEMM or a batch of them by whether the weight requires grad, which
+    changes the sums' order (a custom op's or a checkpoint's forward sees
+    tensors that do not)."""
+    xs = _subsample(x, strides)
+    if xs is not x:
+        xs = xs.contiguous()
+    return F.linear(xs, weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype))
 
 
@@ -371,8 +378,9 @@ def plan(x_shape: Sequence[int], N: int, strides: Sequence[int] = (1, 1, 1),
 
 
 class _Pointwise(torch.autograd.Function):
-    """K7 forward (while the model is exported, the op ``x3d::pw_conv``,
-    ``ops/library.py``); backward: dx = K7 on the cotangent and the
+    """K7 forward (where ``ops.via_library()`` holds -- export, a remat
+    "convs" region -- the op ``x3d::pw_conv``, ``ops/library.py``);
+    backward: dx = K7 on the cotangent and the
     transposed weight (scattered back onto the strided positions), dW =
     g^T x in float32."""
 
@@ -380,7 +388,7 @@ class _Pointwise(torch.autograd.Function):
     def forward(ctx, x, weight, strides):
         ctx.save_for_backward(x, weight)
         ctx.strides = strides
-        if torch.compiler.is_exporting():
+        if ops.via_library():
             from x3d_tpu_torch.ops import library
             return library.pw_conv(x, weight, strides)
         return pw_conv(x, weight, strides)

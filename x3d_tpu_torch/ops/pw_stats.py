@@ -190,15 +190,27 @@ def _weight_grad(dy, u, N, K):
                         u.reshape(-1, K).to(torch.float32))
 
 
+def _forward(reference, launch, op_name):
+    """The forward a Function calls: the plain version within
+    ``ops.plain_versions()``, the ``x3d::`` op where ``ops.via_library()``
+    holds, else the launch function."""
+    if ops.plain_versions_enabled():
+        return reference
+    if ops.via_library():
+        from x3d_tpu_torch.ops import library
+        return getattr(library, op_name)
+    return launch
+
+
 class _ConvStats(torch.autograd.Function):
-    """K5 forward; plain backward: dx = dy @ W in x's dtype, dW = dy^T x in
-    float32."""
+    """K5 forward (``x3d::pw_conv_stats`` where ``ops.via_library()``);
+    plain backward: dx = dy @ W in x's dtype, dW = dy^T x in float32."""
 
     @staticmethod
     def forward(ctx, x, weight):
         ctx.set_materialize_grads(False)
-        fwd = pw_conv_stats_reference if ops.plain_versions_enabled() \
-            else pw_conv_stats
+        fwd = _forward(pw_conv_stats_reference, pw_conv_stats,
+                       "pw_conv_stats")
         y, p, s2 = fwd(x, weight)
         ctx.save_for_backward(x, weight, y)
         return y, p, s2
@@ -214,13 +226,14 @@ class _ConvStats(torch.autograd.Function):
 
 
 class _ActConvStats(torch.autograd.Function):
-    """K6 forward; plain backward that recomputes u from (x, a, b)."""
+    """K6 forward (``x3d::pw_act_conv_stats`` where ``ops.via_library()``);
+    plain backward that recomputes u from (x, a, b)."""
 
     @staticmethod
     def forward(ctx, x, a_cb, b_cb, weight):
         ctx.set_materialize_grads(False)
-        fwd = pw_act_conv_stats_reference if ops.plain_versions_enabled() \
-            else pw_act_conv_stats
+        fwd = _forward(pw_act_conv_stats_reference, pw_act_conv_stats,
+                       "pw_act_conv_stats")
         y, p, s2 = fwd(x, a_cb, b_cb, weight)
         ctx.save_for_backward(x, a_cb, b_cb, weight, y)
         return y, p, s2

@@ -61,10 +61,15 @@ def restore_model(cfg, model_dir: str, dtype: torch.dtype,
     return model
 
 
+# the engine's layouts, in the JAX engine's order: unfolded, time-folded,
+# the first two stages folded
+LAYOUTS = (False, True, "mixed")
+
+
 class InferenceEngine:
     def __init__(self, cfg, module_or_state_dict: Union[nn.Module, dict],
                  max_videos: int = 8, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, time_fold=None):
         """
         Args:
           cfg: experiment config (TEST.* defines the view ensemble).
@@ -76,6 +81,14 @@ class InferenceEngine:
             the tools' ``setup_runtime`` does.
           device: CUDA unless the caller asks for another (the CPU serves
             the tests); raises when no card is present.
+          time_fold: the layout of every request (``self.layout``), as
+            the JAX package's engine names it: None folds where a request
+            at capacity is at most 16 clips; True / False pin the folded or
+            the unfolded layout; "mixed" folds the first two stages;
+            "measure" keeps the fastest of the three, the first on a tie.
+            The port runs one body for every layout (``models/x3d.py``:
+            on a GPU the folded tensor is the NDHWC one's memory), so the
+            layouts tie and "measure" keeps the unfolded one untimed.
         """
         self.device = resolve_device(device)
         dtype = dtype or _default_dtype(self.device)
@@ -102,23 +115,31 @@ class InferenceEngine:
         # the request buffer on the device, reused by every request
         self._clips = torch.zeros(self.clip_shape, dtype=torch.uint8,
                                   device=self.device)
+        if time_fold is None:
+            time_fold = max_videos * self._views <= 16
+        if time_fold == "measure":
+            time_fold = LAYOUTS[0]
+        if time_fold not in LAYOUTS:
+            raise ValueError(f"time_fold {time_fold!r}: expected None, "
+                             "True, False, 'mixed' or 'measure'")
+        self.layout = time_fold
 
     @classmethod
     def random_init(cls, cfg, max_videos: int = 8,
                     dtype: Optional[torch.dtype] = None, device=None,
-                    seed: int = 0) -> "InferenceEngine":
+                    seed: int = 0, time_fold=None) -> "InferenceEngine":
         """Engine with fresh weights drawn from ``seed`` (smoke tests,
         benchmarking)."""
         device = resolve_device(device)
         dtype = dtype or _default_dtype(device)
         model = create_model(cfg, dtype=dtype, device=device, seed=seed)
         return cls(cfg, model, max_videos=max_videos, dtype=dtype,
-                   device=device)
+                   device=device, time_fold=time_fold)
 
     @classmethod
     def from_checkpoint(cls, cfg, model_dir: str, max_videos: int = 8,
-                        dtype: Optional[torch.dtype] = None, device=None
-                        ) -> "InferenceEngine":
+                        dtype: Optional[torch.dtype] = None, device=None,
+                        time_fold=None) -> "InferenceEngine":
         """Engine on the latest checkpoint written by the train CLI under
         ``model_dir/checkpoints`` (weights only; optimizer slots ignored).
         Raises ``FileNotFoundError`` when there is none."""
@@ -126,7 +147,7 @@ class InferenceEngine:
         dtype = dtype or _default_dtype(device)
         model = restore_model(cfg, model_dir, dtype, device)
         return cls(cfg, model, max_videos=max_videos, dtype=dtype,
-                   device=device)
+                   device=device, time_fold=time_fold)
 
     @property
     def views(self) -> int:

@@ -12,6 +12,8 @@ kernels by name.  Needs a CUDA card::
 
     python -m x3d_tpu_torch.tools.profile_training --variant M --clips 32
 
+``--remat`` sets the remat mode ("off", "block", "stage", "convs"; the
+default is the config's ``TPU.REMAT`` as ``create_model`` resolves it);
 ``--trace FILE`` also writes a Chrome trace.
 """
 
@@ -68,9 +70,9 @@ def _group(name: str) -> str:
 
 
 def profile(cfg, clips: int, steps: int, seed: int,
-            trace_path: str | None = None) -> dict:
+            trace_path: str | None = None, remat=None) -> dict:
     use_deterministic_cudnn()           # as the train tool runs its steps
-    model = create_model(cfg, seed=seed)
+    model = create_model(cfg, seed=seed, remat=remat)
     state = create_train_state(cfg, model)
     train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
     batch = next(synthetic_batches(cfg, clips, seed=seed))
@@ -90,11 +92,16 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="Chrome trace file")
+    ap.add_argument("--remat", default=None,
+                    choices=["off", "block", "stage", "convs"],
+                    help="Remat mode (default: the config's TPU.REMAT).")
     args = ap.parse_args(argv)
     cfg = variant_config(args.variant)
-    row = profile(cfg, args.clips, args.steps, args.seed, args.trace)
+    row = profile(cfg, args.clips, args.steps, args.seed, args.trace,
+                  args.remat)
     print(json.dumps({"card": card(), "variant": args.variant,
-                      "clips": args.clips, **row}), flush=True)
+                      "clips": args.clips, "remat": args.remat, **row}),
+          flush=True)
 
 
 if __name__ == "__main__":
