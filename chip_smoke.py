@@ -189,6 +189,18 @@ its own, which fails on a spill where the body must not spill) and then:
   ``tools/eval --notfrecord``; the loader on the list against the shards
   and a thread's record by stage; no video given as zeros.
   ``--videos-only`` runs the build and this phase alone.
+* runs the developer tools (phase 15), each through its entry point:
+  ``tools/memory`` at X3D-L (16 clips, remat off, block, stage and convs:
+  the measured peaks ordered block < convs < off, and off, block and convs
+  within 2% of phase 11's peaks of the same steps, both above what the
+  process held before the model was built); ``tools/ab`` at X3D-M
+  (32 clips through the kernels and through their plain versions, the
+  kernels ahead; a 1-video eval); ``tools/profile`` on two X3D-M training
+  steps at 32 clips, ``--analyze_only`` on its directory (the same text)
+  and ``tools/roofline`` on it (exit 0: no kernel above 1.05 of its bound):
+  K1-K8's launches a step equal to the launch counters' and their bound a
+  step, from the wrappers' launch log, within 1% of PERF.md's.
+  ``--tools-only`` runs the build and this phase alone.
 
 Every result line is a JSON object carrying the card's name and power
 limit (a phase's rows also ``t_s``, the seconds since the script found
@@ -3007,6 +3019,121 @@ def fold_phase(emit, check) -> dict:
     return out
 
 
+# PERF.md section 6's bound column: ms a bfloat16 X3D-M training step at 32
+# clips, summed over each kernel's launches
+STEP_BOUND_MS = {"K1": 0.6694, "K2": 0.7516, "K3": 1.5027, "K4 dx": 0.4853,
+                 "K4 dk": 0.4853, "K5": 0.5431, "K6": 0.5431, "K7": 1.493,
+                 "K8": 0.2761}
+TOOLS_MEMORY_TOL = 0.02       # the memory tool's peak against phase 11's
+TOOLS_BOUND_TOL = 0.01        # roofline's bound against STEP_BOUND_MS
+
+
+def tools_phase(emit, check, peaks=None) -> dict:
+    """The developer tools (phase 15), each through its own entry point:
+    ``tools/memory`` at X3D-L, 16 clips, remat off / block / stage / convs
+    (the peaks ordered block < convs < off; where ``peaks``, phase 11's
+    {mode: peak bytes} of the same steps above what the script held before
+    them, as the tool counts its own, off, block and convs within 2% of
+    them); ``tools/ab`` at X3D-M: 32 clips through the kernels (5 steps)
+    and through their plain versions (2 steps; the kernels ahead), and a
+    1-video eval; ``tools/profile`` on an X3D-M training step at 32 clips
+    (2 steps) into a temporary directory, ``--analyze_only`` on it (the
+    same text) and ``tools/roofline`` on it (exit 0: no share above 1.05),
+    whose launches per step equal the launch counters' and whose bound per
+    step for K1-K8 is STEP_BOUND_MS's within 1%."""
+    from x3d_tpu_torch import variant_config
+    from x3d_tpu_torch.tools import ab, memory, profile, roofline
+    from x3d_tpu_torch.tools import trace as trace_mod
+
+    t0 = time.perf_counter()
+    out = {"memory": {}, "ab": {}}
+    # --------------------------------------------- memory at X3D-L, 16 clips
+    cfg_l = variant_config("L")
+    for mode in ("off", "block", "stage", "convs"):
+        r = memory.analyze(cfg_l, 16, "train", mode)
+        emit(phase="tools: memory", variant="L", **r)
+        out["memory"][mode] = r
+    total = {m: r["total_gb"] for m, r in out["memory"].items()}
+    check(total["block"] < total["convs"] < total["off"],
+          f"tools.memory X3D-L peaks out of order: {total}")
+    if peaks:
+        for mode, peak in peaks.items():
+            check(abs(total[mode] * 1e9 / peak - 1) <= TOOLS_MEMORY_TOL,
+                  f"tools.memory X3D-L {mode}: {total[mode]} GB against "
+                  f"phase 11's {peak / 1e9} GB")
+
+    # ------------------------------------------------------- ab at X3D-M
+    for name, args, kw in (("kernels", ("M", "kernels", 32, 5), {}),
+                           ("eval", ("M", "kernels", 1, 5),
+                            {"mode": "eval"}),
+                           ("plain", ("M", "plain", 32, 2), {})):
+        r = ab.run_ab(*args, **kw)
+        emit(phase="tools: ab", **r)
+        out["ab"][name] = r
+    check(out["ab"]["kernels"]["step_ms"] < out["ab"]["plain"]["step_ms"],
+          f"tools.ab X3D-M: the kernels' step behind the plain versions': "
+          f"{out['ab']}")
+
+    # ------------------------------- profile and roofline, X3D-M training
+    group_key = {g: k for k, g in trace_mod.RECORD_GROUPS.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        lost = trace_mod.trace.lost
+        zero_counts()                       # the profile tool starts here
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            profile.main(["--config", M_CONFIG, "--mode=train", "--batch=32",
+                          "--steps=2", "--trace_dir", d])
+        counts = read_counts()              # ... and ends here
+        # two warm-up steps, then two steps a window taken
+        steps_run = 2 + 2 * (1 + trace_mod.trace.lost - lost)
+        again = io.StringIO()
+        with contextlib.redirect_stdout(again):
+            profile.main(["--analyze_only", d])
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            rc = roofline.main(["--trace_dir", d])
+        groups = roofline.groups(roofline.load_device_events(d))
+    emit(phase="tools: profile", variant="M", clips=32, steps=2,
+         windows_retaken=trace_mod.trace.lost - lost,
+         analysis=text.getvalue().splitlines(),
+         analyze_only_same=again.getvalue() == text.getvalue())
+    emit(phase="tools: roofline", variant="M", clips=32, rc=rc,
+         report=report.getvalue().splitlines())
+    check(again.getvalue() == text.getvalue(),
+          "tools.profile --analyze_only printed another text than the "
+          "capture")
+    check(rc == 0, f"tools.roofline exit {rc}: a share above 1.05")
+    rows = {}
+    for g, r in groups.items():
+        key = group_key.get(g)
+        if key is None:
+            continue
+        row = {"launches_per_step": r["launches"] / 2,
+               "counter_per_step": counts[key] / steps_run,
+               "ms_per_step": r["ms"] / 2,
+               "bound_ms_per_step": r["bound_ms"] / 2,
+               "section6_bound_ms": STEP_BOUND_MS[key],
+               "bound_by": r["bound_by"], "share": r["share"]}
+        rows[key] = row
+        emit(phase="tools: roofline, kernel", kernel=key, **row)
+        check(row["launches_per_step"] == row["counter_per_step"],
+              f"tools.roofline {key}: {row['launches_per_step']} launches a "
+              f"step, the counter {row['counter_per_step']}")
+        check(abs(row["bound_ms_per_step"] / STEP_BOUND_MS[key] - 1)
+              <= TOOLS_BOUND_TOL,
+              f"tools.roofline {key}: bound {row['bound_ms_per_step']} ms a "
+              f"step, PERF.md's {STEP_BOUND_MS[key]}")
+        check(row["share"] <= roofline.OVER,
+              f"tools.roofline {key}: share {row['share']} above 1.05")
+    check(sorted(rows) == sorted(STEP_BOUND_MS)
+          and all(counts[k] for k in STEP_BOUND_MS),
+          f"tools.roofline: kernels {sorted(rows)}")
+    out["roofline"] = rows
+    out["phase_s"] = time.perf_counter() - t0
+    emit(phase="tools", seconds=out["phase_s"])
+    return out
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -3321,6 +3448,17 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if "--tools-only" in sys.argv[1:]:
+        # the developer tools' phase alone, after the build
+        tools = tools_phase(emit, check)
+        print(json.dumps({"card": card, "tools": tools}))
+        if failures:
+            fail(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--videos-only" in sys.argv[1:]:
         # the raw-video phase alone, after the build
         raw = raw_video_phase(emit, check)
@@ -3467,10 +3605,8 @@ def main() -> int:
         row["library_ms"] = time_ms(lambda: F.conv3d(
             xc, w, stride=strides, padding=lib_pad, groups=C))
         row["library_pre_padded"] = not sym
-        taps = math.prod(kdims)
-        ny = xb.shape[0] * math.prod(out) * C
-        row["bound_ms"], row["bound_by"] = bound(
-            (xb.numel() + ny) * 2 + taps * C * 4, 2 * taps * ny)
+        row["bound_ms"], row["bound_by"] = bound(*depthwise.fwd_cost(
+            xb.shape, (xb.shape[0], *out, C), kdims, xb.element_size()))
         row.update(shares(row))
         return row
 
@@ -3564,10 +3700,8 @@ def main() -> int:
         pad = tuple(d // 2 for d in kdims)
         row["library_ms"] = time_ms(lambda: F.conv3d(uc, w, padding=pad,
                                                      groups=C))
-        taps = math.prod(kdims)
-        nbytes = xb.numel() * 4 + 4 * C * B * 4 + taps * C * 4
-        row["bound_ms"], row["bound_by"] = bound(nbytes,
-                                                 (2 * taps + 5) * xb.numel())
+        row["bound_ms"], row["bound_by"] = bound(*dw_fused.fwd_cost(
+            xb.shape, kdims, xb.element_size()))
         row.update(shares(row))
         return row
 
@@ -3841,9 +3975,9 @@ def main() -> int:
                     gc, xc, w, None, list(strides), [0, 0, 0], [1, 1, 1],
                     False, [0, 0, 0], C, mask)
 
-            taps = math.prod(kdims)
-            ops_ = 2 * taps * g.numel()
-            nbytes = (g.numel() + x.numel()) * 2 + taps * C * 4
+            # dx and dk alike
+            nbytes, ops_ = depthwise.bwd_cost(x.shape, g.shape, kdims,
+                                              x.element_size())
             body = depthwise.dx_body(kdims, strides, pads)
             lib = _build.load("depthwise_bwd.cu", depthwise._BWD_SIGNATURES)
             stream = torch.cuda.current_stream().cuda_stream
@@ -3982,9 +4116,8 @@ def main() -> int:
                            + b.t()[:, None, None, None, :]).bfloat16()
             uc, gc = u.permute(0, 4, 1, 2, 3), gy.permute(0, 4, 1, 2, 3)
             w = k.permute(4, 3, 0, 1, 2)
-            taps = math.prod(kdims)
-            nbytes = 4 * x.numel() * 2 + taps * C * 8 + 6 * C * B * 4
-            bms, by = bound(nbytes, (4 * taps + 12) * x.numel())
+            bms, by = bound(*dw_fused.bwd_cost(x.shape, kdims,
+                                               x.element_size()))
             e32, e16 = errs[torch.float32][1], errs[torch.bfloat16][1]
             row = dict(
                 name=name, shape=[B, *thw, C], n=n, max_abs_err_f32=e32[0],
@@ -4033,8 +4166,10 @@ def main() -> int:
                     z = torch.matmul(mm_in, wb.t()).float()
                     return z.sum(dim=(1, 2, 3)), (z * z).sum(dim=(1, 2, 3))
 
-                nbytes = (M * (K + N) + N * K) * 2 + (2 * N + 2 * K) * B * 4
-                bms, by = bound(nbytes, 2 * M * K * N, BF16_TC_FLOP_PER_S)
+                cost = pw_stats.act_conv_stats_cost \
+                    if fn is pw_stats.pw_act_conv_stats \
+                    else pw_stats.conv_stats_cost
+                bms, by = bound(*cost(M, K, N, B, 2), BF16_TC_FLOP_PER_S)
                 e32, e16 = errs[torch.float32][i], errs[torch.bfloat16][i]
                 row = dict(name=name, shape=[B, *thw, K], cout=N, n=n,
                            max_abs_err_f32=e32[0], sums_err_f32=e32[2],
@@ -4200,8 +4335,7 @@ def main() -> int:
             gen_dx = time_ms(lambda: pointwise._launch(
                 k7_lib, "pipe", g, wt, (1, 1, 1), k7_stream))
             M = y.numel() // N
-            nbytes = (M * (K + N) + N * K) * 2
-            bms, by = bound(nbytes, 2 * M * K * N, BF16_TC_FLOP_PER_S)
+            bms, by = bound(*pointwise.cost(M, K, N, 2), BF16_TC_FLOP_PER_S)
             fwd = time_ms(lambda: pointwise.pw_conv(x, w, strides))
             bwd = time_ms(lambda: pointwise.pw_conv(g, w.t()))
             plain = time_ms(lambda: pointwise.pointwise_conv3d_reference(
@@ -4413,8 +4547,8 @@ def main() -> int:
             plan = depthwise._pbwd_temporal_plan(k8_lib, u, gy, u, kdims[0])
             reread = (plan["runs"] - 1) * (kdims[0] - 1) * 2 * \
                 u[:, 0].numel()
-        bms, by = bound((3 * u.numel() + reread) * 2 + taps * C * 8,
-                        4 * taps * u.numel())
+        nbytes, flops = depthwise.pbwd_cost(u.shape, kdims, u.element_size())
+        bms, by = bound(nbytes + reread * u.element_size(), flops)
         taps_f32 = k.float().reshape(taps, C).contiguous()
         stream = torch.cuda.current_stream().cuda_stream
         row = dict(
@@ -4853,7 +4987,10 @@ def main() -> int:
 
         # training: the bare step at the config's batch, with remat as
         # create_model resolves it from the YAML and, where that is on,
-        # without and with "convs"
+        # without and with "convs"; ``held``: what the script held before
+        # (its earlier phases' tensors), which the peaks include
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
         model = create_model(vcfg, dtype=torch.bfloat16, seed=SEED)
         state = create_train_state(vcfg, model)
         step_fn = make_train_step(model, vcfg.NETWORK.WEIGHT_DECAY)
@@ -4896,6 +5033,7 @@ def main() -> int:
                 step_ms_median_after_first=step_ms,
                 first_step_ms=steps[0]["device_ms"],
                 clips_per_s=clips / step_ms * 1e3, peak_memory_bytes=peak,
+                peak_above_held_bytes=peak - held,
                 launches=launches, launches_per_step=want, bodies=got)
             emit(phase=f"X3D-{v} train timing", clips=clips, remat=mode,
                  steps=steps, **out["train"][mode])
@@ -4976,7 +5114,12 @@ def main() -> int:
     # ---------------------------- 14. raw videos and the dataset tools
     raw = raw_video_phase(emit, check)
 
-    # ----------------------------------------------- 15. the kernel line
+    # ---------- 15. the developer tools: memory, ab, profile, roofline
+    tools_phase(emit, check, peaks={
+        m: new["L"]["train"][m]["peak_above_held_bytes"]
+        for m in ("off", "block", "convs")})
+
+    # ----------------------------------------------- 16. the kernel line
     def worst(*row_lists):
         return max(r["max_abs_err_f32"] for rows in row_lists for r in rows)
 

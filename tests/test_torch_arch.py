@@ -75,6 +75,22 @@ def test_normalize_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_denormalize_matches_jax(seed):
+    """The inverse of normalize on seeded uint8-range clips, standardised
+    by the JAX package: the same pixels after the uint8 cast, bit for bit
+    (and the pixels the clips started from, but for float rounding)."""
+    clips = np.random.default_rng(seed).integers(0, 256, (2, 3, 4, 4, 3),
+                                                 dtype=np.uint8)
+    mean, std = (0.45, 0.45, 0.45), (0.225, 0.225, 0.225)
+    x = np.asarray(jax_utils.normalize(clips.astype(np.float32), mean, std))
+    want = np.asarray(jax_utils.denormalize(x, mean, std))
+    got = utils.denormalize(torch.from_numpy(x.copy()), mean, std)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.abs(want.astype(int) - clips).max() <= 1
+
+
 def test_device_defaults_to_cuda_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -178,7 +178,8 @@ for wanted in ("ops.timing", "ops.pointwise", "train.checkpoint",
                "tools.bench_multigrid", "parallel.mesh", "tools.dryrun",
                "tools.export", "export", "ops.library", "data.avi",
                "data.video", "tools.create_label", "tools.create_tfrecords",
-               "tools.inspect_tfrecords", "tools.make_synthetic_videos"):
+               "tools.inspect_tfrecords", "tools.make_synthetic_videos",
+               "tools.memory", "tools.roofline", "tools.ab", "tools.profile"):
     assert "x3d_tpu_torch." + wanted in names, wanted
 
 from x3d_tpu_torch.tools import eval as eval_cli, export, predict, train

@@ -12,6 +12,11 @@ through its ``torch.library`` op (``ops/library.py``) where something must
 see the call as one op: ``torch.export`` while the model is exported, and
 the selective checkpoint of remat "convs", whose policy keeps the ops'
 outputs (:func:`library_calls`, :func:`via_library`).
+
+Each wrapper that counts its launches also appends one record a call to
+the open :func:`launch_log`, if there is one: which kernel and body ran,
+on what shape, in which direction, and the call's least bytes and
+operations from the kernel's ``cost`` function beside the wrapper.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ import threading
 import torch
 
 _plain = False
+# the open launch log's list, or None: the one check a wrapper makes when
+# no log is open.  Module-wide, not per thread: autograd runs a CUDA
+# backward on a thread of its own, and its launches belong to the same log
+records = None
 # per thread, as the selective checkpoint's dispatch mode it pairs with:
 # autograd runs a CUDA backward, and so the recompute, on a thread of its own
 class _Library(threading.local):
@@ -62,3 +71,44 @@ def via_library() -> bool:
     """Whether a kernel's forward goes through its ``x3d::`` op: while the
     model is exported or inside :func:`library_calls` in this thread."""
     return _library.on or torch.compiler.is_exporting()
+
+
+@contextlib.contextmanager
+def launch_log():
+    """Within this context every kernel wrapper's call appends one record
+    to the yielded list, from any thread, in the order the calls were
+    made (on a CUDA tensor: the order their kernels were enqueued):
+
+    * ``kernel``: "K1", "K2", "K3", "K4 dx", "K4 dk", "K5", "K6", "K7",
+      "K8";
+    * ``body``: the body that ran ("ring", "wg", ...; "plain" on the CPU);
+    * ``shape``: ``{"taps": [kt, kh, kw], "C": C}`` for the depthwise
+      kernels, ``{"M": M, "K": K, "N": N}`` for the GEMMs;
+    * ``direction``: "fwd" or "bwd" (K3, K4, K8 and K7's dx);
+    * ``dtype``: the activations' dtype, as "bfloat16" or "float32";
+    * ``bytes`` and ``flops``: the call's least bytes moved and operations
+      (the kernel's ``cost`` function).
+
+    A log opened inside another hands its records on to the outer one when
+    it closes."""
+    global records
+    prev, records = records, []
+    mine = records
+    try:
+        yield mine
+    finally:
+        records = prev
+        if prev is not None:
+            prev.extend(mine)
+
+
+def log_launch(kernel: str, body: str, shape: dict, direction: str,
+               dtype: torch.dtype, cost) -> None:
+    """Append one record to the open :func:`launch_log` (the caller has
+    checked that one is open); ``cost`` is the (bytes, flops) pair."""
+    log = records
+    if log is not None:
+        log.append({"kernel": kernel, "body": body, "shape": shape,
+                    "direction": direction,
+                    "dtype": str(dtype).removeprefix("torch."),
+                    "bytes": int(cost[0]), "flops": int(cost[1])})

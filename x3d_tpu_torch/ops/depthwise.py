@@ -38,6 +38,9 @@ conv, and the stride-2 stage-entry convs.
 * :func:`depthwise` is the differentiable op the model calls: K1 forward;
   backward K8 where :func:`pbwd_eligible` holds and both gradients are
   wanted, else K4 (or the plain versions, see ``ops.plain_versions``).
+* :func:`fwd_cost`, :func:`bwd_cost` and :func:`pbwd_cost` give a call's
+  least bytes and operations (K1; K4 dx and dk; K8), which the wrappers
+  write into an open ``ops.launch_log``.
 
 Taps keep the Flax layout ``(k_t, k_h, k_w, 1, C)``.  Padding follows
 TF/XLA "SAME", which puts the odd pad element on the high side
@@ -117,6 +120,45 @@ def _resolve_pads(x_shape, kernel_shape, strides, padding) -> Pads:
 
 def _out_size(size: int, k: int, s: int, pad: Tuple[int, int]) -> int:
     return (size + pad[0] + pad[1] - k) // s + 1
+
+
+# ------------------------------------------------------------------ costs
+# A call's least work: each input read once and each output written once
+# (the activations in their dtype, the taps float32 as the wrappers hand
+# them over), a multiply-add two operations.
+
+
+def _taps(kdims) -> int:
+    return math.prod(int(k) for k in kdims)
+
+
+def fwd_cost(x_shape, y_shape, kdims, elem: int) -> Tuple[int, int]:
+    """K1's (bytes, flops): x read, y written, the taps read."""
+    C, ny = x_shape[-1], math.prod(y_shape)
+    return ((math.prod(x_shape) + ny) * elem + _taps(kdims) * C * 4,
+            2 * _taps(kdims) * ny)
+
+
+def bwd_cost(x_shape, g_shape, kdims, elem: int) -> Tuple[int, int]:
+    """K4 dx's or dk's (bytes, flops), alike: dx reads the cotangent and
+    the taps and writes dx; dk reads x and the cotangent and writes the
+    taps' gradient."""
+    C, ng = x_shape[-1], math.prod(g_shape)
+    return ((math.prod(x_shape) + ng) * elem + _taps(kdims) * C * 4,
+            2 * _taps(kdims) * ng)
+
+
+def pbwd_cost(u_shape, kdims, elem: int) -> Tuple[int, int]:
+    """K8's (bytes, flops): u and the cotangent read, du written, the taps
+    read and their gradient written; both products over every output."""
+    n, C = math.prod(u_shape), u_shape[-1]
+    return 3 * n * elem + _taps(kdims) * C * 8, 4 * _taps(kdims) * n
+
+
+def _log(kernel, body, x, kdims, direction, cost) -> None:
+    ops.log_launch(kernel, body, {"taps": [int(k) for k in kdims],
+                                  "C": int(x.shape[-1])}, direction,
+                   x.dtype, cost)
 
 
 def depthwise_conv3d_reference(x: torch.Tensor, kernel: torch.Tensor,
@@ -292,19 +334,24 @@ def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
             f"{tuple(x.shape)} and {tuple(kernel.shape)}")
     strides = tuple(int(s) for s in strides)
     pads = _resolve_pads(x.shape, kernel.shape[:3], strides, padding)
-    if x.device.type == "cpu":
-        return depthwise_conv3d_reference(x, kernel, strides, pads)
-    kernels.check_cuda(x)
     kdims = tuple(int(k) for k in kernel.shape[:3])
-    taps = kernel.to(x.dtype).to(torch.float32).reshape(-1, x.shape[-1])
-    taps = taps.contiguous()
-    kernels.check_cuda(x, taps)
-    body = fwd_body(kdims, strides, pads)
-    lib = _build.load("depthwise.cu", _SIGNATURES)
-    y = _launch_fwd(lib, body, x, taps, kdims, strides, pads,
-                    kernels.stream_handle(x))
-    depthwise_conv3d.launches += 1
-    depthwise_conv3d.body_launches[body] += 1
+    if x.device.type == "cpu":
+        body, y = "plain", depthwise_conv3d_reference(x, kernel, strides,
+                                                      pads)
+    else:
+        kernels.check_cuda(x)
+        taps = kernel.to(x.dtype).to(torch.float32).reshape(-1, x.shape[-1])
+        taps = taps.contiguous()
+        kernels.check_cuda(x, taps)
+        body = fwd_body(kdims, strides, pads)
+        lib = _build.load("depthwise.cu", _SIGNATURES)
+        y = _launch_fwd(lib, body, x, taps, kdims, strides, pads,
+                        kernels.stream_handle(x))
+        depthwise_conv3d.launches += 1
+        depthwise_conv3d.body_launches[body] += 1
+    if ops.records is not None:
+        _log("K1", body, x, kdims, "fwd",
+             fwd_cost(x.shape, y.shape, kdims, x.element_size()))
     return y
 
 
@@ -393,21 +440,26 @@ def depthwise_conv3d_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape,
     dims = _bwd_geometry(x_shape, g, kdims, strides, pads)
     k = kernel.to(g.dtype)
     if g.device.type == "cpu":
-        return depthwise_conv3d_dx_reference(g, k, x_shape, strides, pads)
-    kernels.check_cuda(g)
-    taps = k.to(torch.float32).reshape(-1, x_shape[-1]).contiguous()
-    dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
-    kernels.check_cuda(g, taps, dx)
-    lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
-    body = dx_body(kdims, strides, pads)
-    launch = lib.x3d_dw_conv3d_dx_phase if body == "phase" \
-        else lib.x3d_dw_conv3d_dx
-    rc = launch(g.data_ptr(), taps.data_ptr(), dx.data_ptr(),
-                kernels.dtype_code(g), *dims, kernels.stream_handle(g))
-    kernels.raise_on_error(rc, f"depthwise_conv3d_dx ({body} body) kernel "
-                           "launch")
-    depthwise_conv3d_dx.launches += 1
-    depthwise_conv3d_dx.body_launches[body] += 1
+        body = "plain"
+        dx = depthwise_conv3d_dx_reference(g, k, x_shape, strides, pads)
+    else:
+        kernels.check_cuda(g)
+        taps = k.to(torch.float32).reshape(-1, x_shape[-1]).contiguous()
+        dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+        kernels.check_cuda(g, taps, dx)
+        lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
+        body = dx_body(kdims, strides, pads)
+        launch = lib.x3d_dw_conv3d_dx_phase if body == "phase" \
+            else lib.x3d_dw_conv3d_dx
+        rc = launch(g.data_ptr(), taps.data_ptr(), dx.data_ptr(),
+                    kernels.dtype_code(g), *dims, kernels.stream_handle(g))
+        kernels.raise_on_error(rc, f"depthwise_conv3d_dx ({body} body) "
+                               "kernel launch")
+        depthwise_conv3d_dx.launches += 1
+        depthwise_conv3d_dx.body_launches[body] += 1
+    if ops.records is not None:
+        _log("K4 dx", body, g, kdims, "bwd",
+             bwd_cost(x_shape, g.shape, kdims, g.element_size()))
     return dx
 
 
@@ -510,14 +562,19 @@ def depthwise_conv3d_dk(x: torch.Tensor, g: torch.Tensor, kdims,
     if g.dtype != x.dtype:
         raise TypeError(f"x is {x.dtype} but its gradient {g.dtype}")
     if x.device.type == "cpu":
-        return depthwise_conv3d_dk_reference(x, g, kdims, strides, pads)
-    kernels.check_cuda(x, g)
-    lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
-    body = dk_body(kdims, strides, pads)
-    dk = _launch_dk(lib, body, x, g, kdims, strides, pads,
-                    kernels.stream_handle(x))
-    depthwise_conv3d_dk.launches += 1
-    depthwise_conv3d_dk.body_launches[body] += 1
+        body = "plain"
+        dk = depthwise_conv3d_dk_reference(x, g, kdims, strides, pads)
+    else:
+        kernels.check_cuda(x, g)
+        lib = _build.load("depthwise_bwd.cu", _BWD_SIGNATURES)
+        body = dk_body(kdims, strides, pads)
+        dk = _launch_dk(lib, body, x, g, kdims, strides, pads,
+                        kernels.stream_handle(x))
+        depthwise_conv3d_dk.launches += 1
+        depthwise_conv3d_dk.body_launches[body] += 1
+    if ops.records is not None:
+        _log("K4 dk", body, x, kdims, "bwd",
+             bwd_cost(x.shape, g.shape, kdims, x.element_size()))
     return dk.reshape(*kdims, 1, x.shape[-1])
 
 
@@ -697,18 +754,24 @@ def depthwise_conv3d_pbwd(u: torch.Tensor, gy: torch.Tensor,
     that :func:`pbwd_body` names, or raises.
     """
     kdims, pads = _pbwd_check(u, gy, kernel)
-    if u.device.type == "cpu":
-        return depthwise_conv3d_pbwd_reference(u, gy, kernel)
-    kernels.check_cuda(u, gy)
     C = u.shape[-1]
-    taps = kernel.to(u.dtype).to(torch.float32).reshape(-1, C).contiguous()
-    kernels.check_cuda(u, gy, taps)
-    body = pbwd_body(kdims, pads)
-    lib = _build.load("depthwise_pbwd.cu", _PBWD_SIGNATURES)
-    du, dk = _launch_pbwd(lib, body, u, gy, taps, kdims,
-                          kernels.stream_handle(u))
-    depthwise_conv3d_pbwd.launches += 1
-    depthwise_conv3d_pbwd.body_launches[body] += 1
+    if u.device.type == "cpu":
+        body = "plain"
+        du, dk = depthwise_conv3d_pbwd_reference(u, gy, kernel)
+    else:
+        kernels.check_cuda(u, gy)
+        taps = kernel.to(u.dtype).to(torch.float32).reshape(-1, C)
+        taps = taps.contiguous()
+        kernels.check_cuda(u, gy, taps)
+        body = pbwd_body(kdims, pads)
+        lib = _build.load("depthwise_pbwd.cu", _PBWD_SIGNATURES)
+        du, dk = _launch_pbwd(lib, body, u, gy, taps, kdims,
+                              kernels.stream_handle(u))
+        depthwise_conv3d_pbwd.launches += 1
+        depthwise_conv3d_pbwd.body_launches[body] += 1
+    if ops.records is not None:
+        _log("K8", body, u, kdims, "bwd",
+             pbwd_cost(u.shape, kdims, u.element_size()))
     return du, dk.reshape(*kdims, 1, C)
 
 

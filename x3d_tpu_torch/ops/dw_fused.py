@@ -14,6 +14,8 @@ launched by the plan :func:`fwd_plan` or :func:`bwd_plan` gives, and a
 generic body for other taps.
 :func:`segment` is the differentiable op the model calls (K2 forward, K3
 backward, or the plain versions within ``ops.plain_versions()``).
+:func:`fwd_cost` and :func:`bwd_cost` give a call's least bytes and
+operations, which the wrappers write into an open ``ops.launch_log``.
 
 * ``a, b`` are (C, B) float32 normalise coefficients, one column per
   sample, computed outside from running (or, in training, batch)
@@ -31,6 +33,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Tuple
 
 import torch
 
@@ -62,6 +66,32 @@ _BWD_SIGNATURES = {
     "x3d_dw_bn_act_conv_bwd_ring": [ctypes.c_void_p] * 15
     + [ctypes.c_int] * 16 + [ctypes.c_void_p],
 }
+
+
+def fwd_cost(x_shape, kdims, elem: int) -> Tuple[int, int]:
+    """K2's (bytes, flops): x read and y written, the (C, B) columns a, b
+    read and p, s2 written (float32), the float32 taps read; per output the
+    taps' multiply-adds, the affine, the ReLU and the two sums."""
+    n, C, B = math.prod(x_shape), x_shape[-1], x_shape[0]
+    taps = math.prod(int(k) for k in kdims)
+    return 2 * n * elem + 4 * C * B * 4 + taps * C * 4, (2 * taps + 5) * n
+
+
+def bwd_cost(x_shape, kdims, elem: int) -> Tuple[int, int]:
+    """K3's (bytes, flops): x, y and the cotangent read and dx written, the
+    taps read and dk written (float32), the columns a, b, gp, gs2 read and
+    dzs, duu written (float32); per element both products of the conv's
+    backward and the affine, ReLU and sums around them."""
+    n, C, B = math.prod(x_shape), x_shape[-1], x_shape[0]
+    taps = math.prod(int(k) for k in kdims)
+    return (4 * n * elem + taps * C * 8 + 6 * C * B * 4,
+            (4 * taps + 12) * n)
+
+
+def _log(kernel, body, x, kdims, direction, cost) -> None:
+    ops.log_launch(kernel, body, {"taps": [int(k) for k in kdims],
+                                  "C": int(x.shape[-1])}, direction,
+                   x.dtype, cost)
 
 
 def _dims(x, kernel):
@@ -148,19 +178,24 @@ def dw_bn_act_conv(x, a_cb, b_cb, kernel):
     """
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
     if x.device.type == "cpu":
-        return reference(x, a_cb, b_cb, kernel)
-    kernels.check_cuda(x)
-    a = a_cb.to(torch.float32).contiguous()
-    b = b_cb.to(torch.float32).contiguous()
-    taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
-    taps = taps.contiguous()
-    kernels.check_cuda(x, a, b, taps)
-    body = segment_body((kt, kh, kw))
-    lib = _build.load("dw_fused.cu", _SIGNATURES)
-    y, p, s2 = _launch_fwd(lib, body, x, a, b, taps, (kt, kh, kw),
-                           kernels.stream_handle(x))
-    dw_bn_act_conv.launches += 1
-    dw_bn_act_conv.body_launches[body] += 1
+        body = "plain"
+        y, p, s2 = reference(x, a_cb, b_cb, kernel)
+    else:
+        kernels.check_cuda(x)
+        a = a_cb.to(torch.float32).contiguous()
+        b = b_cb.to(torch.float32).contiguous()
+        taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
+        taps = taps.contiguous()
+        kernels.check_cuda(x, a, b, taps)
+        body = segment_body((kt, kh, kw))
+        lib = _build.load("dw_fused.cu", _SIGNATURES)
+        y, p, s2 = _launch_fwd(lib, body, x, a, b, taps, (kt, kh, kw),
+                               kernels.stream_handle(x))
+        dw_bn_act_conv.launches += 1
+        dw_bn_act_conv.body_launches[body] += 1
+    if ops.records is not None:
+        _log("K2", body, x, (kt, kh, kw), "fwd",
+             fwd_cost(x.shape, (kt, kh, kw), x.element_size()))
     return y, p, s2
 
 
@@ -405,20 +440,27 @@ def dw_bn_act_conv_bwd(x, a_cb, b_cb, kernel, y, gy, gp, gs2):
     if tuple(y.shape) != tuple(x.shape) or tuple(gy.shape) != tuple(x.shape):
         raise ValueError("y and its cotangent must have x's shape")
     if x.device.type == "cpu":
-        return bwd_reference(x, a_cb, b_cb, kernel, y, gy, gp, gs2)
-    kernels.check_cuda(x)
-    cols = [t.to(torch.float32).contiguous() for t in (a_cb, b_cb, gp, gs2)]
-    taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
-    taps = taps.contiguous()
-    y, gy = y.to(x.dtype).contiguous(), gy.to(x.dtype).contiguous()
-    kernels.check_cuda(x, y, gy, *cols, taps)
-    body = segment_body((kt, kh, kw))
-    lib = _build.load("dw_fused_bwd.cu", _BWD_SIGNATURES)
-    dx, dk, dzs, duu = _launch_bwd(lib, body, x, cols, taps, y, gy,
-                                   (kt, kh, kw), kernels.stream_handle(x))
-    dw_bn_act_conv_bwd.launches += 1
-    dw_bn_act_conv_bwd.body_launches[body] += 1
-    return dx, dk.reshape(kt, kh, kw, 1, C), dzs, duu
+        body = "plain"
+        out = bwd_reference(x, a_cb, b_cb, kernel, y, gy, gp, gs2)
+    else:
+        kernels.check_cuda(x)
+        cols = [t.to(torch.float32).contiguous()
+                for t in (a_cb, b_cb, gp, gs2)]
+        taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
+        taps = taps.contiguous()
+        y, gy = y.to(x.dtype).contiguous(), gy.to(x.dtype).contiguous()
+        kernels.check_cuda(x, y, gy, *cols, taps)
+        body = segment_body((kt, kh, kw))
+        lib = _build.load("dw_fused_bwd.cu", _BWD_SIGNATURES)
+        dx, dk, dzs, duu = _launch_bwd(lib, body, x, cols, taps, y, gy,
+                                       (kt, kh, kw), kernels.stream_handle(x))
+        dw_bn_act_conv_bwd.launches += 1
+        dw_bn_act_conv_bwd.body_launches[body] += 1
+        out = dx, dk.reshape(kt, kh, kw, 1, C), dzs, duu
+    if ops.records is not None:
+        _log("K3", body, x, (kt, kh, kw), "bwd",
+             bwd_cost(x.shape, (kt, kh, kw), x.element_size()))
+    return out
 
 
 dw_bn_act_conv_bwd.launches = 0

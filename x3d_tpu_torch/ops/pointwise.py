@@ -20,6 +20,8 @@ product.  Weights are ``(Cout, Cin)``.
   ``pw_gemm.cuh``'s ``pipe_gemm``, which K5 and K6 run too) and
   "cuda_core" (float32 without TF32, and what neither tensor-core body
   takes).  :func:`_launch` runs any body on the same inputs.
+  :func:`cost` gives a call's least bytes and operations, which the
+  wrapper writes into an open ``ops.launch_log``.
 
 A strided projection reads every s-th row and column (a 1x1x1 kernel with
 stride s is a subsample); K7 reads them in place.
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -313,8 +315,15 @@ def _launch(lib, body: str, x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def cost(M: int, K: int, N: int, elem: int) -> Tuple[int, int]:
+    """A K7 call's (bytes, flops): the M rows of x it reads (a strided
+    projection's subsample) and the weight read, y written; 2 M K N."""
+    return (M * (K + N) + N * K) * elem, 2 * M * K * N
+
+
 def pw_conv(x: torch.Tensor, weight: torch.Tensor,
-            strides: Sequence[int] = (1, 1, 1)) -> torch.Tensor:
+            strides: Sequence[int] = (1, 1, 1),
+            direction: str = "fwd") -> torch.Tensor:
     """y = x[:, :, ::sh, ::sw] @ weight^T (kernel K7).
 
     Args:
@@ -327,7 +336,8 @@ def pw_conv(x: torch.Tensor, weight: torch.Tensor,
       float32 and rounded once.
 
     A CPU tensor takes the plain version; a CUDA tensor launches K7 or
-    raises.
+    raises.  ``direction`` ("fwd", or "bwd" for the backward's dx) goes
+    into an open ``ops.launch_log`` only.
     """
     if x.dim() != 5 or weight.dim() != 2 or weight.shape[1] != x.shape[-1]:
         raise ValueError(f"expected x (B, T, H, W, Cin) and weight (Cout, "
@@ -336,18 +346,23 @@ def pw_conv(x: torch.Tensor, weight: torch.Tensor,
     st, sh, sw = (int(s) for s in strides)
     if st != 1 or sh < 1 or sw < 1:
         raise ValueError(f"strides must be (1, sh, sw), got {tuple(strides)}")
-    if x.device.type == "cpu":
-        return pointwise_conv3d_reference(x, weight, (st, sh, sw))
-    kernels.check_cuda(x)
-    w = weight.to(x.dtype).contiguous()
-    kernels.check_cuda(x, w)
-    lib = _build.load("pointwise.cu", _SIGNATURES)
     M = x.shape[0] * x.shape[1] * -(-x.shape[2] // sh) * -(-x.shape[3] // sw)
-    body = pw_body(x.shape[-1], w.shape[0], M, (st, sh, sw), ring.align(x, w),
-                   x.element_size(), x.shape[3], x.shape[2])
-    y = _launch(lib, body, x, w, (st, sh, sw), kernels.stream_handle(x))
-    pw_conv.launches += 1
-    pw_conv.body_launches[body] += 1
+    K, N = x.shape[-1], weight.shape[0]
+    if x.device.type == "cpu":
+        body, y = "plain", pointwise_conv3d_reference(x, weight, (st, sh, sw))
+    else:
+        kernels.check_cuda(x)
+        w = weight.to(x.dtype).contiguous()
+        kernels.check_cuda(x, w)
+        lib = _build.load("pointwise.cu", _SIGNATURES)
+        body = pw_body(K, N, M, (st, sh, sw), ring.align(x, w),
+                       x.element_size(), x.shape[3], x.shape[2])
+        y = _launch(lib, body, x, w, (st, sh, sw), kernels.stream_handle(x))
+        pw_conv.launches += 1
+        pw_conv.body_launches[body] += 1
+    if ops.records is not None:
+        ops.log_launch("K7", body, {"M": M, "K": K, "N": N}, direction,
+                       x.dtype, cost(M, K, N, x.element_size()))
     return y
 
 
@@ -400,7 +415,7 @@ class _Pointwise(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dxs = pw_conv(g, weight.to(x.dtype).t())
+            dxs = pw_conv(g, weight.to(x.dtype).t(), (1, 1, 1), "bwd")
             if strides == (1, 1, 1):
                 dx = dxs
             else:

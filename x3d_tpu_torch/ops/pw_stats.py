@@ -21,16 +21,22 @@ PyTorch versions.  :func:`conv_stats` and :func:`act_conv_stats` are the
 differentiable ops the model calls.  Their backward is plain PyTorch and
 ``torch.matmul``, as the JAX package's is plain XLA
 (``pw_batchminor._pw_stats_bwd``, ``_pw_act_stats_bwd``).
+:func:`conv_stats_cost` and :func:`act_conv_stats_cost` give a call's least
+bytes and operations, which the wrappers write into an open
+``ops.launch_log`` with the body :func:`body` names.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from x3d_tpu_torch import kernels, ops
 from x3d_tpu_torch.kernels import _build
+from x3d_tpu_torch.ops import ring
+from x3d_tpu_torch.ops.pointwise import PIPE_MAX_K
 
 _SIGNATURES = {
     "x3d_pw_stats_tiles": [ctypes.c_int],
@@ -93,6 +99,42 @@ def pw_act_conv_stats_reference(x, a_cb, b_cb, weight):
     return y32.to(x.dtype).reshape(*x.shape[:-1], N), p, s2
 
 
+def conv_stats_cost(M: int, K: int, N: int, B: int,
+                    elem: int) -> Tuple[int, int]:
+    """A K5 call's (bytes, flops): x (M rows of K) and the weight read, y
+    written, the (N, B) float32 sums p and s2 written; 2 M K N."""
+    return (M * (K + N) + N * K) * elem + 2 * N * B * 4, 2 * M * K * N
+
+
+def act_conv_stats_cost(M: int, K: int, N: int, B: int,
+                        elem: int) -> Tuple[int, int]:
+    """A K6 call's (bytes, flops): K5's and the (K, B) float32 columns a, b
+    read; the products' 2 M K N (the swish prologue's M K are left out)."""
+    nbytes, flops = conv_stats_cost(M, K, N, B, elem)
+    return nbytes + 2 * K * B * 4, flops
+
+
+def body(K: int, elem: int, aligned: int) -> str:
+    """Which body runs a K5 or K6 call: "pipe" (``pw_gemm.cuh``'s
+    tensor-core body: bfloat16, a copy granule of at least 4 bytes -- an
+    even K, 4-byte aligned x and W -- and K up to the pipe plan's
+    PIPE_MAX_K), else "cuda_core" (``pw_stats_kernel``)."""
+    if elem == 2 and K % 2 == 0 and K <= PIPE_MAX_K and aligned % 4 == 0:
+        return "pipe"
+    return "cuda_core"
+
+
+def _log(kernel, x, w, dims, cost_fn) -> None:
+    """Log a call on x with the weight ``w`` the kernel read (None: the
+    plain version ran)."""
+    B, S, K, N = dims
+    elem = x.element_size()
+    ops.log_launch(kernel, "plain" if w is None
+                   else body(K, elem, ring.align(x, w)),
+                   {"M": B * S, "K": K, "N": N}, "fwd", x.dtype,
+                   cost_fn(B * S, K, N, B, elem))
+
+
 def _launch(fn_name, what, x, weight, cols, dims):
     B, S, K, N = dims
     kernels.check_cuda(x)
@@ -113,7 +155,7 @@ def _launch(fn_name, what, x, weight, cols, dims):
         s2.data_ptr(), kernels.dtype_code(x), B, S, K, N,
         kernels.stream_handle(x))
     kernels.raise_on_error(rc, f"{what} kernel launch")
-    return y, p, s2
+    return (y, p, s2), w
 
 
 def pw_conv_stats(x, weight):
@@ -132,9 +174,13 @@ def pw_conv_stats(x, weight):
     """
     dims = _dims(x, weight)
     if x.device.type == "cpu":
-        return pw_conv_stats_reference(x, weight)
-    out = _launch("x3d_pw_conv_stats", "pw_conv_stats", x, weight, [], dims)
-    pw_conv_stats.launches += 1
+        out, w = pw_conv_stats_reference(x, weight), None
+    else:
+        out, w = _launch("x3d_pw_conv_stats", "pw_conv_stats", x, weight,
+                         [], dims)
+        pw_conv_stats.launches += 1
+    if ops.records is not None:
+        _log("K5", x, w, dims, conv_stats_cost)
     return out
 
 
@@ -152,10 +198,13 @@ def pw_act_conv_stats(x, a_cb, b_cb, weight):
     """
     dims = _dims(x, weight, a_cb, b_cb)
     if x.device.type == "cpu":
-        return pw_act_conv_stats_reference(x, a_cb, b_cb, weight)
-    out = _launch("x3d_pw_act_conv_stats", "pw_act_conv_stats", x, weight,
-                  [a_cb, b_cb], dims)
-    pw_act_conv_stats.launches += 1
+        out, w = pw_act_conv_stats_reference(x, a_cb, b_cb, weight), None
+    else:
+        out, w = _launch("x3d_pw_act_conv_stats", "pw_act_conv_stats", x,
+                         weight, [a_cb, b_cb], dims)
+        pw_act_conv_stats.launches += 1
+    if ops.records is not None:
+        _log("K6", x, w, dims, act_conv_stats_cost)
     return out
 
 

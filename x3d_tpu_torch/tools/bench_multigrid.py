@@ -30,39 +30,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 
 def time_step(cfg, batch: int, steps: int, dtype, device) -> dict:
     """The best of 3 timed rounds of ``steps`` chained train steps at the
-    config's geometry and ``batch`` clips: ms a step and clips/s."""
-    import torch
+    config's geometry and ``batch`` clips (``tools/ab.run_ab``, as the JAX
+    tool times a phase): ms a step and clips/s."""
+    from x3d_tpu_torch.tools.ab import run_ab
 
-    from x3d_tpu_torch.data import synthetic_batches
-    from x3d_tpu_torch.models import create_model
-    from x3d_tpu_torch.train import create_train_state, make_train_step
-
-    model = create_model(cfg, dtype=dtype, device=device)
-    state = create_train_state(cfg, model, steps_per_epoch=1000)
-    train_step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
-    data = next(synthetic_batches(cfg, batch, dtype=dtype, device=device))
-    gen = torch.Generator(device=model.fc_2.weight.device).manual_seed(0)
-
-    def sync(metrics):
-        if gen.device.type == "cuda":
-            torch.cuda.synchronize()
-        float(metrics["loss"])
-
-    state, metrics = train_step(state, data, gen)
-    sync(metrics)
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, metrics = train_step(state, data, gen)
-        sync(metrics)
-        best = min(best, (time.perf_counter() - t0) / steps)
-    return {"step_ms": best * 1e3, "clips_per_s": batch / best}
+    r = run_ab("", "kernels", batch, steps, device=device, cfg=cfg,
+               dtype=dtype)
+    return {"step_ms": r["step_ms"], "clips_per_s": r["clips_per_s"]}
 
 
 def bench(cfg, variant: str, steps: int, base_steps_per_epoch: int,

@@ -133,3 +133,18 @@ def add_parallel_flags(parser: argparse.ArgumentParser) -> None:
 def flat_opts(opts) -> list:
     """``--opts`` as one flat list of tokens."""
     return [tok for group in opts for tok in group]
+
+
+def remat_flag(text: str):
+    """A ``--remat`` value as ``create_model`` takes it, the JAX tools'
+    mapping: "auto" is None (the config's ``TPU.REMAT``), "true" True,
+    "false" and "off" False, any other mode as given."""
+    return {"auto": None, "true": True, "false": False,
+            "off": False}.get(str(text).lower(), str(text).lower())
+
+
+def fold_flag(text: str):
+    """A ``--fold`` value (config/auto/on/off) as ``create_model``'s
+    ``time_fold``: None (the config's), "auto", True or False."""
+    return {"config": None, "auto": "auto", "on": True, "true": True,
+            "off": False, "false": False}[str(text).lower()]

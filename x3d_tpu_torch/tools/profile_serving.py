@@ -12,7 +12,9 @@ Needs a CUDA card::
 
     python -m x3d_tpu_torch.tools.profile_serving --variant M --videos 1 8
 
-``--trace DIR`` also writes a Chrome trace per request size into DIR.
+``--trace DIR`` also writes each request size's window into a directory
+of its own, ``DIR/<variant>_<n>video``: the Chrome trace ``trace.json``
+and the kernels' launch log beside it (``tools/roofline`` reads both).
 """
 
 from __future__ import annotations
@@ -49,9 +51,9 @@ def main(argv=None) -> None:
                              + engine.clip_shape[1:], dtype=np.uint8)
         path = None
         if args.trace:
-            os.makedirs(args.trace, exist_ok=True)
-            path = os.path.join(args.trace,
-                                f"serve_{args.variant}_{n}video.json")
+            where = os.path.join(args.trace, f"{args.variant}_{n}video")
+            os.makedirs(where, exist_ok=True)
+            path = os.path.join(where, "trace.json")
         row = trace(lambda: engine.predict(clips), args.requests,
                     "request", trace_path=path)
         print(json.dumps({"card": name, "variant": args.variant,

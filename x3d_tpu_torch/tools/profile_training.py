@@ -14,7 +14,9 @@ kernels by name.  Needs a CUDA card::
 
 ``--remat`` sets the remat mode ("off", "block", "stage", "convs"; the
 default is the config's ``TPU.REMAT`` as ``create_model`` resolves it);
-``--trace FILE`` also writes a Chrome trace.
+``--trace FILE`` also writes a Chrome trace, and the kernels' launch log
+beside it (``launches.json``; ``tools/roofline`` reads a directory holding
+``trace.json`` and that log).
 """
 
 from __future__ import annotations
@@ -27,46 +29,13 @@ import torch
 from x3d_tpu_torch import variant_config
 from x3d_tpu_torch.data import synthetic_batches
 from x3d_tpu_torch.models import create_model
-from x3d_tpu_torch.tools.trace import INPUT_KERNELS, card, family, trace
+from x3d_tpu_torch.tools.trace import card, port_group, trace
 from x3d_tpu_torch.train import create_train_state, make_train_step
 from x3d_tpu_torch.utils import use_deterministic_cudnn
 
-# the port's kernels by the names of their __global__ functions
-_PORT = (
-    ("K1 depthwise_conv3d", ("dw_conv3d_fwd_kernel",
-                             "dw_conv3d_fwd_temporal_kernel",
-                             "dw_conv3d_fwd_ring_kernel")),
-    ("K2 dw_bn_act_conv", ("dw_bn_act_conv_fwd_kernel",
-                           "dw_bn_act_conv_fwd_ring_kernel",
-                           "dw_bn_act_conv_fwd_sum_kernel")),
-    ("K3 dw_bn_act_conv_bwd", ("dw_bn_act_conv_bwd_kernel",
-                                "dw_bn_act_conv_bwd_ring_kernel",
-                                "dw_bn_act_conv_bwd_sum_kernel")),
-    ("K4 depthwise_conv3d_dx", ("dw_conv3d_dx_kernel",
-                                "dw_conv3d_dx_phase_kernel")),
-    ("K4 depthwise_conv3d_dk", ("dw_conv3d_dk_kernel",
-                                "sum_dk_partials_kernel",
-                                "dw_conv3d_dk_ring_kernel",
-                                "dw_conv3d_dk_sum_kernel")),
-    ("K5 pw_conv_stats", ("pw_conv_stats_mma_kernel",)),
-    ("K6 pw_act_conv_stats", ("pw_act_conv_stats_mma_kernel",)),
-    ("K5/K6 pw_stats", ("pw_stats_kernel",)),          # float32, odd K
-    ("K7 pw_conv", ("pw_conv_kernel", "pw_conv_mma_kernel",
-                    "pw_conv_wg_kernel")),
-    ("K8 depthwise_conv3d_pbwd", ("dw_conv3d_pbwd_kernel",
-                                  "sum_pbwd_partials_kernel",
-                                  "dw_conv3d_pbwd_temporal_kernel",
-                                  "dw_conv3d_pbwd_sum_kernel")),
-    ("K2/K3/K5/K6 second passes", ("sum_partials_kernel",)),
-    ("input", INPUT_KERNELS),
-)
-
-
-def _group(name: str) -> str:
-    for group, keys in _PORT:
-        if any(k in name for k in keys):
-            return group
-    return family(name)
+# the kernel groups: the port's kernels by the names of their __global__
+# functions (tools/trace.PORT_GROUPS), else the library's families
+_group = port_group
 
 
 def profile(cfg, clips: int, steps: int, seed: int,
@@ -82,7 +51,8 @@ def profile(cfg, clips: int, steps: int, seed: int,
         nonlocal state
         state, _ = train_step(state, batch, gen)
 
-    return trace(step, steps, "step", group=_group, trace_path=trace_path)
+    return trace(step, steps, "step", group=port_group,
+                 trace_path=trace_path)
 
 
 def main(argv=None) -> None:

@@ -43,6 +43,19 @@ def normalize(clips: torch.Tensor, mean: Sequence[float],
     return (x - mean_t) / std_t
 
 
+def denormalize(clips: torch.Tensor, mean: Sequence[float],
+                std: Sequence[float], norm_value: float = 255.0,
+                out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """Inverse of :func:`normalize`, for visualisation tooling: standardised
+    values back to [0, norm_value] pixels in ``out_dtype`` (the fraction
+    dropped, as the JAX package's ``astype`` does)."""
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=clips.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=clips.device)
+    x = clips.to(torch.float32) * std_t + mean_t
+    x = torch.clamp(x * norm_value, 0, norm_value)
+    return x.to(out_dtype)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     another.  Raises instead of quietly running on the CPU when no card is
