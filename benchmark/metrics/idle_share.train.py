@@ -1,0 +1,8 @@
+"""Share of the traced training window in which no operation ran on the
+device."""
+
+from benchmark import layers
+
+
+def read(ctx):
+    return layers.idle_share(ctx) if ctx.kind == "train" else None
