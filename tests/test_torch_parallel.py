@@ -462,6 +462,16 @@ def test_convs_ranks_equal_the_ranks_without_remat(runs):
                 assert torch.equal(got[kind][k], v), f"{kind} {k}"
 
 
+def test_train_step_spans_name_the_reduce_on_a_mesh(runs):
+    """On two data ranks the step records ``train.reduce`` between the
+    backward pass and the optimizer, inside ``train.step``."""
+    for out in runs["sync_2"]:
+        assert out["spans"] == [
+            ["train.step", True], ["train.forward", False],
+            ["train.backward", False], ["train.reduce", False],
+            ["train.optimizer", False]]
+
+
 @pytest.mark.parametrize("name", list(RUNS))
 def test_ranks_end_bit_identical(runs, name):
     outs = runs[name]

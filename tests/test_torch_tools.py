@@ -177,6 +177,19 @@ def test_summarize_counts_kernels_by_group():
                                                       "gemm": 2}
 
 
+def test_summarize_idle_share_counts_overlapping_kernels_once():
+    """Two kernels that overlap on two streams (0-6 and 2-8) and one after
+    a gap (10-12): busy 10 of 12 µs, though the kernels' durations sum to
+    14."""
+    prof = _prof(("void at::native::reduce_kernel<512, 1>", 0, 6),
+                 ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 2, 8),
+                 ("void at::native::reduce_kernel<512, 1>", 10, 12))
+    got = summarize(prof, 1, "step")
+    assert got["idle_share"] == pytest.approx(2 / 12)
+    assert got["device_busy_ms_per_step"] == pytest.approx(14e-3)
+    assert got["window_ms_per_step"] == pytest.approx(12e-3)
+
+
 def test_summarize_raises_lost_trace_without_device_activity():
     with pytest.raises(LostTrace, match="no device activity"):
         summarize(_prof(), 1, "call")

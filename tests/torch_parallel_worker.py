@@ -12,11 +12,11 @@ outputs:
   ``torch.save`` file), evaluate the rank's share of the eval batch, then
   re-estimate the BN statistics on its share of the train batch (precise
   BN, one batch) in a copy, take one train step on its share of the train
-  batch; save a checkpoint
-  and restore it into a fresh model; write the loss, the eval sums, every
-  gradient, the updated state and optimizer slots (the head's shards
-  joined into full tensors) and whether the restore gave back the live
-  state to ``out/rank<R>.pt``.
+  batch under a span log; save a checkpoint and restore it into a fresh
+  model; write the loss, the eval sums, the step's spans, every gradient,
+  the updated state and optimizer slots (the head's shards joined into
+  full tensors) and whether the restore gave back the live state to
+  ``out/rank<R>.pt``.
 * ``tool``: run ``tools.train.main(argv)`` as torchrun's rank R would,
   then ``tools.eval.main(eval_argv)`` where given; write each logged
   step's loss, the final state, the checkpoint files the rank wrote and
@@ -68,7 +68,7 @@ def _step(spec, rank):
 
     import torch
 
-    from x3d_tpu_torch import parallel
+    from x3d_tpu_torch import ops, parallel
     from x3d_tpu_torch.models import create_model
     from x3d_tpu_torch.parallel import mesh as pmesh
     from x3d_tpu_torch.train import (create_train_state, make_bn_recalibrator,
@@ -107,7 +107,8 @@ def _step(spec, rank):
                    if k.endswith((".mean", ".var"))}
 
     step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
-    state, metrics = step(state, batch, torch.Generator().manual_seed(0))
+    with ops.span_log() as spans:
+        state, metrics = step(state, batch, torch.Generator().manual_seed(0))
     grads = {n: p.grad.detach() for n, p in model.named_parameters()}
     for n, dim in model.head_split.items():
         grads[n] = pmesh.gather_split(grads[n], dim, mesh)
@@ -119,6 +120,7 @@ def _step(spec, rank):
                                                       model),
            "recal": recal_stats,
            "mesh": [mesh.data_rank, mesh.model_rank], "step": state.step,
+           "spans": [[r["name"], r["parent"] is None] for r in spans],
            "out_dir": spec["out"]}
 
     # a checkpoint of the state after the step (rank 0 writes it), restored

@@ -17,12 +17,20 @@ Each wrapper that counts its launches also appends one record a call to
 the open :func:`launch_log`, if there is one: which kernel and body ran,
 on what shape, in which direction, and the call's least bytes and
 operations from the kernel's ``cost`` function beside the wrapper.
+
+The engine's request and the train step mark their phases as spans
+(:func:`span`), which an open :func:`span_log` keeps with their host times
+on the clock ``torch.profiler`` puts its events on.  Spans and launch
+records are switched apart: a span costs a clock read, a launch record its
+``cost`` function.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
+import time
 
 import torch
 
@@ -112,3 +120,103 @@ def log_launch(kernel: str, body: str, shape: dict, direction: str,
                     "direction": direction,
                     "dtype": str(dtype).removeprefix("torch."),
                     "bytes": int(cost[0]), "flops": int(cost[1])})
+
+
+# the open span log's list, or None: the one check a span makes when no
+# log is open
+spans = None
+# span ids, unique over the process: a child names its parent's, and a
+# request's or step's spans share their outermost span's id as ``call``
+_ids = itertools.count()
+
+
+class _Open(threading.local):
+    """The spans open in this thread, innermost last."""
+
+    def __init__(self):
+        self.stack = []
+
+
+_open = _Open()
+
+
+class _Closed:
+    """The span of a call made with no span log open: records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_CLOSED = _Closed()
+
+
+class _Span:
+    """One span of an open log: its record, and the stack of the thread
+    that opened it."""
+
+    __slots__ = ("name", "log", "record", "stack")
+
+    def __init__(self, name: str, log: list):
+        self.name, self.log = name, log
+
+    def __enter__(self) -> dict:
+        stack = _open.stack
+        ident = next(_ids)
+        parent = stack[-1] if stack else None
+        record = {"name": self.name, "id": ident,
+                  "parent": parent["id"] if parent else None,
+                  "call": parent["call"] if parent else ident,
+                  "start_ns": time.time_ns(), "end_ns": None}
+        self.record, self.stack = record, stack
+        self.log.append(record)
+        stack.append(record)
+        return record
+
+    def __exit__(self, *exc):
+        self.record["end_ns"] = time.time_ns()
+        self.stack.pop()
+        return False
+
+
+def span(name: str):
+    """A context that marks one phase of a call in the open
+    :func:`span_log`, and yields its record, to which the caller may add
+    keys; with no log open it records nothing and yields None."""
+    log = spans
+    if log is None:
+        return _CLOSED
+    return _Span(name, log)
+
+
+@contextlib.contextmanager
+def span_log():
+    """Within this context every :func:`span` appends one record to the
+    yielded list when it opens, in the order they open:
+
+    * ``name``: "engine.request", "engine.upload", "train.step", ...;
+    * ``id``: unique over the process; ``parent``: the id of the span
+      open around it in the same thread, or None;
+    * ``call``: the id of its outermost span, shared by every span of one
+      request or step;
+    * ``start_ns`` and ``end_ns``: ``time.time_ns()`` at its open and
+      close (None while open), the clock ``torch.profiler``'s events are
+      on: an event's time is ``prof.profiler.kineto_results
+      .trace_start_ns()`` plus its offset;
+    * whatever keys the span's owner added.
+
+    A log opened inside another hands its records on to the outer one when
+    it closes.  Opens no :func:`launch_log`."""
+    global spans
+    prev, spans = spans, []
+    mine = spans
+    try:
+        yield mine
+    finally:
+        spans = prev
+        if prev is not None:
+            prev.extend(mine)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from x3d_tpu_torch import ops
 from x3d_tpu_torch.models import create_model
 from x3d_tpu_torch.utils import normalize, resolve_device, use_full_float32
 
@@ -123,6 +124,7 @@ class InferenceEngine:
             raise ValueError(f"time_fold {time_fold!r}: expected None, "
                              "True, False, 'mixed' or 'measure'")
         self.layout = time_fold
+        self.requests = 0        # requests taken, the next one's number
 
     @classmethod
     def random_init(cls, cfg, max_videos: int = 8,
@@ -160,7 +162,35 @@ class InferenceEngine:
     def predict(self, clips_u8) -> np.ndarray:
         """(videos*views, T, S, S, 3) uint8 (numpy, or a tensor on any
         device) -> (videos, classes) float32 probabilities.  Fewer than ``max_videos`` videos are padded to the
-        capacity and un-padded on return."""
+        capacity and un-padded on return.
+
+        Under an open ``ops.span_log`` a request records the span
+        ``engine.request`` (with its ``request`` number, ``videos`` and
+        ``clips``) around four in turn: ``engine.convert`` (the input as a
+        tensor, and its checks), ``engine.upload`` (the copy into the
+        device buffer and the padding), ``engine.forward`` (normalise and
+        the model, as launched) and ``engine.fetch`` (the probabilities to
+        the host, where the host waits for the card)."""
+        number = self.requests
+        self.requests += 1
+        with ops.span("engine.request") as request:
+            with ops.span("engine.convert"):
+                clips, n_clips, n_videos = self._checked(clips_u8)
+            with ops.span("engine.upload"):
+                self._clips[:n_clips].copy_(clips)
+                self._clips[n_clips:].zero_()
+            with ops.span("engine.forward"):
+                probs = self._forward(self._clips)
+            with ops.span("engine.fetch"):
+                out = probs[:n_videos].to(torch.float32).cpu().numpy()
+            if request is not None:
+                request.update(request=number, videos=n_videos,
+                               clips=n_clips)
+        return out
+
+    def _checked(self, clips_u8) -> Tuple[torch.Tensor, int, int]:
+        """The request as a uint8 tensor, its clips and its videos; raises
+        where its shape does not fit the engine."""
         clips = clips_u8 if isinstance(clips_u8, torch.Tensor) \
             else torch.as_tensor(np.asarray(clips_u8))
         if clips.dtype != torch.uint8 or tuple(clips.shape[1:]) \
@@ -177,10 +207,7 @@ class InferenceEngine:
             raise ValueError(
                 f"{n_videos} videos exceeds engine capacity "
                 f"{self._max_videos}; split the request")
-        self._clips[:n_clips].copy_(clips)
-        self._clips[n_clips:].zero_()
-        probs = self._forward(self._clips)
-        return probs[:n_videos].to(torch.float32).cpu().numpy()
+        return clips, n_clips, n_videos
 
     def top_k(self, clips_u8, k: int = 5) -> Tuple[np.ndarray, np.ndarray]:
         """-> (indices (videos, k), probabilities (videos, k))."""

@@ -4,10 +4,15 @@ Traces a few requests of ``InferenceEngine`` (random weights from a seed)
 with ``torch.profiler`` and prints one JSON line per request size: the
 request's device time, the device's idle share between its first and last
 kernel, device time by kernel family (the port's kernels, GEMMs, cuDNN
-convs, elementwise, reductions, copies) and the top kernels by name.
-Only device activity is traced, which keeps the profiler's own host cost
-small; the idle share still includes each request's host work (copying
-the clips in, reading the probabilities back).
+convs, elementwise, reductions, copies), the top kernels by name, and by
+the engine's spans (``engine.request`` around ``engine.convert``,
+``engine.upload``, ``engine.forward``, ``engine.fetch``) the host ms a
+request inside each (``span_host_ms_per_request``) and the device's idle
+ms while each is the innermost span open (``span_idle_ms_per_request``;
+"outside spans" between requests).  Only device activity is traced, which
+keeps the profiler's own host cost small; the idle share still includes
+each request's host work (copying the clips in, reading the
+probabilities back), which the spans name.
 Needs a CUDA card::
 
     python -m x3d_tpu_torch.tools.profile_serving --variant M --videos 1 8

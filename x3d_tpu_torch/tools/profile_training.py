@@ -7,8 +7,13 @@ steps with ``torch.profiler`` (device activity only) and prints one JSON
 line: the step's device busy time, the device's idle share between the
 first and last kernel, device time per step for each of the port's
 kernels (K1-K8, with their second passes) and for the library's kernel
-families (GEMMs, cuDNN convs, elementwise, reductions, copies), and the top
-kernels by name.  Needs a CUDA card::
+families (GEMMs, cuDNN convs, elementwise, reductions, copies), the top
+kernels by name, and by the step's spans (``train.step`` around
+``train.forward``, ``train.backward``, ``train.reduce`` on a mesh,
+``train.optimizer``) the host ms a step inside each
+(``span_host_ms_per_step``) and the device's idle ms while each is the
+innermost span open (``span_idle_ms_per_step``; "outside spans" between
+steps).  Needs a CUDA card::
 
     python -m x3d_tpu_torch.tools.profile_training --variant M --clips 32
 

@@ -14,17 +14,25 @@ kernel, not its second pass that sums partials -- lies in the group
 :func:`record_group` names, and :func:`unmatched` finds the groups whose
 main kernels and records differ in number.  A traced window written to a
 file keeps its log beside it as ``launches.json``.
+
+The window's spans (``ops.span_log``: the engine's request and the train
+step, by phase) are mapped onto the trace's clock (:func:`span_times`):
+the summary gains each span's host ms a call and the device's idle ms by
+the innermost span open on the host (:func:`by_span`), and a window
+written to a file carries them as a host thread of the Chrome trace and
+as ``spans.json``.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import json
 import os
 import subprocess
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -95,6 +103,8 @@ class LostTrace(RuntimeError):
 
 
 LAUNCHES = "launches.json"     # the launch log beside a Chrome trace
+SPANS = "spans.json"           # and the spans, on the trace's clock
+OUTSIDE = "outside spans"      # device idle time with no span open
 CARD = "card.txt"              # and the card's name and power limit
 # Seconds the host waits, idle, after a profiler starts and before it
 # stops, in each attempt at a window that keeps a launch log.  Late in a
@@ -175,19 +185,35 @@ def device_profiler() -> torch.profiler.profile:
         activities=[torch.profiler.ProfilerActivity.CUDA], acc_events=True)
 
 
+def union(intervals: Iterable[Tuple[float, float]]
+          ) -> List[Tuple[float, float]]:
+    """The union of intervals, as disjoint intervals in time order."""
+    merged: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return [(a, b) for a, b in merged]
+
+
 def summarize(prof: torch.profiler.profile, n: int, unit: str,
               group: Callable[[str], str] = family) -> dict:
-    """Aggregate a finished device trace of ``n`` calls: the device busy
-    time, the traced window and the number of kernels per call (keys ending
-    in ``_per_<unit>``), the device's idle share between the first and the
-    last kernel, device time and kernels per call by ``group(kernel
-    name)``, and the top 15 kernels by name."""
+    """Aggregate a finished device trace of ``n`` calls: the kernels'
+    summed device time, the traced window and the number of kernels per
+    call (keys ending in ``_per_<unit>``), the device's idle share between
+    the first and the last kernel (one less the union of the kernels'
+    intervals over that span: kernels that overlap on two streams count
+    once), device time and kernels per call by ``group(kernel name)``, and
+    the top 15 kernels by name."""
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise LostTrace("the profiler recorded no device activity")
     start = min(e.time_range.start for e in kernels)
     end = max(e.time_range.end for e in kernels)
     busy = sum(e.time_range.elapsed_us() for e in kernels)
+    covered = sum(b - a for a, b in union(
+        (e.time_range.start, e.time_range.end) for e in kernels))
     by_name, by_group = collections.Counter(), collections.Counter()
     count = collections.Counter()
     for e in kernels:
@@ -199,7 +225,7 @@ def summarize(prof: torch.profiler.profile, n: int, unit: str,
     return {
         "device_busy_ms" + per: busy / n / 1e3,
         "window_ms" + per: (end - start) / n / 1e3,
-        "idle_share": 1.0 - busy / (end - start),
+        "idle_share": 1.0 - covered / (end - start),
         "kernels" + per: len(kernels) / n,
         key + "_ms" + per:
             {k: v / n / 1e3 for k, v in by_group.most_common()},
@@ -207,6 +233,109 @@ def summarize(prof: torch.profiler.profile, n: int, unit: str,
         "top_kernels_ms" + per: [[name[:90], v / n / 1e3]
                                  for name, v in by_name.most_common(15)],
     }
+
+
+def span_times(prof: torch.profiler.profile, records: List[dict]
+               ) -> List[dict]:
+    """The closed spans of ``ops.span_log`` records, each with ``start_us``
+    and ``end_us`` on the profiler's timeline (the one its events'
+    ``time_range`` is on) and its nesting ``depth`` (0 outermost)."""
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    depth = {}
+    out = []
+    for r in records:
+        if r["end_ns"] is None:
+            continue
+        depth[r["id"]] = depth.get(r["parent"], -1) + 1
+        out.append(dict(r, start_us=(r["start_ns"] - t0) / 1e3,
+                        end_us=(r["end_ns"] - t0) / 1e3,
+                        depth=depth[r["id"]]))
+    return out
+
+
+def innermost(spans: List[dict], t: float) -> Optional[dict]:
+    """The deepest span open at ``t`` (µs), the later opened on a tie."""
+    best = None
+    for s in spans:
+        if s["start_us"] <= t < s["end_us"] and (
+                best is None or (s["depth"], s["start_us"])
+                >= (best["depth"], best["start_us"])):
+            best = s
+    return best
+
+
+def by_span(kernels: Iterable[Tuple[float, float]], spans: List[dict],
+            n: int, unit: str) -> dict:
+    """From the device's (start, end) intervals and :func:`span_times`
+    (all in µs), per call: the host ms spent inside each span by name, and
+    the device's idle ms by the innermost span open on the host at each
+    instant (:data:`OUTSIDE` where none is), over the window from the
+    first kernel or span to the last.  An outer span's own row holds only
+    the idle time outside its children: the idle time inside it is its row
+    and its descendants' rows together."""
+    busy = union(kernels)
+    ends = [t for a, b in busy for t in (a, b)] \
+        + [t for s in spans for t in (s["start_us"], s["end_us"])]
+    per = f"_per_{unit}"
+    host = collections.Counter()
+    for s in spans:
+        host[s["name"]] += s["end_us"] - s["start_us"]
+    idle = collections.Counter()
+    if ends:
+        lo, hi = min(ends), max(ends)
+        gaps, t = [], lo
+        for a, b in busy:
+            if a > t:
+                gaps.append((t, a))
+            t = max(t, b)
+        if hi > t:
+            gaps.append((t, hi))
+        cuts = sorted({t for s in spans for t in (s["start_us"],
+                                                  s["end_us"])})
+        for a, b in gaps:
+            i = bisect.bisect_right(cuts, a)
+            points = [a]
+            while i < len(cuts) and cuts[i] < b:
+                points.append(cuts[i])
+                i += 1
+            points.append(b)
+            for x, y in zip(points, points[1:]):
+                inner = innermost(spans, (x + y) / 2)
+                idle[inner["name"] if inner else OUTSIDE] += y - x
+    return {"span_host_ms" + per: {k: v / n / 1e3
+                                   for k, v in host.most_common()},
+            "span_idle_ms" + per: {k: v / n / 1e3
+                                   for k, v in idle.most_common()}}
+
+
+def _chrome_spans(path: str, prof, spans: List[dict]) -> None:
+    """Add the spans to the Chrome trace at ``path`` as a host thread of
+    their own, on the trace's clock (its ``ts`` lie at a fixed offset from
+    the profiler's timeline, read off the first device event); a trace
+    without that event is left as it is."""
+    with open(path) as f:
+        chrome = json.load(f)
+    events = chrome["traceEvents"]
+    first = min((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    ts = [e["ts"] for e in events
+          if e.get("ph") == "X" and e.get("name") == first.name]
+    if not ts:
+        return
+    offset = min(ts) - first.time_range.start
+    pid, tid = os.getpid(), "spans"
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                   "args": {"name": "x3d_tpu_torch spans"}})
+    for s in spans:
+        args = {k: v for k, v in s.items()
+                if k not in ("name", "start_ns", "end_ns", "start_us",
+                             "end_us")}
+        events.append({"ph": "X", "cat": "span", "name": s["name"],
+                       "pid": pid, "tid": tid, "ts": s["start_us"] + offset,
+                       "dur": s["end_us"] - s["start_us"], "args": args})
+    with open(path, "w") as f:
+        json.dump(chrome, f)
 
 
 def trace(run: Callable[[], object], n: int, unit: str,
@@ -218,9 +347,12 @@ def trace(run: Callable[[], object], n: int, unit: str,
     their :func:`summarize`.  A window with no device activity, or whose
     summary ``complete`` rejects (fewer kernels than the calls launch), is
     traced again and counted in ``trace.lost``; after ``attempts`` such
-    windows :class:`LostTrace` is raised.  ``trace_path`` also writes a
-    Chrome trace, and beside it, as ``launches.json``, the window's launch
-    log (``ops.launch_log``, kept over the window alone); a window whose
+    windows :class:`LostTrace` is raised.  Where the calls made spans
+    (``ops.span_log``, open over the window), the summary gains
+    :func:`by_span`'s keys.  ``trace_path`` also writes a Chrome trace
+    with the spans as a host thread, and beside it, as ``launches.json``,
+    the window's launch log (``ops.launch_log``, kept over the window
+    alone) and as ``spans.json`` its spans; a window whose
     main kernels the log does not match group by group (:func:`unmatched`)
     is traced again too; the card's name and power limit go into
     ``card.txt`` there; such a window's work starts and ends
@@ -233,7 +365,8 @@ def trace(run: Callable[[], object], n: int, unit: str,
     for attempt in range(attempts):
         settle = SETTLE_S[min(attempt, len(SETTLE_S) - 1)] \
             if trace_path else 0.0
-        with keep() as records, device_profiler() as prof:
+        with keep() as records, ops.span_log() as marks, \
+                device_profiler() as prof:
             time.sleep(settle)
             for _ in range(n):
                 run()
@@ -253,11 +386,21 @@ def trace(run: Callable[[], object], n: int, unit: str,
             trace.lost += 1
             continue
         if complete is None or complete(got):
+            spans = span_times(prof, marks) if marks else []
+            if spans:
+                got.update(by_span(
+                    ((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA), spans, n, unit))
             if trace_path:
                 prof.export_chrome_trace(trace_path)
+                if spans:
+                    _chrome_spans(trace_path, prof, spans)
                 where = os.path.dirname(trace_path) or "."
                 with open(os.path.join(where, LAUNCHES), "w") as f:
                     json.dump(records, f)
+                with open(os.path.join(where, SPANS), "w") as f:
+                    json.dump(spans, f)
                 with open(os.path.join(where, CARD), "w") as f:
                     f.write(card() + "\n")
             return got

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from x3d_tpu_torch import parallel
+from x3d_tpu_torch import ops, parallel
 from x3d_tpu_torch.train.state import TrainState
 
 _MASK64 = (1 << 64) - 1
@@ -75,6 +75,12 @@ def make_train_step(model: nn.Module, weight_decay: float):
     whose seed and the step counter seed the step's dropout mask.  The step
     updates the model, its BN running statistics and the optimizer in
     place and advances ``state.step``; the metrics stay on the device.
+
+    Under an open ``ops.span_log`` a step records the span ``train.step``
+    (with its ``step`` and ``clips``) around ``train.forward`` (the model,
+    the loss and the metrics), ``train.backward`` (``zero_grad`` and the
+    backward pass), ``train.reduce`` (the mesh's all-reduce, only where
+    there is one) and ``train.optimizer`` (the update).
     """
 
     mesh = getattr(model, "mesh", None)
@@ -86,39 +92,49 @@ def make_train_step(model: nn.Module, weight_decay: float):
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if state.model is not model:
             raise ValueError("the state holds another model than this step")
-        model.train()
-        lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        dropout = torch.Generator(device=generator.device)
-        dropout.manual_seed(step_seed(generator.initial_seed(), state.step,
-                                      data_rank))
-        label = batch["label"]
-        logits = model(batch["video"], return_logits=True,
-                       generator=dropout)
-        ce = F.cross_entropy(logits.to(torch.float32), label)
-        loss = ce + weight_decay * l2_penalty(model)
-        with torch.no_grad():
-            metrics = {
-                "loss": loss.detach(),
-                "acc": (logits.argmax(-1) == label).to(torch.float32).mean(),
-                "top_5_acc": _topk_correct(logits, label, 5)
-                .to(torch.float32).mean(),
-            }
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if reduce:
-            grads = []
-            for p in model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                grads.append(p.grad)
-            stats = [] if model.sync_bn else parallel.running_stats(model)
-            parallel.all_reduce_mean_(
-                grads + list(metrics.values()) + stats, mesh.data_group,
-                mesh.data)
-        state.optimizer.step()
-        state.step += 1
+        with ops.span("train.step") as span:
+            if span is not None:
+                span.update(step=state.step, clips=int(batch["label"]
+                                                       .shape[0]))
+            model.train()
+            lr = state.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            dropout = torch.Generator(device=generator.device)
+            dropout.manual_seed(step_seed(generator.initial_seed(),
+                                          state.step, data_rank))
+            label = batch["label"]
+            with ops.span("train.forward"):
+                logits = model(batch["video"], return_logits=True,
+                               generator=dropout)
+                ce = F.cross_entropy(logits.to(torch.float32), label)
+                loss = ce + weight_decay * l2_penalty(model)
+                with torch.no_grad():
+                    metrics = {
+                        "loss": loss.detach(),
+                        "acc": (logits.argmax(-1) == label)
+                        .to(torch.float32).mean(),
+                        "top_5_acc": _topk_correct(logits, label, 5)
+                        .to(torch.float32).mean(),
+                    }
+            with ops.span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            if reduce:
+                with ops.span("train.reduce"):
+                    grads = []
+                    for p in model.parameters():
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                        grads.append(p.grad)
+                    stats = [] if model.sync_bn \
+                        else parallel.running_stats(model)
+                    parallel.all_reduce_mean_(
+                        grads + list(metrics.values()) + stats,
+                        mesh.data_group, mesh.data)
+            with ops.span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
         return state, metrics
 
     return train_step
