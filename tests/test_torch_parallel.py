@@ -464,12 +464,22 @@ def test_convs_ranks_equal_the_ranks_without_remat(runs):
 
 def test_train_step_spans_name_the_reduce_on_a_mesh(runs):
     """On two data ranks the step records ``train.reduce`` between the
-    backward pass and the optimizer, inside ``train.step``."""
+    backward pass and the optimizer, inside ``train.step``: the spans the
+    loop's ``ProfileHook`` writes beside its trace."""
     for out in runs["sync_2"]:
         assert out["spans"] == [
             ["train.step", True], ["train.forward", False],
             ["train.backward", False], ["train.reduce", False],
             ["train.optimizer", False]]
+
+
+def test_profile_hook_summary_reads_the_reduce(runs):
+    """The profile hook's summary gives each rank's host ms a step by span,
+    the all-reduce's among them."""
+    for out in runs["sync_2"]:
+        assert out["span_host"] == sorted([
+            "train.step", "train.forward", "train.backward", "train.reduce",
+            "train.optimizer"])
 
 
 @pytest.mark.parametrize("name", list(RUNS))

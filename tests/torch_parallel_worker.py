@@ -12,8 +12,10 @@ outputs:
   ``torch.save`` file), evaluate the rank's share of the eval batch, then
   re-estimate the BN statistics on its share of the train batch (precise
   BN, one batch) in a copy, take one train step on its share of the train
-  batch under a span log; save a checkpoint and restore it into a fresh
-  model; write the loss, the eval sums, the step's spans, every gradient,
+  batch inside the window of the loop's ``ProfileHook`` (a stand-in for
+  the device profiler: the CPU has no device trace); save a checkpoint
+  and restore it into a fresh model; write the loss, the eval sums, the
+  step's spans and the span names of the hook's summary, every gradient,
   the updated state and optimizer slots (the head's shards joined into
   full tensors) and whether the restore gave back the live state to
   ``out/rank<R>.pt``.
@@ -63,17 +65,69 @@ def tiny_cfg(sync_bn=True, views=2, batch=4):
     return cfg
 
 
+class _CpuProfiler:
+    """A stand-in for ``tools/trace.device_profiler`` on the CPU: one
+    device operation at the window's start, its events' timeline from
+    the host time the window started."""
+
+    def start(self):
+        import time
+
+        self.t0 = time.time_ns()
+
+    def stop(self):
+        pass
+
+    def events(self):
+        import types
+
+        from torch.autograd import DeviceType
+        from torch.autograd.profiler_util import Interval
+
+        return [types.SimpleNamespace(name="op", device_type=DeviceType.CUDA,
+                                      time_range=Interval(0, 10))]
+
+    @property
+    def profiler(self):
+        import types
+
+        return types.SimpleNamespace(kineto_results=types.SimpleNamespace(
+            trace_start_ns=lambda: self.t0))
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as f:
+            json.dump({"traceEvents": []}, f)
+
+
+@contextlib.contextmanager
+def _cpu_profiler():
+    """Within this context the profile hook's device profiler is
+    :class:`_CpuProfiler` and synchronising the card does nothing."""
+    import torch
+
+    from x3d_tpu_torch.tools import trace
+
+    prev = trace.device_profiler, torch.cuda.synchronize
+    trace.device_profiler = _CpuProfiler
+    torch.cuda.synchronize = lambda: None
+    try:
+        yield
+    finally:
+        trace.device_profiler, torch.cuda.synchronize = prev
+
+
 def _step(spec, rank):
     import datetime
 
     import torch
 
-    from x3d_tpu_torch import ops, parallel
+    from x3d_tpu_torch import parallel
     from x3d_tpu_torch.models import create_model
     from x3d_tpu_torch.parallel import mesh as pmesh
     from x3d_tpu_torch.train import (create_train_state, make_bn_recalibrator,
                                      make_eval_step, make_train_step)
     from x3d_tpu_torch.train.checkpoint import CheckpointManager
+    from x3d_tpu_torch.train.hooks import ProfileHook
     from x3d_tpu_torch.train.loop import evaluate
 
     mesh = parallel.init_mesh(
@@ -107,8 +161,16 @@ def _step(spec, rank):
                    if k.endswith((".mean", ".var"))}
 
     step = make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)
-    with ops.span_log() as spans:
+    where = os.path.join(spec["out"], f"profile{rank}")
+    hook = ProfileHook(where, 1)
+    with _cpu_profiler():
+        hook.on_step(0, {})
         state, metrics = step(state, batch, torch.Generator().manual_seed(0))
+        hook.on_step(1, {})
+    with open(os.path.join(where, "profile_step1_spans.json")) as f:
+        spans = json.load(f)
+    with open(os.path.join(where, "profile_step1_summary.json")) as f:
+        profiled = json.load(f)
     grads = {n: p.grad.detach() for n, p in model.named_parameters()}
     for n, dim in model.head_split.items():
         grads[n] = pmesh.gather_split(grads[n], dim, mesh)
@@ -121,6 +183,7 @@ def _step(spec, rank):
            "recal": recal_stats,
            "mesh": [mesh.data_rank, mesh.model_rank], "step": state.step,
            "spans": [[r["name"], r["parent"] is None] for r in spans],
+           "span_host": sorted(profiled["span_host_ms_per_step"]),
            "out_dir": spec["out"]}
 
     # a checkpoint of the state after the step (rank 0 writes it), restored

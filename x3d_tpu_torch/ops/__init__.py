@@ -20,9 +20,9 @@ operations from the kernel's ``cost`` function beside the wrapper.
 
 The engine's request and the train step mark their phases as spans
 (:func:`span`), which an open :func:`span_log` keeps with their host times
-on the clock ``torch.profiler`` puts its events on.  Spans and launch
-records are switched apart: a span costs a clock read, a launch record its
-``cost`` function.
+(``tools/trace.span_times`` maps them onto a device trace's timeline, by
+anchors it takes on both clocks).  Spans and launch records are switched
+apart: a span costs a clock read, a launch record its ``cost`` function.
 """
 
 from __future__ import annotations
@@ -82,6 +82,21 @@ def via_library() -> bool:
 
 
 @contextlib.contextmanager
+def _log(name: str):
+    """Open a log: the module global ``name`` holds a fresh list within the
+    context, which is yielded; on closing, the global gets back the list it
+    held before, and that outer list, if any, the records."""
+    g = globals()
+    prev, mine = g[name], []
+    g[name] = mine
+    try:
+        yield mine
+    finally:
+        g[name] = prev
+        if prev is not None:
+            prev.extend(mine)
+
+
 def launch_log():
     """Within this context every kernel wrapper's call appends one record
     to the yielded list, from any thread, in the order the calls were
@@ -99,15 +114,7 @@ def launch_log():
 
     A log opened inside another hands its records on to the outer one when
     it closes."""
-    global records
-    prev, records = records, []
-    mine = records
-    try:
-        yield mine
-    finally:
-        records = prev
-        if prev is not None:
-            prev.extend(mine)
+    return _log("records")
 
 
 def log_launch(kernel: str, body: str, shape: dict, direction: str,
@@ -193,7 +200,6 @@ def span(name: str):
     return _Span(name, log)
 
 
-@contextlib.contextmanager
 def span_log():
     """Within this context every :func:`span` appends one record to the
     yielded list when it opens, in the order they open:
@@ -204,19 +210,9 @@ def span_log():
     * ``call``: the id of its outermost span, shared by every span of one
       request or step;
     * ``start_ns`` and ``end_ns``: ``time.time_ns()`` at its open and
-      close (None while open), the clock ``torch.profiler``'s events are
-      on: an event's time is ``prof.profiler.kineto_results
-      .trace_start_ns()`` plus its offset;
+      close (None while open);
     * whatever keys the span's owner added.
 
     A log opened inside another hands its records on to the outer one when
     it closes.  Opens no :func:`launch_log`."""
-    global spans
-    prev, spans = spans, []
-    mine = spans
-    try:
-        yield mine
-    finally:
-        spans = prev
-        if prev is not None:
-            prev.extend(mine)
+    return _log("spans")

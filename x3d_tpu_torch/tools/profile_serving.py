@@ -9,7 +9,9 @@ the engine's spans (``engine.request`` around ``engine.convert``,
 ``engine.upload``, ``engine.forward``, ``engine.fetch``) the host ms a
 request inside each (``span_host_ms_per_request``) and the device's idle
 ms while each is the innermost span open (``span_idle_ms_per_request``;
-"outside spans" between requests).  Only device activity is traced, which
+"outside spans" between requests), the spans mapped onto the trace by
+anchors at both ends of the window (``clock_drift_ppm``,
+``clock_error_us``).  Only device activity is traced, which
 keeps the profiler's own host cost small; the idle share still includes
 each request's host work (copying the clips in, reading the
 probabilities back), which the spans name.

@@ -13,7 +13,8 @@ kernels by name, and by the step's spans (``train.step`` around
 ``train.optimizer``) the host ms a step inside each
 (``span_host_ms_per_step``) and the device's idle ms while each is the
 innermost span open (``span_idle_ms_per_step``; "outside spans" between
-steps).  Needs a CUDA card::
+steps), the spans mapped onto the trace by anchors at both ends of the
+window (``clock_drift_ppm``, ``clock_error_us``).  Needs a CUDA card::
 
     python -m x3d_tpu_torch.tools.profile_training --variant M --clips 32
 

@@ -34,7 +34,7 @@ import collections
 import json
 import os
 
-from x3d_tpu_torch.tools.trace import (CARD, LAUNCHES, main_group,
+from x3d_tpu_torch.tools.trace import (ANCHOR, CARD, LAUNCHES, main_group,
                                        port_group, record_group, unmatched)
 
 HBM_GBPS = 3350.0            # H100 SXM device memory (published)
@@ -69,7 +69,8 @@ def load_device_events(trace_dir: str):
     group (``tools/trace.port_group``).  A port kernel's events also carry
     ``main`` (whether it is its launch's main kernel), ``shape`` and
     ``direction`` of the launch it belongs to (a second pass: the last
-    main launch before it)."""
+    main launch before it).  The clock's anchors (``tools/trace``) are left
+    out."""
     path = os.path.join(trace_dir, "trace.json")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no trace under {trace_dir}")
@@ -78,7 +79,8 @@ def load_device_events(trace_dir: str):
     with open(os.path.join(trace_dir, LAUNCHES)) as f:
         records = [r for r in json.load(f) if r["body"] != "plain"]
     kernels = sorted((e for e in trace["traceEvents"]
-                      if e.get("ph") == "X" and e.get("cat") in _DEVICE),
+                      if e.get("ph") == "X" and e.get("cat") in _DEVICE
+                      and ANCHOR not in e["name"]),
                      key=lambda e: e["ts"])
     off = unmatched([e["name"] for e in kernels], records)
     if off:

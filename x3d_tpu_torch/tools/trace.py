@@ -16,11 +16,13 @@ main kernels and records differ in number.  A traced window written to a
 file keeps its log beside it as ``launches.json``.
 
 The window's spans (``ops.span_log``: the engine's request and the train
-step, by phase) are mapped onto the trace's clock (:func:`span_times`):
-the summary gains each span's host ms a call and the device's idle ms by
-the innermost span open on the host (:func:`by_span`), and a window
-written to a file carries them as a host thread of the Chrome trace and
-as ``spans.json``.
+step, by phase) are mapped onto the trace's timeline (:func:`span_times`)
+by anchors taken on both clocks at each end of the window
+(:func:`anchor`, :func:`clock`), which follow a host clock that runs fast
+or slow against the card's timestamps: the summary gains each span's host
+ms a call and the device's idle ms by the innermost span open on the host
+(:func:`by_span`), and a window written to a file carries them as a host
+thread of the Chrome trace and as ``spans.json``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import bisect
 import collections
 import contextlib
 import json
+import math
 import os
 import subprocess
 import time
@@ -106,6 +109,10 @@ LAUNCHES = "launches.json"     # the launch log beside a Chrome trace
 SPANS = "spans.json"           # and the spans, on the trace's clock
 OUTSIDE = "outside spans"      # device idle time with no span open
 CARD = "card.txt"              # and the card's name and power limit
+# the anchors' kernel (``torch.cuda._sleep``'s), kept out of a window's
+# operations, and its length: about half a µs
+ANCHOR = "spin_kernel"
+ANCHOR_CYCLES = 1000
 # Seconds the host waits, idle, after a profiler starts and before it
 # stops, in each attempt at a window that keeps a launch log.  Late in a
 # long process (13 minutes in) the profiler dropped the first kernels of
@@ -115,11 +122,18 @@ CARD = "card.txt"              # and the card's name and power limit
 SETTLE_S = (2.0, 4.0, 8.0)
 
 
+def device_events(prof) -> list:
+    """The window's device operations in time order, the clock's anchors
+    (:data:`ANCHOR` kernels) left out."""
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and ANCHOR not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
 def _kernel_names(prof) -> list:
     """The window's device kernels' names, in time order."""
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return [e.name for e in sorted(kernels,
-                                   key=lambda e: e.time_range.start)]
+    return [e.name for e in device_events(prof)]
 
 
 def family(name: str) -> str:
@@ -205,8 +219,8 @@ def summarize(prof: torch.profiler.profile, n: int, unit: str,
     the first and the last kernel (one less the union of the kernels'
     intervals over that span: kernels that overlap on two streams count
     once), device time and kernels per call by ``group(kernel name)``, and
-    the top 15 kernels by name."""
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    the top 15 kernels by name.  The clock's anchors are left out."""
+    kernels = device_events(prof)
     if not kernels:
         raise LostTrace("the profiler recorded no device activity")
     start = min(e.time_range.start for e in kernels)
@@ -235,21 +249,85 @@ def summarize(prof: torch.profiler.profile, n: int, unit: str,
     }
 
 
-def span_times(prof: torch.profiler.profile, records: List[dict]
-               ) -> List[dict]:
-    """The closed spans of ``ops.span_log`` records, each with ``start_us``
-    and ``end_us`` on the profiler's timeline (the one its events'
-    ``time_range`` is on) and its nesting ``depth`` (0 outermost)."""
+def anchor(k: int = 3) -> List[Tuple[int, int]]:
+    """Tie the host's clock to the card's at this instant, ``k`` times: a
+    synchronize, the host's time, one :data:`ANCHOR` kernel, a synchronize
+    and the host's time again, so that the kernel ran between the two host
+    times.  Returns the ``k`` pairs of ``time.time_ns()``; none with no
+    card."""
+    if not torch.cuda.is_available():
+        return []
+    pairs = []
+    for _ in range(k):
+        torch.cuda.synchronize()
+        before = time.time_ns()
+        torch.cuda._sleep(ANCHOR_CYCLES)
+        torch.cuda.synchronize()
+        pairs.append((before, time.time_ns()))
+    return pairs
+
+
+def clock(prof, anchors: Iterable[List[Tuple[int, int]]] = ()
+          ) -> Tuple[Callable[[int], float], dict]:
+    """The map from the host's ``time.time_ns()`` to µs on the profiler's
+    timeline (the one its events' ``time_range`` is on), and what it read
+    of the clocks.  ``anchors`` are groups of :func:`anchor` pairs, one
+    group at each end of the window, matched in order to the window's
+    :data:`ANCHOR` kernels.  A pair bounds the card's offset from the host
+    from both sides (its kernel starts after the first host time and ends
+    before the second); a group's offset is the middle of its tightest
+    bounds, ``clock_error_us`` the widest group's half-width; between the
+    groups the offset moves in a line, whose slope is ``clock_drift_ppm``
+    (above 0: the card's timestamps run fast against the host's clock).
+    With no anchors (no card: a CPU trace, whose events are on the host's
+    clock) the offset is ``trace_start_ns()``'s.  Raises
+    :class:`LostTrace` where the window lacks some of the anchors'
+    kernels."""
     t0 = prof.profiler.kineto_results.trace_start_ns()
+    groups = [g for g in anchors if g]
+    if not groups:
+        return (lambda ns: (ns - t0) / 1e3), {}
+    marks = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and ANCHOR in e.name),
+                   key=lambda e: e.time_range.start)
+    if len(marks) != sum(map(len, groups)):
+        raise LostTrace(f"{len(marks)} anchor kernels in the window for "
+                        f"{sum(map(len, groups))} anchors")
+    points, widths, marks = [], [], iter(marks)
+    for group in groups:
+        lo, hi = -math.inf, math.inf
+        for before, after in group:
+            e = next(marks)
+            lo = max(lo, e.time_range.end - (after - t0) / 1e3)
+            hi = min(hi, e.time_range.start - (before - t0) / 1e3)
+        points.append(((group[0][0] + group[-1][1]) / 2e3 - t0 / 1e3,
+                       (lo + hi) / 2))
+        widths.append(abs(hi - lo) / 2)
+    (h_a, o_a), (h_b, o_b) = points[0], points[-1]
+    slope = (o_b - o_a) / (h_b - h_a) if h_b != h_a else 0.0
+
+    def to_us(ns: int) -> float:
+        h = (ns - t0) / 1e3
+        return h + o_a + (h - h_a) * slope
+
+    return to_us, {"clock_drift_ppm": slope * 1e6,
+                   "clock_error_us": max(widths)}
+
+
+def span_times(prof, records: List[dict],
+               anchors: Iterable[List[Tuple[int, int]]] = ()) -> List[dict]:
+    """The closed spans of ``ops.span_log`` records, each with ``start_us``
+    and ``end_us`` on the profiler's timeline (by :func:`clock` and the
+    window's ``anchors``) and its nesting ``depth`` (0 outermost)."""
+    to_us, _ = clock(prof, anchors)
     depth = {}
     out = []
     for r in records:
         if r["end_ns"] is None:
             continue
         depth[r["id"]] = depth.get(r["parent"], -1) + 1
-        out.append(dict(r, start_us=(r["start_ns"] - t0) / 1e3,
-                        end_us=(r["end_ns"] - t0) / 1e3,
-                        depth=depth[r["id"]]))
+        out.append(dict(r, start_us=to_us(r["start_ns"]),
+                        end_us=to_us(r["end_ns"]), depth=depth[r["id"]]))
     return out
 
 
@@ -308,7 +386,22 @@ def by_span(kernels: Iterable[Tuple[float, float]], spans: List[dict],
                                    for k, v in idle.most_common()}}
 
 
-def _chrome_spans(path: str, prof, spans: List[dict]) -> None:
+def span_summary(prof, records: List[dict],
+                 anchors: Iterable[List[Tuple[int, int]]], n: int,
+                 unit: str) -> Tuple[List[dict], dict]:
+    """A finished window's closed spans (:func:`span_times`) and the keys
+    they add to its summary: :func:`by_span`'s over the window's device
+    operations, and the clock's (:func:`clock`); none without spans."""
+    spans = span_times(prof, records, anchors) if records else []
+    if not spans:
+        return [], {}
+    got = by_span(((e.time_range.start, e.time_range.end)
+                   for e in device_events(prof)), spans, n, unit)
+    got.update(clock(prof, anchors)[1])
+    return spans, got
+
+
+def chrome_spans(path: str, prof, spans: List[dict]) -> None:
     """Add the spans to the Chrome trace at ``path`` as a host thread of
     their own, on the trace's clock (its ``ts`` lie at a fixed offset from
     the profiler's timeline, read off the first device event); a trace
@@ -316,9 +409,10 @@ def _chrome_spans(path: str, prof, spans: List[dict]) -> None:
     with open(path) as f:
         chrome = json.load(f)
     events = chrome["traceEvents"]
-    first = min((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
+    device = device_events(prof)
+    if not device:
+        return
+    first = device[0]
     ts = [e["ts"] for e in events
           if e.get("ph") == "X" and e.get("name") == first.name]
     if not ts:
@@ -349,14 +443,15 @@ def trace(run: Callable[[], object], n: int, unit: str,
     traced again and counted in ``trace.lost``; after ``attempts`` such
     windows :class:`LostTrace` is raised.  Where the calls made spans
     (``ops.span_log``, open over the window), the summary gains
-    :func:`by_span`'s keys.  ``trace_path`` also writes a Chrome trace
-    with the spans as a host thread, and beside it, as ``launches.json``,
-    the window's launch log (``ops.launch_log``, kept over the window
-    alone) and as ``spans.json`` its spans; a window whose
-    main kernels the log does not match group by group (:func:`unmatched`)
-    is traced again too; the card's name and power limit go into
-    ``card.txt`` there; such a window's work starts and ends
-    ``SETTLE_S[attempt]`` seconds inside the profiler's span."""
+    :func:`span_summary`'s keys, the spans mapped by anchors taken just
+    before the first call and just after the last (:func:`anchor`).
+    ``trace_path`` also writes a Chrome trace with the spans as a host
+    thread, and beside it, as ``launches.json``, the window's launch log
+    (``ops.launch_log``, kept over the window alone) and as ``spans.json``
+    its spans; a window whose main kernels the log does not match group by
+    group (:func:`unmatched`) is traced again too; the card's name and
+    power limit go into ``card.txt`` there; such a window's work starts
+    and ends ``SETTLE_S[attempt]`` seconds inside the profiler's span."""
     for _ in range(warmup):
         run()
     torch.cuda.synchronize()
@@ -368,12 +463,15 @@ def trace(run: Callable[[], object], n: int, unit: str,
         with keep() as records, ops.span_log() as marks, \
                 device_profiler() as prof:
             time.sleep(settle)
+            anchors = [anchor()]
             for _ in range(n):
                 run()
+            anchors.append(anchor())
             torch.cuda.synchronize()
             time.sleep(settle)
         try:
             got = summarize(prof, n, unit, group)
+            spans, keys = span_summary(prof, marks, anchors, n, unit)
         except LostTrace:
             trace.lost += 1
             continue
@@ -386,16 +484,11 @@ def trace(run: Callable[[], object], n: int, unit: str,
             trace.lost += 1
             continue
         if complete is None or complete(got):
-            spans = span_times(prof, marks) if marks else []
-            if spans:
-                got.update(by_span(
-                    ((e.time_range.start, e.time_range.end)
-                     for e in prof.events()
-                     if e.device_type == DeviceType.CUDA), spans, n, unit))
+            got.update(keys)
             if trace_path:
                 prof.export_chrome_trace(trace_path)
                 if spans:
-                    _chrome_spans(trace_path, prof, spans)
+                    chrome_spans(trace_path, prof, spans)
                 where = os.path.dirname(trace_path) or "."
                 with open(os.path.join(where, LAUNCHES), "w") as f:
                     json.dump(records, f)

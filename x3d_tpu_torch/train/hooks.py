@@ -13,6 +13,7 @@ with the device except the two ends of a profile.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import logging
@@ -118,6 +119,12 @@ class ProfileHook(Hook):
     logging window that contains ``profile_step``.  It writes a Chrome
     trace ``profile_step<N>.json`` and the per-family summary of
     ``tools/trace.py`` (``profile_step<N>_summary.json``) into ``log_dir``.
+    A span log (``ops.span_log``) is open over the window: the steps'
+    spans (``train.step`` around ``train.forward``, ``train.backward``,
+    ``train.reduce`` on a mesh and ``train.optimizer``) go into the summary
+    as host ms and device idle ms a step by span
+    (``tools/trace.span_summary``), into the Chrome trace as a host thread,
+    and into ``profile_step<N>_spans.json``.
     """
 
     def __init__(self, log_dir: str, profile_step: int):
@@ -126,21 +133,34 @@ class ProfileHook(Hook):
         self._prof = None
         self._from = 0
         self._done = False
+        self._open = contextlib.ExitStack()
+        self._marks = []
+        self._anchors = []
 
     def _stop(self, step: int) -> None:
         import torch
 
-        from x3d_tpu_torch.tools.trace import summarize
+        from x3d_tpu_torch.tools import trace
 
+        self._anchors.append(trace.anchor())
         torch.cuda.synchronize()
         prof, self._prof, self._done = self._prof, None, True
         prof.stop()
+        self._open.close()
+        n = max(step - self._from, 1)
+        summary = trace.summarize(prof, n, "step")
+        spans, keys = trace.span_summary(prof, self._marks, self._anchors, n,
+                                         "step")
+        summary.update(keys)
         os.makedirs(self._dir, exist_ok=True)
         base = os.path.join(self._dir, f"profile_step{self._step}")
         prof.export_chrome_trace(base + ".json")
+        if spans:
+            trace.chrome_spans(base + ".json", prof, spans)
+        with open(base + "_spans.json", "w") as f:
+            json.dump(spans, f)
         with open(base + "_summary.json", "w") as f:
-            json.dump(summarize(prof, max(step - self._from, 1), "step"), f,
-                      indent=1)
+            json.dump(summary, f, indent=1)
         log.info("profile trace around step %d written to %s", self._step,
                  self._dir)
 
@@ -148,10 +168,13 @@ class ProfileHook(Hook):
         if self._done or not self._step:
             return
         if self._prof is None and step >= self._step - 1:
-            from x3d_tpu_torch.tools.trace import device_profiler
+            from x3d_tpu_torch import ops
+            from x3d_tpu_torch.tools import trace
 
-            self._prof, self._from = device_profiler(), step
+            self._prof, self._from = trace.device_profiler(), step
+            self._marks = self._open.enter_context(ops.span_log())
             self._prof.start()
+            self._anchors = [trace.anchor()]
         elif self._prof is not None:
             self._stop(step)
 
