@@ -11,15 +11,19 @@ It builds the port's CUDA kernels from ``x3d_tpu_torch/kernels/csrc`` (one
 nvcc per source, in parallel; ptxas's registers, spills and static shared
 memory of each instantiation of K5-K7's pipelined tensor-core body, K7's
 Hopper (wg) body, K4 dx's phase body, K4 dk's ring body, K1's temporal and
-ring bodies, K3's and K2's ring bodies and K8's temporal body on a line of
-its own, which fails on a spill where the body must not spill) and then:
+ring bodies, K3's and K2's ring bodies, K8's temporal body and K7's pipe
+and wg bodies built with the BN epilogue on a line of its own, which fails
+on a spill where the body must not spill) and then:
 
 * holds the serving kernels K1 (depthwise conv) and K2 (fused BN+ReLU ->
   depthwise -> sums) against their plain PyTorch versions at every X3D-M
   and X3D-S serving shape, in requests of 1 and 8 videos (10 and 80
   clips; X3D-S's eval batch is 80 too), float32 and bfloat16, and times
   kernel, the library's ``F.conv3d(groups=C)`` and, at one X3D-M video,
-  the plain version; each row names the body that ran (K1: the temporal
+  the plain version; each call also with the eval BatchNorm after it as its
+  epilogue (random running statistics; the stem's with the ReLU), as
+  serving launches it, checked and timed (``epilogue_ms``); each row names
+  the body that ran (K1: the temporal
   body at the stem, the ring body at the stride-2 stage entries; K2: the
   ring body at every fused segment), its plan and the generic body's time
   on the same inputs; K1's rows fail where the body is behind the generic
@@ -27,7 +31,9 @@ its own, which fails on a spill where the body must not spill) and then:
 * serves X3D-M at full width (16×224², 10 views, bfloat16, random weights
   from a seed) through ``InferenceEngine``, checks the probabilities and
   that each forward launched K1 5 times (once by its temporal body, four
-  times by its ring body) and K2 22 times (all by its ring body), and
+  times by its ring body) and K2 22 times (all by its ring body), with
+  every BatchNorm as an epilogue (K7 30 and 5 with the ReLU, K2 22, K1 4
+  and 1 with the ReLU), and
   checks one float32 forward through the kernels against the same forward
   through the plain versions;
 * holds every kernel of the training step -- K1, K2, K3 (fused-segment
@@ -66,7 +72,8 @@ its own, which fails on a spill where the body must not spill) and then:
   shares with K5 and K6, as ``pointwise.pw_body`` names) against its plain
   version and times it beside ``F.linear`` and the pipe body at every bulk
   1x1x1 conv of X3D-M and X3D-S (serving requests of 10 and 80 clips,
-  training at 32 and 64 clips), forward and dx; takes each case's device
+  training at 32 and 64 clips), forward and dx, the serving calls also
+  with their BatchNorm (and ReLU) as the epilogue; takes each case's device
   time for K7, each body and ``F.linear`` (``tools/profile_pointwise``:
   the profiler's, or CUDA events with the stream held where the profiler
   loses part of a case's window three times),
@@ -256,6 +263,12 @@ TOL_F32, TOL_F32_SUMS, TOL_BF16 = 1e-4, 1e-5, 2e-2
 # chain against the plain chain (each step rounded once): 1e-6 in float32,
 # one bfloat16 ulp at 0.5 (2^-8) in bfloat16.
 TOL_K7_F32, TOL_K7_BF16 = 1e-5, 2.0 ** -7
+# A call with the BN epilogue (K1, K2, K7 at the serving shapes, an eval
+# BatchNorm from random running statistics): bit for bit the same kernel
+# without it through the plain epilogue (``ops.epilogue.reference``), and
+# within TOL_F32 / TOL_BF16 of the largest |reference| of the plain conv in
+# float32 through the plain epilogue (a wrong coefficient or a missing ReLU
+# is off by the order of the values).
 TOL_K8_VS_K4_DK = 1e-6
 TOL_K9_F32, TOL_K9_BF16 = 1e-6, 2.0 ** -8
 TOL_PROBS_F32, TOL_ROW_SUM = 1e-5, 1e-3
@@ -768,13 +781,21 @@ def kernel_counters() -> dict:
 def zero_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
-        bodies = getattr(fn, "body_launches", None)
-        if bodies is not None:
-            bodies.update(dict.fromkeys(bodies, 0))
+        for key in ("body_launches", "epilogue_launches"):
+            counts = getattr(fn, key, None)
+            if counts is not None:
+                counts.update(dict.fromkeys(counts, 0))
 
 
 def read_counts() -> dict:
     return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def read_epilogues() -> dict:
+    """Launches with a BN epilogue by kind, of K1, K2 and K7."""
+    return {k: dict(fn.epilogue_launches)
+            for k, fn in kernel_counters().items()
+            if hasattr(fn, "epilogue_launches")}
 
 
 def read_bodies() -> dict:
@@ -3170,8 +3191,8 @@ def main() -> int:
         from x3d_tpu_torch.data import synthetic_batches
         from x3d_tpu_torch.kernels import _build
         from x3d_tpu_torch.models import build_arch, create_model
-        from x3d_tpu_torch.ops import (depthwise, dw_fused, plain_versions,
-                                       pointwise, pw_stats)
+        from x3d_tpu_torch.ops import (depthwise, dw_fused, epilogue,
+                                       plain_versions, pointwise, pw_stats)
         from x3d_tpu_torch.ops.timing import time_fn
         from x3d_tpu_torch.serving import InferenceEngine
         from x3d_tpu_torch.tools import eval as eval_cli
@@ -3288,6 +3309,38 @@ def main() -> int:
           and len(main) == len(used)
           and all(e["spill_bytes"] == 0 for e in main),
           f"K7 wg body's ptxas report: {entries}, used {sorted(used)}")
+    # the same bodies built with the BN epilogue (its own library): the
+    # pipe body's 9 instantiations, none spilling, and the wg body's 18,
+    # those that an X3D-M serving forward's calls with an epilogue run
+    # (all but the stride-1 blocks' conv a) not spilling
+    ep_lib = _build.library_name("pointwise.cu", _build.BN_EPILOGUE)
+    pipe_ep = ptxas_entries((ep_lib,), r"(pw_conv_mma_kernel)ILi(\d+)ELi(\d+)E",
+                            lambda m: f"{m[1]}<{m[2]}, {m[3]}>")
+    wg_ep = ptxas_entries((ep_lib,), r"pw_conv_wg_kernelILi(\d+)ELi(\d)E",
+                          lambda m: f"pw_conv_wg_kernel<{m[1]}, {m[2]}>")
+    emit(phase="build, K7 bodies with the BN epilogue",
+         kernels=pipe_ep + wg_ep)
+    used_ep = set()
+    for name, shape, N, strides, _ in profile_pointwise.cases(
+            x3d_m, x3d_m_arch, CLIPS, x3d_m.DATA.TEST_CROP_SIZE, False):
+        M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
+            * -(-shape[3] // strides[2])
+        if not name.endswith("blocks' a") and pointwise.pw_body(
+                shape[-1], N, M, strides, width=shape[3],
+                height=shape[2]) == "wg":
+            plane = None if strides == (1, 1, 1) else (
+                shape[0] * shape[1], *shape[2:4], *strides[1:])
+            p = pointwise.wg_plan(M, shape[-1], N, plane=plane,
+                                  epilogue=True)
+            used_ep.add(f"pw_conv_wg_kernel<{p['block_columns']}, "
+                        f"{p['consumers']}>")
+    main = [e for e in wg_ep if e["kernel"] in used_ep]
+    check(len(pipe_ep) == 9 and len(wg_ep) == 18
+          and all("registers" in e for e in pipe_ep + wg_ep)
+          and len(main) == len(used_ep)
+          and all(e["spill_bytes"] == 0 for e in pipe_ep + main),
+          f"K7 with the BN epilogue, ptxas report: {pipe_ep + wg_ep}, "
+          f"used {sorted(used_ep)}")
     # K4 dx's phase body, <element, channels a thread, temporal taps>
     entries = ptxas_entries(
         ("depthwise_bwd.cu",),
@@ -3541,6 +3594,29 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    def bn_coefs(C):
+        """An eval BatchNorm's float32 (mul, add) from random running
+        statistics: scales and variances 0.5 to 1.5, offsets and means of
+        both signs."""
+        scale = 0.5 + torch.rand(C, generator=gen, device="cuda")
+        var = 0.5 + torch.rand(C, generator=gen, device="cuda")
+        mul = scale / torch.sqrt(var + 1e-5)
+        return mul, 0.3 * randn(C) - 0.2 * randn(C) * mul
+
+    def epilogue_check(where, got, unfused, plain, mul, add, relu, tol):
+        """A call with the BN epilogue: (values that differ from the same
+        kernel's output without it through the plain epilogue, its
+        largest distance from the plain conv in float32 through the plain
+        epilogue over the largest |reference|), each checked."""
+        want = epilogue.reference(unfused, mul, add, relu)
+        differ = int((got != want).sum().item())
+        ref = epilogue.reference(plain, mul, add, relu)
+        err = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+        check(differ == 0, f"{where}: {differ} values differ from the "
+              "launch without the epilogue through the plain epilogue")
+        check(err <= tol, f"{where}: epilogue err {err}")
+        return differ, err
+
     def shares(row):
         """bound_share: the bound over the kernel's time; vs_library: the
         kernel's time over the library call's."""
@@ -3561,13 +3637,14 @@ def main() -> int:
     # ------------------------------------------- 2. K1 vs its plain version
     k1_lib = _build.load("depthwise.cu", depthwise._SIGNATURES)
 
-    def k1_times(xb, kb, strides, pads, n, plain=True):
+    def k1_times(xb, kb, strides, pads, n, plain=True, bn=None):
         """A bfloat16 K1 row's times and bound on these inputs: the body the
         wrapper picks and the generic body (what the new bodies replaced;
         its C entry point takes every geometry), both launched as the
-        wrapper launches them on the same prepared taps, the plain version
-        and the library's ``F.conv3d(groups=C)``; with the body, its launch
-        plan and the shares."""
+        wrapper launches them on the same prepared taps, the body with the
+        BN epilogue ``bn`` = (mul, add, relu) as serving launches it, the
+        plain version and the library's ``F.conv3d(groups=C)``; with the
+        body, its launch plan and the shares."""
         C = xb.shape[-1]
         kdims = tuple(kb.shape[:3])
         taps_f32 = kb.float().reshape(-1, C).contiguous()
@@ -3579,6 +3656,14 @@ def main() -> int:
 
         row = dict(n=n, body=depthwise.fwd_body(kdims, strides, pads))
         row.update(ms=body_ms(row["body"]), generic_ms=body_ms("generic"))
+        if bn is not None:
+            coefs = epilogue.prepare(bn[0], bn[1], xb)
+            ep_lib = epilogue.library("depthwise.cu", depthwise._SIGNATURES,
+                                      coefs)
+            row["epilogue"] = epilogue.kind(bn[0], bn[2])
+            row["epilogue_ms"] = time_ms(lambda: depthwise._launch_fwd(
+                ep_lib, row["body"], xb, taps_f32, kdims, strides, pads,
+                stream, epilogue.pointers(coefs, bn[2])))
         out = [depthwise._out_size(d, kk, st, p) for d, kk, st, p in
                zip(xb.shape[1:4], kdims, strides, pads)]
         if row["body"] == "ring":
@@ -3619,10 +3704,19 @@ def main() -> int:
             C = shape[-1]
             x, k = randn(*shape), randn(*kdims, 1, C) * 0.3
             pads = depthwise._resolve_pads(shape, kdims, strides, padding)
+            where = f"X3D-{variant} {B} clips {name}"
+            # the BatchNorm after it as its epilogue, as serving launches
+            # it: the stem's with the ReLU, bn_b at the stage entries
+            mul, add = bn_coefs(C)
+            relu = name == "conv_1.conv_t"
             ref = depthwise.depthwise_conv3d_reference(x, k, strides, pads)
             got = depthwise.depthwise_conv3d(x, k, strides, pads)
             torch.cuda.synchronize()
             err32 = (got - ref).abs().max().item()
+            ep32 = epilogue_check(
+                f"K1 {where} f32", depthwise.depthwise_conv3d(
+                    x, k, strides, pads, mul, add, relu),
+                got, ref, mul, add, relu, TOL_F32)
             xb, kb = x.bfloat16(), k.bfloat16()
             del x, k, ref, got
             refb = depthwise.depthwise_conv3d_reference(
@@ -3630,14 +3724,20 @@ def main() -> int:
             gotb = depthwise.depthwise_conv3d(xb, kb, strides, pads)
             rel16 = ((gotb.float() - refb).abs().max()
                      / refb.abs().max()).item()
+            ep16 = epilogue_check(
+                f"K1 {where} bf16", depthwise.depthwise_conv3d(
+                    xb, kb, strides, pads, mul, add, relu),
+                gotb, refb, mul, add, relu, TOL_BF16)
             del refb, gotb
             row = dict(variant=variant, clips=B, name=name, shape=list(shape),
                        kernel=list(kdims), strides=list(strides),
                        pads=[list(p) for p in pads], max_abs_err_f32=err32,
                        rel_err_bf16=rel16,
-                       **k1_times(xb, kb, strides, pads, n, plain=plain))
+                       epilogue_bits_differ=ep32[0] + ep16[0],
+                       epilogue_err_f32=ep32[1], epilogue_err_bf16=ep16[1],
+                       **k1_times(xb, kb, strides, pads, n, plain=plain,
+                                  bn=(mul, add, relu)))
             emit(phase="K1 depthwise_conv3d", **row)
-            where = f"X3D-{variant} {B} clips {name}"
             check(err32 <= TOL_F32, f"K1 {where} f32 err {err32}")
             check(rel16 <= TOL_BF16, f"K1 {where} bf16 rel err {rel16}")
             rivals = [row[key] for key in ("generic_ms", "plain_ms",
@@ -3655,7 +3755,8 @@ def main() -> int:
                   for variant, B, cases in k1_paths}
     k1_rows = k1_serving["M", CLIPS]
     for (variant, B), rows in k1_serving.items():
-        keys = ("ms", "generic_ms", "library_ms", "bound_ms") + (
+        keys = ("ms", "epilogue_ms", "generic_ms", "library_ms",
+                "bound_ms") + (
             ("plain_ms",) if (variant, B) == ("M", CLIPS) else ())
         total = {key: sum(r["n"] * r[key] for r in rows) for key in keys}
         emit(phase="K1 depthwise_conv3d, whole forward", variant=variant,
@@ -3670,14 +3771,15 @@ def main() -> int:
 
     k2_lib = _build.load("dw_fused.cu", dw_fused._SIGNATURES)
 
-    def k2_times(xb, a, b, kb, n, plain=True):
+    def k2_times(xb, a, b, kb, n, plain=True, bn=None):
         """A bfloat16 K2 row's times and bound on these inputs: the kernel
         (the body the wrapper picks), its generic body (what the ring body
         replaced; its C entry point takes every geometry), both launched
         as the wrapper launches them on the same prepared taps, so that
-        the two carry the same host work, the plain version and the
-        library's depthwise conv alone, ``F.conv3d(groups=C)``; with the
-        body, the ring body's launch plan and the shares."""
+        the two carry the same host work, the body with the BN epilogue
+        ``bn`` = (mul, add) as serving launches it, the plain version and
+        the library's depthwise conv alone, ``F.conv3d(groups=C)``; with
+        the body, the ring body's launch plan and the shares."""
         B, C = xb.shape[0], xb.shape[-1]
         kdims = tuple(kb.shape[:3])
         taps_f32 = kb.float().reshape(-1, C).contiguous()
@@ -3689,6 +3791,14 @@ def main() -> int:
 
         row = dict(n=n, body=dw_fused.segment_body(kdims))
         row.update(ms=body_ms(row["body"]), generic_ms=body_ms("generic"))
+        if bn is not None:
+            coefs = epilogue.prepare(*bn, xb)
+            ep_lib = epilogue.library("dw_fused.cu", dw_fused._SIGNATURES,
+                                      coefs)
+            row["epilogue"] = epilogue.kind(bn[0], False)
+            row["epilogue_ms"] = time_ms(lambda: dw_fused._launch_fwd(
+                ep_lib, row["body"], xb, a, b, taps_f32, kdims, stream,
+                epilogue.pointers(coefs, False)))
         if row["body"] == "ring":
             row["plan"] = dw_fused._fwd_ring_plan(k2_lib, xb, kdims[0])
         if plain:
@@ -3716,26 +3826,45 @@ def main() -> int:
             a = 0.5 + torch.rand((C, B), generator=gen, device="cuda")
             b = 0.3 * randn(C, B)            # about half the offsets are > 0
             k = randn(kt, 3, 3, 1, C) * 0.3
+            where = f"X3D-{variant} {B} clips {name}"
+            # bn_b as its epilogue, as serving launches it; the sums stay
+            # those of the conv's output
+            mul, add = bn_coefs(C)
+
+            def with_bn(x_, k_, y_, p_, s2_, yr_, tol, dtype_name):
+                ye, pe, s2e = dw_fused.dw_bn_act_conv(x_, a, b, k_, mul, add)
+                differ, err = epilogue_check(
+                    f"K2 {where} {dtype_name}", ye, y_, yr_, mul, add,
+                    False, tol)
+                same = torch.equal(pe, p_) and torch.equal(s2e, s2_)
+                check(same, f"K2 {where} {dtype_name}: the sums with the "
+                      "epilogue differ from those without")
+                return differ + (not same), err
+
             y, p, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
             yr, pr, s2r = dw_fused.reference(x, a, b, k)
             torch.cuda.synchronize()
             err32 = (y - yr).abs().max().item()
             errp32, errs32 = sums_err(p, pr, yr), sums_err(s2, s2r, None)
+            ep32 = with_bn(x, k, y, p, s2, yr, TOL_F32, "f32")
             xb, kb = x.bfloat16(), k.bfloat16()
             del x, k, y, yr
             yb, pb, s2b = dw_fused.dw_bn_act_conv(xb, a, b, kb)
             yr, pr, s2r = dw_fused.reference(xb.float(), a, b, kb.float())
             rel16 = ((yb.float() - yr).abs().max() / yr.abs().max()).item()
             errp16, errs16 = sums_err(pb, pr, yr), sums_err(s2b, s2r, None)
+            ep16 = with_bn(xb, kb, yb, pb, s2b, yr, TOL_BF16, "bf16")
             del yb, pb, s2b, yr, pr, s2r
             row = dict(variant=variant, clips=B, name=name,
                        shape=list(shape), max_abs_err_f32=err32,
                        p_err_f32=errp32, s2_err_f32=errs32,
                        rel_err_bf16=rel16, p_err_bf16=errp16,
                        s2_err_bf16=errs16,
-                       **k2_times(xb, a, b, kb, n, plain=plain))
+                       epilogue_bits_differ=ep32[0] + ep16[0],
+                       epilogue_err_f32=ep32[1], epilogue_err_bf16=ep16[1],
+                       **k2_times(xb, a, b, kb, n, plain=plain,
+                                  bn=(mul, add)))
             emit(phase="K2 dw_bn_act_conv", **row)
-            where = f"X3D-{variant} {B} clips {name}"
             check(err32 <= TOL_F32, f"K2 {where} f32 y err {err32}")
             check(max(errp32, errs32) <= TOL_F32_SUMS,
                   f"K2 {where} f32 sums err {errp32} {errs32}")
@@ -3752,7 +3881,8 @@ def main() -> int:
     k2_rows = k2_serving["M", CLIPS]
     for (variant, B), rows in k2_serving.items():
         total = {key: sum(r["n"] * r[key] for r in rows)
-                 for key in ("ms", "generic_ms", "library_ms", "bound_ms")}
+                 for key in ("ms", "epilogue_ms", "generic_ms", "library_ms",
+                             "bound_ms")}
         emit(phase="K2 dw_bn_act_conv, whole forward", variant=variant,
              clips=B, launches=sum(r["n"] for r in rows), **total,
              **shares(total))
@@ -3787,11 +3917,14 @@ def main() -> int:
     outputs = []
     zero_counts()                            # the serving path starts here
     for name, engine, clips in requests:
-        before = read_counts()
+        before, ep_before = read_counts(), read_epilogues()
         probs = engine.predict(clips)
-        after = read_counts()
+        after, ep_after = read_counts(), read_epilogues()
         outputs.append((name, probs, {k: after[k] - before[k]
-                                      for k in after}))
+                                      for k in after},
+                        {k: {kind: n - ep_before[k][kind]
+                             for kind, n in counts.items()}
+                         for k, counts in ep_after.items()}))
     serve_launches = read_counts()           # ... and ends here
     serve_k1_bodies = dict(k1_bodies)
     serve_k2_bodies = dict(k2_bodies)
@@ -3813,17 +3946,28 @@ def main() -> int:
                "generic": 0}
     check(serve_k1_bodies == want_k1,
           f"serving K1 bodies {serve_k1_bodies}, want {want_k1}")
-    for name, probs, d in outputs:
+    # every BatchNorm of a forward as the epilogue of the launch that
+    # writes its input: K7 bn_c of every block and bn_r of the projections,
+    # bn_a + ReLU at the stage entries and bn_5 + ReLU; K2 bn_b of the
+    # fused segments; K1 bn_b at the stage entries and the stem's + ReLU
+    n_entries = len(arch.stages)
+    want_ep = {"K1": {"bn": n_entries, "bn_relu": 1},
+               "K2": {"bn": n_k2, "bn_relu": 0},
+               "K7": {"bn": 2 * n_entries + n_k2, "bn_relu": n_entries + 1}}
+    for name, probs, d, ep in outputs:
         n_videos = probs.shape[0]
         finite = bool(np.isfinite(probs).all())
         row_err = float(np.abs(probs.sum(-1) - 1.0).max())
         emit(phase="serve", request=name, probs_shape=list(probs.shape),
              finite=finite, max_row_sum_err=row_err, k1_launches=d["K1"],
-             k2_launches=d["K2"], k7_launches=d["K7"])
+             k2_launches=d["K2"], k7_launches=d["K7"],
+             epilogue_launches=ep)
         check(probs.shape == (n_videos, cfg.NETWORK.NUM_CLASSES) and finite
               and row_err <= TOL_ROW_SUM, f"serve {name} probabilities")
         want = dict.fromkeys(d, 0) | {"K1": n_k1, "K2": n_k2, "K7": n_k7}
         check(d == want, f"serve {name}: launches {d}, want {want}")
+        check(ep == want_ep,
+              f"serve {name}: epilogue launches {ep}, want {want_ep}")
     peak = torch.cuda.max_memory_allocated()
 
     for name, engine, n_videos in (("1 video", engine1, 1),
@@ -4300,12 +4444,25 @@ def main() -> int:
     k7_lib = _build.load("pointwise.cu", pointwise._SIGNATURES)
     k7_stream = torch.cuda.current_stream().cuda_stream
 
+    def k7_epilogue(name):
+        """The BN epilogue a serving forward gives K7's case ``name``:
+        None for the stride-1 blocks' conv a (K2 takes their BatchNorm),
+        True (with the ReLU) for conv a at the stage entries and conv_5,
+        False for conv c and the projections."""
+        if name.endswith("blocks' a"):
+            return None
+        return name.endswith("block0.a") or name == "conv_5"
+
     def k7_rows(variant, path, vcfg, varch, B, crop, train):
         rows = []
         for name, shape, N, strides, n in k7_cases(vcfg, varch, B, crop,
                                                     train):
             K = shape[-1]
             errs = {}
+            # serving: the BatchNorm after the conv as its epilogue
+            relu = None if train else k7_epilogue(name)
+            bn = None if relu is None else bn_coefs(N)
+            ep = {}
             for dtype in dtypes:
                 x = randn(*shape).to(dtype)
                 w = (randn(N, K) / math.sqrt(K)).to(dtype)
@@ -4320,6 +4477,13 @@ def main() -> int:
                                    (dx.float() - rdx).abs().max().item()),
                                max(rel_err(y, ry, ry.abs().max()),
                                    rel_err(dx, rdx, rdx.abs().max())))
+                if bn is not None:
+                    f32 = dtype == torch.float32
+                    ep[dtype] = epilogue_check(
+                        f"K7 X3D-{variant} {path} {name} "
+                        f"{'f32' if f32 else 'bf16'}",
+                        pointwise.pw_conv(x, w, strides, "fwd", *bn, relu),
+                        y, ry, *bn, relu, TOL_F32 if f32 else TOL_BF16)
                 del ry, rdx
                 if dtype == torch.float32:
                     del x, w, y, g, dx
@@ -4359,6 +4523,14 @@ def main() -> int:
                        plan=pointwise.plan(shape, N, strides))
             if train:
                 row["plan_dx"] = pointwise.plan(y.shape, K)
+            if bn is not None:
+                e32, e16 = ep[torch.float32], ep[torch.bfloat16]
+                row.update(
+                    epilogue=epilogue.kind(bn[0], relu),
+                    epilogue_ms=time_ms(lambda: pointwise.pw_conv(
+                        x, w, strides, "fwd", *bn, relu)),
+                    epilogue_bits_differ=e32[0] + e16[0],
+                    epilogue_err_f32=e32[1], epilogue_err_bf16=e16[1])
             row.update(shares(row))
             emit(phase="K7 pw_conv", variant=variant, path=path, **row)
             rows.append(row)
@@ -4379,10 +4551,15 @@ def main() -> int:
     for (variant, path), rows in k7.items():
         total = {key: sum(r["n"] * r[key] for r in rows)
                  for key in ("ms", "library_ms", "bound_ms", "generic_ms")}
+        # the calls with an epilogue, with it and without
+        fused = [r for r in rows if "epilogue" in r]
         emit(phase="K7 pw_conv, whole path", variant=variant, path=path,
              launches=sum(r["n"] for r in rows) * (2 if path == "training"
                                                    else 1),
-             **total, **shares(total))
+             **total, **shares(total),
+             epilogue_launches=sum(r["n"] for r in fused),
+             epilogue_ms=sum(r["n"] * r["epilogue_ms"] for r in fused),
+             epilogue_without_ms=sum(r["n"] * r["ms"] for r in fused))
 
     # device time per case (tools/profile_pointwise): K7 as the model calls
     # it, each tensor-core body that takes the call and F.linear on the same
@@ -5133,6 +5310,7 @@ def main() -> int:
             "bodies_training": train_k1_bodies,
             "bodies_x3d_s_training": s_k1_bodies,
             "generic_ms": sum(r["n"] * r["generic_ms"] for r in k1_rows),
+            "epilogue_ms": sum(r["n"] * r["epilogue_ms"] for r in k1_rows),
             "training_step_ms": sum(r["n"] * r["ms"] for r in k1_train)},
          "K1", "serve"),
         (summary("dw_bn_act_conv", "cuda", csrc + "dw_fused.cu",
@@ -5143,6 +5321,7 @@ def main() -> int:
             "bodies_training": train_k2_bodies,
             "bodies_x3d_s_training": s_k2_bodies,
             "generic_ms": sum(r["n"] * r["generic_ms"] for r in k2_rows),
+            "epilogue_ms": sum(r["n"] * r["epilogue_ms"] for r in k2_rows),
             "training_step_ms": sum(r["n"] * r["ms"] for r in k2_train)},
          "K2", "serve"),
         (summary("dw_bn_act_conv_bwd", "cuda", csrc + "dw_fused_bwd.cu",
@@ -5183,7 +5362,16 @@ def main() -> int:
             "bodies_training": train_k7_bodies,
             "bodies_x3d_s_training": s_k7_bodies,
             "generic_ms": sum(r["n"] * r["generic_ms"]
-                              for r in k7[("S", "training")])},
+                              for r in k7[("S", "training")]),
+            # the 1-video X3D-M forward's calls with an epilogue
+            "serving_epilogue_ms": sum(
+                r["n"] * r["epilogue_ms"]
+                for r in k7[("M", f"serving, {CLIPS} clips")]
+                if "epilogue" in r),
+            "serving_without_epilogue_ms": sum(
+                r["n"] * r["ms"]
+                for r in k7[("M", f"serving, {CLIPS} clips")]
+                if "epilogue" in r)},
          "K7", "s_train"),
         (summary("depthwise_conv3d_pbwd", "cuda", csrc + "depthwise_pbwd.cu",
                  "x3d_tpu/ops/dw_fused.py:418", [k8_s],

@@ -16,6 +16,11 @@ every stem and stage-entry shape of X3D-XS to XL; the ring body's staging map
 (which staged cell feeds which output tap) is written out in numpy and held
 against the plain version (float32, atol 1e-5).
 
+With an eval BatchNorm (and a ReLU) as its epilogue (``ops/epilogue.py``)
+the plain version is the plain conv followed by the model's affine, bit
+for bit; on the card each body's epilogue equals its launch without one
+followed by that affine, bit for bit.
+
 JAX is imported inside the tests, so that the card tests (marker ``cuda``)
 run on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_depthwise.py``.
@@ -27,10 +32,11 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_dw_fused import multigrid_phases
-from x3d_tpu_torch import variant_config
+from test_torch_dw_fused import bn_coefs, multigrid_phases, unfused
+from x3d_tpu_torch import ops, variant_config
 from x3d_tpu_torch.models import build_arch
-from x3d_tpu_torch.ops import depthwise, ring
+from x3d_tpu_torch.ops import (depthwise, epilogue, library, plain_versions,
+                               ring)
 
 SAME_CASES = [
     ((2, 4, 7, 7, 5), (3, 3, 3), (1, 1, 1), "SAME"),
@@ -509,3 +515,101 @@ def test_new_bodies_repeat_bit_for_bit(cuda, name, shape, kdims, strides,
     first = depthwise.depthwise_conv3d(x, k, strides, pads)
     second = depthwise.depthwise_conv3d(x, k, strides, pads)
     assert torch.equal(first, second)
+
+
+# ------------------------------------------------------ the BN epilogue
+
+
+@pytest.mark.parametrize("shape,kdims,strides,padding,relu", [
+    ((2, 6, 5, 5, 8), (5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0)), True),
+    ((2, 4, 7, 7, 8), (3, 3, 3), (1, 2, 2), "SAME", False)],
+    ids=["temporal_bn_relu", "ring_bn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_epilogue_plain_equals_the_unfused_sequence(dtype, shape, kdims,
+                                                    strides, padding, relu):
+    """K1 temporal + bn + ReLU (the stem) and K1 ring + bn (bn_b at the
+    stage entries) on the CPU: the wrapper, its op and the differentiable
+    entry with autograd off (the kernel's route and ``plain_versions()``)
+    give the plain conv then the model's affine (then the ReLU), bit for
+    bit; the launch log names the epilogue and counts its work."""
+    x, k = (torch.from_numpy(a) for a in _inputs(51, shape, kdims))
+    x, k = x.to(dtype), k.to(dtype)
+    mul, add = bn_coefs(52, 8)
+    pads = depthwise._resolve_pads(shape, kdims, strides, padding)
+    want = unfused(depthwise.depthwise_conv3d(x, k, strides, pads), mul, add,
+                   relu)
+    with torch.no_grad(), ops.launch_log() as log:
+        calls = [depthwise.depthwise_conv3d(x, k, strides, pads, mul, add,
+                                            relu),
+                 library.depthwise_conv3d(x, k, list(strides),
+                                          [v for p in pads for v in p], mul,
+                                          add, relu),
+                 depthwise.depthwise(x, k, strides, pads, mul, add, relu)]
+        with plain_versions():
+            calls.append(depthwise.depthwise(x, k, strides, pads, mul, add,
+                                             relu))
+    for got in calls:
+        assert got.dtype == dtype and torch.equal(got, want)
+    kind = "bn_relu" if relu else "bn"
+    assert [r["epilogue"] for r in log] == [kind] * 3
+    work = depthwise.fwd_cost(shape, want.shape, kdims, x.element_size())
+    assert (log[0]["bytes"], log[0]["flops"]) == \
+        (work[0] + 8 * 8, work[1] + (3 if relu else 2) * want.numel())
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["bn", "bn_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_epilogue_op_passes_opcheck(dtype, relu):
+    """``x3d::depthwise_conv3d`` with the epilogue's arguments, strided:
+    its schema, and its fake's output against the real one's shape, dtype
+    and strides (``torch.library.opcheck``)."""
+    x, k = (torch.from_numpy(a).to(dtype)
+            for a in _inputs(53, (2, 5, 7, 9, 8), (3, 3, 3)))
+    mul, add = bn_coefs(54, 8)
+    torch.library.opcheck(library.depthwise_conv3d,
+                          (x, k, [1, 2, 2], [1, 1, 0, 1, 1, 1], mul, add,
+                           relu),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True], ids=["bn", "bn_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kdims,strides,padding", [
+    ((2, 16, 12, 12, 24), (5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0))),
+    ((2, 6, 5, 5, 7), (5, 1, 1), (1, 1, 1), ((2, 2), (0, 0), (0, 0))),
+    ((2, 16, 28, 28, 108), (3, 3, 3), (1, 2, 2), "SAME"),
+    ((3, 5, 9, 11, 70), (3, 3, 3), (1, 1, 1), "SAME"),
+    ((2, 5, 9, 11, 6), (3, 5, 5), (1, 1, 1), "SAME")])
+def test_epilogue_matches_the_unfused_launch_on_card(cuda, dtype, shape,
+                                                     kdims, strides, padding,
+                                                     relu):
+    """Each body's epilogue (temporal at 1x1 spatial taps, at even and odd
+    C; ring at 3x3, strides 2 and 1; generic at 3x5x5): y equals the same
+    body's launch without one followed by the plain epilogue
+    (``torch.addcmul``, as the model's affine), bit for bit; the wrapper
+    counts the launch under its kind."""
+    x, k = (torch.from_numpy(a).to(cuda) for a in _inputs(55, shape, kdims))
+    x, k = x.to(dtype), k.to(dtype)
+    C = shape[-1]
+    mul, add = (v.to(cuda) for v in bn_coefs(56, C))
+    pads = depthwise._resolve_pads(shape, kdims, strides, padding)
+    body = depthwise.fwd_body(kdims, strides, pads)
+    taps = k.float().reshape(-1, C).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    libs = [epilogue.library("depthwise.cu", depthwise._SIGNATURES, coefs)
+            for coefs in (None, (mul, add))]
+    y0 = depthwise._launch_fwd(libs[0], body, x, taps, kdims, strides, pads,
+                               stream)
+    y1 = depthwise._launch_fwd(libs[1], body, x, taps, kdims, strides, pads,
+                               stream, epilogue.pointers((mul, add), relu))
+    kind = "bn_relu" if relu else "bn"
+    fn = depthwise.depthwise_conv3d
+    before = dict(fn.epilogue_launches)
+    y2 = fn(x, k, strides, pads, mul, add, relu)
+    torch.cuda.synchronize()
+    assert fn.epilogue_launches == before | {kind: before[kind] + 1}
+    want = epilogue.reference(y0, mul, add, relu)
+    assert torch.equal(y1, want) and torch.equal(y2, want)

@@ -20,6 +20,12 @@ sums are rebuilt in numpy in the second pass's fixed order against the
 plain version's sums (float32, another order: within 1e-5 of the sums over
 absolute values).
 
+With an eval BatchNorm as its epilogue (bn_b, ``ops/epilogue.py``) the
+plain version is the plain segment followed by the model's affine, bit for
+bit, and p and s2 stay the segment's sums; on the card each body's
+epilogue equals its launch without one followed by that affine, bit for
+bit.
+
 JAX is imported inside the tests, so that the card tests (marker ``cuda``)
 run on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_dw_fused.py``.
@@ -31,9 +37,11 @@ import numpy as np
 import pytest
 import torch
 
-from x3d_tpu_torch import variant_config
+from x3d_tpu_torch import ops, variant_config
 from x3d_tpu_torch.models import build_arch
-from x3d_tpu_torch.ops import dw_fused, ring
+from x3d_tpu_torch.models.x3d import affine
+from x3d_tpu_torch.ops import (dw_fused, epilogue, library, plain_versions,
+                               ring)
 
 KDIMS = [(3, 3, 3), (3, 1, 1), (5, 3, 3)]
 SHAPES = [(3, 5, 6, 5, 7), (2, 5, 4, 9, 3)]
@@ -442,3 +450,110 @@ def test_ring_body_repeats_bit_for_bit(cuda, shape):
     first = dw_fused.dw_bn_act_conv(x, a, b, k)
     second = dw_fused.dw_bn_act_conv(x, a, b, k)
     assert all(torch.equal(f, s) for f, s in zip(first, second))
+
+
+# ------------------------------------------------------ the BN epilogue
+
+
+def bn_coefs(seed, C):
+    """An eval BatchNorm's float32 (mul, add) of C channels: scales 0.25 to
+    1.75, offsets of both signs (so a ReLU after it cuts)."""
+    g = torch.Generator().manual_seed(seed)
+    return 0.25 + 1.5 * torch.rand(C, generator=g), \
+        0.5 * torch.randn(C, generator=g)
+
+
+def unfused(y, mul, add, relu):
+    """The model's sequence the epilogue replaces: its affine, then the
+    ReLU where asked."""
+    out = affine(y, mul, add, y.dtype)
+    return torch.relu(out) if relu else out
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["bn", "bn_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_epilogue_plain_equals_the_unfused_sequence(dtype, relu):
+    """K2 + bn_b on the CPU: y of the wrapper, of its op and of the segment
+    with autograd off (the kernel's route and ``plain_versions()``) equals
+    the plain segment's y then the model's affine (then the ReLU), bit for
+    bit; p and s2 stay the sums of the segment's y; the launch log names
+    the epilogue and counts its work."""
+    shape = (2, 5, 6, 5, 8)
+    x, a, b, k = (torch.from_numpy(v) for v in _inputs(31, shape, (3, 3, 3)))
+    x, k = x.to(dtype), k.to(dtype)
+    mul, add = bn_coefs(32, 8)
+    y, p, s2 = dw_fused.dw_bn_act_conv(x, a, b, k)
+    want = unfused(y, mul, add, relu)
+    with torch.no_grad(), ops.launch_log() as log:
+        calls = [dw_fused.dw_bn_act_conv(x, a, b, k, mul, add, relu),
+                 library.dw_bn_act_conv(x, a, b, k, mul, add, relu),
+                 dw_fused.segment(x, a, b, k, mul, add, relu)]
+        with plain_versions():
+            calls.append(dw_fused.segment(x, a, b, k, mul, add, relu))
+    for got in calls:
+        assert got[0].dtype == dtype and torch.equal(got[0], want)
+        assert torch.equal(got[1], p) and torch.equal(got[2], s2)
+    kind = "bn_relu" if relu else "bn"
+    assert [r["epilogue"] for r in log] == [kind] * 3
+    work = dw_fused.fwd_cost(shape, (3, 3, 3), x.element_size())
+    assert (log[0]["bytes"], log[0]["flops"]) == \
+        (work[0] + 8 * 8, work[1] + (3 if relu else 2) * x.numel())
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["bn", "bn_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_epilogue_op_passes_opcheck(dtype, relu):
+    """``x3d::dw_bn_act_conv`` with the epilogue's arguments: its schema,
+    and its fake's outputs against the real ones' shapes, dtypes and
+    strides (``torch.library.opcheck``)."""
+    x, a, b, k = (torch.from_numpy(v)
+                  for v in _inputs(34, (2, 5, 7, 9, 8), (3, 3, 3)))
+    mul, add = bn_coefs(35, 8)
+    torch.library.opcheck(library.dw_bn_act_conv,
+                          (x.to(dtype), a, b, k.to(dtype), mul, add, relu),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True], ids=["bn", "bn_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kdims", [
+    ((3, 5, 9, 11, 70), (3, 3, 3)), ((2, 16, 14, 14, 216), (3, 3, 3)),
+    ((2, 5, 9, 11, 7), (5, 3, 3)), ((2, 5, 6, 7, 6), (3, 5, 5))])
+def test_epilogue_matches_the_unfused_launch_on_card(cuda, dtype, shape,
+                                                     kdims, relu):
+    """Each body's epilogue (ring at 3x3 spatial taps, generic at 5x5):
+    y equals the same body's launch without one followed by the plain
+    epilogue (``torch.addcmul``, as the model's affine), bit for bit, and p
+    and s2 equal that launch's; the wrapper counts the launch under its
+    kind."""
+    x, a, b, k = (torch.from_numpy(v).to(cuda)
+                  for v in _inputs(36, shape, kdims))
+    x, k = x.to(dtype), k.to(dtype)
+    C = shape[-1]
+    mul, add = (v.to(cuda) for v in bn_coefs(37, C))
+    body = dw_fused.segment_body(kdims)
+    taps = k.float().reshape(-1, C).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    y0, p0, s0 = dw_fused._launch_fwd(_build_lib(), body, x, a, b, taps,
+                                      kdims, stream)
+    y1, p1, s1 = dw_fused._launch_fwd(
+        epilogue.library("dw_fused.cu", dw_fused._SIGNATURES, (mul, add)),
+        body, x, a, b, taps, kdims, stream,
+        epilogue.pointers((mul, add), relu))
+    kind = "bn_relu" if relu else "bn"
+    fn = dw_fused.dw_bn_act_conv
+    before = dict(fn.epilogue_launches)
+    y2 = fn(x, a, b, k, mul, add, relu)[0]
+    torch.cuda.synchronize()
+    assert fn.epilogue_launches == before | {kind: before[kind] + 1}
+    want = epilogue.reference(y0, mul, add, relu)
+    assert torch.equal(y1, want) and torch.equal(y2, want)
+    assert torch.equal(p1, p0) and torch.equal(s1, s0)
+
+
+def _build_lib():
+    from x3d_tpu_torch.kernels import _build
+    return _build.load("dw_fused.cu", dw_fused._SIGNATURES)

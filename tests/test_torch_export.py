@@ -14,6 +14,9 @@ weights converted from the JAX package's ``init_variables``).
   the eager forward; the portable graph none, and it loads in a process
   that cannot import ``x3d_tpu_torch``, where the default graph fails.
 * ``torch.library.opcheck`` on each op (schema, fake version).
+* The default graph passes every BatchNorm to the op of the kernel that
+  writes its input as its epilogue, by the model's plan, and its answers
+  equal the unfused eager model's bit for bit.
 """
 
 import collections
@@ -34,7 +37,7 @@ from x3d_tpu.models import create_model as jax_create_model
 from x3d_tpu.models import init_variables
 from x3d_tpu.utils import normalize as jax_normalize
 from x3d_tpu_torch import convert, export, variant_config
-from x3d_tpu_torch.models import create_model
+from x3d_tpu_torch.models import build_arch, create_model
 from x3d_tpu_torch.ops import depthwise, dw_fused, library, pointwise
 from x3d_tpu_torch.serving import InferenceEngine, serve_forward
 
@@ -136,6 +139,53 @@ def test_equals_the_engine_bit_for_bit(setup, exports, dtype, signature):
     got = export.load(exports[dtype, False], signature, device="cpu")
     assert torch.equal(got(torch.from_numpy(clips)),
                        _engine_probs(cfg, state, dtype, clips, signature))
+
+
+# the arguments of each op before the epilogue's mul, add and relu
+_BASE_ARGS = {"x3d.depthwise_conv3d.default": 4,
+              "x3d.dw_bn_act_conv.default": 4, "x3d.pw_conv.default": 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_graph_holds_the_epilogues(setup, exports, dtype):
+    """Every BatchNorm of the default programs rides the x3d:: op of the
+    kernel that writes its input: K7 bn_c of every block and bn_r of the
+    four projections, bn_a and bn_5 with the ReLU; K2 bn_b of every
+    stride-1 block; K1 bn_b of the four stage entries, the stem's with the
+    ReLU; conv ``a`` of the stride-1 blocks (K2's input) alone takes none.
+    The program's answers equal the eager model's on the unfused path
+    (autograd on: every BatchNorm by the model's affine), bit for bit."""
+    cfg, state, _ = setup
+    arch = build_arch(cfg)
+    blocks = sum(len(stage) for stage in arch.stages)
+    entries = len(arch.stages)
+    want = {("pw_conv", "bn"): blocks + entries,
+            ("pw_conv", "bn_relu"): entries + 1,
+            ("pw_conv", "none"): blocks - entries,
+            ("dw_bn_act_conv", "bn"): blocks - entries,
+            ("depthwise_conv3d", "bn"): entries,
+            ("depthwise_conv3d", "bn_relu"): 1}
+    clips = torch.from_numpy(_clips(2 * VIEWS, seed=3))
+    model = create_model(cfg, dtype=dtype, device="cpu", init=False)
+    model.load_state_dict(state)
+    for signature in export.SIGNATURES:
+        program = export.load(exports[dtype, False], signature, device="cpu")
+        got = collections.Counter()
+        for n in program.module.graph.nodes:
+            base = _BASE_ARGS.get(str(n.target))
+            if n.op == "call_function" and base is not None:
+                args = list(n.args) + [None, None, False][len(n.args) - base:]
+                kind = "none" if args[base] is None else \
+                    "bn_relu" if args[base + 2] else "bn"
+                got[str(n.target).split(".")[1], kind] += 1
+        assert dict(got) == want, signature
+        per_clip = signature == "serve_clips"
+        unfused = serve_forward(model, clips, cfg.DATA.MEAN, cfg.DATA.STD,
+                                return_logits=per_clip).detach()
+        if per_clip:
+            unfused = torch.softmax(unfused.to(torch.float32), dim=-1)
+        assert torch.equal(program(clips), unfused), signature
 
 
 @pytest.mark.parametrize("signature,clips", [

@@ -86,7 +86,8 @@ CASES = [(seed, 1) for seed in range(10)] + [(1, 2), (9, 3)]
 F64_NAME = "x3d_float64_port"
 # the files whose float32 accumulations become float64 in the copy
 F64_FILES = ("models/x3d.py", "ops/depthwise.py", "ops/dw_fused.py",
-             "ops/pointwise.py", "ops/pw_stats.py", "train/steps.py")
+             "ops/epilogue.py", "ops/pointwise.py", "ops/pw_stats.py",
+             "train/steps.py")
 
 
 @pytest.fixture(autouse=True)

@@ -12,7 +12,15 @@ offsets of both signs so that a border bug in the fused ReLU would show.
 
 Tolerances (float32, sums in another order): logits rtol 1e-4 / atol 1e-5,
 view-averaged probabilities atol 1e-6.
+
+In eval mode with autograd off every BatchNorm rides the kernel launch
+that writes its input as its epilogue: the launch log of one eval forward
+names 62 of them and the model's affine is never called, and the answers
+equal those of the unfused path (eval with autograd on) bit for bit; a
+training step passes none.
 """
+
+import collections
 
 import jax
 import jax.numpy as jnp
@@ -20,12 +28,16 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from test_torch_epilogue_card import EPILOGUES, random_bn
 from x3d_tpu import get_default_config as jax_default_config
 from x3d_tpu.models import create_model as jax_create_model
 from x3d_tpu.models import init_variables
 from x3d_tpu.ops import dw_fused as jax_dw_fused
-from x3d_tpu_torch import convert, get_default_config
-from x3d_tpu_torch.models import create_model
+from x3d_tpu_torch import convert, get_default_config, ops, variant_config
+from x3d_tpu_torch.data import synthetic_batches
+from x3d_tpu_torch.models import build_arch, create_model, x3d
+from x3d_tpu_torch.train import create_train_state, make_train_step
 
 VIEWS, VIDEOS, T, S, CLASSES = 2, 2, 5, 32, 11
 
@@ -160,3 +172,118 @@ def test_create_model_needs_a_device_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_model(_tiny(get_default_config()))
+
+
+# ------------------------------------------- BatchNorm as kernel epilogues
+
+@pytest.mark.parametrize("variant,dtype", [("XS", torch.float32),
+                                           ("M", torch.bfloat16)],
+                         ids=["XS-float32", "M-bfloat16"])
+def test_eval_forward_folds_every_batchnorm_into_its_kernel(
+        monkeypatch, variant, dtype):
+    """X3D-XS (4 frames) and X3D-M (16 frames) at 32², one clip, on the
+    CPU: with autograd off the launch log holds 62 epilogues (K7 35, 5 of
+    them with the ReLU; K2 22; K1 5, 1 with the ReLU) and the model's
+    affine is called 0 times; the logits equal those of the unfused path
+    (eval with autograd on: the model's affine 62 times) bit for bit."""
+    torch.set_num_threads(1)
+    cfg = variant_config(variant)
+    cfg.merge_from_list(["DATA.TEST_CROP_SIZE", 32,
+                         "TEST.NUM_TEMPORAL_VIEWS", 1,
+                         "TEST.NUM_SPATIAL_CROPS", 1])
+    model = create_model(cfg, dtype=dtype, device="cpu", seed=5)
+    random_bn(model, 6)
+    x = torch.randn((1, cfg.DATA.TEMP_DURATION, 32, 32, 3),
+                    generator=torch.Generator().manual_seed(7))
+    calls = collections.Counter()
+    affine = x3d.affine
+
+    def counted(*args, **kwargs):
+        calls[torch.is_grad_enabled()] += 1
+        return affine(*args, **kwargs)
+
+    monkeypatch.setattr(x3d, "affine", counted)
+    with torch.no_grad(), ops.launch_log() as log:
+        fused = model(x, return_logits=True)
+    unfused = model(x, return_logits=True)
+    got = collections.Counter((r["kernel"], r["epilogue"]) for r in log
+                              if r["epilogue"] != "none")
+    assert dict(got) == EPILOGUES
+    assert calls == {True: 62}
+    assert torch.equal(fused, unfused.detach())
+
+
+def test_training_step_passes_no_epilogue():
+    """A training step (tiny X3D-S, float32, on the CPU) logs no epilogue
+    and the launches the step's plan gives (``chip_smoke.want_step_of``)."""
+    torch.set_num_threads(1)
+    cfg = variant_config("S")
+    cfg.merge_from_list(["NETWORK.C1_CHANNELS", 4,
+                         "NETWORK.DEPTH_FACTOR", 0.34,
+                         "DATA.TEMP_DURATION", 6, "DATA.TRAIN_CROP_SIZE", 32])
+    model = create_model(cfg, dtype=torch.float32, device="cpu")
+    state = create_train_state(cfg, model)
+    batch = next(synthetic_batches(cfg, 2, dtype=torch.float32,
+                                   device="cpu"))
+    with ops.launch_log() as log:
+        make_train_step(model, cfg.NETWORK.WEIGHT_DECAY)(
+            state, batch, torch.Generator().manual_seed(0))
+    assert {r["epilogue"] for r in log} == {"none"}
+    want = chip_smoke.want_step_of(build_arch(cfg), True, "off")
+    assert dict(collections.Counter(r["kernel"] for r in log)) == \
+        {k: n for k, n in want.items() if n}
+
+
+
+@pytest.mark.parametrize("hook", ["conv", "batchnorm", "every module"])
+def test_a_forward_hook_sees_the_unfused_output(hook):
+    """Tiny X3D-S in eval mode with autograd off, on the CPU: with a
+    forward hook on the first block's conv ``c`` (a feature extractor's),
+    on its BatchNorm, or on every module (``register_module_forward_hook``)
+    that BatchNorm runs as a module of its own and takes no epilogue -- a
+    hook on the conv gets the conv's output, before the BatchNorm; one on
+    every module leaves no BatchNorm folded -- and the logits stay those
+    of the model without a hook; the hook removed, the BatchNorm folds
+    again."""
+    torch.set_num_threads(1)
+    cfg = variant_config("S")
+    cfg.merge_from_list(["NETWORK.C1_CHANNELS", 4,
+                         "NETWORK.DEPTH_FACTOR", 0.34,
+                         "DATA.TEMP_DURATION", 4, "DATA.TEST_CROP_SIZE", 32])
+    model = create_model(cfg, dtype=torch.float32, device="cpu", seed=8)
+    random_bn(model, 9)
+    block = next(m for m in model.modules() if isinstance(m, x3d.Bottleneck))
+    x = torch.randn((1, 4, 32, 32, 3),
+                    generator=torch.Generator().manual_seed(10))
+
+    def forward():
+        with torch.no_grad(), ops.launch_log() as log:
+            logits = model(x, return_logits=True)
+        return logits, sum(r["epilogue"] != "none" for r in log)
+
+    want, folded = forward()
+    seen = []
+
+    def record(module, args, out):
+        if module is block.c or module is block.bn_c:
+            seen.append((module, args, out))
+
+    if hook == "conv":
+        handle = block.c.register_forward_hook(record)
+    elif hook == "batchnorm":
+        handle = block.bn_c.register_forward_hook(record)
+    else:
+        handle = torch.nn.modules.module.register_module_forward_hook(record)
+    try:
+        got, fused = forward()
+    finally:
+        handle.remove()
+    assert torch.equal(got, want)
+    assert fused == (0 if hook == "every module" else folded - 1)
+    assert block.bn_c in [m for m, _, _ in seen] or hook == "conv"
+    for module, args, out in seen:
+        if module is block.c:         # the conv alone, no epilogue
+            assert len(args) == 1
+            assert torch.equal(out, module.forward(args[0]))
+            assert not torch.equal(out, block.bn_c(out))
+    assert forward()[1] == folded

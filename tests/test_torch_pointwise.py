@@ -11,6 +11,11 @@ of 8; a strided projection against ``PointwiseConv3D(strides=(1, 2, 2))``.
 Tolerances (float32, sums in another order): y, dx and dW atol 1e-5 with
 rtol 1e-5.
 
+With an eval BatchNorm (and a ReLU) as its epilogue (``ops/epilogue.py``)
+the plain version is the plain conv followed by the model's affine, bit
+for bit; on the card each body's epilogue equals its launch without one
+followed by that affine, bit for bit.
+
 JAX is imported inside the tests, so that the card tests (marker ``cuda``)
 run on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_pointwise.py``.
@@ -22,9 +27,11 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from x3d_tpu_torch import variant_config
+from test_torch_dw_fused import bn_coefs, unfused
+from x3d_tpu_torch import ops, variant_config
 from x3d_tpu_torch.models import build_arch
-from x3d_tpu_torch.ops import plain_versions, pointwise, ring
+from x3d_tpu_torch.ops import (epilogue, library, plain_versions, pointwise,
+                               ring)
 from x3d_tpu_torch.tools import profile_pointwise
 
 
@@ -346,6 +353,39 @@ def _variant_calls(variant, path):
         M = B * T * -(-H // strides[1]) * -(-W // strides[2])
         out.append((name, K, N, M, strides, (B * T, H, W)))
     return out
+
+
+@pytest.mark.parametrize("path", ["serving", "eval"])
+@pytest.mark.parametrize("variant", ["XS", "S", "M", "L", "XL"])
+def test_wg_plan_holds_the_epilogue(variant, path):
+    """Every wg call of an X3D-XS/S/M/L/XL eval forward with the BN
+    epilogue (each takes one there but the stride-1 blocks' conv a): the
+    plan keeps the coefficients, 8 bytes a column, in shared memory beside
+    the rest (``wg_smem`` with the epilogue, within the block's share of
+    the SM), with the tiling of the call without, the ring at most one
+    stage shallower -- and at X3D-XS, S and M not one."""
+    n = 0
+    for name, K, N, M, strides, (frames, H, W) in _variant_calls(variant,
+                                                                 path):
+        if pointwise.pw_body(K, N, M, strides, width=W, height=H) != "wg":
+            continue
+        plane = _plane((frames, 1, H, W, K), strides)
+        plain = pointwise.wg_plan(M, K, N, plane=plane)
+        fused = pointwise.wg_plan(M, K, N, plane=plane, epilogue=True)
+        bn, cons = fused["block_columns"], fused["consumers"]
+        assert fused["smem_bytes"] == pointwise.wg_smem(
+            K, bn, cons, fused["stages"], fused["w_resident"], True) == \
+            pointwise.wg_smem(K, bn, cons, fused["stages"],
+                              fused["w_resident"]) + 8 * bn
+        assert fused["smem_bytes"] <= min(
+            227 * 1024, 228 * 1024 // fused["blocks_per_sm"] - 1024)
+        layout = ("stages", "smem_bytes")
+        assert {k: v for k, v in fused.items() if k not in layout} == \
+            {k: v for k, v in plain.items() if k not in layout}, name
+        assert plain["stages"] - fused["stages"] in (
+            (0,) if variant in ("XS", "S", "M") else (0, 1)), name
+        n += 1
+    assert n > 0
 
 
 def _plane(shape, strides):
@@ -741,3 +781,114 @@ def test_wg_smem_matches_the_kernel_on_card(cuda):
             assert lib.x3d_pw_conv_wg_smem(
                 K, p["block_columns"], p["consumers"], p["stages"],
                 p["w_resident"]) == p["smem_bytes"]
+
+
+# ------------------------------------------------------ the BN epilogue
+
+
+@pytest.mark.parametrize("strides,relu", [((1, 1, 1), False),
+                                          ((1, 1, 1), True),
+                                          ((1, 2, 2), False)],
+                         ids=["bn", "bn_relu", "strided_bn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_epilogue_plain_equals_the_unfused_sequence(dtype, strides, relu):
+    """K7 + bn (bn_c, bn_r), + bn + ReLU (bn_a at the stage entries,
+    bn_5) and strided + bn (the projections) on the CPU: the wrapper, its
+    op and the differentiable entry with autograd off (the kernel's route
+    and ``plain_versions()``) give the plain conv then the model's affine
+    (then the ReLU), bit for bit; the launch log names the epilogue and
+    counts its work."""
+    x, w, _ = _inputs(41, (2, 3, 7, 6, 24), 54, strides)
+    x, w = torch.from_numpy(x).to(dtype), torch.from_numpy(w)
+    mul, add = bn_coefs(42, 54)
+    want = unfused(pointwise.pw_conv(x, w, strides), mul, add, relu)
+    with torch.no_grad(), ops.launch_log() as log:
+        calls = [pointwise.pw_conv(x, w, strides, "fwd", mul, add, relu),
+                 library.pw_conv(x, w, list(strides), mul, add, relu),
+                 pointwise.pointwise_conv3d(x, w, strides, None, mul, add,
+                                            relu)]
+        with plain_versions():
+            calls.append(pointwise.pointwise_conv3d(x, w, strides, None,
+                                                    mul, add, relu))
+    for got in calls:
+        assert got.dtype == dtype and torch.equal(got, want)
+    kind = "bn_relu" if relu else "bn"
+    assert [r["epilogue"] for r in log] == [kind] * 3
+    M = want.numel() // 54
+    work = pointwise.cost(M, 24, 54, x.element_size())
+    assert (log[0]["bytes"], log[0]["flops"]) == \
+        (work[0] + 8 * 54, work[1] + (3 if relu else 2) * want.numel())
+
+
+def test_epilogue_is_forward_only():
+    """An epilogue where autograd would record the call raises (it has no
+    backward), and so does half of one or a ReLU without one."""
+    x, w, _ = _inputs(43, (2, 3, 4, 5, 8), 16)
+    x, w = torch.from_numpy(x), torch.from_numpy(w).requires_grad_()
+    mul, add = bn_coefs(44, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pointwise.pointwise_conv3d(x, w, (1, 1, 1), None, mul, add)
+    with pytest.raises(ValueError, match="mul and add"):
+        pointwise.pw_conv(x, w.detach(), (1, 1, 1), "fwd", mul, None)
+    with pytest.raises(ValueError, match="ReLU"):
+        pointwise.pw_conv(x, w.detach(), (1, 1, 1), "fwd", relu=True)
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["bn", "bn_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_epilogue_op_passes_opcheck(dtype, relu):
+    """``x3d::pw_conv`` with the epilogue's arguments, strided: its schema,
+    and its fake's output against the real one's shape, dtype and strides
+    (``torch.library.opcheck``)."""
+    x, w, _ = _inputs(45, (2, 5, 7, 9, 8), 16, (1, 2, 2))
+    mul, add = bn_coefs(46, 16)
+    torch.library.opcheck(
+        library.pw_conv, (torch.from_numpy(x).to(dtype),
+                          torch.from_numpy(w).to(dtype), [1, 2, 2], mul, add,
+                          relu),
+        test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True], ids=["bn", "bn_relu"])
+@pytest.mark.parametrize("body,dtype,shape,cout,strides", [
+    ("wg", torch.bfloat16, (2, 5, 14, 14, 96), 432, (1, 1, 1)),
+    ("wg", torch.bfloat16, (2, 5, 28, 28, 48), 54, (1, 1, 1)),
+    ("wg", torch.bfloat16, (2, 5, 14, 14, 96), 192, (1, 2, 2)),
+    ("pipe", torch.bfloat16, (2, 5, 14, 14, 54), 24, (1, 1, 1)),
+    ("pipe", torch.bfloat16, (2, 5, 13, 13, 24), 54, (1, 2, 2)),
+    ("cuda_core", torch.bfloat16, (2, 3, 7, 7, 7), 54, (1, 1, 1)),
+    ("cuda_core", torch.float32, (2, 5, 14, 14, 96), 432, (1, 1, 1)),
+    ("cuda_core", torch.float32, (2, 5, 13, 13, 24), 54, (1, 2, 2))])
+def test_epilogue_matches_the_unfused_launch_on_card(cuda, body, dtype,
+                                                     shape, cout, strides,
+                                                     relu):
+    """Each body's epilogue (wg, pipe; the CUDA cores in float32 and at an
+    odd K), at stride 1 and 2 and ragged column tiles: y equals the same
+    body's launch without one followed by the plain epilogue
+    (``torch.addcmul``, as the model's affine), bit for bit; the wrapper
+    counts the launch under its kind."""
+    x, w, _ = (torch.from_numpy(v).to(cuda)
+               for v in _inputs(47, shape, cout, strides))
+    x, w = x.to(dtype), w.to(dtype)
+    mul, add = (v.to(cuda) for v in bn_coefs(48, cout))
+    M = shape[0] * shape[1] * -(-shape[2] // strides[1]) \
+        * -(-shape[3] // strides[2])
+    stream = torch.cuda.current_stream().cuda_stream
+    y0 = pointwise._launch(_build_lib(), body, x, w, strides, stream)
+    y1 = pointwise._launch(
+        epilogue.library("pointwise.cu", pointwise._SIGNATURES, (mul, add)),
+        body, x, w, strides, stream, bn=epilogue.pointers((mul, add), relu))
+    kind = "bn_relu" if relu else "bn"
+    before = dict(pointwise.pw_conv.epilogue_launches)
+    y2 = pointwise.pw_conv(x, w, strides, "fwd", mul, add, relu)
+    torch.cuda.synchronize()
+    assert pointwise.pw_conv.epilogue_launches == \
+        before | {kind: before[kind] + 1}
+    want = epilogue.reference(y0, mul, add, relu)
+    assert torch.equal(y1, want)
+    if pointwise.pw_body(shape[-1], cout, M, strides, elem=x.element_size(),
+                         width=shape[3], height=shape[2]) == body:
+        assert torch.equal(y2, want)

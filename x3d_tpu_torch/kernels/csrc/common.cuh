@@ -48,6 +48,119 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// The eval BatchNorm that a conv kernel may apply as it stores its output
+// (K7, K2, K1): y = add[c] + round(acc) * mul[c] with float32 per-channel
+// coefficients, then a ReLU where asked, rounded once to the output's
+// dtype.  round(acc) is the conv's own output as the kernel stores it
+// without the epilogue; the affine is the model's arithmetic on the card:
+// for a float32 output a product and a sum, each rounded (x * mul + add),
+// for a bfloat16 one a fused multiply-add in float32 (torch.addcmul's), so
+// the output is the unfused conv then the model's affine.  mul == nullptr:
+// no epilogue.  Every body takes it as a template parameter EP, and a
+// source is built twice: as it always was, every body without the
+// epilogue (EP false), and with X3D_BN_EPILOGUE, every body with it (EP
+// true), a library of its own; so the launches without one (training's)
+// run the code they ran before there was one.  mul and add are 16-byte
+// aligned (with_epilogue checks).
+struct BnEpilogue {
+  const float* mul;
+  const float* add;
+  int relu;
+};
+
+// The bodies' EP in this build.
+#ifdef X3D_BN_EPILOGUE
+constexpr bool kBnEpilogue = true;
+#else
+constexpr bool kBnEpilogue = false;
+#endif
+
+// cudaErrorInvalidValue for an epilogue this build does not take (one
+// asked of a build without, none of a build with X3D_BN_EPILOGUE) or whose
+// coefficients the kernels cannot read (not 16-byte aligned, or one of the
+// two missing); else fn(std::bool_constant<kBnEpilogue>{}), the EP
+// instantiation of the launched body.
+template <typename Fn>
+int with_epilogue(const BnEpilogue& ep, Fn&& fn) {
+  const uintptr_t m = reinterpret_cast<uintptr_t>(ep.mul),
+                  a = reinterpret_cast<uintptr_t>(ep.add);
+  if ((m != 0) != kBnEpilogue || (a != 0) != kBnEpilogue || (m | a) % 16)
+    return cudaErrorInvalidValue;
+  return fn(std::bool_constant<kBnEpilogue>{});
+}
+
+// The epilogue's float32 value for a sum `acc` of a T output and its
+// channel's coefficients, for the store to round.
+template <typename T>
+__device__ __forceinline__ float bn_affine(float acc, float mul, float add,
+                                           int relu) {
+  const float x = round_to<T>(acc);
+  const float v = std::is_same_v<T, float> ? __fadd_rn(__fmul_rn(x, mul), add)
+                                           : __fmaf_rn(x, mul, add);
+  return relu && v < 0.f ? 0.f : v;
+}
+
+// The same, channel c's coefficients read from the epilogue.
+template <typename T>
+__device__ __forceinline__ float bn_value(float acc, int c,
+                                          const BnEpilogue& ep) {
+  return bn_affine<T>(acc, __ldg(ep.mul + c), __ldg(ep.add + c), ep.relu);
+}
+
+// The bfloat16 epilogue on two sums (columns n, n + 1, their coefficients
+// m and a): the float32 values for the store to round, bn_affine's values
+// -- each sum rounded (one conversion for the pair), widened, a fused
+// multiply-add -- with the ReLU as a maximum that keeps a NaN against `lo`
+// (bn_floor: 0 for the ReLU, -inf for none; a ReLU'd -0 stores +0), so
+// that the pair costs K7's wg and pipe bodies a few instructions a value.
+__device__ __forceinline__ float bn_floor(const BnEpilogue& ep) {
+  return ep.relu ? 0.f : __int_as_float(0xff800000);  // -inf
+}
+
+__device__ __forceinline__ float max_nan(float v, float lo) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ float2 bn_pair(float v0, float v1, float2 m,
+                                          float2 a, float lo) {
+  const float2 x = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
+  return make_float2(max_nan(__fmaf_rn(x.x, m.x, a.x), lo),
+                     max_nan(__fmaf_rn(x.y, m.y, a.y), lo));
+}
+
+// VE consecutive float32 from p, a multiple of VE values into a 16-byte
+// aligned vector: vector loads.
+template <int VE>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VE]) {
+  if constexpr (VE % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VE / 4; ++i) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i] = t.x, v[4 * i + 1] = t.y, v[4 * i + 2] = t.z,
+                 v[4 * i + 3] = t.w;
+    }
+  } else if constexpr (VE == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// The sums of channels c .. c + VE - 1 (c a multiple of VE) rewritten by
+// the epilogue.
+template <typename T, int VE>
+__device__ __forceinline__ void bn_cell(float (&v)[VE], int c,
+                                        const BnEpilogue& ep) {
+  float m[VE], a[VE];
+  load_vec(ep.mul + c, m);
+  load_vec(ep.add + c, a);
+#pragma unroll
+  for (int e = 0; e < VE; ++e) v[e] = bn_affine<T>(v[e], m[e], a[e], ep.relu);
+}
+
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // The card's SMs (0 if the runtime cannot say).

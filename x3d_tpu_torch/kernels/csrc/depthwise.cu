@@ -60,6 +60,11 @@
 //     elements as zero), threads along the contiguous C, and each output
 //     element sums its taps from shared memory.  Each input plane is staged
 //     once for each of the kt output frames that read it.
+// Every body takes an optional BN epilogue (common.cuh's BnEpilogue):
+// serving's BatchNorm after the stem's conv (with its ReLU) and bn_b at the
+// stage entries, applied to y as it is stored.  The bodies with it are
+// built into a library of their own (X3D_BN_EPILOGUE), so that training's
+// calls run the code they ran before there was one.
 // Not yet done (later work): the ring body's fill overlapping its
 // multiply-adds (a producer warp, TMA) and wider copies (its fill alone
 // takes about twice its input bytes' time); a temporal window in the
@@ -85,11 +90,11 @@ struct DwGeom {
   int nth, ntw, nct;      // tiles along H, W, C
 };
 
-template <typename T>
+template <typename T, bool EP>
 __global__ void __launch_bounds__(kThreads)
     dw_conv3d_fwd_kernel(const T* __restrict__ x,
                          const float* __restrict__ taps,
-                         T* __restrict__ y, DwGeom g) {
+                         T* __restrict__ y, DwGeom g, BnEpilogue ep) {
   extern __shared__ float smem[];
   float* tile = smem;  // [kt][HR][WR][kChannels]
   float* wts = smem + (size_t)g.kt * g.HR * g.WR * kChannels;  // [taps][kChannels]
@@ -145,6 +150,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int dw = 0; dw < g.kw; ++dw)
           acc = fmaf(row[dw * kChannels], w[dw * kChannels], acc);
       }
+    if constexpr (EP) acc = bn_value<T>(acc, c, ep);
     y[(((size_t)(b * g.To + to) * g.Ho + ho) * g.Wo + wo) * g.C + c] =
         from_f32<T>(acc);
   }
@@ -152,15 +158,18 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch(const void* x, const float* taps, void* y, const DwGeom& g,
-           cudaStream_t stream) {
+           const BnEpilogue& ep, cudaStream_t stream) {
   const size_t smem = ((size_t)g.kt * g.HR * g.WR + (size_t)g.kt * g.kh * g.kw) *
                       kChannels * sizeof(float);
-  cudaError_t err = allow_smem(dw_conv3d_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(g.nct * g.nth * g.ntw, g.To, g.B);
-  dw_conv3d_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), taps, static_cast<T*>(y), g);
-  return cudaGetLastError();
+  return with_epilogue(ep, [&](auto e) -> int {
+    const auto kernel = dw_conv3d_fwd_kernel<T, decltype(e)::value>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(g.nct * g.nth * g.ntw, g.To, g.B);
+    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), taps,
+                                             static_cast<T*>(y), g, ep);
+    return cudaGetLastError();
+  });
 }
 
 // ------------------------------------------------------- temporal body
@@ -178,11 +187,12 @@ struct TemporalGeom {
 };
 
 // Registers: at most 128 a thread, so that two blocks of 256 share an SM.
-template <typename T, int VE, int KT>
+template <typename T, int VE, int KT, bool EP>
 __global__ void __launch_bounds__(kTemporalThreads, 2)
     dw_conv3d_fwd_temporal_kernel(const T* __restrict__ x,
                                   const float* __restrict__ taps,
-                                  T* __restrict__ y, TemporalGeom g) {
+                                  T* __restrict__ y, TemporalGeom g,
+                                  BnEpilogue ep) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= g.B * g.cells) return;
   const int b = (int)(i / g.cells);
@@ -227,7 +237,10 @@ __global__ void __launch_bounds__(kTemporalThreads, 2)
         }
       const int m = r0 + j - (KT - 1);
       float (&done)[VE] = acc[(j + 1) % KT];
-      if (m >= 0) store_cell(yp + (size_t)m * frame, done);
+      if (m >= 0) {
+        if constexpr (EP) bn_cell<T>(done, c, ep);
+        store_cell(yp + (size_t)m * frame, done);
+      }
 #pragma unroll
       for (int e = 0; e < VE; ++e) done[e] = 0.f;
     }
@@ -236,14 +249,17 @@ __global__ void __launch_bounds__(kTemporalThreads, 2)
 
 template <typename T, int VE, int KT>
 int launch_temporal(const void* x, const float* taps, void* y,
-                    const TemporalGeom& g, cudaStream_t stream) {
+                    const TemporalGeom& g, const BnEpilogue& ep,
+                    cudaStream_t stream) {
   const long long n = g.B * g.cells;
   const dim3 grid((unsigned)((n + kTemporalThreads - 1) / kTemporalThreads),
                   g.nruns);
-  dw_conv3d_fwd_temporal_kernel<T, VE, KT>
-      <<<grid, kTemporalThreads, 0, stream>>>(
-          static_cast<const T*>(x), taps, static_cast<T*>(y), g);
-  return cudaGetLastError();
+  return with_epilogue(ep, [&](auto e) -> int {
+    dw_conv3d_fwd_temporal_kernel<T, VE, KT, decltype(e)::value>
+        <<<grid, kTemporalThreads, 0, stream>>>(
+            static_cast<const T*>(x), taps, static_cast<T*>(y), g, ep);
+    return cudaGetLastError();
+  });
 }
 
 // ----------------------------------------------------------- ring body
@@ -257,11 +273,11 @@ size_t conv_ring_smem(RingGeom& q, int elem, int kt, int ve) {
 
 // Registers: at most 128 a thread, so that four blocks of 128 threads (the
 // plan's most) share an SM.
-template <typename T, int VE, int KT, int S>
+template <typename T, int VE, int KT, int S, bool EP>
 __global__ void __launch_bounds__(kRingMaxThreads, 4)
     dw_conv3d_fwd_ring_kernel(const T* __restrict__ x,
                               const float* __restrict__ taps,
-                              T* __restrict__ y, ConvRing g) {
+                              T* __restrict__ y, ConvRing g, BnEpilogue ep) {
   using Cell = typename CellOf<T, VE>::type;
   const RingGeom& q = g.q;
   constexpr int NT = KT * 9;
@@ -365,7 +381,10 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
       T* px = out + ((size_t)(h0 + oh) * q.W + w0 + ow) * q.C;
 #pragma unroll
       for (int k = 0; k < N; ++k)
-        if (k < valid) store_f32(px + (size_t)k * q.C, acc[k]);
+        if (k < valid) {
+          if constexpr (EP) bn_cell<T>(acc[k], c, ep);
+          store_f32(px + (size_t)k * q.C, acc[k]);
+        }
     };
     for (int oh = r; oh < q.TH && h0 + oh < q.H; oh += q.rows) {
       int ow = 0;
@@ -383,28 +402,33 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
 
 template <typename T, int VE, int KT, int S>
 int launch_conv_ring(const void* x, const float* taps, void* y, ConvRing g,
-                     cudaStream_t stream) {
-  auto kernel = dw_conv3d_fwd_ring_kernel<T, VE, KT, S>;
+                     const BnEpilogue& ep, cudaStream_t stream) {
   const size_t smem = conv_ring_smem(g.q, sizeof(T), KT, VE);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const RingGeom& q = g.q;
-  const int threads = ceil_div(q.CG / VE * q.rows, 32) * 32;
-  const dim3 grid(ceil_div(q.C, q.CG) * q.nth * q.ntw, q.nruns, q.B);
-  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), taps,
-                                          static_cast<T*>(y), g);
-  return cudaGetLastError();
+  return with_epilogue(ep, [&](auto e) -> int {
+    auto kernel = dw_conv3d_fwd_ring_kernel<T, VE, KT, S, decltype(e)::value>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const RingGeom& q = g.q;
+    const int threads = ceil_div(q.CG / VE * q.rows, 32) * 32;
+    const dim3 grid(ceil_div(q.C, q.CG) * q.nth * q.ntw, q.nruns, q.B);
+    kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), taps,
+                                            static_cast<T*>(y), g, ep);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // x: (B, T, H, W, C) in `dtype` (0 float32, 1 bfloat16); taps: (kt*kh*kw, C)
-// float32; y: (B, To, Ho, Wo, C) in `dtype`.  Returns a cudaError_t code.
+// float32; y: (B, To, Ho, Wo, C) in `dtype`; mul, add: (C,) float32,
+// 16-byte aligned, the BN epilogue (common.cuh's BnEpilogue, with a ReLU
+// where `relu`), or null for none.  Returns a cudaError_t code.
 extern "C" int x3d_dw_conv3d_fwd(const void* x, const void* taps, void* y,
                                  int dtype, int B, int T, int H, int W, int C,
                                  int kt, int kh, int kw, int st, int sh, int sw,
                                  int tlo, int hlo, int wlo, int To, int Ho,
-                                 int Wo, void* stream) {
+                                 int Wo, const void* mul, const void* add,
+                                 int relu, void* stream) {
   DwGeom g{B, T, H, W, C, kt, kh, kw, st, sh, sw, tlo, hlo, wlo, To, Ho, Wo};
   if (B <= 0 || To <= 0 || Ho <= 0 || Wo <= 0 || C <= 0) return cudaSuccess;
   if (st <= 0 || sh <= 0 || sw <= 0 || kt <= 0 || kh <= 0 || kw <= 0 ||
@@ -419,8 +443,10 @@ extern "C" int x3d_dw_conv3d_fwd(const void* x, const void* taps, void* y,
   g.nct = ceil_div(C, kChannels);
   auto s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(taps);
-  if (dtype == kF32) return launch<float>(x, w, y, g, s);
-  if (dtype == kBF16) return launch<__nv_bfloat16>(x, w, y, g, s);
+  const BnEpilogue ep{static_cast<const float*>(mul),
+                      static_cast<const float*>(add), relu};
+  if (dtype == kF32) return launch<float>(x, w, y, g, ep, s);
+  if (dtype == kBF16) return launch<__nv_bfloat16>(x, w, y, g, ep, s);
   return cudaErrorInvalidValue;
 }
 
@@ -433,7 +459,9 @@ extern "C" int x3d_dw_conv3d_fwd_temporal_occupancy(int dtype, int vec,
   return with_temporal(dtype, vec, kt, [&](auto inst) {
     using I = decltype(inst);
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &o[0], dw_conv3d_fwd_temporal_kernel<typename I::Elem, I::ve, I::kt>,
+        &o[0],
+        dw_conv3d_fwd_temporal_kernel<typename I::Elem, I::ve, I::kt,
+                                      kBnEpilogue>,
         kTemporalThreads, 0);
     o[1] = sm_count();
     return (int)err;
@@ -443,13 +471,15 @@ extern "C" int x3d_dw_conv3d_fwd_temporal_occupancy(int dtype, int vec,
 // K1 by the temporal body: x (B, T, H, W, C), taps (kt, C) float32, y (B,
 // To, H, W, C), for spatial taps 1x1 at stride 1 and no spatial pads; tlo
 // the low temporal pad; then the plan of ops/depthwise.temporal_plan
-// (channels a cell, frames a run).  cudaErrorInvalidValue for a plan the
-// kernel cannot run or addresses a cell does not divide.
+// (channels a cell, frames a run); the BN epilogue's mul, add, relu.
+// cudaErrorInvalidValue for a plan the kernel cannot run or addresses a
+// cell does not divide.
 extern "C" int x3d_dw_conv3d_fwd_temporal(const void* x, const void* taps,
                                           void* y, int dtype, int B, int T,
                                           int H, int W, int C, int kt,
                                           int tlo, int To, int vec, int run,
-                                          void* stream) {
+                                          const void* mul, const void* add,
+                                          int relu, void* stream) {
   if (B <= 0 || To <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaSuccess;
   if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
   const int elem = dtype == kF32 ? 4 : 2;
@@ -465,9 +495,12 @@ extern "C" int x3d_dw_conv3d_fwd_temporal(const void* x, const void* taps,
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(taps);
+  const BnEpilogue ep{static_cast<const float*>(mul),
+                      static_cast<const float*>(add), relu};
   return with_temporal(dtype, vec, kt, [&](auto inst) {
     using I = decltype(inst);
-    return launch_temporal<typename I::Elem, I::ve, I::kt>(x, w, y, g, s);
+    return launch_temporal<typename I::Elem, I::ve, I::kt>(x, w, y, g, ep,
+                                                            s);
   });
 }
 
@@ -481,7 +514,7 @@ extern "C" int x3d_dw_conv3d_fwd_ring_occupancy(int dtype, int vec, int kt,
   return with_conv_ring(dtype, vec, kt, stride, [&](auto ring, auto s) {
     using R = decltype(ring);
     auto kernel = dw_conv3d_fwd_ring_kernel<typename R::Elem, R::ve, R::kt,
-                                            decltype(s)::value>;
+                                            decltype(s)::value, kBnEpilogue>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[0], kernel,
@@ -496,15 +529,15 @@ extern "C" int x3d_dw_conv3d_fwd_ring_occupancy(int dtype, int vec, int kt,
 // kt - 1 and hlo, wlo 0 or 1; then the launch plan of
 // ops/depthwise.ring_plan (tile sides, channels a group, channels a
 // vector, thread rows, frames a run, copy granule in bytes, cells a staged
-// row, cells padding each vector plane).  cudaErrorInvalidValue for a
-// geometry or plan the kernel cannot run or pointers the granule does not
-// divide.
+// row, cells padding each vector plane); the BN epilogue's mul, add, relu.
+// cudaErrorInvalidValue for a geometry or plan the kernel cannot run or
+// pointers the granule does not divide.
 extern "C" int x3d_dw_conv3d_fwd_ring(
     const void* x, const void* taps, void* y, int dtype, int B, int T,
     int H, int W, int C, int kt, int stride, int tlo, int hlo, int wlo,
     int To, int Ho, int Wo, int tile_h, int tile_w, int group, int vec,
     int rows, int run, int granule, int row_cells, int vec_pad,
-    void* stream) {
+    const void* mul, const void* add, int relu, void* stream) {
   if (B <= 0 || To <= 0 || Ho <= 0 || Wo <= 0 || C <= 0) return cudaSuccess;
   if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
   const int elem = dtype == kF32 ? 4 : 2;
@@ -519,9 +552,11 @@ extern "C" int x3d_dw_conv3d_fwd_ring(
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(taps);
+  const BnEpilogue ep{static_cast<const float*>(mul),
+                      static_cast<const float*>(add), relu};
   return with_conv_ring(dtype, vec, kt, stride, [&](auto ring, auto st) {
     using R = decltype(ring);
     return launch_conv_ring<typename R::Elem, R::ve, R::kt,
-                            decltype(st)::value>(x, w, y, g, s);
+                            decltype(st)::value>(x, w, y, g, ep, s);
   });
 }

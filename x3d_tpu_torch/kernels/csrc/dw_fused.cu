@@ -52,6 +52,12 @@
 // second kernel sums the partials of each (channel, clip) in a fixed order,
 // in double: deterministic, no atomics (the ring body's second pass is
 // common.cuh's sum_columns, shared with K3).
+//
+// Both bodies take an optional BN epilogue (common.cuh's BnEpilogue):
+// serving's bn_b, applied to y as it is stored, while p and s2 stay the
+// sums of the conv's y (the SE pool is taken from them).  The bodies with
+// it are built into a library of their own (X3D_BN_EPILOGUE), so that
+// training's calls run the code they ran before there was one.
 
 #include <algorithm>
 #include <cstdint>
@@ -73,14 +79,15 @@ struct FusedGeom {
   int ntiles;          // T * nth * ntw: partial sums per (clip, channel)
 };
 
-template <typename T>
+template <typename T, bool EP>
 __global__ void __launch_bounds__(kThreads)
     dw_bn_act_conv_fwd_kernel(const T* __restrict__ x,
                               const float* __restrict__ a_cb,
                               const float* __restrict__ b_cb,
                               const float* __restrict__ taps,
                               T* __restrict__ y, float* __restrict__ part_p,
-                              float* __restrict__ part_s2, FusedGeom g) {
+                              float* __restrict__ part_s2, FusedGeom g,
+                              BnEpilogue ep) {
   extern __shared__ float smem[];
   float* tile = smem;  // [kt][HR][WR][kChannels]
   float* wts = smem + (size_t)g.kt * g.HR * g.WR * kChannels;  // [taps][kChannels]
@@ -150,8 +157,10 @@ __global__ void __launch_bounds__(kThreads)
             acc = fmaf(row[dw * kChannels], wp[dw * kChannels], acc);
         }
       const T out = from_f32<T>(acc);
-      y[(((size_t)(b * g.T + t) * g.H + h) * g.W + w) * g.C + c] = out;
-      const float yv = to_f32(out);  // the sums see y as stored
+      T stored = out;
+      if constexpr (EP) stored = from_f32<T>(bn_value<T>(acc, c, ep));
+      y[(((size_t)(b * g.T + t) * g.H + h) * g.W + w) * g.C + c] = stored;
+      const float yv = to_f32(out);  // the sums see y as the conv rounds it
       sum += yv;
       sum2 = fmaf(yv, yv, sum2);
     }
@@ -206,16 +215,20 @@ FusedGeom geometry(int B, int T, int H, int W, int C, int kt, int kh, int kw) {
 template <typename T>
 int launch(const void* x, const float* a_cb, const float* b_cb,
            const float* taps, void* y, float* part_p, float* part_s2, float* p,
-           float* s2, const FusedGeom& g, cudaStream_t stream) {
+           float* s2, const FusedGeom& g, const BnEpilogue& ep,
+           cudaStream_t stream) {
   const size_t smem = ((size_t)g.kt * g.HR * g.WR + (size_t)g.kt * g.kh * g.kw) *
                       kChannels * sizeof(float);
-  cudaError_t err = allow_smem(dw_bn_act_conv_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(g.nct * g.nth * g.ntw, g.T, g.B);
-  dw_bn_act_conv_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), a_cb, b_cb, taps, static_cast<T*>(y), part_p,
-      part_s2, g);
-  err = cudaGetLastError();
+  cudaError_t err = (cudaError_t)with_epilogue(ep, [&](auto e) -> int {
+    const auto kernel = dw_bn_act_conv_fwd_kernel<T, decltype(e)::value>;
+    const cudaError_t allowed = allow_smem(kernel, smem);
+    if (allowed != cudaSuccess) return allowed;
+    const dim3 grid(g.nct * g.nth * g.ntw, g.T, g.B);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), a_cb, b_cb, taps, static_cast<T*>(y),
+        part_p, part_s2, g, ep);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
   const int n = g.B * g.C;
   sum_partials_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(
@@ -235,7 +248,7 @@ size_t ring_smem(RingGeom& q, int elem, int kt, int ve) {
 
 // Registers: at most 128 a thread, so that four blocks of 128 threads (the
 // plan's most) share an SM.
-template <typename T, int VE, int KT>
+template <typename T, int VE, int KT, bool EP>
 __global__ void __launch_bounds__(kRingMaxThreads, 4)
     dw_bn_act_conv_fwd_ring_kernel(const T* __restrict__ x,
                                    const float* __restrict__ a_cb,
@@ -243,7 +256,8 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
                                    const float* __restrict__ taps,
                                    T* __restrict__ y,
                                    float* __restrict__ part_p,
-                                   float* __restrict__ part_s2, RingGeom q) {
+                                   float* __restrict__ part_s2, RingGeom q,
+                                   BnEpilogue ep) {
   using Cell = typename CellOf<T, VE>::type;
   constexpr int HT = (KT - 1) / 2;  // SAME: planes before the frame
   constexpr int HI = KT - 1 - HT;   // ... and after it
@@ -359,8 +373,8 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
       store_f32(reinterpret_cast<T*>(u + at), uo);
     });
   };
-  // y of one pixel, rounded to T, stored as one access; the sums see y as
-  // stored.
+  // y of one pixel, rounded to T, stored as one access (through the BN
+  // epilogue, if any); the sums see y as the conv rounds it.
   auto finish = [&](T* out, const float (&acc)[VE]) {
     float o[VE];
 #pragma unroll
@@ -369,6 +383,7 @@ __global__ void __launch_bounds__(kRingMaxThreads, 4)
       sum_y[e] += o[e];
       sum_y2[e] = fmaf(o[e], o[e], sum_y2[e]);
     }
+    if constexpr (EP) bn_cell<T>(o, c, ep);
     store_f32(out, o);
   };
 
@@ -490,17 +505,21 @@ __global__ void __launch_bounds__(32 * kSumLanes)
 template <typename T, int VE, int KT>
 int launch_ring(const void* x, const float* a_cb, const float* b_cb,
                 const float* taps, void* y, float* part_p, float* part_s2,
-                float* p, float* s2, RingGeom q, cudaStream_t stream) {
-  auto kernel = dw_bn_act_conv_fwd_ring_kernel<T, VE, KT>;
+                float* p, float* s2, RingGeom q, const BnEpilogue& ep,
+                cudaStream_t stream) {
   const size_t smem = ring_smem(q, sizeof(T), KT, VE);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int threads = ceil_div(q.CG / VE * q.rows, 32) * 32;
-  const dim3 grid(ceil_div(q.C, q.CG) * q.nth * q.ntw, q.nruns, q.B);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(x), a_cb, b_cb, taps, static_cast<T*>(y), part_p,
-      part_s2, q);
-  err = cudaGetLastError();
+  cudaError_t err = (cudaError_t)with_epilogue(ep, [&](auto e) -> int {
+    auto kernel = dw_bn_act_conv_fwd_ring_kernel<T, VE, KT,
+                                                 decltype(e)::value>;
+    const cudaError_t allowed = allow_smem(kernel, smem);
+    if (allowed != cudaSuccess) return allowed;
+    const int threads = ceil_div(q.CG / VE * q.rows, 32) * 32;
+    const dim3 grid(ceil_div(q.C, q.CG) * q.nth * q.ntw, q.nruns, q.B);
+    kernel<<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(x), a_cb, b_cb, taps, static_cast<T*>(y),
+        part_p, part_s2, q, ep);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
   dw_bn_act_conv_fwd_sum_kernel<<<dim3(ceil_div(q.C * q.B, 32), 2),
                                   dim3(32, kSumLanes), 0, stream>>>(
@@ -518,13 +537,18 @@ extern "C" int x3d_dw_bn_act_conv_tiles(int T, int H, int W) {
 
 // x, y: (B, T, H, W, C) in `dtype` (0 float32, 1 bfloat16); a_cb, b_cb, p,
 // s2: (C, B) float32; taps: (kt*kh*kw, C) float32; part_p, part_s2:
-// (B, tiles, C) float32 scratch.  Returns a cudaError_t code.
+// (B, tiles, C) float32 scratch; mul, add: (C,) float32, 16-byte aligned,
+// the BN epilogue on y (common.cuh's BnEpilogue, with a ReLU where `relu`;
+// p and s2 stay the sums of the conv's y), or null for none.  Returns a cudaError_t
+// code.
 extern "C" int x3d_dw_bn_act_conv_fwd(const void* x, const void* a_cb,
                                       const void* b_cb, const void* taps,
                                       void* y, void* part_p, void* part_s2,
                                       void* p, void* s2, int dtype, int B,
                                       int T, int H, int W, int C, int kt,
-                                      int kh, int kw, void* stream) {
+                                      int kh, int kw, const void* mul,
+                                      const void* add, int relu,
+                                      void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaSuccess;
   if (kt % 2 == 0 || kh % 2 == 0 || kw % 2 == 0 || T > 65535 || B > 65535)
     return cudaErrorInvalidValue;
@@ -532,12 +556,13 @@ extern "C" int x3d_dw_bn_act_conv_fwd(const void* x, const void* a_cb,
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
   auto m = [](void* ptr) { return static_cast<float*>(ptr); };
+  const BnEpilogue ep{f(mul), f(add), relu};
   if (dtype == kF32)
     return launch<float>(x, f(a_cb), f(b_cb), f(taps), y, m(part_p),
-                         m(part_s2), m(p), m(s2), g, s);
+                         m(part_s2), m(p), m(s2), g, ep, s);
   if (dtype == kBF16)
     return launch<__nv_bfloat16>(x, f(a_cb), f(b_cb), f(taps), y, m(part_p),
-                                 m(part_s2), m(p), m(s2), g, s);
+                                 m(part_s2), m(p), m(s2), g, ep, s);
   return cudaErrorInvalidValue;
 }
 
@@ -549,8 +574,8 @@ extern "C" int x3d_dw_bn_act_conv_fwd_ring_occupancy(int dtype, int vec,
   int* o = static_cast<int*>(out);
   return with_ring(dtype, vec, kt, [&](auto ring) {
     using R = decltype(ring);
-    auto kernel =
-        dw_bn_act_conv_fwd_ring_kernel<typename R::Elem, R::ve, R::kt>;
+    auto kernel = dw_bn_act_conv_fwd_ring_kernel<typename R::Elem, R::ve,
+                                                 R::kt, kBnEpilogue>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[0], kernel,
@@ -564,15 +589,15 @@ extern "C" int x3d_dw_bn_act_conv_fwd_ring_occupancy(int dtype, int vec,
 // taps 3x3 and kt in 1 .. 5, then the launch plan of ops/dw_fused.fwd_plan
 // (tile sides, channels a group, channels a vector, thread rows, frames a
 // run, copy granule in bytes, cells a staged row, cells padding each vector
-// plane).  part_p, part_s2: (tiles, runs, C, B) float32
-// scratch.  cudaErrorInvalidValue for a plan the kernel cannot run or
-// pointers the granule does not divide.
+// plane), and the BN epilogue's mul, add, relu.  part_p, part_s2: (tiles,
+// runs, C, B) float32 scratch.  cudaErrorInvalidValue for a plan the kernel
+// cannot run or pointers the granule does not divide.
 extern "C" int x3d_dw_bn_act_conv_fwd_ring(
     const void* x, const void* a_cb, const void* b_cb, const void* taps,
     void* y, void* part_p, void* part_s2, void* p, void* s2, int dtype,
     int B, int T, int H, int W, int C, int kt, int tile_h, int tile_w,
     int group, int vec, int rows, int run, int granule, int row_cells,
-    int vec_pad, void* stream) {
+    int vec_pad, const void* mul, const void* add, int relu, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaSuccess;
   if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
   const int elem = dtype == kF32 ? 4 : 2;
@@ -586,10 +611,11 @@ extern "C" int x3d_dw_bn_act_conv_fwd_ring(
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
   auto m = [](void* ptr) { return static_cast<float*>(ptr); };
+  const BnEpilogue ep{f(mul), f(add), relu};
   return with_ring(dtype, vec, kt, [&](auto ring) {
     using R = decltype(ring);
     return launch_ring<typename R::Elem, R::ve, R::kt>(
         x, f(a_cb), f(b_cb), f(taps), y, m(part_p), m(part_s2), m(p), m(s2),
-        q, s);
+        q, ep, s);
   });
 }

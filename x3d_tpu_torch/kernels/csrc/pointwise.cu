@@ -50,6 +50,14 @@
 // Tiles are laid over all rows at once (nothing here needs a tile to stay
 // inside one sample); ragged K, N and M are masked or zero-filled in the
 // kernel, nothing is padded in device memory.
+//
+// Each body takes an optional BN epilogue (common.cuh's BnEpilogue): the
+// eval BatchNorm after the conv, and a ReLU after it, applied to each value
+// as it is rounded for the store, so that serving's BatchNorms after conv c,
+// the projections, conv a at the stage entries and conv_5 make no pass of
+// their own.  The bodies with it are built into a library of their own
+// (X3D_BN_EPILOGUE), so that the calls without one (training's) run the
+// code they ran before there was one.
 
 #include "pw_gemm.cuh"
 #include "pw_wgmma.cuh"
@@ -77,10 +85,10 @@ __device__ __forceinline__ long long source_row(long long m, const PwGeom& q) {
   return (bt * q.H + (long long)ho * q.sh) * q.W + (long long)wo * q.sw;
 }
 
-template <typename T>
+template <typename T, bool EP>
 __global__ void __launch_bounds__(kGemmThreads)
     pw_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   T* __restrict__ y, PwGeom q) {
+                   T* __restrict__ y, PwGeom q, BnEpilogue ep) {
   __shared__ GemmSmem sm;
   const int n0 = (blockIdx.x % q.ntn) * kBN;
   const long long m0 = (long long)(blockIdx.x / q.ntn) * kBM;
@@ -109,19 +117,21 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < q.N) y[m * q.N + n] = from_f32<T>(acc[i][j]);
+      if (n >= q.N) continue;
+      if constexpr (EP) acc[i][j] = bn_value<T>(acc[i][j], n, ep);
+      y[m * q.N + n] = from_f32<T>(acc[i][j]);
     }
   }
 }
 
 // bfloat16, K even, on the tensor cores: pipe_gemm over row tiles of
 // kPipeBM output rows.
-template <int G, int NT>
+template <int G, int NT, bool EP>
 __global__ void __launch_bounds__(kPipeThreads)
     pw_conv_mma_kernel(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ w,
                        __nv_bfloat16* __restrict__ y, PwGeom g, int width,
-                       PipeShape q) {
+                       BnEpilogue ep, PipeShape q) {
   using bf16 = __nv_bfloat16;
   auto src = [&](int tile, int r) -> const bf16* {
     const long long row = source_row((long long)tile * kPipeBM + r, g);
@@ -130,8 +140,32 @@ __global__ void __launch_bounds__(kPipeThreads)
   auto no_side = [](int, int, float*) {};
   auto no_xform = [](int, int, int, const float*, uint32_t (&)[4]) {};
   uint32_t* out = pipe_out(q) + threadIdx.x / 32 * 16 * kOutWords;
-  auto epi = [&](int tile, int n0, const float (&acc)[NT][4]) {
+  auto epi = [&](int tile, int n0, float (&acc)[NT][4]) {
     const long long m0 = (long long)tile * kPipeBM + threadIdx.x / 32 * 16;
+    if constexpr (EP) {
+      // the lane's columns n0 + 8 j + 2 t (+ 1), rows g and g + 8
+      const int t = threadIdx.x % 4;
+      const float lo = bn_floor(ep);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= q.nt) break;
+        const int n = n0 + 8 * j + 2 * t;
+        if (n >= q.N) continue;
+        const bool pair = n + 1 < q.N;    // n is even: 8-byte aligned
+        const float2 m = pair ? __ldg(reinterpret_cast<const float2*>(
+                                    ep.mul + n))
+                              : make_float2(__ldg(ep.mul + n), 0.f);
+        const float2 a = pair ? __ldg(reinterpret_cast<const float2*>(
+                                    ep.add + n))
+                              : make_float2(__ldg(ep.add + n), 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 v =
+              bn_pair(acc[j][2 * h], acc[j][2 * h + 1], m, a, lo);
+          acc[j][2 * h] = v.x, acc[j][2 * h + 1] = v.y;
+        }
+      }
+    }
     store_tile(acc, out, n0, q.nt, q.N, width, [&](int r) -> bf16* {
       return m0 + r < g.M ? y + (m0 + r) * q.N : nullptr;
     });
@@ -140,14 +174,17 @@ __global__ void __launch_bounds__(kPipeThreads)
 }
 
 using MmaKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
-                           __nv_bfloat16*, PwGeom, int, PipeShape);
+                           __nv_bfloat16*, PwGeom, int, BnEpilogue,
+                           PipeShape);
 
-// q.K, q.N set: the rest of the tiling, and the kernel; nullptr where the
-// tensor-core body does not take the call.
+// q.K, q.N set: the rest of the tiling, and the kernel (with the BN
+// epilogue or without: EP); nullptr where the tensor-core body does not
+// take the call.
+template <bool EP>
 MmaKernel plan_mma(uintptr_t bases, PipeShape& q) {
   if (!pipe_plan(q, bases)) return nullptr;
   return pipe_kernel(q, [](auto g, auto nt) -> MmaKernel {
-    return pw_conv_mma_kernel<decltype(g)::value, decltype(nt)::value>;
+    return pw_conv_mma_kernel<decltype(g)::value, decltype(nt)::value, EP>;
   });
 }
 
@@ -161,14 +198,16 @@ unsigned grid_size(PwGeom& q, int bm, int bn) {
 }
 
 template <typename T>
-int launch(const void* x, const void* w, void* y, PwGeom q,
+int launch(const void* x, const void* w, void* y, PwGeom q, BnEpilogue ep,
            cudaStream_t stream) {
   const unsigned grid = grid_size(q, kBM, kBN);
   if (grid == 0) return cudaErrorInvalidValue;
-  pw_conv_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      q);
-  return cudaGetLastError();
+  return with_epilogue(ep, [&](auto e) -> int {
+    pw_conv_kernel<T, decltype(e)::value><<<grid, kGemmThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<T*>(y), q, ep);
+    return cudaGetLastError();
+  });
 }
 
 
@@ -181,17 +220,33 @@ int launch(const void* x, const void* w, void* y, PwGeom q,
 // of N values) and one bulk copy writes them (the lanes store the values
 // past its last 16 bytes); else a TMA store of the box through ymap.  A
 // buffer is written again only after its last copy has read it.
-template <int BN, int CONS>
+template <int BN, int CONS, bool EP>
 __global__ void __launch_bounds__(128 * CONS + 32, 1)
     pw_conv_wg_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap wmap,
                       const __grid_constant__ CUtensorMap ymap,
-                      __nv_bfloat16* __restrict__ y, const WgShape q) {
+                      __nv_bfloat16* __restrict__ y, const WgShape q,
+                      const BnEpilogue ep) {
   using bf16 = __nv_bfloat16;
   unsigned char* base = wg_base();
   bf16* bufs = reinterpret_cast<bf16*>(base + wg_out_offset(BN, CONS, q));
   const int pitch = q.nct == 1 ? q.N : BN;
   int done = 0;                            // tiles this thread has stored
+  // the epilogue's coefficients of the block's columns, into shared memory
+  // once (wg_gemm's first barrier orders them before any tile's store):
+  // read there a column step at a time, after the step before has stored,
+  // they hold no registers for the columns still to come
+  float4* coefs =
+      reinterpret_cast<float4*>(base + wg_coef_offset(BN, CONS, q));
+  if constexpr (EP) {
+    const int n0 = BN * (blockIdx.x % q.nct), cols = min(BN, q.N - n0);
+    const float2* mul = reinterpret_cast<const float2*>(ep.mul + n0);
+    const float2* add = reinterpret_cast<const float2*>(ep.add + n0);
+    for (int i = threadIdx.x; 2 * i < cols; i += blockDim.x) {
+      const float2 m = __ldg(mul + i), a = __ldg(add + i);
+      coefs[i] = make_float4(m.x, m.y, a.x, a.y);
+    }
+  }
   auto epi = [&](long long m0, int rows, int n0, const float (&acc)[BN / 2],
                  int cg) {
     bf16* out = bufs + (size_t)(kWgOutBufs * cg + done % kWgOutBufs) *
@@ -202,15 +257,29 @@ __global__ void __launch_bounds__(128 * CONS + 32, 1)
     if (t == 0) bulk_wait_read<kWgOutBufs - 1>();
     named_sync(1 + cg, 128);
     const int g = lane / 4, c2 = 2 * (lane % 4);
+    // the epilogue's coefficients of columns n0 + 8 j + c2 (+ 1), each
+    // step's read one step ahead of its use
+    const float lo = EP ? bn_floor(ep) : 0.f;
+    float4 cf_next{};
+    if constexpr (EP) cf_next = coefs[lane % 4];
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + c2;
+      const float4 cf = cf_next;
+      if constexpr (EP) {
+        if (j + 1 < BN / 8) cf_next = coefs[4 * (j + 1) + lane % 4];
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = 16 * warp + g + 8 * h, c = 8 * j + c2;
-        if (r < rows && c < cols)          // cols is even
+        const int r = 16 * warp + g + 8 * h;
+        if (r < rows && c < cols) {        // cols is even
+          float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          if constexpr (EP)
+            v = bn_pair(v.x, v.y, make_float2(cf.x, cf.y),
+                        make_float2(cf.z, cf.w), lo);
           *reinterpret_cast<__nv_bfloat162*>(out + r * pitch + c) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h],
-                                    acc[4 * j + 2 * h + 1]);
+              __floats2bfloat162_rn(v.x, v.y);
+        }
       }
     }
     fence_proxy_async();
@@ -305,16 +374,17 @@ bool strided_map(CUtensorMap* map, const void* base, int K, int W, int H,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, int CONS>
+template <int BN, int CONS, bool EP>
 int wg_launch(const CUtensorMap& xmap, const CUtensorMap& wmap,
               const CUtensorMap& ymap, void* y, const WgShape& q,
-              cudaStream_t stream) {
-  const auto kernel = pw_conv_wg_kernel<BN, CONS>;
+              const BnEpilogue& ep, cudaStream_t stream) {
+  const auto kernel = pw_conv_wg_kernel<BN, CONS, EP>;
   static const cudaError_t allowed = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (allowed != cudaSuccess) return allowed;
-  kernel<<<q.slots * q.nct, 128 * CONS + 32, wg_smem(BN, CONS, q), stream>>>(
-      xmap, wmap, ymap, static_cast<__nv_bfloat16*>(y), q);
+  kernel<<<q.slots * q.nct, 128 * CONS + 32, wg_smem(BN, CONS, q, EP),
+           stream>>>(
+      xmap, wmap, ymap, static_cast<__nv_bfloat16*>(y), q, ep);
   return cudaGetLastError();
 }
 
@@ -322,13 +392,16 @@ int wg_launch(const CUtensorMap& xmap, const CUtensorMap& wmap,
 
 // K7's "pipe" (body 1) and "cuda_core" (body 0) bodies.  x: (BT, H, W, K)
 // and y: (BT, Ho, Wo, N) in `dtype` (0 float32, 1 bfloat16), with Ho =
-// ceil(H / sh) and Wo = ceil(W / sw); w: (N, K) in `dtype`.  The pipe body
+// ceil(H / sh) and Wo = ceil(W / sw); w: (N, K) in `dtype`; mul, add: (N,)
+// float32, 16-byte aligned, the BN epilogue (common.cuh's BnEpilogue, with
+// a ReLU where `relu`), or null for none.  The pipe body
 // takes bfloat16 with an even K and x, w at least 4-byte aligned, and
 // returns cudaErrorInvalidValue for any other call.  Returns a cudaError_t
 // code.
 extern "C" int x3d_pw_conv(const void* x, const void* w, void* y, int dtype,
                            long long BT, int H, int W, int K, int N, int sh,
-                           int sw, int body, void* stream) {
+                           int sw, int body, const void* mul,
+                           const void* add, int relu, void* stream) {
   if (BT <= 0 || H <= 0 || W <= 0 || N <= 0) return cudaSuccess;
   if (K <= 0 || sh <= 0 || sw <= 0) return cudaErrorInvalidValue;
   PwGeom q{};
@@ -336,24 +409,28 @@ extern "C" int x3d_pw_conv(const void* x, const void* w, void* y, int dtype,
   q.Ho = ceil_div(H, sh), q.Wo = ceil_div(W, sw);
   q.M = BT * q.Ho * q.Wo;
   auto s = static_cast<cudaStream_t>(stream);
+  const BnEpilogue ep{static_cast<const float*>(mul),
+                      static_cast<const float*>(add), relu};
   if (body == 0) {
-    if (dtype == kF32) return launch<float>(x, w, y, q, s);
-    if (dtype == kBF16) return launch<__nv_bfloat16>(x, w, y, q, s);
+    if (dtype == kF32) return launch<float>(x, w, y, q, ep, s);
+    if (dtype == kBF16) return launch<__nv_bfloat16>(x, w, y, q, ep, s);
     return cudaErrorInvalidValue;
   }
   if (body != 1 || dtype != kBF16) return cudaErrorInvalidValue;
-  PipeShape p{};
-  p.K = K, p.N = N;
-  const MmaKernel kernel = plan_mma(
-      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w), p);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
   const long long tiles = (q.M + kPipeBM - 1) / kPipeBM;
   if (tiles > 2147483647LL) return cudaErrorInvalidValue;
-  p.tiles = (int)tiles;
-  return pipe_launch(kernel, p, s, static_cast<const __nv_bfloat16*>(x),
-                     static_cast<const __nv_bfloat16*>(w),
-                     static_cast<__nv_bfloat16*>(y), q,
-                     store_width(N, reinterpret_cast<uintptr_t>(y)));
+  return with_epilogue(ep, [&](auto e) -> int {
+    PipeShape p{};
+    p.K = K, p.N = N;
+    const MmaKernel kernel = plan_mma<decltype(e)::value>(
+        reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w), p);
+    if (kernel == nullptr) return cudaErrorInvalidValue;
+    p.tiles = (int)tiles;
+    return pipe_launch(kernel, p, s, static_cast<const __nv_bfloat16*>(x),
+                       static_cast<const __nv_bfloat16*>(w),
+                       static_cast<__nv_bfloat16*>(y), q,
+                       store_width(N, reinterpret_cast<uintptr_t>(y)), ep);
+  });
 }
 
 // K7's "wg" body in bfloat16: x (BT, H, W, K), y (BT, Ho, Wo, N) with Ho =
@@ -362,7 +439,8 @@ extern "C" int x3d_pw_conv(const void* x, const void* w, void* y, int dtype,
 // them; row tiles of at most 64 `cons` rows -- at stride 1 of x as a
 // (BT H W, K) matrix (r = 0), else r whole output rows of one frame, read
 // in place; `slots` row-tile slots (blocks = slots * nct); `stages` ring
-// stages; W resident or streamed.  Returns cudaErrorInvalidValue for a call
+// stages; W resident or streamed; mul, add, relu the BN epilogue, as
+// x3d_pw_conv takes it.  Returns cudaErrorInvalidValue for a call
 // the body does not take (K % 8, unaligned pointers, rows past what a TMA
 // coordinate holds, N odd or, cut into column tiles, not a multiple of 8; a
 // strided read wider than a tensor-map box or cut into column tiles: its
@@ -374,6 +452,7 @@ extern "C" int x3d_pw_conv_wg(const void* x, const void* w, void* y,
                               long long BT, int H, int W, int K, int N,
                               int sh, int sw, int bn, int cons, int nct,
                               int slots, int stages, int w_resident, int r,
+                              const void* mul, const void* add, int relu,
                               void* stream) {
   if (BT <= 0 || H <= 0 || W <= 0 || N <= 0) return cudaSuccess;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
@@ -405,7 +484,8 @@ extern "C" int x3d_pw_conv_wg(const void* x, const void* w, void* y,
   q.nk = ceil_div(K, kWgBK);
   q.nct = nct;
   q.slots = slots, q.stages = stages, q.w_resident = w_resident != 0;
-  if (wg_smem(bn, cons, q) > kMaxSmem) return cudaErrorInvalidValue;
+  if (wg_smem(bn, cons, q, mul != nullptr) > kMaxSmem)
+    return cudaErrorInvalidValue;
   // y's map only where N is cut into column tiles (one covering N stores
   // its contiguous rows by a bulk copy)
   CUtensorMap xmap, wmap, ymap{};
@@ -415,14 +495,20 @@ extern "C" int x3d_pw_conv_wg(const void* x, const void* w, void* y,
       (nct > 1 && !bf16_map(&ymap, y, N, q.M, bn, kWgRows, false)))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return wg_by_columns(
-      bn,
-      [&](auto b) -> int {
-        constexpr int BN = decltype(b)::value;
-        return cons == 1 ? wg_launch<BN, 1>(xmap, wmap, ymap, y, q, s)
-                         : wg_launch<BN, 2>(xmap, wmap, ymap, y, q, s);
-      },
-      (int)cudaErrorInvalidValue);
+  const BnEpilogue ep{static_cast<const float*>(mul),
+                      static_cast<const float*>(add), relu};
+  return with_epilogue(ep, [&](auto e) -> int {
+    constexpr bool EP = decltype(e)::value;
+    return wg_by_columns(
+        bn,
+        [&](auto b) -> int {
+          constexpr int BN = decltype(b)::value;
+          return cons == 1
+                     ? wg_launch<BN, 1, EP>(xmap, wmap, ymap, y, q, ep, s)
+                     : wg_launch<BN, 2, EP>(xmap, wmap, ymap, y, q, ep, s);
+        },
+        (int)cudaErrorInvalidValue);
+  });
 }
 
 // Dynamic shared memory of a wg call laid out as above (as wg_plan counts
@@ -443,7 +529,7 @@ extern "C" int x3d_pw_conv_plan(int K, int N, int* out) {
   q.K = K, q.N = N;
   for (int i = 0; i < 6; ++i) out[i] = 0;
   if (K <= 0 || N <= 0) return cudaErrorInvalidValue;
-  const MmaKernel kernel = plan_mma(0, q);
+  const MmaKernel kernel = plan_mma<kBnEpilogue>(0, q);
   return kernel == nullptr ? cudaSuccess
                            : pipe_report((const void*)kernel, q, out);
 }

@@ -87,8 +87,8 @@ __device__ __forceinline__ void wg_tile(const WgShape& q, int tile,
 
 // Shared memory, from a kWgAlign-aligned base: the mbarriers (kWgHead
 // bytes), the resident W slice, the ring, then the consumers' y buffers
-// (kWgOutBufs of 64 x BN bfloat16 each); kWgAlign bytes of slack align the
-// base.  Every
+// (kWgOutBufs of 64 x BN bfloat16 each) and, with the BN epilogue, its
+// coefficients; kWgAlign bytes of slack align the base.  Every
 // tile is a multiple of 1024 bytes, so every tile base stays aligned.
 __host__ __device__ inline size_t wg_w_tile(int bn) {
   return (size_t)bn * kWgRowBytes;
@@ -109,9 +109,16 @@ __host__ __device__ inline size_t wg_out_offset(int bn, int cons,
   return kWgHead + wg_resident_bytes(bn, q.nk, q.w_resident) +
          (size_t)q.stages * wg_stage_bytes(bn, cons, q.w_resident);
 }
-inline size_t wg_smem(int bn, int cons, const WgShape& q) {
-  return kWgAlign + wg_out_offset(bn, cons, q) +
+// Past the y buffers, where a launch has the BN epilogue (common.cuh's
+// BnEpilogue): its coefficients of the block's columns, {mul, mul, add,
+// add} of each pair, 16 bytes a pair.
+__host__ __device__ inline size_t wg_coef_offset(int bn, int cons,
+                                                 const WgShape& q) {
+  return wg_out_offset(bn, cons, q) +
          (size_t)kWgOutBufs * cons * kWgRows * bn * 2;
+}
+inline size_t wg_smem(int bn, int cons, const WgShape& q, bool ep = false) {
+  return kWgAlign + wg_coef_offset(bn, cons, q) + (ep ? (size_t)8 * bn : 0);
 }
 
 extern __shared__ __align__(16) unsigned char wg_smem_bytes[];

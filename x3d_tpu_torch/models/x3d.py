@@ -27,7 +27,12 @@ updates its running statistics in place as ``m·running + (1 − m)·batch``
 with the biased variance, as the JAX package does; dropout draws from the
 ``generator`` passed to :meth:`X3D.forward`.  BatchNorm applies its affine
 in float32 and rounds once to the compute dtype, as Flax's ``nn.BatchNorm``
-does.
+does.  In eval mode with autograd off (serving, export) every BatchNorm
+whose input a kernel writes -- K7's (conv ``c``, conv ``a`` at the stage
+entries, the projections, conv_5), K2's (bn_b) and K1's (the stem, bn_b at
+the stage entries) -- hands its coefficients, and the ReLU after it, to
+that launch as its epilogue (``ops/epilogue.py``, :meth:`BatchNorm.after`):
+the same numbers, without a pass of their own.
 
 Per-replica (grouped) BN, ``TPU.SYNC_BN: False`` (``create_model(cfg,
 bn_groups=g)``): the batch is split into ``g`` contiguous groups (sample b
@@ -81,7 +86,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from x3d_tpu_torch import ops, utils
-from x3d_tpu_torch.ops import depthwise, dw_fused, library, pw_stats
+from x3d_tpu_torch.ops import depthwise, dw_fused, epilogue, library, pw_stats
 from x3d_tpu_torch.ops.pointwise import pointwise_conv3d
 from x3d_tpu_torch.parallel import mesh as parallel
 
@@ -220,9 +225,13 @@ class DepthwiseConv3D(nn.Module):
         _glorot_uniform_(self.kernel, rf, rf * self.kernel.shape[4],
                          generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn: Optional[Tuple] = None,
+                relu: bool = False) -> torch.Tensor:
+        """``bn``: a BatchNorm's eval (mul, add) and ``relu``, applied as
+        K1's epilogue (:meth:`BatchNorm.after`)."""
         return depthwise.depthwise(x.to(self.dtype), self.kernel,
-                                   self.strides, self.padding)
+                                   self.strides, self.padding, *(bn or ()),
+                                   relu=relu)
 
 
 class Pointwise(nn.Module):
@@ -243,9 +252,12 @@ class Pointwise(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn: Optional[Tuple] = None,
+                relu: bool = False) -> torch.Tensor:
+        """``bn``: a BatchNorm's eval (mul, add) and ``relu``, applied as
+        K7's epilogue (:meth:`BatchNorm.after`)."""
         return pointwise_conv3d(x.to(self.dtype), self.weight, self.strides,
-                                self.bias)
+                                self.bias, *(bn or ()), relu=relu)
 
 
 class _NormVars(nn.Module):
@@ -337,7 +349,7 @@ class _Affine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mul, add):
         ctx.save_for_backward(x, mul)
-        return torch.addcmul(add, x, mul, out=torch.empty_like(x))
+        return epilogue.reference(x, mul, add)
 
     @staticmethod
     def backward(ctx, g):
@@ -359,7 +371,7 @@ def affine(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
     to ``dtype``, as Flax's ``nn.BatchNorm`` applies its affine (on a
     float32 x: a product and a sum)."""
     if x.dtype == torch.float32:
-        return (x * mul + add).to(dtype)
+        return epilogue.reference(x, mul, add).to(dtype)
     return _Affine.apply(x, mul, add).to(dtype)
 
 
@@ -438,6 +450,36 @@ class BatchNorm(nn.Module):
             if self.training else self.coefs()
         return self.apply_coefs(x, mul, add)
 
+    def folds(self, conv: Optional[nn.Module] = None) -> bool:
+        """Whether this BatchNorm rides the launch of the kernel that
+        writes its input (``conv``'s, where the model calls it as a
+        module): eval mode with autograd off (the epilogue has no
+        backward), and no forward hook on either module, nor one on every
+        module, that waits for the output it sees unfused (the debug
+        dump's, ``train/debug.py``; a feature extractor's on the conv)."""
+        return not self.training and not torch.is_grad_enabled() \
+            and not _hooked(self, *(() if conv is None else (conv,)))
+
+    def after(self, conv: nn.Module, x: torch.Tensor,
+              relu: bool = False) -> torch.Tensor:
+        """This BatchNorm (then a ReLU where asked) on ``conv(x)``: where it
+        :meth:`folds`, as the epilogue of the conv's launch (K7 or K1; on
+        the CPU or within ``ops.plain_versions()`` their plain versions,
+        the same numbers)."""
+        if self.folds(conv):
+            return conv(x, self.coefs(), relu)
+        y = self(conv(x))
+        return torch.relu(y) if relu else y
+
+
+def _hooked(*modules: nn.Module) -> bool:
+    """Whether a forward hook or pre-hook is registered on any of
+    ``modules`` or on every module (``register_module_forward_hook``)."""
+    every = nn.modules.module
+    return bool(every._global_forward_hooks
+                or every._global_forward_pre_hooks) or any(
+        m._forward_hooks or m._forward_pre_hooks for m in modules)
+
 
 class Stem(nn.Module):
     """Channelwise-separable spatiotemporal stem."""
@@ -457,8 +499,8 @@ class Stem(nn.Module):
         self.bn = BatchNorm(out_channels, bn_eps, bn_momentum, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_t(self.conv_s(x.to(self.dtype)))
-        return torch.relu(self.bn(x))
+        return self.bn.after(self.conv_t, self.conv_s(x.to(self.dtype)),
+                             relu=True)
 
 
 class SqueezeExcite(nn.Module):
@@ -511,23 +553,30 @@ class Bottleneck(nn.Module):
 
     def _fused_segment(self, out: torch.Tensor) -> torch.Tensor:
         """Stride 1, eval: bn_a affine + ReLU + depthwise conv + per-sample
-        sums in one kernel (K2); bn_b and the SE pool come from the sums."""
+        sums in one kernel (K2), bn_b its epilogue where it folds
+        (:meth:`BatchNorm.folds`); the SE pool comes from the sums."""
         B, T, H, W, C = out.shape
         mul_a, add_a = self.bn_a.coefs()
         a_cb = mul_a[:, None].expand(C, B)
         b_cb = add_a[:, None].expand(C, B)
-        y, p, _ = dw_fused.segment(out, a_cb, b_cb, self.b.kernel)
         mul_b, add_b = self.bn_b.coefs()
-        out = affine(y, mul_b, add_b, self.dtype)
+        if self.bn_b.folds():
+            out, p, _ = dw_fused.segment(out, a_cb, b_cb, self.b.kernel,
+                                         mul_b, add_b)
+        else:
+            y, p, _ = dw_fused.segment(out, a_cb, b_cb, self.b.kernel)
+            out = affine(y, mul_b, add_b, self.dtype)
         if self.se is not None:
             # mean of bn_b(y) over (T, H, W) = mul * mean(y) + add
             pooled = mul_b[:, None] * (p / (T * H * W)) + add_b[:, None]
             out = self.se(out, pooled=pooled.t())
         return out
 
-    def _segment(self, out: torch.Tensor) -> torch.Tensor:
-        """Stride 2: bn_a, ReLU, the depthwise conv (K1) and bn_b apart."""
-        out = self.bn_b(self.b(torch.relu(self.bn_a(out))))
+    def _segment(self, x: torch.Tensor) -> torch.Tensor:
+        """Stride 2, from the block's input: conv ``a`` (K7), bn_a and ReLU,
+        the depthwise conv (K1) and bn_b apart (each BatchNorm its conv's
+        epilogue where it folds)."""
+        out = self.bn_b.after(self.b, self.bn_a.after(self.a, x, relu=True))
         if self.se is not None:
             out = self.se(out)
         return out
@@ -562,13 +611,10 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.spec.stride == 1:
             return self._fused_train(x)
-        out = self.a(x.to(self.dtype))
-        if self.spec.stride == 1:
-            out = self._fused_segment(out)
-        else:
-            out = self._segment(out)
-        out = F.silu(out)
-        return self.bn_c(self.c(out))
+        x = x.to(self.dtype)
+        out = self._fused_segment(self.a(x)) if self.spec.stride == 1 \
+            else self._segment(x)
+        return self.bn_c.after(self.c, F.silu(out))
 
 
 class ResBlock(nn.Module):
@@ -592,7 +638,7 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bottleneck(x)
         res = x if self.residual is None else \
-            self.bn_r(self.residual(x.to(self.dtype)))
+            self.bn_r.after(self.residual, x.to(self.dtype))
         return torch.relu(res.to(torch.float32) + out.to(torch.float32))
 
 
@@ -810,7 +856,7 @@ class X3D(nn.Module):
                     else lambda b, v: _remat([b], v)
                 for block in blocks:
                     x = run(block, x)
-        x = torch.relu(self.bn_5(self.conv_5(x.to(self.dtype))))
+        x = self.bn_5.after(self.conv_5, x.to(self.dtype), relu=True)
         x = x.to(torch.float32).mean(dim=(1, 2, 3)).to(self.dtype)
         group = self.mesh.model_group if self.head_split else None
         x = torch.relu(self.fc_1(parallel.copy_to_model(x, group)))

@@ -110,7 +110,10 @@ def launch_log():
     * ``direction``: "fwd" or "bwd" (K3, K4, K8 and K7's dx);
     * ``dtype``: the activations' dtype, as "bfloat16" or "float32";
     * ``bytes`` and ``flops``: the call's least bytes moved and operations
-      (the kernel's ``cost`` function).
+      (the kernel's ``cost`` function, its epilogue's included);
+    * ``epilogue``: the eval BatchNorm the call applies to its output
+      (``ops/epilogue.py``): "bn", "bn_relu", or "none" (every call of a
+      kernel other than K1, K2 and K7).
 
     A log opened inside another hands its records on to the outer one when
     it closes."""
@@ -118,7 +121,7 @@ def launch_log():
 
 
 def log_launch(kernel: str, body: str, shape: dict, direction: str,
-               dtype: torch.dtype, cost) -> None:
+               dtype: torch.dtype, cost, epilogue: str = "none") -> None:
     """Append one record to the open :func:`launch_log` (the caller has
     checked that one is open); ``cost`` is the (bytes, flops) pair."""
     log = records
@@ -126,7 +129,8 @@ def log_launch(kernel: str, body: str, shape: dict, direction: str,
         log.append({"kernel": kernel, "body": body, "shape": shape,
                     "direction": direction,
                     "dtype": str(dtype).removeprefix("torch."),
-                    "bytes": int(cost[0]), "flops": int(cost[1])})
+                    "bytes": int(cost[0]), "flops": int(cost[1]),
+                    "epilogue": epilogue})
 
 
 # the open span log's list, or None: the one check a span makes when no

@@ -60,21 +60,21 @@ import torch.nn.functional as F
 
 from x3d_tpu_torch import kernels, ops
 from x3d_tpu_torch.kernels import _build
-from x3d_tpu_torch.ops import ring
+from x3d_tpu_torch.ops import epilogue, ring
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
 
 _SIGNATURES = {
     "x3d_dw_conv3d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
-    + [ctypes.c_void_p],
+    + epilogue.ARGTYPES,
     "x3d_dw_conv3d_fwd_temporal_occupancy": [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     "x3d_dw_conv3d_fwd_temporal": [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 11 + epilogue.ARGTYPES,
     "x3d_dw_conv3d_fwd_ring_occupancy": [ctypes.c_int] * 6
     + [ctypes.c_void_p],
     "x3d_dw_conv3d_fwd_ring": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 23
-    + [ctypes.c_void_p],
+    + epilogue.ARGTYPES,
 }
 _BWD_SIGNATURES = {
     "x3d_dw_conv3d_dk_parts": [ctypes.c_int] * 5,
@@ -155,10 +155,10 @@ def pbwd_cost(u_shape, kdims, elem: int) -> Tuple[int, int]:
     return 3 * n * elem + _taps(kdims) * C * 8, 4 * _taps(kdims) * n
 
 
-def _log(kernel, body, x, kdims, direction, cost) -> None:
+def _log(kernel, body, x, kdims, direction, cost, bn="none") -> None:
     ops.log_launch(kernel, body, {"taps": [int(k) for k in kdims],
                                   "C": int(x.shape[-1])}, direction,
-                   x.dtype, cost)
+                   x.dtype, cost, bn)
 
 
 def depthwise_conv3d_reference(x: torch.Tensor, kernel: torch.Tensor,
@@ -264,9 +264,11 @@ def ring_plan(B: int, To: int, Ho: int, Wo: int, C: int, kt: int,
     return p
 
 
-def _launch_fwd(lib, body, x, taps, kdims, strides, pads, stream):
+def _launch_fwd(lib, body, x, taps, kdims, strides, pads, stream,
+                bn=epilogue.NO_POINTERS):
     """K1's ``body`` on x (contiguous, on a CUDA device) and prepared taps
-    ((kt * kh * kw, C) float32, rounded to x's dtype); returns y or
+    ((kt * kh * kw, C) float32, rounded to x's dtype), with the epilogue's
+    (mul, add, relu) arguments ``bn`` (``epilogue.pointers``); returns y or
     raises."""
     B, T, H, W, C = x.shape
     kt, kh, kw = kdims
@@ -279,16 +281,17 @@ def _launch_fwd(lib, body, x, taps, kdims, strides, pads, stream):
     if body == "temporal":
         p = _temporal_plan(lib, x, y, kt, out[0])
         rc = lib.x3d_dw_conv3d_fwd_temporal(*args, pads[0][0], out[0],
-                                            p["vec"], p["run"], stream)
+                                            p["vec"], p["run"], *bn, stream)
     elif body == "ring":
         p = _ring_plan(lib, x, kt, strides[1], out)
         rc = lib.x3d_dw_conv3d_fwd_ring(
             *args, strides[1], pads[0][0], pads[1][0], pads[2][0], *out,
             p["tile_h"], p["tile_w"], p["group"], p["vec"], p["rows"],
-            p["run"], p["granule"], p["row_cells"], p["vec_pad"], stream)
+            p["run"], p["granule"], p["row_cells"], p["vec_pad"], *bn,
+            stream)
     else:
         rc = lib.x3d_dw_conv3d_fwd(*args, kh, kw, *strides, pads[0][0],
-                                   pads[1][0], pads[2][0], *out, stream)
+                                   pads[1][0], pads[2][0], *out, *bn, stream)
     kernels.raise_on_error(rc, f"depthwise_conv3d ({body} body) kernel "
                            "launch")
     return y
@@ -318,14 +321,17 @@ def _ring_plan(lib, x, kt: int, stride: int, out) -> dict:
 
 def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
                      strides: Sequence[int] = (1, 1, 1),
-                     padding="SAME") -> torch.Tensor:
+                     padding="SAME", mul=None, add=None,
+                     relu: bool = False) -> torch.Tensor:
     """Depthwise 3-D conv: (B, T, H, W, C) -> (B, To, Ho, Wo, C) in x's dtype.
 
     ``kernel`` (kt, kh, kw, 1, C) is rounded to x's dtype, as the JAX op
     casts it; the kernel sums taps in float32.  ``padding``: "SAME",
-    "VALID" or explicit ((lo, hi),)*3.  A CPU tensor takes the plain
-    version; a CUDA tensor launches K1's body that :func:`fwd_body` names
-    (float32 or bfloat16), or raises.
+    "VALID" or explicit ((lo, hi),)*3.  ``mul``, ``add``: (C,) float32, an
+    eval BatchNorm applied to y as it is stored, and ``relu`` a ReLU after
+    it (``ops/epilogue.py``).  A CPU tensor takes the plain version; a
+    CUDA tensor launches K1's body that :func:`fwd_body` names (float32 or
+    bfloat16), or raises.
     """
     if x.dim() != 5 or kernel.dim() != 5 or kernel.shape[3] != 1 \
             or kernel.shape[4] != x.shape[4]:
@@ -335,28 +341,38 @@ def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
     strides = tuple(int(s) for s in strides)
     pads = _resolve_pads(x.shape, kernel.shape[:3], strides, padding)
     kdims = tuple(int(k) for k in kernel.shape[:3])
+    epilogue.check(mul, add, relu, x.shape[-1])
+    bn = epilogue.kind(mul, relu)
     if x.device.type == "cpu":
-        body, y = "plain", depthwise_conv3d_reference(x, kernel, strides,
-                                                      pads)
+        body = "plain"
+        y = epilogue.reference(
+            depthwise_conv3d_reference(x, kernel, strides, pads), mul, add,
+            relu)
     else:
         kernels.check_cuda(x)
         taps = kernel.to(x.dtype).to(torch.float32).reshape(-1, x.shape[-1])
         taps = taps.contiguous()
-        kernels.check_cuda(x, taps)
+        coefs = epilogue.prepare(mul, add, x)
+        kernels.check_cuda(x, taps, *(coefs or ()))
         body = fwd_body(kdims, strides, pads)
-        lib = _build.load("depthwise.cu", _SIGNATURES)
+        lib = epilogue.library("depthwise.cu", _SIGNATURES, coefs)
         y = _launch_fwd(lib, body, x, taps, kdims, strides, pads,
-                        kernels.stream_handle(x))
+                        kernels.stream_handle(x),
+                        epilogue.pointers(coefs, relu))
         depthwise_conv3d.launches += 1
         depthwise_conv3d.body_launches[body] += 1
+        if coefs is not None:
+            depthwise_conv3d.epilogue_launches[bn] += 1
     if ops.records is not None:
-        _log("K1", body, x, kdims, "fwd",
-             fwd_cost(x.shape, y.shape, kdims, x.element_size()))
+        _log("K1", body, x, kdims, "fwd", epilogue.cost(
+            bn, x.shape[-1], y.numel(),
+            fwd_cost(x.shape, y.shape, kdims, x.element_size())), bn)
     return y
 
 
 depthwise_conv3d.launches = 0
 depthwise_conv3d.body_launches = {"temporal": 0, "ring": 0, "generic": 0}
+depthwise_conv3d.epilogue_launches = epilogue.counter()
 
 
 # ------------------------------------------------------------ K4: backward
@@ -822,14 +838,29 @@ class _Depthwise(torch.autograd.Function):
 
 
 def depthwise(x: torch.Tensor, kernel: torch.Tensor,
-              strides: Sequence[int] = (1, 1, 1), padding="SAME"
-              ) -> torch.Tensor:
+              strides: Sequence[int] = (1, 1, 1), padding="SAME", mul=None,
+              add=None, relu: bool = False) -> torch.Tensor:
     """The differentiable depthwise conv: (B, T, H, W, C) -> (B, To, Ho, Wo,
     C) in x's dtype, with gradients for x and for the (kt, kh, kw, 1, C)
-    taps (float32 parameters, rounded to x's dtype for the product)."""
+    taps (float32 parameters, rounded to x's dtype for the product).
+    ``mul``, ``add`` and ``relu``: an eval BatchNorm after the conv
+    (``ops/epilogue.py``; forward only), K1's epilogue where K1 runs, else
+    the plain version after the conv."""
     strides = tuple(int(s) for s in strides)
     pads = _resolve_pads(x.shape, kernel.shape[:3], strides, padding)
-    return _Depthwise.apply(x.contiguous(), kernel, strides, pads)
+    if mul is None:
+        return _Depthwise.apply(x.contiguous(), kernel, strides, pads)
+    epilogue.forward_only(mul, x, kernel, add)
+    k = kernel.to(x.dtype)
+    if ops.plain_versions_enabled():
+        return epilogue.reference(
+            depthwise_conv3d_reference(x, k, strides, pads), mul, add, relu)
+    if ops.via_library():
+        from x3d_tpu_torch.ops import library
+        return library.depthwise_conv3d(
+            x.contiguous(), k, strides, [v for p in pads for v in p], mul,
+            add, relu)
+    return depthwise_conv3d(x.contiguous(), k, strides, pads, mul, add, relu)
 
 
 def depthwise_conv3d_folded(x: torch.Tensor, kernel: torch.Tensor,

@@ -27,6 +27,9 @@ operations, which the wrappers write into an open ``ops.launch_log``.
   temporal taps too: multigrid's coarse phases give X3D-XS 1 and 2 frames
   under 3 taps).  Out-of-image and out-of-clip elements of u = relu(a*x +
   b) are zero.
+* In eval, bn_b's affine rides K2 as its epilogue (``mul``, ``add``:
+  ``ops/epilogue.py``): y is stored through it, while ``p`` and ``s2``
+  stay the sums of the conv's output (the SE pool is taken from them).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 
 from x3d_tpu_torch import kernels, ops
 from x3d_tpu_torch.kernels import _build
+from x3d_tpu_torch.ops import epilogue
 from x3d_tpu_torch.ops.depthwise import (depthwise_conv3d_dk_reference,
                                          depthwise_conv3d_reference,
                                          same_pads)
@@ -51,11 +55,11 @@ from x3d_tpu_torch.ops.ring import plan as ring_plan
 _SIGNATURES = {
     "x3d_dw_bn_act_conv_tiles": [ctypes.c_int] * 3,
     "x3d_dw_bn_act_conv_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p],
+    + epilogue.ARGTYPES,
     "x3d_dw_bn_act_conv_fwd_ring_occupancy": [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "x3d_dw_bn_act_conv_fwd_ring": [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 16 + epilogue.ARGTYPES,
 }
 _BWD_SIGNATURES = {
     "x3d_dw_bn_act_conv_bwd_tiles": [ctypes.c_int] * 2,
@@ -88,10 +92,10 @@ def bwd_cost(x_shape, kdims, elem: int) -> Tuple[int, int]:
             (4 * taps + 12) * n)
 
 
-def _log(kernel, body, x, kdims, direction, cost) -> None:
+def _log(kernel, body, x, kdims, direction, cost, bn="none") -> None:
     ops.log_launch(kernel, body, {"taps": [int(k) for k in kdims],
                                   "C": int(x.shape[-1])}, direction,
-                   x.dtype, cost)
+                   x.dtype, cost, bn)
 
 
 def _dims(x, kernel):
@@ -131,9 +135,11 @@ def reference(x, a_cb, b_cb, kernel):
     return y, p, s2
 
 
-def _launch_fwd(lib, body, x, a, b, taps, kdims, stream):
+def _launch_fwd(lib, body, x, a, b, taps, kdims, stream,
+                bn=epilogue.NO_POINTERS):
     """K2's ``body`` on contiguous tensors of one device (float32 columns
-    and taps); returns (y, p, s2) or raises."""
+    and taps), with the epilogue's (mul, add, relu) arguments ``bn``
+    (``epilogue.pointers``); returns (y, p, s2) or raises."""
     B, T, H, W, C = x.shape
     kt, kh, kw = kdims
     code = kernels.dtype_code(x)
@@ -150,18 +156,18 @@ def _launch_fwd(lib, body, x, a, b, taps, kdims, stream):
             *ptrs, part[0].data_ptr(), part[1].data_ptr(), p.data_ptr(),
             s2.data_ptr(), code, B, T, H, W, C, kt, q["tile_h"], q["tile_w"],
             q["group"], q["vec"], q["rows"], q["run"], q["granule"],
-            q["row_cells"], q["vec_pad"], stream)
+            q["row_cells"], q["vec_pad"], *bn, stream)
     else:
         tiles = lib.x3d_dw_bn_act_conv_tiles(T, H, W)
         part = torch.empty((2, B, tiles, C), **f32)
         rc = lib.x3d_dw_bn_act_conv_fwd(
             *ptrs, part[0].data_ptr(), part[1].data_ptr(), p.data_ptr(),
-            s2.data_ptr(), code, B, T, H, W, C, kt, kh, kw, stream)
+            s2.data_ptr(), code, B, T, H, W, C, kt, kh, kw, *bn, stream)
     kernels.raise_on_error(rc, f"dw_bn_act_conv ({body} body) kernel launch")
     return y, p, s2
 
 
-def dw_bn_act_conv(x, a_cb, b_cb, kernel):
+def dw_bn_act_conv(x, a_cb, b_cb, kernel, mul=None, add=None, relu=False):
     """y = dwconv(relu(a*x + b), kernel); p = sum_thw y; s2 = sum_thw y^2.
 
     Args:
@@ -169,38 +175,50 @@ def dw_bn_act_conv(x, a_cb, b_cb, kernel):
       a_cb, b_cb: (C, B) float32 normalise coefficients.
       kernel: (kt, kh, kw, 1, C) depthwise taps (odd dims, stride 1, SAME),
         rounded to x's dtype; the kernel sums taps in float32.
+      mul, add: (C,) float32, an eval BatchNorm applied to y as it is
+        stored, and ``relu`` a ReLU after it (``ops/epilogue.py``).
 
     Returns:
-      y: (B, T, H, W, C) in x.dtype;  p, s2: (C, B) float32.
+      y: (B, T, H, W, C) in x.dtype (through the epilogue where one is
+      given);  p, s2: (C, B) float32, the sums of the conv's y.
 
     A CPU tensor takes the plain version; a CUDA tensor launches K2's body
     that :func:`segment_body` names, or raises.
     """
     B, T, H, W, C, kt, kh, kw = _check(x, a_cb, b_cb, kernel)
+    epilogue.check(mul, add, relu, C)
+    bn = epilogue.kind(mul, relu)
     if x.device.type == "cpu":
         body = "plain"
         y, p, s2 = reference(x, a_cb, b_cb, kernel)
+        y = epilogue.reference(y, mul, add, relu)
     else:
         kernels.check_cuda(x)
         a = a_cb.to(torch.float32).contiguous()
         b = b_cb.to(torch.float32).contiguous()
         taps = kernel.to(x.dtype).to(torch.float32).reshape(kt * kh * kw, C)
         taps = taps.contiguous()
-        kernels.check_cuda(x, a, b, taps)
+        coefs = epilogue.prepare(mul, add, x)
+        kernels.check_cuda(x, a, b, taps, *(coefs or ()))
         body = segment_body((kt, kh, kw))
-        lib = _build.load("dw_fused.cu", _SIGNATURES)
+        lib = epilogue.library("dw_fused.cu", _SIGNATURES, coefs)
         y, p, s2 = _launch_fwd(lib, body, x, a, b, taps, (kt, kh, kw),
-                               kernels.stream_handle(x))
+                               kernels.stream_handle(x),
+                               epilogue.pointers(coefs, relu))
         dw_bn_act_conv.launches += 1
         dw_bn_act_conv.body_launches[body] += 1
+        if coefs is not None:
+            dw_bn_act_conv.epilogue_launches[bn] += 1
     if ops.records is not None:
-        _log("K2", body, x, (kt, kh, kw), "fwd",
-             fwd_cost(x.shape, (kt, kh, kw), x.element_size()))
+        _log("K2", body, x, (kt, kh, kw), "fwd", epilogue.cost(
+            bn, C, x.numel(), fwd_cost(x.shape, (kt, kh, kw),
+                                       x.element_size())), bn)
     return y, p, s2
 
 
 dw_bn_act_conv.launches = 0
 dw_bn_act_conv.body_launches = {"ring": 0, "generic": 0}
+dw_bn_act_conv.epilogue_launches = epilogue.counter()
 
 
 # ---------------------------------------------------------- K3: backward
@@ -506,12 +524,24 @@ class _Segment(torch.autograd.Function):
         return dx, da, dzs, dk.to(kernel.dtype)
 
 
-def segment(x, a_cb, b_cb, kernel):
+def segment(x, a_cb, b_cb, kernel, mul=None, add=None, relu=False):
     """The differentiable fused segment: (y, p, s2) as
     :func:`dw_bn_act_conv`, with gradients for x, both coefficient columns
-    and the taps (float32 parameters)."""
+    and the taps (float32 parameters).  ``mul``, ``add`` and ``relu``: an
+    eval BatchNorm on y (``ops/epilogue.py``; forward only), K2's epilogue
+    where K2 runs, else the plain version after the segment."""
     if not torch.compiler.is_exporting():
         # once here, not in K2's and again in K3's wrapper; an exported
         # batch leaves it to the op (contiguous() would guard it against 1)
         a_cb, b_cb = a_cb.contiguous(), b_cb.contiguous()
-    return _Segment.apply(x.contiguous(), a_cb, b_cb, kernel)
+    if mul is None:
+        return _Segment.apply(x.contiguous(), a_cb, b_cb, kernel)
+    epilogue.forward_only(mul, x, a_cb, b_cb, kernel, add)
+    if ops.plain_versions_enabled():
+        y, p, s2 = reference(x, a_cb, b_cb, kernel)
+        return epilogue.reference(y, mul, add, relu), p, s2
+    if ops.via_library():
+        from x3d_tpu_torch.ops import library
+        return library.dw_bn_act_conv(x.contiguous(), a_cb, b_cb, kernel,
+                                      mul, add, relu)
+    return dw_bn_act_conv(x.contiguous(), a_cb, b_cb, kernel, mul, add, relu)

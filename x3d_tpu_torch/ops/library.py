@@ -14,9 +14,14 @@ the launch function when it runs:
 * ``x3d::pw_conv_stats`` -- K5, :func:`pw_stats.pw_conv_stats`;
 * ``x3d::pw_act_conv_stats`` -- K6, :func:`pw_stats.pw_act_conv_stats`.
 
+The ops of K1, K2 and K7 end in optional ``mul``, ``add`` and ``relu``:
+an eval BatchNorm applied as the kernel stores its output
+(``ops/epilogue.py``), which an exported eval program passes; a call
+without them is the op's call as it was before they were added.
 The launch functions keep their device branch (the plain version on a CPU
-tensor, the kernel or an error on a CUDA tensor) and their ``launches``
-and ``body_launches`` counters, so one op serves both devices.  The model
+tensor, the kernel or an error on a CUDA tensor) and their ``launches``,
+``body_launches`` and ``epilogue_launches`` counters, so one op serves
+both devices.  The model
 calls the ops only where ``ops.via_library()`` holds: while it is being
 exported, and inside a remat "convs" region, whose selective checkpoint
 keeps these ops' outputs for the backward pass instead of running them
@@ -28,7 +33,7 @@ exported program holding these ops imports this module first
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -41,14 +46,18 @@ def _pairs(pads: List[int]):
 
 @torch.library.custom_op("x3d::depthwise_conv3d", mutates_args=())
 def depthwise_conv3d(x: torch.Tensor, kernel: torch.Tensor,
-                     strides: List[int], pads: List[int]) -> torch.Tensor:
+                     strides: List[int], pads: List[int],
+                     mul: Optional[torch.Tensor] = None,
+                     add: Optional[torch.Tensor] = None,
+                     relu: bool = False) -> torch.Tensor:
     """K1: (B, T, H, W, C) -> (B, To, Ho, Wo, C); ``pads`` the six ints
     (t_lo, t_hi, h_lo, h_hi, w_lo, w_hi)."""
-    return depthwise.depthwise_conv3d(x, kernel, strides, _pairs(pads))
+    return depthwise.depthwise_conv3d(x, kernel, strides, _pairs(pads), mul,
+                                      add, relu)
 
 
 @depthwise_conv3d.register_fake
-def _(x, kernel, strides, pads):
+def _(x, kernel, strides, pads, mul=None, add=None, relu=False):
     B, T, H, W, C = x.shape
     out = [depthwise._out_size(n, k, s, p) for n, k, s, p in
            zip((T, H, W), kernel.shape[:3], strides, _pairs(pads))]
@@ -57,28 +66,31 @@ def _(x, kernel, strides, pads):
 
 @torch.library.custom_op("x3d::dw_bn_act_conv", mutates_args=())
 def dw_bn_act_conv(x: torch.Tensor, a_cb: torch.Tensor, b_cb: torch.Tensor,
-                   kernel: torch.Tensor
+                   kernel: torch.Tensor, mul: Optional[torch.Tensor] = None,
+                   add: Optional[torch.Tensor] = None, relu: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2: y in x's dtype, p and s2 (C, B) float32."""
-    return dw_fused.dw_bn_act_conv(x, a_cb, b_cb, kernel)
+    return dw_fused.dw_bn_act_conv(x, a_cb, b_cb, kernel, mul, add, relu)
 
 
 @dw_bn_act_conv.register_fake
-def _(x, a_cb, b_cb, kernel):
+def _(x, a_cb, b_cb, kernel, mul=None, add=None, relu=False):
     B, C = x.shape[0], x.shape[-1]
     p = x.new_empty((C, B), dtype=torch.float32)
     return x.new_empty(x.shape), p, torch.empty_like(p)
 
 
 @torch.library.custom_op("x3d::pw_conv", mutates_args=())
-def pw_conv(x: torch.Tensor, weight: torch.Tensor,
-            strides: List[int]) -> torch.Tensor:
+def pw_conv(x: torch.Tensor, weight: torch.Tensor, strides: List[int],
+            mul: Optional[torch.Tensor] = None,
+            add: Optional[torch.Tensor] = None,
+            relu: bool = False) -> torch.Tensor:
     """K7: (B, T, H, W, K) x (N, K) -> (B, T, ceil(H/sh), ceil(W/sw), N)."""
-    return pointwise.pw_conv(x, weight, strides)
+    return pointwise.pw_conv(x, weight, strides, "fwd", mul, add, relu)
 
 
 @pw_conv.register_fake
-def _(x, weight, strides):
+def _(x, weight, strides, mul=None, add=None, relu=False):
     B, T, H, W, _ = x.shape
     _, sh, sw = strides
     return x.new_empty((B, T, -(-H // sh), -(-W // sw), weight.shape[0]))

@@ -22,6 +22,10 @@ product.  Weights are ``(Cout, Cin)``.
   takes).  :func:`_launch` runs any body on the same inputs.
   :func:`cost` gives a call's least bytes and operations, which the
   wrapper writes into an open ``ops.launch_log``.
+* Each body may apply an eval BatchNorm, and a ReLU, to y as it stores it
+  (``mul``, ``add``, ``relu``: ``ops/epilogue.py``), which the model passes
+  for the BatchNorm after conv ``c``, after conv ``a`` at the stage
+  entries, after the projections and after conv_5.
 
 A strided projection reads every s-th row and column (a 1x1x1 kernel with
 stride s is a subsample); K7 reads them in place.
@@ -38,13 +42,13 @@ import torch.nn.functional as F
 
 from x3d_tpu_torch import kernels, ops
 from x3d_tpu_torch.kernels import _build
-from x3d_tpu_torch.ops import ring
+from x3d_tpu_torch.ops import epilogue, ring
 
 _SIGNATURES = {
     "x3d_pw_conv": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 7 + epilogue.ARGTYPES,
     "x3d_pw_conv_wg": [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 13 + epilogue.ARGTYPES,
     "x3d_pw_conv_wg_smem": [ctypes.c_int] * 5,
     "x3d_pw_conv_plan": [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
@@ -175,24 +179,29 @@ def _columns(N: int, nct: int):
     return bn, -(-N // bn)
 
 
-def wg_smem(K: int, bn: int, cons: int, stages: int, resident: bool) -> int:
+def wg_smem(K: int, bn: int, cons: int, stages: int, resident: bool,
+            epilogue: bool = False) -> int:
     """Dynamic shared memory of a wg block, as ``wg_smem`` in pw_wgmma.cuh
     lays it out: slack and mbarriers, the resident W slice (k-tiles of bn
     rows of 128 bytes), the ring (a stage: 64 cons rows of x as a 128-byte
     k-tile, and a W k-tile where W streams), the consumers' y buffers
-    (WG_OUT_BUFS of 64 x bn bfloat16 each)."""
+    (WG_OUT_BUFS of 64 x bn bfloat16 each), and with the BN ``epilogue``
+    its float32 mul and add of the block's bn columns."""
     nk = -(-K // WG_BK)
     w_tile = bn * 2 * WG_BK
     stage = cons * WG_ROWS * 2 * WG_BK + (0 if resident else w_tile)
     return (WG_ALIGN + WG_HEAD + (nk * w_tile if resident else 0)
-            + stages * stage + WG_OUT_BUFS * cons * WG_ROWS * bn * 2)
+            + stages * stage + WG_OUT_BUFS * cons * WG_ROWS * bn * 2
+            + (8 * bn if epilogue else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def wg_plan(M: int, K: int, N: int, sms: int = H100_SMS,
-            plane: Optional[tuple] = None) -> dict:
+            plane: Optional[tuple] = None, epilogue: bool = False) -> dict:
     """How the wg body runs (M, K) @ (K, N) on a card of ``sms`` SMs; a
-    strided call gives ``plane`` = (frames, H, W, sh, sw) of its input.
+    strided call gives ``plane`` = (frames, H, W, sh, sw) of its input; a
+    call with the BN ``epilogue`` keeps its coefficients in shared memory
+    beside the rest (:func:`wg_smem`).
 
     Column tiles: one where N fits 256 columns, else the fewest of at most
     WG_SPLIT_BN (N = 432: three of 144, faster than two of 216), snapped up
@@ -250,8 +259,8 @@ def wg_plan(M: int, K: int, N: int, sms: int = H100_SMS,
         per_block = -(-tiles // slots)
 
         def stages(resident):
-            fixed = wg_smem(K, bn, cons, 0, resident)
-            stage = wg_smem(K, bn, cons, 1, resident) - fixed
+            fixed = wg_smem(K, bn, cons, 0, resident, epilogue)
+            stage = wg_smem(K, bn, cons, 1, resident, epilogue) - fixed
             return min(WG_MAX_STAGES, (budget - fixed) // stage)
 
         w_bytes = nk * bn * 2 * WG_BK
@@ -265,7 +274,8 @@ def wg_plan(M: int, K: int, N: int, sms: int = H100_SMS,
                 "blocks": slots * nct, "blocks_per_sm": per_sm,
                 "tiles_per_block": per_block,
                 "w_resident": int(resident), "stages": n_stages,
-                "smem_bytes": wg_smem(K, bn, cons, n_stages, resident),
+                "smem_bytes": wg_smem(K, bn, cons, n_stages, resident,
+                                      epilogue),
                 "cluster": 1}
 
     # a strided row tile holds whole output rows of one frame: two
@@ -289,11 +299,12 @@ def _sms(device: torch.device) -> int:
 
 
 def _launch(lib, body: str, x: torch.Tensor, w: torch.Tensor,
-            strides: Sequence[int], stream, plan: Optional[dict] = None
-            ) -> torch.Tensor:
+            strides: Sequence[int], stream, plan: Optional[dict] = None,
+            bn: tuple = epilogue.NO_POINTERS) -> torch.Tensor:
     """K7's ``body`` on x (B, T, H, W, K) and w (N, K) (contiguous, one
     dtype, on a CUDA device); returns y or raises.  ``plan`` overrides the
-    wg body's :func:`wg_plan` (the same keys)."""
+    wg body's :func:`wg_plan` (the same keys); ``bn`` is the epilogue's
+    (mul, add, relu) arguments (``epilogue.pointers``)."""
     B, T, H, W, K = x.shape
     N = w.shape[0]
     _, sh, sw = strides
@@ -301,16 +312,17 @@ def _launch(lib, body: str, x: torch.Tensor, w: torch.Tensor,
                     device=x.device)
     if body == "wg":
         plane = None if (sh, sw) == (1, 1) else (B * T, H, W, sh, sw)
-        p = plan or wg_plan(y.numel() // N, K, N, _sms(x.device), plane)
+        p = plan or wg_plan(y.numel() // N, K, N, _sms(x.device), plane,
+                            bn[0] is not None)
         rc = lib.x3d_pw_conv_wg(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B * T, H, W, K, N, sh,
             sw, p["block_columns"], p["consumers"], p["column_tiles"],
             p["slots"], p["stages"], p["w_resident"], p["rows_per_tile"],
-            stream)
+            *bn, stream)
     else:
         rc = lib.x3d_pw_conv(x.data_ptr(), w.data_ptr(), y.data_ptr(),
                              kernels.dtype_code(x), B * T, H, W, K, N, sh,
-                             sw, int(body == "pipe"), stream)
+                             sw, int(body == "pipe"), *bn, stream)
     kernels.raise_on_error(rc, f"pw_conv ({body} body) kernel launch")
     return y
 
@@ -323,17 +335,21 @@ def cost(M: int, K: int, N: int, elem: int) -> Tuple[int, int]:
 
 def pw_conv(x: torch.Tensor, weight: torch.Tensor,
             strides: Sequence[int] = (1, 1, 1),
-            direction: str = "fwd") -> torch.Tensor:
+            direction: str = "fwd", mul: Optional[torch.Tensor] = None,
+            add: Optional[torch.Tensor] = None,
+            relu: bool = False) -> torch.Tensor:
     """y = x[:, :, ::sh, ::sw] @ weight^T (kernel K7).
 
     Args:
       x: (B, T, H, W, Cin) float32 or bfloat16.
       weight: (Cout, Cin), rounded to x's dtype.
       strides: (1, sh, sw).
+      mul, add: (Cout,) float32, an eval BatchNorm applied to y, and
+        ``relu`` a ReLU after it (``ops/epilogue.py``); None: y alone.
 
     Returns:
       y (B, T, ceil(H/sh), ceil(W/sw), Cout) in x's dtype, summed in
-      float32 and rounded once.
+      float32 and rounded once (through the epilogue where one is given).
 
     A CPU tensor takes the plain version; a CUDA tensor launches K7 or
     raises.  ``direction`` ("fwd", or "bwd" for the backward's dx) goes
@@ -348,26 +364,37 @@ def pw_conv(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"strides must be (1, sh, sw), got {tuple(strides)}")
     M = x.shape[0] * x.shape[1] * -(-x.shape[2] // sh) * -(-x.shape[3] // sw)
     K, N = x.shape[-1], weight.shape[0]
+    epilogue.check(mul, add, relu, N)
+    bn = epilogue.kind(mul, relu)
     if x.device.type == "cpu":
-        body, y = "plain", pointwise_conv3d_reference(x, weight, (st, sh, sw))
+        body = "plain"
+        y = epilogue.reference(
+            pointwise_conv3d_reference(x, weight, (st, sh, sw)), mul, add,
+            relu)
     else:
         kernels.check_cuda(x)
         w = weight.to(x.dtype).contiguous()
-        kernels.check_cuda(x, w)
-        lib = _build.load("pointwise.cu", _SIGNATURES)
+        coefs = epilogue.prepare(mul, add, x)
+        kernels.check_cuda(x, w, *(coefs or ()))
+        lib = epilogue.library("pointwise.cu", _SIGNATURES, coefs)
         body = pw_body(K, N, M, (st, sh, sw), ring.align(x, w),
                        x.element_size(), x.shape[3], x.shape[2])
-        y = _launch(lib, body, x, w, (st, sh, sw), kernels.stream_handle(x))
+        y = _launch(lib, body, x, w, (st, sh, sw), kernels.stream_handle(x),
+                    bn=epilogue.pointers(coefs, relu))
         pw_conv.launches += 1
         pw_conv.body_launches[body] += 1
+        if coefs is not None:
+            pw_conv.epilogue_launches[bn] += 1
     if ops.records is not None:
         ops.log_launch("K7", body, {"M": M, "K": K, "N": N}, direction,
-                       x.dtype, cost(M, K, N, x.element_size()))
+                       x.dtype, epilogue.cost(bn, N, M * N, cost(
+                           M, K, N, x.element_size())), bn)
     return y
 
 
 pw_conv.launches = 0
 pw_conv.body_launches = {"wg": 0, "pipe": 0, "cuda_core": 0}
+pw_conv.epilogue_launches = epilogue.counter()
 
 
 def plan(x_shape: Sequence[int], N: int, strides: Sequence[int] = (1, 1, 1),
@@ -432,14 +459,29 @@ class _Pointwise(torch.autograd.Function):
 
 def pointwise_conv3d(x: torch.Tensor, weight: torch.Tensor,
                      strides: Sequence[int] = (1, 1, 1),
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     bias: Optional[torch.Tensor] = None,
+                     mul: Optional[torch.Tensor] = None,
+                     add: Optional[torch.Tensor] = None,
+                     relu: bool = False) -> torch.Tensor:
     """x: (..., Cin) in the compute dtype; weight: (Cout, Cin).
 
     A bulk conv (:func:`routes_to_kernel`) runs K7 and its backward -- on a
     CPU tensor their plain versions -- unless ``ops.plain_versions()`` is
-    on; everything else is ``F.linear``."""
+    on; everything else is ``F.linear``.  ``mul``, ``add`` and ``relu``:
+    an eval BatchNorm after the conv (``ops/epilogue.py``; forward only),
+    K7's epilogue where K7 runs, else the plain version after the conv."""
     strides = tuple(int(s) for s in strides)
+    epilogue.forward_only(mul, x, weight, add)
     if ops.plain_versions_enabled() \
             or not routes_to_kernel(x.shape, bias is not None, strides):
-        return pointwise_conv3d_reference(x, weight, strides, bias)
+        return epilogue.reference(
+            pointwise_conv3d_reference(x, weight, strides, bias), mul, add,
+            relu)
+    if mul is not None:
+        if ops.via_library():
+            from x3d_tpu_torch.ops import library
+            return library.pw_conv(x.contiguous(), weight, strides, mul, add,
+                                   relu)
+        return pw_conv(x.contiguous(), weight, strides, "fwd", mul, add,
+                       relu)
     return _Pointwise.apply(x.contiguous(), weight, strides)

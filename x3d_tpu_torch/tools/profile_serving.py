@@ -11,8 +11,11 @@ request inside each (``span_host_ms_per_request``) and the device's idle
 ms while each is the innermost span open (``span_idle_ms_per_request``;
 "outside spans" between requests), the spans mapped onto the trace by
 anchors at both ends of the window (``clock_drift_ppm``,
-``clock_error_us``).  Only device activity is traced, which
-keeps the profiler's own host cost small; the idle share still includes
+``clock_error_us``), and beside them the kernel launches of one request
+that apply a BatchNorm as their epilogue, by kernel and kind
+(``epilogue_launches_per_request``, from the launch log).  Only device
+activity is traced, which keeps the profiler's own host cost small; the
+idle share still includes
 each request's host work (copying the clips in, reading the
 probabilities back), which the spans name.
 Needs a CUDA card::
@@ -27,14 +30,25 @@ and the kernels' launch log beside it (``tools/roofline`` reads both).
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 
 import numpy as np
 
-from x3d_tpu_torch import variant_config
+from x3d_tpu_torch import ops, variant_config
 from x3d_tpu_torch.serving import InferenceEngine
 from x3d_tpu_torch.tools.trace import card, trace
+
+
+def epilogue_launches(records) -> dict:
+    """{kernel: {kind: launches}} of the launch records that apply a BN
+    epilogue."""
+    out = collections.defaultdict(collections.Counter)
+    for r in records:
+        if r["epilogue"] != "none":
+            out[r["kernel"]][r["epilogue"]] += 1
+    return {k: dict(v) for k, v in sorted(out.items())}
 
 
 def main(argv=None) -> None:
@@ -63,8 +77,12 @@ def main(argv=None) -> None:
             path = os.path.join(where, "trace.json")
         row = trace(lambda: engine.predict(clips), args.requests,
                     "request", trace_path=path)
+        with ops.launch_log() as log:
+            engine.predict(clips)
         print(json.dumps({"card": name, "variant": args.variant,
-                          "videos": n, "clips": n * engine.views, **row}),
+                          "videos": n, "clips": n * engine.views, **row,
+                          "epilogue_launches_per_request":
+                              epilogue_launches(log)}),
               flush=True)
 
 
